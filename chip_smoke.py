@@ -1,0 +1,480 @@
+#!/usr/bin/env python3
+"""Chip check of the PyTorch/H100 port: build, hold, serve, report.
+
+    python3 chip_smoke.py [--record PATH]
+
+Needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or on PATH) and ``triton``;
+runs from the repository root (it imports ``src/repro_torch``).  Phases, any
+failure of which exits non-zero:
+
+1. print the card (``nvidia-smi`` name and power limit); TF32 off;
+2. build the CUDA kernels (one ``nvcc`` per source, in parallel) and
+   compile the Triton kernel, printing the build time and ptxas' report;
+3. hold each kernel against its plain PyTorch version on the card, at the
+   CPU tests' shapes and the serving path's shapes, within 2e-2 (bf16) or
+   1e-4 (f32); time kernel, plain version and one PyTorch library call
+   (a yardstick the port never calls) at the serving shapes, with L2
+   flushed before each launch, beside the card's bound for the same work;
+4. serve full-width qwen2-0.5b (bf16, random weights from a seed, 8 slots,
+   1024-slot caches, 16 requests of 512 prompt tokens, 64 new tokens,
+   greedy) through the port's Engine with the launch counts reset just
+   before, and check that every kernel launched; then hold the first
+   request's prefill logits and 8 teacher-forced decode steps through the
+   kernels against the same through the plain versions, in f32 within
+   F32_LOGIT_TOL (bf16 differences are reported beside them), and report
+   the device busy share of a decode tick and a prefill from torch.profiler;
+5. print the per-kernel JSON line, the card line, and last the
+   ``{"ok": true, "device": ...}`` line.
+
+``--record PATH`` also writes the full record (every check, the serving
+run, the profiles) there as JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# The end-to-end check runs the served weights in f32 through the kernels
+# and through the plain versions: each kernel is within ~1e-6 of its plain
+# version in f32, so 24 layers stay far inside 1e-3 on logits of order 5,
+# while a wrong kernel moves them by far more.  In bf16 the rounding of 24
+# layers alone moves the logits by ~0.1, so the bf16 path is only held to
+# land no further from the f32 path than twice the plain bf16 path does
+# (+0.02).
+F32_LOGIT_TOL = 1e-3
+ARCH = "qwen2-0.5b"
+SERVE = dict(max_batch=8, max_seq=1024, requests=16, prompt_len=512, max_new=64)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_peaks(smi_line: str) -> dict:
+    """Data-sheet peaks (dense) of the card nvidia-smi names."""
+    if "PCIe" in smi_line:  # H100 PCIe
+        return {"bytes_per_s": 2.0e12, "bfloat16": 756e12, "float32": 51e12}
+    return {"bytes_per_s": 3.35e12, "bfloat16": 989e12, "float32": 67e12}  # H100 SXM
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--record", type=Path, default=None,
+                    help="also write the full record of the run here, as JSON")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check needs a CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.events import EventLog
+    from repro_torch.kernels import _build, launch_counts, ops, ref, reset_launches
+    from repro_torch.kernels import decode_attention as k2
+    from repro_torch.kernels import flash_attention as k1
+    from repro_torch.kernels import rmsnorm as k3
+    from repro_torch.models import lm
+    from repro_torch.nn import core as nn_core
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    t_start = time.time()
+    dev = torch.device("cuda")
+
+    # -- 1. the card ------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    peaks = card_peaks(smi)
+
+    # -- 2. build ---------------------------------------------------------
+    t0 = time.time()
+    paths = _build.build()
+    k1._entry()
+    k2._entry()
+    k3.rmsnorm(torch.zeros(1, 8, device=dev), torch.zeros(8, device=dev))  # Triton JIT
+    torch.cuda.synchronize()
+    print(f"build: {time.time() - t0:.1f} s", flush=True)
+    for name, path in paths.items():  # ptxas -v: one report per template instance
+        log_text = path.with_suffix(".log").read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log_text)]
+        spills = sum(int(n) > 0 for n in re.findall(r"(\d+) bytes spill stores", log_text))
+        print(f"  {name}: {len(regs)} instances, max {max(regs, default=0)} registers, "
+              f"{spills} with spills ({path.with_suffix('.log').name})", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB of L2
+
+    def time_ms(fn, iters: int = 20) -> float:
+        """Mean device time of ``fn`` per call, L2 flushed before each call.
+
+        A sleep kernel holds the device while the host queues every call, so
+        the events bracket device work only, not the host's launch gaps.
+        """
+        for _ in range(3):
+            fn()
+        evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in range(iters)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of GPU clock cycles
+        for s, e in evs:
+            flush_buf.zero_()
+            s.record()
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in evs) / iters
+
+    def bound_ms(n_bytes: float, n_flops: float, peak_flops: float) -> tuple[float, str]:
+        t_bytes, t_ops = n_bytes / peaks["bytes_per_s"], n_flops / peak_flops
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    def nbytes(*ts) -> int:
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    records: dict[str, dict] = {}
+    checks: list[dict] = []
+
+    def hold(kernel: str, case: str, got, want, dtype_name: str) -> float:
+        err = float((got.float() - want.float()).abs().max())
+        tol = TOL[dtype_name]
+        ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+        ok = ok and bool(torch.isfinite(got.float()).all())
+        checks.append({"kernel": kernel, "case": case, "max_abs_err": err, "tol": tol, "ok": ok})
+        print(f"  {kernel} {case}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"{kernel} {case} disagrees with its plain version")
+        return err
+
+    # -- 3. kernels against their plain versions ---------------------------
+    print("kernels vs plain:", flush=True)
+    # K1: the CPU tests' sweep, q_offset, and the prefill shape
+    sweep = [(2, 64, 64, 4, 4, 16, None, None), (2, 64, 64, 4, 2, 16, None, None),
+             (1, 96, 96, 4, 1, 32, None, None), (2, 64, 64, 4, 2, 16, 16, None),
+             (2, 64, 64, 4, 2, 16, None, 30.0), (2, 64, 64, 4, 2, 16, 16, 50.0),
+             (1, 40, 40, 2, 2, 8, None, None)]
+    err1 = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        for B, Sq, Sk, Hq, Hkv, D, w, cap in sweep:
+            q, k, v = randn(B, Sq, Hq, D, dtype=dt), randn(B, Sk, Hkv, D, dtype=dt), \
+                randn(B, Sk, Hkv, D, dtype=dt)
+            got = k1.flash_attention(q, k, v, window=w, softcap=cap)
+            want = ref.mha_ref(q, k, v, window=w, softcap=cap)
+            err1 = max(err1, hold("flash_attention", f"{dn} {B}x{Sq}x{Hq}/{Hkv}x{D} w={w} cap={cap}",
+                                  got, want, dn))
+    q, k, v = randn(2, 16, 4, 16), randn(2, 80, 2, 16), randn(2, 80, 2, 16)
+    err1 = max(err1, hold("flash_attention", "float32 q_offset=64",
+                          k1.flash_attention(q, k, v, q_offset=64),
+                          ref.mha_ref(q, k, v, q_offset=64), "float32"))
+    cfg = get_config(ARCH)
+    Hq, Hkv, D, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, SERVE["prompt_len"]
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        q, k, v = randn(1, S, Hq, D, dtype=dt), randn(1, S, Hkv, D, dtype=dt), \
+            randn(1, S, Hkv, D, dtype=dt)
+        err1 = max(err1, hold("flash_attention", f"{dn} serving 1x{S}x{Hq}/{Hkv}x{D}",
+                              k1.flash_attention(q, k, v), ref.mha_ref(q, k, v), dn))
+    # timing at the serving shape (bf16, causal)
+    qs, ks_, vs_ = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = S * (S + 1) // 2
+    b1, by1 = bound_ms(nbytes(q, k, v, q), 4 * D * Hq * pairs, peaks["bfloat16"])
+    records["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:115",
+        "max_abs_err": err1,
+        "ms": time_ms(lambda: k1.flash_attention(q, k, v)),
+        "plain_ms": time_ms(lambda: ref.mha_ref(q, k, v)),
+        "bound_ms": b1, "bound_by": by1,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks_, vs_, is_causal=True, enable_gqa=True)),
+        "shape": f"B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal",
+    }
+
+    # K2: the CPU tests' sweep, a ring buffer, and the decode shape
+    err2 = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        for w, cap in ((None, None), (8, None), (None, 30.0)):
+            B_, S_ = 2, 40
+            q, kc, vc = randn(B_, 4, 16, dtype=dt), randn(B_, S_, 2, 16, dtype=dt), \
+                randn(B_, S_, 2, 16, dtype=dt)
+            pos = torch.arange(S_, dtype=torch.int32, device=dev)[None].repeat(B_, 1)
+            cur = torch.tensor([S_ - 1, 17], dtype=torch.int32, device=dev)
+            err2 = max(err2, hold("decode_attention", f"{dn} w={w} cap={cap}",
+                                  k2.decode_attention(q, kc, vc, pos, cur, window=w, softcap=cap),
+                                  ref.decode_attention_ref(q, kc, vc, pos, cur, window=w,
+                                                           softcap=cap), dn))
+    q, kc, vc = randn(1, 2, 8), randn(1, 8, 1, 8), randn(1, 8, 1, 8)
+    pos = torch.tensor([[16, 17, 10, 11, 12, 13, 14, 15]], dtype=torch.int32, device=dev)
+    cur = torch.tensor([17], dtype=torch.int32, device=dev)
+    err2 = max(err2, hold("decode_attention", "float32 ring window=6",
+                          k2.decode_attention(q, kc, vc, pos, cur, window=6),
+                          ref.decode_attention_ref(q, kc, vc, pos, cur, window=6), "float32"))
+    B, Sc = SERVE["max_batch"], SERVE["max_seq"]
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        q, kc, vc = randn(B, Hq, D, dtype=dt), randn(B, Sc, Hkv, D, dtype=dt), \
+            randn(B, Sc, Hkv, D, dtype=dt)
+        pos = torch.arange(Sc, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+        cur = torch.full((B,), Sc - 1, dtype=torch.int32, device=dev)
+        err2 = max(err2, hold("decode_attention", f"{dn} serving {B}x{Sc}x{Hq}/{Hkv}x{D}",
+                              k2.decode_attention(q, kc, vc, pos, cur),
+                              ref.decode_attention_ref(q, kc, vc, pos, cur), dn))
+    live = (pos >= 0) & (pos <= cur[:, None])
+    n_live = int(live.sum())
+    qs = q[:, :, None]
+    ks_, vs_ = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = live[:, None, None, :]
+    kv_bytes = 2 * n_live * Hkv * D * kc.element_size()
+    b2, by2 = bound_ms(kv_bytes + nbytes(q, q, pos, cur), 4 * D * Hq * n_live, peaks["bfloat16"])
+    records["decode_attention"] = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:91",
+        "max_abs_err": err2,
+        "ms": time_ms(lambda: k2.decode_attention(q, kc, vc, pos, cur)),
+        "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, kc, vc, pos, cur)),
+        "bound_ms": b2, "bound_by": by2,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks_, vs_, attn_mask=mask, enable_gqa=True)),
+        "shape": f"B={B} S={Sc} Hq={Hq} Hkv={Hkv} D={D} bf16, {n_live} live slots",
+    }
+
+    # K3: an odd shape and both serving shapes (decode rows and prefill rows)
+    err3 = 0.0
+    dm = cfg.d_model
+    times3 = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        for shape in ((3, 5, 96), (B, dm), (S, dm)):
+            x, s = randn(*shape, dtype=dt), randn(shape[-1]) * 0.1
+            err3 = max(err3, hold("rmsnorm", f"{dn} {shape}", k3.rmsnorm(x, s),
+                                  ref.rmsnorm_ref(x, s), dn))
+            if dt == torch.bfloat16 and shape != (3, 5, 96):
+                w = (1.0 + s).to(dt)
+                b3, by3 = bound_ms(nbytes(x, x, s), 4 * x.numel(), peaks["float32"])
+                times3[shape] = {
+                    "ms": time_ms(lambda: k3.rmsnorm(x, s)),
+                    "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, s)),
+                    "bound_ms": b3, "bound_by": by3,
+                    "library_ms": time_ms(lambda: F.rms_norm(x, (dm,), weight=w, eps=1e-6)),
+                }
+                print(f"  rmsnorm {shape} bf16 times: {times3[shape]}", flush=True)
+    records["rmsnorm"] = {
+        "name": "rmsnorm", "route": "triton", "source": "src/repro_torch/kernels/rmsnorm.py",
+        "replaces": "src/repro/kernels/rmsnorm.py:27", "max_abs_err": err3,
+        **times3[(B, dm)],
+        "shape": f"({B}, {dm}) bf16 (decode rows); ({S}, {dm}): {times3[(S, dm)]}",
+    }
+    for r in records.values():
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}) at {r['shape']}", flush=True)
+
+    # -- 4. serve full-width qwen2-0.5b through the port's Engine ----------
+    t0 = time.time()
+    params = lm.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"init {ARCH}: {sum(t.numel() for t in _leaves(params)) / 1e6:.1f} M params in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    log = EventLog()
+    eng = Engine(cfg, params, ServeConfig(max_batch=SERVE["max_batch"],
+                                          max_seq=SERVE["max_seq"], seed=SEED), log=log)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE["prompt_len"]).tolist()
+               for _ in range(SERVE["requests"])]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    rids = [eng.submit(p, max_new=SERVE["max_new"]) for p in prompts]
+    results = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    gen_tokens = sum(len(v) for v in results.values())
+    prefill_ms = [1e3 * d for d in log.durations("prefill")]
+    tick_ms = [1e3 * d for d in log.durations("decode_tick")]
+    serve = {
+        "arch": ARCH, **SERVE, "generated_tokens": gen_tokens, "wall_s": wall,
+        "tokens_per_s": gen_tokens / wall,
+        "mean_prefill_ms": float(np.mean(prefill_ms)),
+        "mean_decode_tick_ms": float(np.mean(tick_ms)), "decode_ticks": len(tick_ms),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernels": counts,
+    }
+    print(f"serve: {json.dumps(serve)}", flush=True)
+    n_layers = cfg.n_layers
+    if sorted(results) != sorted(rids) or any(len(v) != SERVE["max_new"] for v in results.values()):
+        fail("serving did not deliver every request in full")
+    if counts["flash_attention"] != n_layers * SERVE["requests"]:
+        fail(f"flash_attention launched {counts['flash_attention']} times, "
+             f"expected {n_layers} x {SERVE['requests']}")
+    if counts["decode_attention"] != n_layers * len(tick_ms):
+        fail(f"decode_attention launched {counts['decode_attention']} times, "
+             f"expected {n_layers} x {len(tick_ms)} ticks")
+    forwards = SERVE["requests"] + len(tick_ms)  # 2 norms per layer + the final one
+    if counts["rmsnorm"] != (2 * n_layers + 1) * forwards:
+        fail(f"rmsnorm launched {counts['rmsnorm']} times, expected "
+             f"{2 * n_layers + 1} x {forwards} forwards")
+    for name in records:
+        records[name]["launches"] = counts[name]
+
+    # where a decode tick and a prefill spend their time: device busy time
+    # from torch.profiler, wall time from a run without the profiler
+    steps_prof = {
+        "decode_tick": lambda: lm.decode_step(
+            eng.params, cfg, torch.zeros(SERVE["max_batch"], dtype=torch.long, device=dev),
+            torch.full((SERVE["max_batch"],), SERVE["prompt_len"] + 8, dtype=torch.int32,
+                       device=dev), eng.caches),
+        "prefill": lambda: lm.prefill(eng.params, cfg, torch.tensor([prompts[0]], device=dev),
+                                      max_seq=SERVE["max_seq"]),
+    }
+    breakdown = {name: profile_step(fn) for name, fn in steps_prof.items()}
+    for name, b in breakdown.items():
+        print(f"{name}: {json.dumps(b)}", flush=True)
+
+    # on the card the f32 logits come from a bf16 x bf16 -> f32 product
+    h = randn(SERVE["max_batch"], cfg.d_model, dtype=torch.bfloat16)
+    table = eng.params["embed"]["table"]
+    hold("unembed (plain op)", "bf16 x bf16 -> f32 logits", nn_core.unembed({"table": table}, h),
+         h.float() @ table.float().t(), "float32")
+
+    # the first request through the kernels and through the plain versions,
+    # with the served weights in f32 and in bf16
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
+    params32 = _map(lambda t: t.float(), eng.params)
+    req0 = results[rids[0]]
+    tokens = torch.tensor([prompts[0]], device=dev)
+    logits = {}
+    for label, impl, c, p in (("kernel_f32", "kernel", cfg32, params32),
+                              ("plain_f32", "plain", cfg32, params32),
+                              ("kernel", "kernel", cfg, eng.params),
+                              ("plain", "plain", cfg, eng.params)):
+        with ops.impl_scope(impl):
+            lg, caches = lm.prefill(p, c, tokens, max_seq=SERVE["max_seq"])
+            steps = [lg]
+            for i in range(8):
+                lg, caches = lm.decode_step(
+                    p, c, torch.tensor([req0[i]], device=dev),
+                    torch.tensor([SERVE["prompt_len"] + i], dtype=torch.int32, device=dev), caches)
+                steps.append(lg)
+            logits[label] = torch.stack(steps)
+    del params32, caches
+    k32, f32, kl, pl = (logits[n] for n in ("kernel_f32", "plain_f32", "kernel", "plain"))
+    for name, lg in logits.items():
+        if lg.shape != (9, 1, cfg.vocab_size) or lg.dtype != torch.float32:
+            fail(f"{name} logits {tuple(lg.shape)} {lg.dtype}")
+        if not bool(torch.isfinite(lg).all()):
+            fail(f"non-finite {name} logits")
+    agree = {
+        "kernel_vs_plain_f32": float((k32 - f32).abs().max()),
+        "kernel_vs_plain_bf16": float((kl - pl).abs().max()),
+        "kernel_bf16_vs_f32": float((kl - f32).abs().max()),
+        "plain_bf16_vs_f32": float((pl - f32).abs().max()),
+        "max_abs_logit": float(f32.abs().max()),
+        "argmax_kernel_eq_plain_f32": int((k32.argmax(-1) == f32.argmax(-1)).sum()),
+        "argmax_kernel_bf16_eq_f32": int((kl.argmax(-1) == f32.argmax(-1)).sum()),
+        "argmax_plain_bf16_eq_f32": int((pl.argmax(-1) == f32.argmax(-1)).sum()),
+        "steps": kl.shape[0],
+    }
+    print(f"serving logits (prefill + 8 teacher-forced decode steps): {json.dumps(agree)} "
+          f"(tol {F32_LOGIT_TOL} on kernel_vs_plain_f32)", flush=True)
+    if agree["kernel_vs_plain_f32"] > F32_LOGIT_TOL:
+        fail("serving logits through the kernels disagree with the plain versions (f32)")
+    if agree["kernel_bf16_vs_f32"] > 2 * agree["plain_bf16_vs_f32"] + 0.02:
+        fail("bf16 serving logits through the kernels are further from the f32 path than "
+             "the plain bf16 path's rounding explains")
+    if int(torch.argmax(kl[0, 0])) != req0[0]:
+        fail("the engine's first token is not the argmax of its prefill logits")
+
+    # -- 5. report ----------------------------------------------------------
+    full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+            "kernels": list(records.values()), "checks": checks, "serve": serve,
+            "serving_logits": agree, "breakdown": breakdown, "seconds": time.time() - t_start}
+    if args.record is not None:
+        args.record.parent.mkdir(parents=True, exist_ok=True)
+        args.record.write_text(json.dumps(full, indent=1))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records.values()]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
+    """Wall time of ``fn`` (median of ``reps``, no profiler) beside the device
+    time torch.profiler attributes to its kernels, the top kernels by it,
+    and the number of PyTorch ops the host dispatched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e) -> float:
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # kernel rows only: an aten op's row repeats the device time of its kernels
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), key=dev_us, reverse=True)
+    # PyTorch ops the host dispatched (outermost aten calls only)
+    host_ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
+                   and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    wall_ms = sorted(walls)[len(walls) // 2]
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if busy_ms > 0 else None,
+        "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
+        "host_ops": host_ops,
+        "top_kernels": [(e.key[:90], dev_us(e) / 1e3, e.count) for e in rows[:top]],
+    }
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    main()

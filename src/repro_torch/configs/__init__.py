@@ -1,0 +1,45 @@
+"""Architecture registry: ``get_config(arch_id)`` / ``--arch <id>``.
+
+The port knows the dense ``ga`` architectures whose layers it has.  The other
+architectures of ``repro.configs`` raise ``NotImplementedError`` naming the
+ROADMAP item that brings their layers.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import LayerSpec, ModelConfig, reduced
+
+_ARCH_MODULES = {
+    "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+}
+
+# Archs of the JAX package that the port does not run yet, and why.
+_NOT_PORTED = {
+    "gemma3-4b": "M10 (sliding-window pattern, post-block norms, frontends)",
+    "gemma2-27b": "M10 (softcaps and sliding-window pattern)",
+    "chameleon-34b": "M10 (QK-norm and the vlm frontend stub)",
+    "deepseek-moe-16b": "M10 and K4 (MoE FFN, moe_gmm kernel)",
+    "dbrx-132b": "M10 and K4 (MoE FFN, moe_gmm kernel)",
+    "jamba-1.5-large": "M10, K4 and K5 (Mamba mixer, MoE FFN)",
+    "musicgen-large": "M10 (audio frontend stub)",
+    "rwkv6-7b": "M10 and K6 (RWKV6 time/channel mix)",
+}
+
+
+def list_archs() -> list[str]:
+    return list(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch!r} is not ported yet: ROADMAP item {_NOT_PORTED[arch]}"
+        )
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
+
+
+__all__ = ["LayerSpec", "ModelConfig", "get_config", "list_archs", "reduced"]

@@ -1,0 +1,95 @@
+"""Decode attention (kernel K2): CUDA C++ for Hopper, ``csrc/decode_attention.cu``.
+
+Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
+(``decode_attention`` / ``_decode_kernel``): one query token per sequence
+against a KV cache whose slots carry absolute positions (``pos_ids``, -1 =
+empty), so full caches and sliding-window ring buffers share one mask.
+
+What bounds it on the card: reading the cache, once per token, is all the
+work; the products are ~1 FLOP per byte.  The kernel reads each K/V tile
+once into shared memory for all G query rows of its KV head and skips tiles
+without a live slot.  It runs one block per (batch row, KV head), which at
+serving batch sizes leaves most SMs idle; splitting the cache across blocks
+with an (acc, m, l) combine (``ref.decode_attention_ref(return_stats=True)``)
+is the known fix.
+
+A CPU tensor takes the plain version, :func:`plain`
+(``ref.decode_attention_ref``); a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels.ref import decode_attention_ref as plain
+
+HEAD_DIMS = (8, 16, 32, 64)  # the instances csrc/decode_attention.cu builds
+MAX_GROUP = 16  # query heads per KV head (kMaxG in the source)
+
+
+@functools.cache
+def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
+    lib = _build.load("decode_attention")
+    fn = lib.decode_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos_ids: torch.Tensor,
+    cur_pos: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """q: (B, Hq, D); caches: (B, S, Hkv, D); pos_ids: (B, S) int32;
+    cur_pos: (B,) int32 -> (B, Hq, D) in q's dtype."""
+    if q.device.type == "cpu":
+        return plain(q, k_cache, v_cache, pos_ids, cur_pos, window=window,
+                     softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    if k_cache.shape != (B, S, Hkv, D) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k_cache.shape)} v {tuple(v_cache.shape)}")
+    if pos_ids.shape != (B, S) or cur_pos.shape != (B,):
+        raise ValueError(f"decode_attention: pos_ids {tuple(pos_ids.shape)} "
+                         f"cur_pos {tuple(cur_pos.shape)} for B={B} S={S}")
+    if Hq % Hkv or Hq // Hkv > MAX_GROUP or D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: Hq={Hq} Hkv={Hkv} D={D} unsupported "
+                         f"(need Hq % Hkv == 0, Hq/Hkv <= {MAX_GROUP}, D in {HEAD_DIMS})")
+    if q.dtype not in _build.DTYPE_CODES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise ValueError(f"decode_attention: dtypes {q.dtype} {k_cache.dtype} {v_cache.dtype}")
+    if pos_ids.dtype != torch.int32 or cur_pos.dtype != torch.int32:
+        raise ValueError(f"decode_attention: pos_ids / cur_pos must be int32, "
+                         f"got {pos_ids.dtype} {cur_pos.dtype}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("pos_ids", pos_ids), ("cur_pos", cur_pos)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} must be contiguous on {q.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"decode_attention: window {window} < 1")
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    out = torch.empty_like(q)
+    lib, fn = _entry()
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos_ids.data_ptr(),
+             cur_pos.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[q.dtype], B, S, Hq, Hkv, D,
+             -1 if window is None else int(window), float(softcap or 0.0), float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "decode_attention")
+    LAUNCHES["decode_attention"] += 1
+    return out

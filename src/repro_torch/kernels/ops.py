@@ -1,0 +1,172 @@
+"""Dispatch layer: one public op per hot spot, implementation chosen by ``impl``.
+
+Counterpart of ``repro/kernels/ops.py``.  ``impl`` is one of:
+
+* ``auto``   — the kernel wrapper, which launches the Hopper kernel for a
+  CUDA tensor and runs the plain version for a CPU tensor;
+* ``kernel`` — the Hopper kernel; raises for a tensor that is not on CUDA;
+* ``plain``  — the plain PyTorch version (``kernels/ref.py``) on any
+  device.  On the card only a caller that asks for it gets it:
+  ``chip_smoke.py`` compares the kernels against it.
+
+``impl=None`` takes the process default (``set_default_impl`` /
+``impl_scope``, initially ``auto``).
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Any, Iterator, Mapping, Optional
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
+from repro_torch.kernels.flash_attention import flash_attention as _fa_kernel
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
+
+IMPLS = ("auto", "kernel", "plain")
+_IMPL = "auto"
+
+
+def set_default_impl(impl: str) -> None:
+    global _IMPL
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    _IMPL = impl
+
+
+@contextmanager
+def impl_scope(impl: str) -> Iterator[None]:
+    """Run a block with another default ``impl`` (the chip check's plain runs)."""
+    prev = _IMPL
+    set_default_impl(impl)
+    try:
+        yield
+    finally:
+        set_default_impl(prev)
+
+
+def _resolve(impl: Optional[str], x: torch.Tensor) -> str:
+    impl = impl or _IMPL
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    if impl == "kernel" and x.device.type != "cuda":
+        raise ValueError(f"impl='kernel' needs a CUDA tensor, got one on {x.device}")
+    return impl
+
+
+# ---------------------------------------------------------------------------
+# Tuned kernel configs, copied from repro.kernels.ops with the same op names
+# (flash_attention, decode_attention, moe_gmm, rwkv6_scan, mamba_scan) so
+# that profile and tune keys line up across the two packages.
+#
+# ``_TUNED[op][impl]`` is a kwargs dict overriding that entry point's
+# block/tile knobs.  The port's kernels take no knobs yet: their Hopper
+# design space arrives with ROADMAP item M12, which fills this table.
+# ---------------------------------------------------------------------------
+
+_TUNED: dict[str, dict[str, dict[str, Any]]] = {}
+
+
+def encode_config(params: Mapping[str, Any]) -> str:
+    """Canonical ``"k=v,k2=v2"`` form of a config point (sorted by key)."""
+    return ",".join(f"{k}={params[k]}" for k in sorted(params))
+
+
+def set_tuned_configs(table: Mapping[str, Mapping[str, Mapping[str, Any]]]) -> None:
+    """Install tuned config overrides: ``{op: {impl: {param: value}}}``."""
+    global _TUNED
+    _TUNED = {
+        op: {impl: dict(params) for impl, params in impls.items()}
+        for op, impls in table.items()
+    }
+
+
+def clear_tuned_configs() -> None:
+    global _TUNED
+    _TUNED = {}
+
+
+def tuned_overrides(op: str, impl: str) -> dict[str, Any]:
+    return dict(_TUNED.get(op, {}).get(impl, {}))
+
+
+def active_config(op: str, impl: str) -> str:
+    """Canonical ``"k=v,..."`` encoding of the active overrides ("" = default)."""
+    return encode_config(_TUNED.get(op, {}).get(impl, {}))
+
+
+def config_tag(impl: str) -> str:
+    """Cross-op summary of active overrides for one backend tier."""
+    parts = [
+        f"{op}:{encode_config(impls[impl])}"
+        for op, impls in sorted(_TUNED.items())
+        if impls.get(impl)
+    ]
+    return ";".join(parts)
+
+
+@contextmanager
+def tuned_scope(
+    table: Mapping[str, Mapping[str, Mapping[str, Any]]],
+) -> Iterator[None]:
+    """Temporarily install tuned overrides."""
+    global _TUNED
+    prev = _TUNED
+    set_tuned_configs(table)
+    try:
+        yield
+    finally:
+        _TUNED = prev
+
+
+# ---------------------------------------------------------------------------
+# Ops
+# ---------------------------------------------------------------------------
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Training/prefill attention: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D)."""
+    if _resolve(impl, q) == "plain":
+        return _ref.mha_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                            q_offset=q_offset)
+    return _fa_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
+                      q_offset=q_offset)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos_ids: torch.Tensor,
+    cur_pos: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """One token per sequence against a position-tagged KV cache."""
+    if _resolve(impl, q) == "plain":
+        return _ref.decode_attention_ref(q, k_cache, v_cache, pos_ids, cur_pos,
+                                         window=window, softcap=softcap)
+    return _decode_kernel(q, k_cache, v_cache, pos_ids, cur_pos, window=window,
+                          softcap=softcap)
+
+
+def rmsnorm(
+    x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6, impl: Optional[str] = None
+) -> torch.Tensor:
+    """(1 + scale) RMSNorm, f32 math, x's dtype out."""
+    if _resolve(impl, x) == "plain":
+        return _ref.rmsnorm_ref(x, scale, eps=eps)
+    return _rmsnorm_kernel(x, scale, eps=eps)

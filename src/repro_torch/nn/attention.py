@@ -1,0 +1,125 @@
+"""GQA attention block: global / sliding-window, softcap, QKV bias.
+
+Counterpart of ``repro/nn/attention.py``, with two modes:
+
+* ``full``   — prefill over a whole sequence (``ops.attention``: the flash
+  kernel on the card), optionally filling a KV cache;
+* ``decode`` — one new token against a KV cache (full or SWA ring buffer),
+  through ``ops.decode_attention``.
+
+Cache contract (uniform for full and ring caches): ``pos_ids[b, s]`` is the
+absolute position held in cache slot ``s`` (-1 = empty), and position ``p``
+lives in slot ``p % size``.  Unlike the JAX package, which returns new cache
+arrays, the port writes the cache tensors in place and returns the same
+dict.
+
+``pad_heads_to`` and ``activation_constraints`` are GSPMD sharding knobs of
+the JAX package and change nothing on one card; ``decode_split_kv`` only
+acts on a sequence-sharded cache, which one card does not have.  QK-norm
+and the fused-VJP path arrive with ROADMAP items M10 and K1b.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.nn import core as nn
+
+Cache = dict[str, torch.Tensor]
+
+
+def attention_init(pf: nn.ParamFactory, cfg: ModelConfig) -> dict:
+    D, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "q": nn.linear_init(pf, (D,), (Hq, hd), bias=cfg.qkv_bias),
+        "k": nn.linear_init(pf, (D,), (Hkv, hd), bias=cfg.qkv_bias),
+        "v": nn.linear_init(pf, (D,), (Hkv, hd), bias=cfg.qkv_bias),
+        "o": nn.linear_init(pf, (Hq, hd), (D,), scale=0.02 / max(1, 2 * cfg.n_layers) ** 0.5),
+    }
+
+
+def _window(cfg: ModelConfig, mixer: str) -> Optional[int]:
+    return cfg.sliding_window if mixer == "swa" else None
+
+
+def init_cache(
+    cfg: ModelConfig, mixer: str, batch: int, max_seq: int, dtype: torch.dtype,
+    device: torch.device,
+) -> Cache:
+    """Full cache for global layers; ring buffer of `sliding_window` for SWA."""
+    size = min(cfg.sliding_window, max_seq) if mixer == "swa" else max_seq
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos_ids": torch.full((batch, size), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attention_apply(
+    p: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    mixer: str,
+    positions: torch.Tensor,
+    *,
+    mode: str = "full",
+    cache: Optional[Cache] = None,
+) -> tuple[torch.Tensor, Optional[Cache]]:
+    """x: (B, S, D) for full; (B, 1, D) for decode.  positions: (B, S) / (B, 1)."""
+    if cfg.qk_norm:
+        raise NotImplementedError("qk_norm (chameleon) is ROADMAP item M10")
+    B, S, _ = x.shape
+    window = _window(cfg, mixer)
+    q = nn.linear(p["q"], x)  # (B, S, Hq, hd)
+    k = nn.linear(p["k"], x)  # (B, S, Hkv, hd)
+    v = nn.linear(p["v"], x)
+    q = nn.apply_rope(q, positions, cfg.rope_theta)
+    k = nn.apply_rope(k, positions, cfg.rope_theta)
+
+    if mode == "full":
+        out = ops.attention(q, k, v, causal=True, window=window,
+                            softcap=cfg.attn_logit_softcap)
+        new_cache = None
+        if cache is not None:
+            new_cache = _fill_cache_from_prefill(cache, k, v, positions)
+        return nn.linear(p["o"], out, n_in=2), new_cache
+
+    if mode != "decode" or cache is None or S != 1:
+        raise ValueError(f"attention_apply: mode={mode!r} S={S} cache={cache is not None}")
+    cur = positions[:, 0]  # (B,) int32
+    size = cache["k"].shape[1]
+    slot = (cur % size).long()
+    bidx = torch.arange(B, device=x.device)
+    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos_ids"][bidx, slot] = cur
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], cache["pos_ids"], cur,
+                               window=window, softcap=cfg.attn_logit_softcap)
+    return nn.linear(p["o"], out[:, None], n_in=2), cache
+
+
+def _fill_cache_from_prefill(
+    cache: Cache, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor
+) -> Cache:
+    """Write prefill K/V into a (possibly smaller ring) cache at slot = pos % size.
+
+    A prefill's positions rise by one along each row, so only its last
+    ``size`` columns survive in a ring, as in the JAX package; for a cache
+    at least as long as the prompt that is all of them.  The kept range
+    follows from the shapes alone, so the write needs no device-to-host
+    sync.
+    """
+    B, S = positions.shape
+    size = cache["k"].shape[1]
+    keep = slice(max(0, S - size), S)
+    pos = positions[:, keep]
+    slots = (pos % size).long()
+    bidx = torch.arange(B, device=positions.device)[:, None]
+    cache["k"][bidx, slots] = k[:, keep].to(cache["k"].dtype)
+    cache["v"][bidx, slots] = v[:, keep].to(cache["v"].dtype)
+    cache["pos_ids"][bidx, slots] = pos.to(torch.int32)
+    return cache

@@ -1,0 +1,286 @@
+"""The port's model modules against the JAX package on reduced configs.
+
+Both sides run the same weights: ``repro.models.lm.init_params`` converted
+through ``repro_torch.models.convert.params_from_jax``.  Inputs come from
+numpy seeds.  Logits agree within atol = rtol = 1e-4 in f32: XLA:CPU and
+torch sum the matmuls in different orders.
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduced as jax_reduced  # noqa: E402
+from repro.models import lm as jax_lm  # noqa: E402
+from repro.nn import attention as jax_attn  # noqa: E402
+from repro.nn import core as jax_nn  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.nn import attention as attn  # noqa: E402
+from repro_torch.nn import core as nn  # noqa: E402
+
+ARCHS = ["qwen2-0.5b", "smollm-360m"]
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _close(jax_out, torch_out, **tol):
+    np.testing.assert_allclose(torch_out.detach().float().numpy(),
+                               np.asarray(jax_out, np.float32), **(tol or TOL))
+
+
+def _both(arch, **changes):
+    jcfg = dataclasses.replace(jax_reduced(jax_get_config(arch)), **changes)
+    cfg = dataclasses.replace(reduced(get_config(arch)), **changes)
+    jp = jax_lm.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, cfg, jp, params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+
+
+def _tree_close(jtree, ttree, **tol):
+    assert set(jtree) == set(ttree)
+    for k in jtree:
+        if isinstance(jtree[k], dict):
+            _tree_close(jtree[k], ttree[k], **tol)
+        else:
+            _close(jtree[k], ttree[k], **tol)
+
+
+# ---------------------------------------------------------------------------
+# configs, init and the weight bridge
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_copies_match_jax(arch):
+    """Every field the port's config holds has the JAX config's value, at
+    full width and reduced, and the default of every other field is
+    what the port assumes."""
+    for port, ref in ((get_config(arch), jax_get_config(arch)),
+                      (reduced(get_config(arch)), jax_reduced(jax_get_config(arch)))):
+        fields = dataclasses.asdict(port)
+        assert fields == {k: v for k, v in dataclasses.asdict(ref).items() if k in fields}
+        assert (ref.moe, ref.mamba, ref.rwkv, ref.fused_attention_vjp) == (None, None, None, False)
+        assert (port.n_periods, port.period) == (ref.n_periods, ref.period)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "jamba-1.5-large", "rwkv6-7b", "dbrx-132b"])
+def test_unported_archs_name_their_roadmap_item(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP item M10"):
+        get_config(arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_tree_matches_jax(arch):
+    """The port's own init has the JAX tree's keys, shapes and dtypes, and
+    its laws: zero biases and norm scales, std 0.02 weights, std dim**-0.5
+    embeddings."""
+    jcfg, cfg = jax_get_config(arch), get_config(arch)
+    jcfg, cfg = jax_reduced(jcfg), reduced(cfg)
+    jshapes = jax.eval_shape(lambda k: jax_lm.init_params(jcfg, k), jax.random.PRNGKey(0))
+    p = lm.init_params(cfg, 0, device="cpu")
+
+    def walk(j, t, path=""):
+        assert set(j) == set(t), path
+        for k in j:
+            if isinstance(j[k], dict):
+                walk(j[k], t[k], f"{path}/{k}")
+            else:
+                assert tuple(t[k].shape) == j[k].shape, f"{path}/{k}"
+                assert str(t[k].dtype).removeprefix("torch.") == str(j[k].dtype), f"{path}/{k}"
+
+    walk(jshapes, p)
+    assert float(p["final_norm"]["scale"].abs().max()) == 0.0
+    w = p["blocks"]["pos0"]["ffn"]["w1"]["w"]
+    assert abs(float(w.std()) - 0.02) < 0.002
+    assert abs(float(p["embed"]["table"].std()) - cfg.d_model**-0.5) < 0.01
+    # seeded: the same seed draws the same weights
+    again = lm.init_params(cfg, 0, device="cpu")
+    torch.testing.assert_close(again["embed"]["table"], p["embed"]["table"])
+
+
+def test_bridge_bf16_leaves_bit_exact():
+    """bf16 leaves (ml_dtypes arrays) cross through a uint16 view, bit for bit."""
+    jcfg, cfg, jp, p = _both("qwen2-0.5b", param_dtype="bfloat16", activation_dtype="bfloat16")
+    jw = np.asarray(jp["blocks"]["pos0"]["mixer"]["q"]["w"])
+    tw = p["blocks"]["pos0"]["mixer"]["q"]["w"]
+    assert tw.dtype == torch.bfloat16 and tuple(tw.shape) == jw.shape
+    assert tw.shape[0] == cfg.n_periods
+    np.testing.assert_array_equal(tw.view(torch.int16).numpy().view(np.uint16),
+                                  jw.view(np.uint16))
+    assert p["final_norm"]["scale"].dtype == torch.float32
+    # and the bf16 model serves: prefill logits agree at bf16 tolerance
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
+    jl, _ = jax_lm.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32), max_seq=16)
+    tl, _ = lm.prefill(p, cfg, torch.from_numpy(toks), max_seq=16)
+    _close(jl, tl, atol=2e-2, rtol=2e-2)
+
+
+def test_bridge_rejects_unstacked_block_leaves():
+    cfg = reduced(get_config("qwen2-0.5b"))
+    with pytest.raises(ValueError, match="n_periods"):
+        params_from_jax({"blocks": {"pos0": {"norm1": {"scale": np.zeros(64, np.float32)}}}}, cfg,
+                        device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# nn/core pieces
+# ---------------------------------------------------------------------------
+
+
+def test_linear_contracts_last_dims_with_bias():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 5, 8), np.float32)
+    w = rng.standard_normal((8, 3, 4), np.float32)
+    b = rng.standard_normal((3, 4), np.float32)
+    _close(jax_nn.linear({"w": w, "b": b}, jnp.asarray(x)), nn.linear({"w": _t(w), "b": _t(b)}, _t(x)))
+    w2 = rng.standard_normal((3, 4, 6), np.float32)
+    y = rng.standard_normal((2, 5, 3, 4), np.float32)
+    _close(jax_nn.linear({"w": w2}, jnp.asarray(y), n_in=2), nn.linear({"w": _t(w2)}, _t(y), n_in=2))
+    xb = nn.linear({"w": _t(w).bfloat16()}, _t(x).bfloat16())
+    assert xb.dtype == torch.bfloat16  # output in x's dtype
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_one_plus_scale(dtype):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((3, 7, 64), np.float32)
+    s = rng.standard_normal(64, np.float32) * 0.1
+    jd, td = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    want = jax_nn.rmsnorm({"scale": jnp.asarray(s)}, jnp.asarray(x, jd))
+    got = nn.rmsnorm({"scale": _t(s)}, _t(x).to(td))
+    assert got.dtype == td
+    tol = TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
+    _close(want, got, **tol)
+
+
+@pytest.mark.parametrize("theta", [10000.0, 1_000_000.0])
+def test_apply_rope_split_half(theta):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 9, 4, 16), np.float32)
+    pos = rng.integers(0, 1000, (2, 9)).astype(np.int32)
+    _close(jax_nn.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta),
+           nn.apply_rope(_t(x), _t(pos), theta))
+
+
+@pytest.mark.parametrize("scale_by_dim", [False, True])
+def test_embed(scale_by_dim):
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((50, 24), np.float32)
+    ids = rng.integers(0, 50, (3, 6))
+    _close(jax_nn.embed({"table": jnp.asarray(table)}, jnp.asarray(ids), scale_by_dim=scale_by_dim),
+           nn.embed({"table": _t(table)}, _t(ids), scale_by_dim=scale_by_dim))
+
+
+def test_unembed_returns_f32_from_bf16():
+    rng = np.random.default_rng(5)
+    table = rng.standard_normal((300, 64), np.float32)
+    h = rng.standard_normal((4, 64), np.float32)
+    want = jax_nn.unembed({"table": jnp.asarray(table, jnp.bfloat16)}, jnp.asarray(h, jnp.bfloat16))
+    tt = _t(table).bfloat16()
+    got = nn.unembed({"table": tt}, _t(h).bfloat16())
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    _close(want, got, atol=1e-4, rtol=1e-5)
+    # what a bf16 product would lose: its output rounded to bf16
+    rounded = torch.matmul(_t(h).bfloat16(), tt.t()).float()
+    assert float((rounded - got).abs().max()) > 1e-3
+
+
+def test_activations_and_softcap():
+    x = np.linspace(-6, 6, 101, dtype=np.float32)
+    for name in ("silu", "gelu", "relu"):
+        _close(jax_nn.ACTIVATIONS[name](jnp.asarray(x)), nn.ACTIVATIONS[name](_t(x)))
+    _close(jax_nn.softcap(jnp.asarray(x), 3.0), nn.softcap(_t(x), 3.0))
+    tx = _t(x)
+    assert nn.softcap(tx, None) is tx
+
+
+# ---------------------------------------------------------------------------
+# attention block
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mixer,S,window", [("ga", 10, 16), ("swa", 10, 4)])
+def test_attention_apply_full_and_decode(mixer, S, window):
+    """Prefill fills the cache (a ring smaller than the prompt for swa),
+    then three decode steps write slot pos % size and attend."""
+    jcfg, cfg, _, _ = _both("qwen2-0.5b", sliding_window=window)
+    jp = jax_attn.attention_init(jax_nn.ValueFactory(jax.random.PRNGKey(1), jnp.float32), jcfg)
+    p = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    rng = np.random.default_rng(6)
+    B, max_seq = 2, 16
+    x = rng.standard_normal((B, S, cfg.d_model), np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S)).copy()
+    jc = jax_attn.init_cache(jcfg, mixer, B, max_seq, jnp.float32)
+    tc = attn.init_cache(cfg, mixer, B, max_seq, torch.float32, torch.device("cpu"))
+    jo, jc = jax_attn.attention_apply(jp, jnp.asarray(x), jcfg, mixer, jnp.asarray(pos),
+                                      mode="full", cache=jc)
+    to, tc = attn.attention_apply(p, _t(x), cfg, mixer, _t(pos), mode="full", cache=tc)
+    _close(jo, to)
+    _tree_close(jc, tc)
+    for t in range(S, S + 3):
+        xt = rng.standard_normal((B, 1, cfg.d_model), np.float32)
+        pt = np.full((B, 1), t, np.int32)
+        jo, jc = jax_attn.attention_apply(jp, jnp.asarray(xt), jcfg, mixer, jnp.asarray(pt),
+                                          mode="decode", cache=jc)
+        to, tc = attn.attention_apply(p, _t(xt), cfg, mixer, _t(pt), mode="decode", cache=tc)
+        _close(jo, to)
+        _tree_close(jc, tc)
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_jax(arch):
+    jcfg, cfg, jp, p = _both(arch)
+    B, S, max_seq = 2, 8, 16
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S + 4))
+    jl, jc = jax_lm.prefill(jp, jcfg, jnp.asarray(toks[:, :S], jnp.int32), max_seq=max_seq)
+    tl, tc = lm.prefill(p, cfg, _t(toks[:, :S]), max_seq=max_seq)
+    assert tl.dtype == torch.float32 and tuple(tl.shape) == (B, cfg.vocab_size)
+    _close(jl, tl)
+    _tree_close(jc, tc)
+    for t in range(S, S + 4):
+        cur = np.full((B,), t, np.int32)
+        jl, jc = jax_lm.decode_step(jp, jcfg, jnp.asarray(toks[:, t], jnp.int32),
+                                    jnp.asarray(cur), jc)
+        tl, tc = lm.decode_step(p, cfg, _t(toks[:, t]), _t(cur), tc)
+        _close(jl, tl)
+    _tree_close(jc, tc)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_full_forward(arch):
+    """Teacher-forced decode reproduces the full-sequence logits in the port."""
+    cfg = reduced(get_config(arch))
+    params = lm.init_params(cfg, 0, device="cpu")
+    B, S = 2, 12
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (B, S)))
+    hidden, _ = lm.forward(params, cfg, tokens)
+    full = lm._logits(params, cfg, hidden)
+    half = S // 2
+    _, caches = lm.prefill(params, cfg, tokens[:, :half], max_seq=S)
+    got = []
+    for t in range(half, S):
+        logits, caches = lm.decode_step(params, cfg, tokens[:, t],
+                                        torch.full((B,), t, dtype=torch.int32), caches)
+        got.append(logits)
+    torch.testing.assert_close(torch.stack(got, 1), full[:, half:], atol=2e-5, rtol=2e-5)
+
+
+def test_unported_layers_raise():
+    cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")), frontend="vlm_stub")
+    with pytest.raises(NotImplementedError, match="M10"):
+        lm.init_params(cfg, 0, device="cpu")

@@ -1,0 +1,194 @@
+"""The port's serving engine and driver, against the JAX package.
+
+Greedy decoding (temperature 0) only: ``jax.random`` and torch generators
+draw different numbers, so sampled tokens cannot be compared.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduced as jax_reduced  # noqa: E402
+from repro.core.events import EventLog as JaxEventLog  # noqa: E402
+from repro.models import lm as jax_lm  # noqa: E402
+from repro.serving.engine import Engine as JaxEngine  # noqa: E402
+from repro.serving.engine import ServeConfig as JaxServeConfig  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core.events import EventLog  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
+
+ARCHS = ["qwen2-0.5b", "smollm-360m"]
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _setup(arch="smollm-360m", **scfg_kw):
+    cfg = reduced(get_config(arch))
+    params = lm.init_params(cfg, 0, device="cpu")
+    log = EventLog()
+    scfg = ServeConfig(**{"max_batch": 2, "max_seq": 64, **scfg_kw})
+    return cfg, params, Engine(cfg, params, scfg, log=log), log
+
+
+def _prompts(vocab, n=5, length=6, seed=1):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, length).tolist() for _ in range(n)]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_matches_jax_engine(arch):
+    """5 requests through 2 slots, token for token at temperature 0."""
+    jcfg = jax_reduced(jax_get_config(arch))
+    jp = jax_lm.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = reduced(get_config(arch))
+    p = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    jeng = JaxEngine(jcfg, jp, JaxServeConfig(max_batch=2, max_seq=64), log=JaxEventLog())
+    eng = Engine(cfg, p, ServeConfig(max_batch=2, max_seq=64), log=EventLog())
+    for prompt in _prompts(cfg.vocab_size):
+        jeng.submit(prompt, max_new=6)
+        eng.submit(prompt, max_new=6)
+    assert eng.run_to_completion() == jeng.run_to_completion()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_matches_jax_direct_decode(arch):
+    """Each request's tokens equal the JAX model's own prefill + greedy
+    decode loop for that request alone."""
+    jcfg = jax_reduced(jax_get_config(arch))
+    jp = jax_lm.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = reduced(get_config(arch))
+    p = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    eng = Engine(cfg, p, ServeConfig(max_batch=2, max_seq=64), log=EventLog())
+    prompts = _prompts(cfg.vocab_size, n=3)
+    rids = [eng.submit(pr, max_new=5) for pr in prompts]
+    res = eng.run_to_completion()
+    prefill = jax.jit(lambda p, t: jax_lm.prefill(p, jcfg, t, max_seq=64))
+    decode = jax.jit(lambda p, t, c, ch: jax_lm.decode_step(p, jcfg, t, c, ch))
+    for rid, prompt in zip(rids, prompts):
+        logits, caches = prefill(jp, jnp.asarray([prompt], jnp.int32))
+        toks = [int(jnp.argmax(logits[0]))]
+        for cur in range(len(prompt), len(prompt) + 4):
+            logits, caches = decode(jp, jnp.asarray([toks[-1]], jnp.int32),
+                                    jnp.asarray([cur], jnp.int32), caches)
+            toks.append(int(jnp.argmax(logits[0])))
+        assert res[rid] == toks
+
+
+def test_prefill_lands_in_its_own_slot():
+    """Admitting a request copies its prefill cache into its slot of every
+    layer and leaves the other slots alone."""
+    cfg, params, eng, _ = _setup()
+    a, b = _prompts(cfg.vocab_size, n=2)
+    eng.submit(a, max_new=3)
+    eng.submit(b, max_new=3)
+    eng._admit()
+    for slot, prompt in enumerate((a, b)):
+        _, own = lm.prefill(params, cfg, torch.tensor([prompt]), max_seq=64)
+        for leaf in ("k", "v", "pos_ids"):
+            got = eng.caches["blocks"]["pos0"]["mixer"][leaf][:, slot]
+            torch.testing.assert_close(got, own["blocks"]["pos0"]["mixer"][leaf][:, 0])
+
+
+def test_continuous_batching_more_requests_than_slots():
+    cfg, params, eng, log = _setup()
+    rids = [eng.submit([1, 2, 3, 4], max_new=5) for _ in range(5)]
+    res = eng.run_to_completion()
+    assert set(res) == set(rids)
+    assert all(len(v) == 5 for v in res.values())
+    assert len(log.events("spawn", "request")) == 5
+    assert len(log.events("exit", "request")) == 5
+    assert len(log.durations("prefill")) == 5
+    assert len(log.durations("decode_tick")) > 0
+    assert eng.pending() == 0
+
+
+def test_identical_prompts_identical_outputs():
+    """Slot reuse must not leak state between requests (greedy decoding)."""
+    cfg, params, eng, _ = _setup()
+    rids = [eng.submit([5, 6, 7, 8], max_new=6) for _ in range(4)]
+    res = eng.run_to_completion()
+    assert len({tuple(res[r]) for r in rids}) == 1
+
+
+def test_engine_matches_direct_decode():
+    """Engine output == the port's own prefill + greedy decode loop."""
+    cfg, params, eng, _ = _setup()
+    prompt = [3, 1, 4, 1, 5, 9]
+    rid = eng.submit(list(prompt), max_new=5)
+    res = eng.run_to_completion()
+    logits, caches = lm.prefill(params, cfg, torch.tensor([prompt]), max_seq=64)
+    toks = [int(torch.argmax(logits[0]))]
+    for cur in range(len(prompt), len(prompt) + 4):
+        logits, caches = lm.decode_step(params, cfg, torch.tensor([toks[-1]]),
+                                        torch.tensor([cur], dtype=torch.int32), caches)
+        toks.append(int(torch.argmax(logits[0])))
+    assert res[rid] == toks
+
+
+def test_max_seq_bound_respected():
+    cfg, params, eng, _ = _setup(max_seq=16)
+    rid = eng.submit([1] * 8, max_new=100)
+    assert len(eng.run_to_completion()[rid]) < 16
+
+
+def test_sampling_is_seeded():
+    outs = []
+    for _ in range(2):
+        cfg, params, eng, _ = _setup(temperature=1.0, seed=3)
+        rid = eng.submit([1, 2, 3], max_new=8)
+        outs.append(eng.run_to_completion()[rid])
+    assert outs[0] == outs[1] and len(outs[0]) == 8
+
+
+def test_serve_driver_json_on_cpu():
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen2-0.5b", "--reduced",
+         "--device", "cpu", "--requests", "3", "--max-new", "4"],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key in ("arch", "requests", "generated_tokens", "tokens_per_s", "mean_prefill_ms",
+                "wall_s", "sample", "device", "kernels"):
+        assert key in rec, key
+    assert rec["requests"] == 3 and rec["generated_tokens"] == 12
+    assert rec["device"] == "cpu"
+    assert rec["kernels"] == {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0}
+
+
+def test_serve_driver_refuses_missing_cuda(monkeypatch):
+    """Asking for cuda without a card raises; the driver never drops to CPU."""
+    from repro_torch import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """init_params, init_caches and params_from_jax run on cuda unless the
+    caller asks for the CPU: without a card they raise, never drop to it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("qwen2-0.5b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_caches(cfg, 1, 8)
+    cpu_params = lm.init_params(cfg, 0, device="cpu")
+    np_params = jax.tree.map(lambda t: t.numpy(), cpu_params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax(np_params, cfg)
+    assert params_from_jax(np_params, cfg, device="cpu")["embed"]["table"].device.type == "cpu"
