@@ -11,20 +11,30 @@ failure of which exits non-zero:
 2. build the CUDA kernels (one ``nvcc`` per source, in parallel) and
    compile the Triton kernel, printing the build time and ptxas' report;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   CPU tests' shapes and the serving path's shapes, within 2e-2 (bf16) or
-   1e-4 (f32); time kernel, plain version and one PyTorch library call
-   (a yardstick the port never calls) at the serving shapes, with L2
-   flushed before each launch, beside the card's bound for the same work;
+   CPU tests' shapes and at both served models' shapes (qwen2-0.5b: head
+   dim 64, d 896; deepseek-moe-16b: head dim 128, d 2048, the grouped
+   matmul at its prefill and decode capacities), within 2e-2 (bf16) or
+   1e-4 (f32); time kernel, plain version and one PyTorch library call (a
+   yardstick the port never calls) at the serving shapes, with L2 flushed
+   before each launch, beside the card's bound for the same work;
 4. serve full-width qwen2-0.5b (bf16, random weights from a seed, 8 slots,
    1024-slot caches, 16 requests of 512 prompt tokens, 64 new tokens,
    greedy) through the port's Engine with the launch counts reset just
-   before, and check that every kernel launched; then hold the first
+   before, and check the exact launch counts; then hold the first
    request's prefill logits and 8 teacher-forced decode steps through the
    kernels against the same through the plain versions, in f32 within
    F32_LOGIT_TOL (bf16 differences are reported beside them), and report
    the device busy share of a decode tick and a prefill from torch.profiler;
-5. print the per-kernel JSON line, the card line, and last the
-   ``{"ok": true, "device": ...}`` line.
+4b. free it, and serve full-width, full-depth deepseek-moe-16b the same way
+   (16 requests of 512 prompt tokens, 32 new tokens), with exact launch
+   counts of all four kernels; then three gates: (a) one served MoE layer
+   at both token counts through the kernels vs the plain versions, in bf16
+   and f32 (the same routing by construction); (b) prefill + 8 decode
+   steps at full width with the depth cut to 4 layers, in f32, within
+   F32_LOGIT_TOL, with the routing's top-k agreement between the two runs;
+   (c) the same at full depth in bf16, reported only;
+5. print the per-kernel JSON line (launches from both serving runs), the
+   card line, and last the ``{"ok": true, "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
 run, the profiles) there as JSON.
@@ -53,6 +63,9 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 F32_LOGIT_TOL = 1e-3
 ARCH = "qwen2-0.5b"
 SERVE = dict(max_batch=8, max_seq=1024, requests=16, prompt_len=512, max_new=64)
+MOE_ARCH = "deepseek-moe-16b"
+MOE_SERVE = dict(max_batch=8, max_seq=1024, requests=16, prompt_len=512, max_new=32)
+MOE_GATE_LAYERS = 4  # gate (b): full width, layer 0 dense + 3 MoE layers, in f32
 
 
 def fail(msg: str) -> None:
@@ -85,9 +98,11 @@ def main() -> None:
     from repro_torch.kernels import _build, launch_counts, ops, ref, reset_launches
     from repro_torch.kernels import decode_attention as k2
     from repro_torch.kernels import flash_attention as k1
+    from repro_torch.kernels import moe_gmm as k4
     from repro_torch.kernels import rmsnorm as k3
     from repro_torch.models import lm
     from repro_torch.nn import core as nn_core
+    from repro_torch.nn import ffn as ffn_mod
     from repro_torch.serving.engine import Engine, ServeConfig
 
     t_start = time.time()
@@ -108,6 +123,7 @@ def main() -> None:
     paths = _build.build()
     k1._entry()
     k2._entry()
+    k4._entry()
     k3.rmsnorm(torch.zeros(1, 8, device=dev), torch.zeros(8, device=dev))  # Triton JIT
     torch.cuda.synchronize()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
@@ -155,7 +171,9 @@ def main() -> None:
     records: dict[str, dict] = {}
     checks: list[dict] = []
 
-    def hold(kernel: str, case: str, got, want, dtype_name: str) -> float:
+    def hold(kernel: str, case: str, got, want, dtype_name: str, fatal: bool = True) -> float:
+        """Max |got - want|; a disagreement fails the run at once, or, with
+        ``fatal=False``, is recorded in ``checks`` for the caller to fail on."""
         err = float((got.float() - want.float()).abs().max())
         tol = TOL[dtype_name]
         ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
@@ -163,7 +181,7 @@ def main() -> None:
         checks.append({"kernel": kernel, "case": case, "max_abs_err": err, "tol": tol, "ok": ok})
         print(f"  {kernel} {case}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}",
               flush=True)
-        if not ok:
+        if not ok and fatal:
             fail(f"{kernel} {case} disagrees with its plain version")
         return err
 
@@ -289,10 +307,109 @@ def main() -> None:
         **times3[(B, dm)],
         "shape": f"({B}, {dm}) bf16 (decode rows); ({S}, {dm}): {times3[(S, dm)]}",
     }
+
+    def timed(kernel_fn, plain_fn, library_fn, n_bytes, n_flops, peak, shape) -> dict:
+        b, by = bound_ms(n_bytes, n_flops, peak)
+        return {"ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn), "bound_ms": b,
+                "bound_by": by, "library_ms": time_ms(library_fn), "shape": shape}
+
+    # K1, K2, K3 at deepseek-moe-16b's shapes: head dim 128, one query row
+    # per KV head (MHA), d 2048
+    mcfg = get_config(MOE_ARCH)
+    mHq, mHkv, mD = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim
+    mS, mB, mSc, dm2 = (MOE_SERVE["prompt_len"], MOE_SERVE["max_batch"], MOE_SERVE["max_seq"],
+                        mcfg.d_model)
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        q, k, v = (randn(1, mS, h, mD, dtype=dt) for h in (mHq, mHkv, mHkv))
+        err1 = max(err1, hold("flash_attention", f"{dn} {MOE_ARCH} 1x{mS}x{mHq}/{mHkv}x{mD}",
+                              k1.flash_attention(q, k, v), ref.mha_ref(q, k, v), dn))
+        qd, kc, vc = randn(mB, mHq, mD, dtype=dt), randn(mB, mSc, mHkv, mD, dtype=dt), \
+            randn(mB, mSc, mHkv, mD, dtype=dt)
+        pos = torch.arange(mSc, dtype=torch.int32, device=dev)[None].repeat(mB, 1)
+        cur = torch.full((mB,), mSc - 1, dtype=torch.int32, device=dev)
+        err2 = max(err2, hold("decode_attention", f"{dn} {MOE_ARCH} {mB}x{mSc}x{mHq}/{mHkv}x{mD}",
+                              k2.decode_attention(qd, kc, vc, pos, cur),
+                              ref.decode_attention_ref(qd, kc, vc, pos, cur), dn))
+        for shape in ((mB, dm2), (mS, dm2)):
+            x, sc = randn(*shape, dtype=dt), randn(dm2) * 0.1
+            err3 = max(err3, hold("rmsnorm", f"{dn} {MOE_ARCH} {shape}", k3.rmsnorm(x, sc),
+                                  ref.rmsnorm_ref(x, sc), dn))
+    # timings in bf16 (the last dtype above)
+    moe_shape_times = {
+        "flash_attention": timed(
+            lambda: k1.flash_attention(q, k, v), lambda: ref.mha_ref(q, k, v),
+            (lambda qs=q.transpose(1, 2).contiguous(), ks_=k.transpose(1, 2).contiguous(),
+             vs_=v.transpose(1, 2).contiguous(): F.scaled_dot_product_attention(
+                 qs, ks_, vs_, is_causal=True)),
+            nbytes(q, k, v, q), 4 * mD * mHq * (mS * (mS + 1) // 2), peaks["bfloat16"],
+            f"B=1 S={mS} Hq={mHq} Hkv={mHkv} D={mD} bf16 causal"),
+        "decode_attention": timed(
+            lambda: k2.decode_attention(qd, kc, vc, pos, cur),
+            lambda: ref.decode_attention_ref(qd, kc, vc, pos, cur),
+            (lambda qs=qd[:, :, None], ks_=kc.transpose(1, 2).contiguous(),
+             vs_=vc.transpose(1, 2).contiguous(): F.scaled_dot_product_attention(qs, ks_, vs_)),
+            nbytes(qd, kc, vc, qd, pos, cur), 4 * mD * mHq * mB * mSc, peaks["bfloat16"],
+            f"B={mB} S={mSc} Hq={mHq} Hkv={mHkv} D={mD} bf16, all {mB * mSc} slots live"),
+    }
+    for shape in ((mB, dm2), (mS, dm2)):
+        x, sc = randn(*shape, dtype=torch.bfloat16), randn(dm2) * 0.1
+        moe_shape_times[f"rmsnorm {shape}"] = timed(
+            lambda: k3.rmsnorm(x, sc), lambda: ref.rmsnorm_ref(x, sc),
+            lambda w=(1.0 + sc).to(torch.bfloat16): F.rms_norm(x, (dm2,), weight=w, eps=1e-6),
+            nbytes(x, x, sc), 4 * x.numel(), peaks["float32"], f"{shape} bf16")
+
+    # K4: the CPU tests' shapes and epilogues, then deepseek-moe-16b's three
+    # grouped matmuls per MoE layer at the prefill and decode capacities
+    err4 = 0.0
+    m = mcfg.moe
+    caps = {"prefill": ffn_mod._capacity(mS, m), "decode": ffn_mod._capacity(mB, m)}  # 64, 8
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        for E_, C_, D_, F_ in ((4, 16, 32, 24), (2, 20, 24, 12), (8, 8, 8, 8)):
+            x, w = randn(E_, C_, D_, dtype=dt), randn(E_, D_, F_, dtype=dt)
+            for epi in (None, "silu", "gelu"):
+                err4 = max(err4, hold("moe_gmm", f"{dn} {(E_, C_, D_, F_)} epilogue={epi}",
+                                      k4.gmm(x, w, epilogue=epi),
+                                      ref.gmm_ref(x, w, epilogue=epi), dn))
+        for phase, C_ in caps.items():
+            for D_, F_, epi in ((dm2, m.d_expert, "silu"), (dm2, m.d_expert, None),
+                                (m.d_expert, dm2, None)):
+                x = randn(m.n_experts, C_, D_, dtype=dt)
+                w = (randn(m.n_experts, D_, F_) * 0.02).to(dt)
+                err4 = max(err4, hold("moe_gmm", f"{dn} {phase} ({m.n_experts},{C_},{D_})@"
+                                      f"({m.n_experts},{D_},{F_}) epilogue={epi}",
+                                      k4.gmm(x, w, epilogue=epi),
+                                      ref.gmm_ref(x, w, epilogue=epi), dn))
+    k4_times = {}
+    for phase, C_ in caps.items():  # the w1 / w3 product, bf16, no epilogue
+        x = randn(m.n_experts, C_, dm2, dtype=torch.bfloat16)
+        w = (randn(m.n_experts, dm2, m.d_expert) * 0.02).to(torch.bfloat16)
+        k4_times[phase] = timed(
+            lambda: k4.gmm(x, w), lambda: ref.gmm_ref(x, w), lambda: torch.bmm(x, w),
+            nbytes(x, w) + m.n_experts * C_ * m.d_expert * 2,
+            2 * m.n_experts * C_ * dm2 * m.d_expert, peaks["bfloat16"],
+            f"({m.n_experts},{C_},{dm2})@({m.n_experts},{dm2},{m.d_expert}) bf16 ({phase})")
+    del x, w
+    records["moe_gmm"] = {
+        "name": "moe_gmm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:54", "max_abs_err": err4,
+        **k4_times["prefill"], "decode": k4_times["decode"],
+    }
+    for name in ("flash_attention", "decode_attention"):
+        records[name]["max_abs_err"] = {"flash_attention": err1, "decode_attention": err2}[name]
+        records[name][MOE_ARCH] = moe_shape_times[name]
+    records["rmsnorm"]["max_abs_err"] = err3
+    records["rmsnorm"][MOE_ARCH] = {k: v for k, v in moe_shape_times.items()
+                                    if k.startswith("rmsnorm")}
     for r in records.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}) at {r['shape']}", flush=True)
+    for name, t in list(moe_shape_times.items()) + [("moe_gmm decode", k4_times["decode"])]:
+        print(f"  {name} at {MOE_ARCH}'s shape: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}) at {t['shape']}", flush=True)
 
     # -- 4. serve full-width qwen2-0.5b through the port's Engine ----------
     t0 = time.time()
@@ -366,22 +483,26 @@ def main() -> None:
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
     params32 = _map(lambda t: t.float(), eng.params)
     req0 = results[rids[0]]
-    tokens = torch.tensor([prompts[0]], device=dev)
+    def teacher_forced(p, c, impl, prompt, outs, max_seq, steps=8):
+        """Logits (steps + 1, 1, V) of a prefill of ``prompt`` and ``steps``
+        decode steps fed the served tokens ``outs``."""
+        with ops.impl_scope(impl):
+            lg, caches = lm.prefill(p, c, torch.tensor([prompt], device=dev), max_seq=max_seq)
+            out = [lg]
+            for i in range(steps):
+                lg, caches = lm.decode_step(
+                    p, c, torch.tensor([outs[i]], device=dev),
+                    torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev), caches)
+                out.append(lg)
+        return torch.stack(out)
+
     logits = {}
     for label, impl, c, p in (("kernel_f32", "kernel", cfg32, params32),
                               ("plain_f32", "plain", cfg32, params32),
                               ("kernel", "kernel", cfg, eng.params),
                               ("plain", "plain", cfg, eng.params)):
-        with ops.impl_scope(impl):
-            lg, caches = lm.prefill(p, c, tokens, max_seq=SERVE["max_seq"])
-            steps = [lg]
-            for i in range(8):
-                lg, caches = lm.decode_step(
-                    p, c, torch.tensor([req0[i]], device=dev),
-                    torch.tensor([SERVE["prompt_len"] + i], dtype=torch.int32, device=dev), caches)
-                steps.append(lg)
-            logits[label] = torch.stack(steps)
-    del params32, caches
+        logits[label] = teacher_forced(p, c, impl, prompts[0], req0, SERVE["max_seq"])
+    del params32
     k32, f32, kl, pl = (logits[n] for n in ("kernel_f32", "plain_f32", "kernel", "plain"))
     for name, lg in logits.items():
         if lg.shape != (9, 1, cfg.vocab_size) or lg.dtype != torch.float32:
@@ -409,10 +530,173 @@ def main() -> None:
     if int(torch.argmax(kl[0, 0])) != req0[0]:
         fail("the engine's first token is not the argmax of its prefill logits")
 
+    # -- 4b. serve full-width, full-depth deepseek-moe-16b --------------------
+    del eng, params, steps_prof, table, logits, k32, f32, kl, pl
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    mparams = lm.init_params(mcfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    moe_init = {"seconds": time.time() - t0,
+                "params_b": sum(t.numel() for t in _leaves(mparams)) / 1e9,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "weights_gb": sum(t.numel() * t.element_size() for t in _leaves(mparams)) / 1e9}
+    print(f"init {MOE_ARCH}: {json.dumps(moe_init)}", flush=True)
+    mlog = EventLog()
+    meng = Engine(mcfg, mparams, ServeConfig(max_batch=MOE_SERVE["max_batch"],
+                                             max_seq=MOE_SERVE["max_seq"], seed=SEED), log=mlog)
+    rng = np.random.default_rng(SEED)
+    mprompts = [rng.integers(0, mcfg.vocab_size, MOE_SERVE["prompt_len"]).tolist()
+                for _ in range(MOE_SERVE["requests"])]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    mrids = [meng.submit(p, max_new=MOE_SERVE["max_new"]) for p in mprompts]
+    mresults = meng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    mcounts = launch_counts()
+    gen_tokens = sum(len(v) for v in mresults.values())
+    prefill_ms = [1e3 * d for d in mlog.durations("prefill")]
+    tick_ms = [1e3 * d for d in mlog.durations("decode_tick")]
+    moe_serve = {
+        "arch": MOE_ARCH, **MOE_SERVE, "generated_tokens": gen_tokens, "wall_s": wall,
+        "tokens_per_s": gen_tokens / wall,
+        "mean_prefill_ms": float(np.mean(prefill_ms)),
+        "mean_decode_tick_ms": float(np.mean(tick_ms)), "decode_ticks": len(tick_ms),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernels": mcounts,
+    }
+    print(f"serve: {json.dumps(moe_serve)}", flush=True)
+    if sorted(mresults) != sorted(mrids) or any(len(v) != MOE_SERVE["max_new"]
+                                                for v in mresults.values()):
+        fail(f"{MOE_ARCH}: serving did not deliver every request in full")
+    n_layers = mcfg.n_layers
+    n_moe = sum(mcfg.layer_spec(i).ffn == "moe" for i in range(n_layers))  # 27
+    forwards = MOE_SERVE["requests"] + len(tick_ms)
+    want_counts = {"moe_gmm": 3 * n_moe * forwards,  # w1 (+ silu), w3, w2 per MoE layer
+                   "flash_attention": n_layers * MOE_SERVE["requests"],
+                   "decode_attention": n_layers * len(tick_ms),
+                   "rmsnorm": (2 * n_layers + 1) * forwards}
+    if mcounts != want_counts:
+        fail(f"{MOE_ARCH}: launch counts {mcounts}, expected {want_counts} "
+             f"({forwards} forwards, {len(tick_ms)} ticks)")
+    for name in records:
+        records[name]["launches"] += mcounts[name]
+
+    msteps_prof = {
+        "decode_tick": lambda: lm.decode_step(
+            meng.params, mcfg, torch.zeros(MOE_SERVE["max_batch"], dtype=torch.long, device=dev),
+            torch.full((MOE_SERVE["max_batch"],), MOE_SERVE["prompt_len"] + 8,
+                       dtype=torch.int32, device=dev), meng.caches),
+        "prefill": lambda: lm.prefill(meng.params, mcfg, torch.tensor([mprompts[0]], device=dev),
+                                      max_seq=MOE_SERVE["max_seq"]),
+    }
+    moe_breakdown = {name: profile_step(fn) for name, fn in msteps_prof.items()}
+    for name, b in moe_breakdown.items():
+        print(f"{MOE_ARCH} {name}: {json.dumps(b)}", flush=True)
+    del msteps_prof
+    meng.caches = None  # the engine's caches are not needed past here
+
+    # gate (a): one served MoE layer (period 0, model layer 1) through the
+    # kernels and through the plain versions, at the prefill and decode token
+    # counts.  The router is plain PyTorch on both sides, so the routing is
+    # the same by construction and the comparison holds K4 in context.
+    # Gates (a) and (b) both run before either fails the run, so a fault
+    # shows in both.
+    gate_failures = []
+    layer = _map(lambda t: t[0], mparams["blocks"]["pos0"]["ffn"])
+    mcfg32 = dataclasses.replace(mcfg, param_dtype="float32", activation_dtype="float32")
+    gate_a = {}
+    for dt, c, p_ in ((torch.bfloat16, mcfg, layer),
+                      (torch.float32, mcfg32, _map(lambda t: t.float(), layer))):
+        dn = str(dt).removeprefix("torch.")
+        for shape in ((1, mS), (mB, 1)):
+            x = randn(*shape, dm2, dtype=dt)
+            before = launch_counts()["moe_gmm"]
+            with ops.impl_scope("kernel"):
+                yk, aux_k = ffn_mod.moe_apply(p_, x, c)
+            n_k4 = launch_counts()["moe_gmm"] - before
+            with ops.impl_scope("plain"):
+                yp, aux_p = ffn_mod.moe_apply(p_, x, c)
+            # held relative to the layer's output scale (max |y| ~ 0.1 here,
+            # far under the kernels' unit-scale tolerances)
+            scale = yp.float().abs().max().clamp(min=1e-30)
+            case = f"{dn} x {tuple(x.shape)}, diff / max|y| (max|y| {float(scale):.3e})"
+            gate_a[case] = hold(f"{MOE_ARCH} MoE layer (gate a)", case, yk.float() / scale,
+                                yp.float() / scale, dn, fatal=False)
+            if not checks[-1]["ok"]:
+                gate_failures.append(f"gate (a) {case}: max_abs_err {gate_a[case]:.3e}")
+            if n_k4 != 3 or launch_counts()["moe_gmm"] != before + 3:
+                fail(f"gate (a) {case}: {n_k4} moe_gmm launches through the kernels, expected 3")
+            if any(float(aux_k[n]) != float(aux_p[n]) for n in aux_k):
+                fail(f"gate (a) {case}: the routing's aux losses differ between the two runs")
+    del layer, p_, x, yk, yp
+
+    # gates (b) and (c): the first request's prefill + 8 teacher-forced
+    # decode steps through the kernels and through the plain versions, with
+    # the top-k picks of every MoE call recorded on both sides
+    picks: list = []
+    real_moe_apply = ffn_mod.moe_apply
+
+    def recording_moe_apply(p, x, cfg, **kw):
+        probs = nn_core.linear(p["router"], x).float().softmax(-1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)[1][..., :cfg.moe.top_k]
+        picks.append(top.sort(-1)[0].reshape(-1, cfg.moe.top_k))
+        return real_moe_apply(p, x, cfg, **kw)
+
+    def moe_run(p, c, impl):
+        picks.clear()
+        ffn_mod.moe_apply = recording_moe_apply
+        try:
+            lg = teacher_forced(p, c, impl, mprompts[0], mresults[mrids[0]],
+                                MOE_SERVE["max_seq"])
+        finally:
+            ffn_mod.moe_apply = real_moe_apply
+        return lg, torch.cat(picks)
+
+    def compare(kernel_run, plain_run, n_layers_run) -> dict:
+        (lk, pk), (lp, pp) = kernel_run, plain_run
+        for lg in (lk, lp):
+            if lg.shape != (9, 1, mcfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+                fail(f"{MOE_ARCH} logits {tuple(lg.shape)} not finite or misshapen")
+        same = (pk == pp).all(-1)
+        return {"max_abs_diff": float((lk - lp).abs().max()),
+                "max_abs_logit": float(lp.abs().max()),
+                "argmax_equal_steps": int((lk.argmax(-1) == lp.argmax(-1)).sum()), "steps": 9,
+                "topk_agreement": float(same.float().mean()),
+                "topk_flipped_tokens": int((~same).sum()), "routed_tokens": int(same.numel()),
+                "layers": n_layers_run}
+
+    cfg4 = dataclasses.replace(mcfg32, n_layers=MOE_GATE_LAYERS)
+    params4 = {k: v for k, v in mparams.items() if k != "blocks"}
+    params4["blocks"] = _map(lambda t: t[:cfg4.n_periods], mparams["blocks"])
+    params4 = _map(lambda t: t.float(), params4)
+    gate_b = compare(moe_run(params4, cfg4, "kernel"), moe_run(params4, cfg4, "plain"),
+                     MOE_GATE_LAYERS)
+    del params4
+    print(f"{MOE_ARCH} f32 gate (b), full width, {MOE_GATE_LAYERS} layers, prefill + 8 "
+          f"teacher-forced decode steps, kernels vs plain: {json.dumps(gate_b)} "
+          f"(tol {F32_LOGIT_TOL} on max_abs_diff)", flush=True)
+    if gate_b["max_abs_diff"] > F32_LOGIT_TOL:
+        gate_failures.append(
+            f"gate (b): f32 logits through the kernels disagree with the plain versions "
+            f"({gate_b['topk_flipped_tokens']} of {gate_b['routed_tokens']} routed tokens "
+            "picked other experts)")
+    if gate_failures:
+        fail(f"{MOE_ARCH}: " + "; ".join(gate_failures))
+    gate_c = compare(moe_run(mparams, mcfg, "kernel"), moe_run(mparams, mcfg, "plain"),
+                     mcfg.n_layers)
+    print(f"{MOE_ARCH} bf16 (c), full depth, kernels vs plain (reported, no bound): "
+          f"{json.dumps(gate_c)}", flush=True)
+
     # -- 5. report ----------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
-            "serving_logits": agree, "breakdown": breakdown, "seconds": time.time() - t_start}
+            "serving_logits": agree, "breakdown": breakdown,
+            MOE_ARCH: {"init": moe_init, "serve": moe_serve, "breakdown": moe_breakdown,
+                       "gate_a_max_abs_err": gate_a, "gate_b_f32": gate_b,
+                       "gate_c_bf16": gate_c},
+            "seconds": time.time() - t_start}
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
         args.record.write_text(json.dumps(full, indent=1))

@@ -1,6 +1,6 @@
 """Architecture registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-The port knows the dense ``ga`` architectures whose layers it has.  The other
+The port knows the ``ga`` architectures with dense or MoE FFNs.  The other
 architectures of ``repro.configs`` raise ``NotImplementedError`` naming the
 ROADMAP item that brings their layers.
 """
@@ -8,11 +8,13 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import LayerSpec, ModelConfig, reduced
+from repro_torch.configs.base import LayerSpec, ModelConfig, MoEConfig, reduced
 
 _ARCH_MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
 }
 
 # Archs of the JAX package that the port does not run yet, and why.
@@ -20,9 +22,7 @@ _NOT_PORTED = {
     "gemma3-4b": "M10 (sliding-window pattern, post-block norms, frontends)",
     "gemma2-27b": "M10 (softcaps and sliding-window pattern)",
     "chameleon-34b": "M10 (QK-norm and the vlm frontend stub)",
-    "deepseek-moe-16b": "M10 and K4 (MoE FFN, moe_gmm kernel)",
-    "dbrx-132b": "M10 and K4 (MoE FFN, moe_gmm kernel)",
-    "jamba-1.5-large": "M10, K4 and K5 (Mamba mixer, MoE FFN)",
+    "jamba-1.5-large": "M10 and K5 (Mamba mixer, mamba_scan kernel)",
     "musicgen-large": "M10 (audio frontend stub)",
     "rwkv6-7b": "M10 and K6 (RWKV6 time/channel mix)",
 }
@@ -42,4 +42,4 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
 
 
-__all__ = ["LayerSpec", "ModelConfig", "get_config", "list_archs", "reduced"]
+__all__ = ["LayerSpec", "ModelConfig", "MoEConfig", "get_config", "list_archs", "reduced"]

@@ -6,8 +6,8 @@ pattern position over the periods; the port walks the stacked axis with a
 Python loop.
 
 The copy holds the fields the ported serving path reads; each has the JAX
-package's name, default and meaning.  Training, MoE / Mamba / RWKV and
-sharding fields arrive with the slices that read them (ROADMAP M9, M10).
+package's name, default and meaning.  Training, Mamba / RWKV and sharding
+fields arrive with the slices that read them (ROADMAP M9, M10).
 """
 from __future__ import annotations
 
@@ -22,6 +22,18 @@ Ffn = Literal["dense", "moe", "rwkv_ffn", "none"]
 class LayerSpec:
     mixer: Mixer = "ga"
     ffn: Ffn = "dense"
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    n_shared: int = 0  # always-on shared experts (DeepSeekMoE)
+    d_expert: int = 0  # per-expert FFN width (fine-grained experts)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
+    # jitter etc. omitted: deterministic routing for reproducibility
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +63,7 @@ class ModelConfig:
     frontend: str = "text"  # text | vlm_stub | audio_stub
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"
+    moe: Optional[MoEConfig] = None
     # Sharding knobs of the JAX package (GSPMD head padding, activation
     # constraints, sequence-sharded decode).  On one card they change
     # nothing; the port accepts them so a JAX config carries over.
@@ -75,8 +88,7 @@ class ModelConfig:
 def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
     """Smoke-test variant: same family/pattern, tiny dims, runs on 1 CPU."""
     n_layers = layers if layers is not None else max(cfg.first_k_dense + cfg.period, 2)
-    return dataclasses.replace(
-        cfg,
+    changes: dict = dict(
         name=cfg.name + "-smoke",
         n_layers=n_layers,
         d_model=64,
@@ -89,3 +101,12 @@ def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
         param_dtype="float32",
         activation_dtype="float32",
     )
+    if cfg.moe is not None:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe,
+            n_experts=min(cfg.moe.n_experts, 8),
+            top_k=min(cfg.moe.top_k, 2),
+            n_shared=min(cfg.moe.n_shared, 1),
+            d_expert=32 if cfg.moe.d_expert else 0,
+        )
+    return dataclasses.replace(cfg, **changes)

@@ -16,8 +16,13 @@
 // Layout: q (B, Hq, D), k / v cache (B, S, Hkv, D), pos_ids (B, S) int32,
 // cur_pos (B,) int32, out (B, Hq, D), all contiguous.
 //
+// Head dims 8..128.  The tile is 64 slots up to D = 64 and 32 slots at
+// D = 128, which keeps q, K, V and the scores under 48 KB of static shared
+// memory (42.5 KB at D = 128).
+//
 // What bounds it: reading the cache (~4 MB at batch 8, 1024 slots, 2 KV
-// heads, D = 64, bf16) is the whole cost, so the card's bound is memory.
+// heads, D = 64, bf16; ~67 MB at 16 KV heads, D = 128) is the whole cost,
+// so the card's bound is memory.
 // This first version runs B * Hkv blocks (16 at batch 8 on 132 SMs) with
 // unpipelined tile loads, so it is bound by the few SMs it occupies and by
 // load latency; the split-KV (acc, m, l) combine is the known fix.
@@ -28,14 +33,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 16;   // query rows per KV head
-constexpr int kTile = 64;   // cache slots per tile
-constexpr int kPer = kTile / 32;  // slots per lane in the softmax step
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const int* __restrict__ pos_ids, const int* __restrict__ cur_pos,
               T* __restrict__ o, int S, int Hq, int Hkv, int window, float softcap, float scale) {
+  constexpr int kTile = D <= 64 ? 64 : 32;  // cache slots per tile: <= 48 KB of smem
+  constexpr int kPer = kTile / 32;          // slots per lane in the softmax step
   constexpr int kMaxE = (kMaxG * D + kThreads - 1) / kThreads;  // acc elements per thread
   __shared__ float qs[kMaxG][D];
   __shared__ float ks[kTile][D + 1];  // +1: conflict-free column walk in the score step
@@ -176,6 +181,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const v
     case 16: return launch<T, 16>(q, k, v, pos, cur, o, B, S, Hq, Hkv, window, softcap, scale, st);
     case 32: return launch<T, 32>(q, k, v, pos, cur, o, B, S, Hq, Hkv, window, softcap, scale, st);
     case 64: return launch<T, 64>(q, k, v, pos, cur, o, B, S, Hq, Hkv, window, softcap, scale, st);
+    case 128: return launch<T, 128>(q, k, v, pos, cur, o, B, S, Hq, Hkv, window, softcap, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -4,34 +4,40 @@
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention, _fa_kernel).  That kernel walks KV blocks along a
 // sequential grid axis and carries m / l / acc in VMEM scratch; here one
-// thread block owns (batch, q head, 64-row q tile) and walks the KV tiles in
-// a loop, carrying m / l / acc in registers.
+// thread block owns (batch, q head, q tile of 64 rows, or 32 at D = 128) and
+// walks the KV tiles in a loop, carrying m / l / acc in registers.
 //
 // Layout: q (B, Sq, Hq, D), k / v (B, Sk, Hkv, D), out (B, Sq, Hq, D), all
 // contiguous.  Query head h reads KV head h / (Hq / Hkv).
 //
-// Threads: 4 per q row (256 per block).  Thread g of a row owns the dims
-// VW*(g + 4*i) .. +VW-1, so the four threads of a row read neighbouring
-// words of a K/V row in shared memory and a warp reads 4 vectors at once
-// (no bank conflicts; the 8 rows of a warp share them by broadcast).  The
-// row's q.k partial sums meet by two xor-shuffles.
+// Threads: 256 per block, TPR = 4 per q row up to D = 64 and 8 at D = 128
+// (so a thread holds 16 q and 16 acc values, not 32, and nothing spills).
+// Thread g of a row owns the dims VW*(g + TPR*i) .. +VW-1, so the threads of
+// a row read neighbouring words of a K/V row in shared memory and a warp
+// reads TPR vectors at once (no bank conflicts; the rows of a warp share
+// them by broadcast).  The row's q.k partial sums meet by xor-shuffles.
 //
 // Work skipping: the KV range a tile needs is computed from causal, window
 // and q_offset (the Pallas kernel's pl.when(any_live) per tile), and ragged
 // Sq / Sk edges are masked in the kernel instead of padded copies.
 //
-// What bounds it: at the serving shapes (S = 512, D = 64) the work is
-// ~0.5 GFLOP per launch against ~2 MB of traffic, so the card's bound is
-// memory; this first version runs the products on the f32 CUDA cores, not
+// What bounds it: at the serving shapes (S = 512, D = 64 or 128) the work is
+// ~0.5-2.2 GFLOP per launch against 2-8 MB of traffic, so the card's bound
+// is memory; this first version runs the products on the f32 CUDA cores, not
 // the tensor cores, and is bound by those and by shared-memory reads.
+//
+// Head dims 8..128.  The K/V tile is 64 keys up to D = 64 and 32 keys at
+// D = 128, so the two f32 tiles stay at 32 KB of static shared memory.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;                  // q rows per block
-constexpr int kTpr = 4;                    // threads per q row
-constexpr int kThreads = kRows * kTpr;     // 256
+constexpr int kThreads = 256;
 constexpr int kChunk = 16;                 // keys scored per online-softmax update
+
+// threads per q row, and so q rows per block
+template <int D> constexpr int kTpr = D <= 64 ? 4 : 8;
+template <int D> constexpr int kRows = kThreads / kTpr<D>;
 
 template <int VW>
 __device__ __forceinline__ void lds(const float* p, float* out) {
@@ -51,11 +57,12 @@ __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               T* __restrict__ o, int Sq, int Sk, int Hq, int Hkv, int causal, int window,
               float softcap, float scale, int q_offset) {
-  constexpr int DP = D / kTpr;              // dims per thread
+  constexpr int TPR = kTpr<D>, ROWS = kRows<D>;
+  constexpr int DP = D / TPR;               // dims per thread
   constexpr int VW = DP >= 4 ? 4 : DP;      // vector width of a shared-memory read
   constexpr int NV = DP / VW;               // vectors per thread
-  constexpr int BK = 64;                    // keys per K/V tile (<= 32 KB of smem)
-  static_assert(D % (kTpr * VW) == 0, "head_dim must split over 4 threads");
+  constexpr int BK = D <= 64 ? 64 : 32;     // keys per K/V tile: <= 32 KB of smem
+  static_assert(D % (TPR * VW) == 0, "head_dim must split over the row's threads");
   static_assert(BK % kChunk == 0, "tile must hold whole chunks");
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
@@ -63,8 +70,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x;
-  const int r = tid / kTpr, g = tid % kTpr;
-  const int row = qt * kRows + r;
+  const int r = tid / TPR, g = tid % TPR;
+  const int row = qt * ROWS + r;
   const bool row_ok = row < Sq;
   const int qpos = q_offset + row;
 
@@ -75,7 +82,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     for (int i = 0; i < NV; ++i)
 #pragma unroll
       for (int e = 0; e < VW; ++e) {
-        const int d = VW * (g + kTpr * i) + e;
+        const int d = VW * (g + TPR * i) + e;
         qr[i * VW + e] = row_ok ? to_f32(qp[d]) * scale : 0.f;
         acc[i * VW + e] = 0.f;
       }
@@ -83,8 +90,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   float m = REPRO_NEG_INF, l = 0.f;
 
   // KV range any row of this tile can see.
-  const int first_row = qt * kRows;
-  const int last_row = min(Sq, first_row + kRows) - 1;
+  const int first_row = qt * ROWS;
+  const int last_row = min(Sq, first_row + ROWS) - 1;
   const int k_hi = causal ? min(Sk, q_offset + last_row + 1) : Sk;
   const int k_lo = window >= 0 ? max(0, q_offset + first_row - window + 1) : 0;
 
@@ -113,12 +120,12 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
         for (int i = 0; i < NV; ++i) {
           float kk[VW];
-          lds<VW>(&ks[c0 + c][VW * (g + kTpr * i)], kk);
+          lds<VW>(&ks[c0 + c][VW * (g + TPR * i)], kk);
 #pragma unroll
           for (int e = 0; e < VW; ++e) part += qr[i * VW + e] * kk[e];
         }
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+        for (int off = 1; off < TPR; off *= 2) part += __shfl_xor_sync(0xffffffffu, part, off);
         if (softcap > 0.f) part = tanhf(part / softcap) * softcap;
         const int kpos = k0 + c0 + c;
         bool live = kpos < k_hi;
@@ -143,7 +150,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
         for (int i = 0; i < NV; ++i) {
           float vv[VW];
-          lds<VW>(&vs[c0 + c][VW * (g + kTpr * i)], vv);
+          lds<VW>(&vs[c0 + c][VW * (g + TPR * i)], vv);
 #pragma unroll
           for (int e = 0; e < VW; ++e) acc[i * VW + e] += s[c] * vv[e];
         }
@@ -159,7 +166,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     for (int i = 0; i < NV; ++i)
 #pragma unroll
       for (int e = 0; e < VW; ++e)
-        op[VW * (g + kTpr * i) + e] = from_f32<T>(acc[i * VW + e] / lc);
+        op[VW * (g + TPR * i) + e] = from_f32<T>(acc[i * VW + e] / lc);
   }
 }
 
@@ -167,7 +174,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                    int Hq, int Hkv, int causal, int window, float softcap, float scale,
                    int q_offset, cudaStream_t stream) {
-  const dim3 grid((Sq + kRows - 1) / kRows, Hq, B);
+  const dim3 grid((Sq + kRows<D> - 1) / kRows<D>, Hq, B);
   fa_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Sq, Sk, Hq, Hkv, causal, window, softcap, scale, q_offset);
@@ -183,6 +190,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
     case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, softcap, scale, q_offset, st);
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, softcap, scale, q_offset, st);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, softcap, scale, q_offset, st);
+    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, softcap, scale, q_offset, st);
     default: return cudaErrorInvalidValue;
   }
 }

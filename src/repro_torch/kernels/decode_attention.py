@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.ref import decode_attention_ref as plain
 
-HEAD_DIMS = (8, 16, 32, 64)  # the instances csrc/decode_attention.cu builds
+HEAD_DIMS = (8, 16, 32, 64, 128)  # the instances csrc/decode_attention.cu builds
 MAX_GROUP = 16  # query heads per KV head (kMaxG in the source)
 
 

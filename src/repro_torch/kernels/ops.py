@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _fa_kernel
+from repro_torch.kernels.moe_gmm import gmm as _gmm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
 
 IMPLS = ("auto", "kernel", "plain")
@@ -170,3 +171,34 @@ def rmsnorm(
     if _resolve(impl, x) == "plain":
         return _ref.rmsnorm_ref(x, scale, eps=eps)
     return _rmsnorm_kernel(x, scale, eps=eps)
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None,
+        impl: Optional[str] = None) -> torch.Tensor:
+    """Grouped expert matmul (E, C, D) @ (E, D, F) -> (E, C, F), f32 accumulation."""
+    if _resolve(impl, x) == "plain":
+        return _ref.gmm_ref(x, w, epilogue=epilogue)
+    return _gmm_kernel(x, w, epilogue=epilogue)
+
+
+def moe_ffn(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    w3: torch.Tensor,
+    w2: torch.Tensor,
+    *,
+    act: str = "silu",
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Per-expert gated FFN over capacity buckets: act(x@w1) * (x@w3) @ w2.
+
+    The kernel route is the JAX package's Pallas composition: three grouped
+    matmuls, the activation fused into the first, and the gate product of
+    two x-dtype tensors in between.  The plain route (``ref.moe_ffn_ref``)
+    applies the activation to the rounded product in f32, so in bf16 the
+    two round at different places, as the JAX package's two routes do.
+    """
+    if _resolve(impl, x) == "plain":
+        return _ref.moe_ffn_ref(x, w1, w3, w2, act=act)
+    h = _gmm_kernel(x, w1, epilogue=act) * _gmm_kernel(x, w3)
+    return _gmm_kernel(h, w2)

@@ -9,6 +9,7 @@ kernel against them on the card.
 Shape conventions:
   attention   q: (B, Sq, Hq, D);  k, v: (B, Skv, Hkv, D);  Hq % Hkv == 0
   decode      q: (B, Hq, D);      cache: (B, S, Hkv, D);   pos_ids: (B, S)
+  gmm         x: (E, C, D);       w: (E, D, F)
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30  # large-finite: avoids NaN from (-inf) - (-inf) in fully-masked rows
 
@@ -102,3 +104,30 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torc
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+# Epilogues of the grouped matmul, applied to its f32 accumulator: the
+# gated-FFN activations (gelu in its tanh form, as in the JAX package).
+EPILOGUES = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
+def gmm_ref(x: torch.Tensor, w: torch.Tensor, epilogue: Optional[str] = None) -> torch.Tensor:
+    """(E, C, D) @ (E, D, F) -> (E, C, F): f32 products and accumulation, the
+    optional epilogue on the f32 result, one rounding to x's dtype."""
+    acc = torch.bmm(x.float(), w.float())
+    if epilogue is not None:
+        acc = EPILOGUES[epilogue](acc)
+    return acc.to(x.dtype)
+
+
+def moe_ffn_ref(
+    x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor, act: str = "silu"
+) -> torch.Tensor:
+    """Per-expert gated FFN: act(x@w1) * (x@w3) @ w2.  The activation acts on
+    the product rounded to x's dtype, and the gate product is taken in f32,
+    as ``repro/kernels/ref.py::moe_ffn_ref`` does."""
+    h = EPILOGUES[act](gmm_ref(x, w1).float()) * gmm_ref(x, w3).float()
+    return gmm_ref(h.to(x.dtype), w2)

@@ -1,4 +1,4 @@
-"""Decoder-only LM over a per-layer pattern spec: the dense path.
+"""Decoder-only LM over a per-layer pattern spec: attention with dense or MoE FFNs.
 
 Counterpart of ``repro/models/lm.py``.  Parameters and caches keep the JAX
 package's tree: layers outside whole periods live under ``head{i}`` /
@@ -13,8 +13,9 @@ Surfaces:
   * ``prefill``      — forward + KV cache construction + last-pos logits.
   * ``decode_step``  — one token per sequence against the caches.
 
-Mamba and RWKV mixers, MoE FFNs and the vlm/audio frontends raise
-``NotImplementedError`` (ROADMAP item M10); the training loss is M9.
+Mamba and RWKV mixers and the vlm/audio frontends raise
+``NotImplementedError`` (ROADMAP item M10); the training loss, which reads
+the MoE layers' aux losses, is M9, so serving discards them.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
         raise NotImplementedError(f"frontend {cfg.frontend!r} is ROADMAP item M10")
     if spec.mixer not in ("ga", "swa"):
         raise NotImplementedError(f"mixer {spec.mixer!r} is ROADMAP item M10")
-    if spec.ffn not in ("dense", "none"):
+    if spec.ffn not in ("dense", "moe", "none"):
         raise NotImplementedError(f"ffn {spec.ffn!r} is ROADMAP item M10")
 
 
@@ -56,7 +57,8 @@ def _block_init(pf: nn.ParamFactory, cfg: ModelConfig, spec: LayerSpec) -> dict:
         p["norm1_post"] = nn.rmsnorm_init(pf, cfg.d_model)
     if spec.ffn != "none":
         p["norm2"] = nn.rmsnorm_init(pf, cfg.d_model)
-        p["ffn"] = ffn_mod.ffn_init(pf, cfg)
+        p["ffn"] = (ffn_mod.moe_init(pf, cfg) if spec.ffn == "moe"
+                    else ffn_mod.ffn_init(pf, cfg))
         if cfg.post_block_norms:
             p["norm2_post"] = nn.rmsnorm_init(pf, cfg.d_model)
     return p
@@ -154,8 +156,8 @@ def _block_apply(
     mode: str,
     cache: Optional[dict],
 ) -> torch.Tensor:
-    """One block; its cache (if any) is updated in place.  Dense blocks
-    carry no aux loss."""
+    """One block; its cache (if any) is updated in place.  An MoE block's
+    aux losses are discarded (serving)."""
     h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
     h, _ = attn.attention_apply(
         p["mixer"], h, cfg, spec.mixer, positions, mode=mode,
@@ -166,7 +168,10 @@ def _block_apply(
     x = x + h
     if spec.ffn != "none":
         h = nn.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        h = ffn_mod.ffn_apply(p["ffn"], h, cfg)
+        if spec.ffn == "moe":
+            h, _ = ffn_mod.moe_apply(p["ffn"], h, cfg)
+        else:
+            h = ffn_mod.ffn_apply(p["ffn"], h, cfg)
         if "norm2_post" in p:
             h = nn.rmsnorm(p["norm2_post"], h, cfg.norm_eps)
         x = x + h

@@ -19,7 +19,7 @@ from typing import Callable, Iterator, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 class ParamFactory:
@@ -56,11 +56,16 @@ class ParamFactory:
         shape = self._lead + tuple(shape)
         dtype = dtype or self.param_dtype
         if init == "normal":
+            # Drawn in f32 one leading slice at a time (one period of a
+            # stacked leaf), so the f32 draw of a large stacked leaf (deepseek's
+            # experts: 27 x 738 MB) never exists whole beside the weights.
             std = 0.02 if scale is None else scale
-            x = torch.randn(
-                shape, generator=self.generator, dtype=torch.float32, device=self.device
-            )
-            return (x * std).to(dtype)
+            out = torch.empty(shape, dtype=dtype, device=self.device)
+            for part in (out.unbind(0) if self._lead else (out,)):
+                x = torch.randn(part.shape, generator=self.generator, dtype=torch.float32,
+                                device=self.device)
+                part.copy_(x.mul_(std))
+            return out
         if init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=self.device)
         raise ValueError(f"unknown init {init!r}")
@@ -161,9 +166,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+# silu and (tanh) gelu are the grouped-matmul kernel's epilogues too
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
-    "silu": F.silu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    **ref.EPILOGUES,
     "relu": F.relu,
 }
 

@@ -14,11 +14,14 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels.decode_attention import decode_attention as jax_decode  # noqa: E402
+from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.moe_gmm import gmm as jax_gmm  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.moe_gmm import gmm  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -158,6 +161,60 @@ def test_rmsnorm_vs_pallas(shape, dtype):
     got = rmsnorm(tx, torch.from_numpy(scale), eps=1e-6)
     assert got.dtype == tx.dtype and got.shape == tx.shape
     _close(want, got, **tols(dtype))
+
+
+# ---------------------------------------------------------------------------
+# K4 grouped matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("epilogue", [None, "silu", "gelu"])
+@pytest.mark.parametrize("E,C,D,F", [(4, 16, 32, 24), (2, 20, 24, 12), (8, 8, 8, 8)])
+def test_gmm_vs_pallas(E, C, D, F, epilogue, dtype):
+    """tests/test_kernels.py's shapes (ragged against 8-wide blocks), each
+    epilogue, against the Pallas kernel in interpret mode; both accumulate
+    in f32 and round once, so they differ by the order of f32 sums."""
+    rng = np.random.default_rng(49)
+    jx, tx = _pair(rng.standard_normal((E, C, D), np.float32), dtype)
+    jw, tw = _pair(rng.standard_normal((E, D, F), np.float32), dtype)
+    want = jax_gmm(jx, jw, block_c=8, block_f=8, block_d=8, epilogue=epilogue, interpret=True)
+    got = gmm(tx, tw, epilogue=epilogue)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (E, C, F)
+    _close(want, got, **tols(dtype))
+    torch.testing.assert_close(ops.gmm(tx, tw, epilogue=epilogue, impl="plain"), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("jax_impl", ["pallas", "xla"])
+def test_moe_ffn_vs_jax(jax_impl, dtype):
+    """ops.moe_ffn against the JAX op on both of its routes.
+
+    The plain route is ``moe_ffn_ref``; ``auto`` on a CPU tensor is the
+    kernel route's composition of three grouped matmuls, each wrapper
+    running its plain version.  In f32 every route agrees to f32 sums
+    (3e-5).  In bf16 each port route matches the JAX route that rounds as
+    it does (2e-2); across routes, the kernel composition multiplies two
+    bf16-rounded products (silu fused into the first) where the plain route
+    multiplies in f32, so h differs by a bf16 rounding (~4e-3 relative)
+    before the w2 product: held to 5e-2."""
+    E, C, D, F = 4, 12, 32, 24
+    rng = np.random.default_rng(50)
+    jx, tx = _pair(rng.standard_normal((E, C, D), np.float32), dtype)
+    ws = [_pair(rng.standard_normal(shape, np.float32) * 0.2, dtype)
+          for shape in ((E, D, F), (E, D, F), (E, F, D))]
+    want = jax_ops.moe_ffn(jx, *(j for j, _ in ws), act="silu", impl=jax_impl)
+    for impl, same_rounding in (("plain", "xla"), ("auto", "pallas")):
+        got = ops.moe_ffn(tx, *(t for _, t in ws), act="silu", impl=impl)
+        assert got.dtype == tx.dtype and got.shape == tx.shape
+        cross = dtype == "bfloat16" and jax_impl != same_rounding
+        _close(want, got, **(dict(atol=5e-2, rtol=5e-2) if cross else tols(dtype)))
+
+
+def test_gmm_rejects_unknown_epilogue():
+    x = torch.zeros(1, 2, 3)
+    with pytest.raises(ValueError, match="epilogue"):
+        gmm(x, torch.zeros(1, 3, 4), epilogue="relu")
 
 
 # ---------------------------------------------------------------------------

@@ -20,13 +20,15 @@ from repro.configs import reduced as jax_reduced  # noqa: E402
 from repro.models import lm as jax_lm  # noqa: E402
 from repro.nn import attention as jax_attn  # noqa: E402
 from repro.nn import core as jax_nn  # noqa: E402
+from repro.nn import ffn as jax_ffn  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.nn import attention as attn  # noqa: E402
 from repro_torch.nn import core as nn  # noqa: E402
+from repro_torch.nn import ffn  # noqa: E402
 
-ARCHS = ["qwen2-0.5b", "smollm-360m"]
+ARCHS = ["qwen2-0.5b", "smollm-360m", "deepseek-moe-16b", "dbrx-132b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -69,11 +71,11 @@ def test_config_copies_match_jax(arch):
                       (reduced(get_config(arch)), jax_reduced(jax_get_config(arch)))):
         fields = dataclasses.asdict(port)
         assert fields == {k: v for k, v in dataclasses.asdict(ref).items() if k in fields}
-        assert (ref.moe, ref.mamba, ref.rwkv, ref.fused_attention_vjp) == (None, None, None, False)
+        assert (ref.mamba, ref.rwkv, ref.fused_attention_vjp) == (None, None, False)
         assert (port.n_periods, port.period) == (ref.n_periods, ref.period)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-27b", "jamba-1.5-large", "rwkv6-7b", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["gemma2-27b", "jamba-1.5-large", "rwkv6-7b", "chameleon-34b"])
 def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP item M10"):
         get_config(arch)
@@ -100,7 +102,8 @@ def test_init_params_tree_matches_jax(arch):
 
     walk(jshapes, p)
     assert float(p["final_norm"]["scale"].abs().max()) == 0.0
-    w = p["blocks"]["pos0"]["ffn"]["w1"]["w"]
+    w = p["blocks"]["pos0"]["ffn"]["w1"]
+    w = w["w"] if isinstance(w, dict) else w  # an MoE layer's experts are a bare leaf
     assert abs(float(w.std()) - 0.02) < 0.002
     assert abs(float(p["embed"]["table"].std()) - cfg.d_model**-0.5) < 0.01
     # seeded: the same seed draws the same weights
@@ -123,6 +126,27 @@ def test_bridge_bf16_leaves_bit_exact():
     jl, _ = jax_lm.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32), max_seq=16)
     tl, _ = lm.prefill(p, cfg, torch.from_numpy(toks), max_seq=16)
     _close(jl, tl, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b"])
+def test_bridge_moe_expert_leaves_bit_exact(arch):
+    """Stacked expert leaves (n_periods, E, D, F) cross bit for bit in bf16,
+    beside the router, the shared experts and the dense head layer."""
+    jcfg, cfg, jp, p = _both(arch, param_dtype="bfloat16", activation_dtype="bfloat16")
+    jffn, tffn = jp["blocks"]["pos0"]["ffn"], p["blocks"]["pos0"]["ffn"]
+    m = cfg.moe
+    assert tuple(tffn["w1"].shape) == (cfg.n_periods, m.n_experts, cfg.d_model, m.d_expert)
+    assert tuple(tffn["w2"].shape) == (cfg.n_periods, m.n_experts, m.d_expert, cfg.d_model)
+    leaves = [(jffn[k], tffn[k]) for k in ("w1", "w3", "w2")]
+    leaves.append((jffn["router"]["w"], tffn["router"]["w"]))
+    if m.n_shared:
+        leaves.append((jffn["shared"]["w1"]["w"], tffn["shared"]["w1"]["w"]))
+    if cfg.first_k_dense:
+        leaves.append((jp["head0"]["ffn"]["w1"]["w"], p["head0"]["ffn"]["w1"]["w"]))
+    for jw, tw in leaves:
+        assert tw.dtype == torch.bfloat16
+        np.testing.assert_array_equal(tw.view(torch.int16).numpy().view(np.uint16),
+                                      np.asarray(jw).view(np.uint16))
 
 
 def test_bridge_rejects_unstacked_block_leaves():
@@ -263,8 +287,15 @@ def test_prefill_and_decode_match_jax(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_full_forward(arch):
-    """Teacher-forced decode reproduces the full-sequence logits in the port."""
+    """Teacher-forced decode reproduces the full-sequence logits in the port.
+
+    An MoE layer's capacity is per group of tokens by design: a 24-token
+    forward may drop picks that a 2-token decode step keeps.  The property
+    held here is the cache's, so MoE configs get a capacity with no drops
+    (test_moe_apply_matches_jax holds the drops themselves)."""
     cfg = reduced(get_config(arch))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
     params = lm.init_params(cfg, 0, device="cpu")
     B, S = 2, 12
     tokens = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (B, S)))
@@ -278,6 +309,64 @@ def test_decode_matches_full_forward(arch):
                                         torch.full((B,), t, dtype=torch.int32), caches)
         got.append(logits)
     torch.testing.assert_close(torch.stack(got, 1), full[:, half:], atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b"])
+@pytest.mark.parametrize("capacity_factor,group_size", [(1.25, None), (0.5, None), (1.25, 8)])
+def test_moe_apply_matches_jax(arch, capacity_factor, group_size):
+    """y and both aux losses against repro.nn.ffn.moe_apply on the same
+    weights and input: routing, capacity drops in priority (choice rank,
+    token position), gates, shared experts.  capacity_factor 0.5 leaves
+    slots for half the picks; group_size 8 routes in 16 groups."""
+    jcfg, cfg, _, _ = _both(arch)
+    m = dataclasses.replace(cfg.moe, capacity_factor=capacity_factor)
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, capacity_factor=capacity_factor))
+    cfg = dataclasses.replace(cfg, moe=m)
+    jp = jax_ffn.moe_init(jax_nn.ValueFactory(jax.random.PRNGKey(2), jnp.float32), jcfg)
+    p = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    x = np.random.default_rng(9).standard_normal((2, 64, cfg.d_model), np.float32)
+    jy, jaux = jax_ffn.moe_apply(jp, jnp.asarray(x), jcfg, group_size=group_size)
+    y, aux = ffn.moe_apply(p, _t(x), cfg, group_size=group_size)
+    assert y.dtype == torch.float32 and y.shape == (2, 64, cfg.d_model)
+    _close(jy, y)
+    for name in ("moe_load_balance", "moe_z_loss"):
+        _close(jaux[name], aux[name], atol=1e-6, rtol=1e-5)
+    G = group_size or 128
+    C = ffn._capacity(G, m)
+    assert C == jax_ffn._capacity(G, jcfg.moe)
+    if capacity_factor < 1:  # the case holds drops: fewer slots than picks
+        assert (128 // G) * m.n_experts * C < 128 * m.top_k
+
+
+def test_moe_apply_bf16_routes_on_the_rounded_router():
+    """In bf16 the router product is rounded to bf16 before the f32
+    softmax, as in the JAX package: the same picks, and y within bf16."""
+    jcfg, cfg, _, _ = _both("deepseek-moe-16b", param_dtype="bfloat16",
+                            activation_dtype="bfloat16")
+    jp = jax_ffn.moe_init(jax_nn.ValueFactory(jax.random.PRNGKey(3), jnp.bfloat16), jcfg)
+    p = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    x = np.random.default_rng(10).standard_normal((1, 24, cfg.d_model), np.float32)
+    jy, jaux = jax_ffn.moe_apply(jp, jnp.asarray(x, jnp.bfloat16), jcfg)
+    y, aux = ffn.moe_apply(p, _t(x).bfloat16(), cfg)
+    assert y.dtype == torch.bfloat16
+    _close(jy, y, atol=2e-2, rtol=2e-2)
+    _close(jaux["moe_z_loss"], aux["moe_z_loss"], atol=1e-6, rtol=1e-5)
+
+
+def test_moe_capacity_and_group_size_copies():
+    m = reduced(get_config("deepseek-moe-16b")).moe
+    full = get_config("deepseek-moe-16b").moe
+    for G in (1, 8, 16, 512, 2048):
+        jm = jax_reduced(jax_get_config("deepseek-moe-16b")).moe
+        assert ffn._capacity(G, m) == jax_ffn._capacity(G, jm)
+    assert (ffn._capacity(512, full), ffn._capacity(8, full)) == (64, 8)  # serving: prefill, decode
+    for n in (1, 7, 512, 4096, 6000):
+        assert ffn.pick_group_size(n) == jax_ffn.pick_group_size(n)
 
 
 def test_unported_layers_raise():

@@ -48,7 +48,13 @@ def _prompts(vocab, n=5, length=6, seed=1):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_engine_matches_jax_engine(arch):
-    """5 requests through 2 slots, token for token at temperature 0."""
+    """5 requests through 2 slots, token for token at temperature 0.
+
+    Dense archs only: the JAX Engine writes a prefill's caches into the
+    period axis of the stacked leaves (ROADMAP R4).  At reduced size
+    deepseek-moe-16b has one period, so admitting slot 1 writes period 1,
+    which does not exist; test_engine_matches_jax_direct_decode holds the
+    MoE archs instead."""
     jcfg = jax_reduced(jax_get_config(arch))
     jp = jax_lm.init_params(jcfg, jax.random.PRNGKey(0))
     cfg = reduced(get_config(arch))
@@ -61,7 +67,7 @@ def test_engine_matches_jax_engine(arch):
     assert eng.run_to_completion() == jeng.run_to_completion()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b"])
 def test_engine_matches_jax_direct_decode(arch):
     """Each request's tokens equal the JAX model's own prefill + greedy
     decode loop for that request alone."""
@@ -165,7 +171,20 @@ def test_serve_driver_json_on_cpu():
         assert key in rec, key
     assert rec["requests"] == 3 and rec["generated_tokens"] == 12
     assert rec["device"] == "cpu"
-    assert rec["kernels"] == {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0}
+    assert rec["kernels"] == {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0,
+                              "moe_gmm": 0}
+
+
+def test_serve_driver_runs_moe_arch_on_cpu():
+    """--arch deepseek-moe-16b --reduced --device cpu: every request in full."""
+    from repro_torch.launch import serve
+
+    rec = serve.main(["--arch", "deepseek-moe-16b", "--reduced", "--device", "cpu",
+                      "--requests", "3", "--max-new", "4", "--max-batch", "2"])
+    assert rec["arch"] == "deepseek-moe-16b-smoke"
+    assert rec["requests"] == 3 and rec["generated_tokens"] == 12
+    assert rec["kernels"] == dict.fromkeys(("flash_attention", "decode_attention", "rmsnorm",
+                                            "moe_gmm"), 0)
 
 
 def test_serve_driver_refuses_missing_cuda(monkeypatch):
