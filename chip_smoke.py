@@ -13,10 +13,12 @@ failure of which exits non-zero:
 3. hold each kernel against its plain PyTorch version on the card, at the
    CPU tests' shapes and at both served models' shapes (qwen2-0.5b: head
    dim 64, d 896; deepseek-moe-16b: head dim 128, d 2048, the grouped
-   matmul at its prefill and decode capacities), within 2e-2 (bf16) or
-   1e-4 (f32); time kernel, plain version and one PyTorch library call (a
-   yardstick the port never calls) at the serving shapes, with L2 flushed
-   before each launch, beside the card's bound for the same work;
+   matmul at its prefill and decode capacities; rwkv6-7b: the WKV scan at
+   its prefill shape, at batch 8, with strong and weak decays and a ragged
+   V tile), within 2e-2 (bf16) or 1e-4 (f32); time kernel, plain version
+   and one PyTorch library call where there is one (a yardstick the port
+   never calls) at the serving shapes, with L2 flushed before each launch,
+   beside the card's bound for the same work;
 4. serve full-width qwen2-0.5b (bf16, random weights from a seed, 8 slots,
    1024-slot caches, 16 requests of 512 prompt tokens, 64 new tokens,
    greedy) through the port's Engine with the launch counts reset just
@@ -33,8 +35,15 @@ failure of which exits non-zero:
    steps at full width with the depth cut to 4 layers, in f32, within
    F32_LOGIT_TOL, with the routing's top-k agreement between the two runs;
    (c) the same at full depth in bf16, reported only;
-5. print the per-kernel JSON line (launches from both serving runs), the
-   card line, and last the ``{"ok": true, "device": ...}`` line.
+4c. free it, and serve full-width, full-depth rwkv6-7b the same way (16
+   requests of 512 prompt tokens, 32 new tokens; the leaves its init sets
+   flat get seeded noise, RWKV_FLAT_NOISE), every prefill's WKV scan
+   through K6, with exact launch counts of all five kernels; then the
+   first request's prefill + 8 teacher-forced decode steps through the
+   kernels and through the plain versions at full depth, in f32 within
+   F32_LOGIT_TOL (bf16 reported beside it);
+5. print the per-kernel JSON line (launches from all three serving runs),
+   the card line, and last the ``{"ok": true, "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
 run, the profiles) there as JSON.
@@ -66,6 +75,24 @@ SERVE = dict(max_batch=8, max_seq=1024, requests=16, prompt_len=512, max_new=64)
 MOE_ARCH = "deepseek-moe-16b"
 MOE_SERVE = dict(max_batch=8, max_seq=1024, requests=16, prompt_len=512, max_new=32)
 MOE_GATE_LAYERS = 4  # gate (b): full width, layer 0 dense + 3 MoE layers, in f32
+RWKV_ARCH = "rwkv6-7b"
+RWKV_SERVE = dict(max_batch=8, max_seq=1024, requests=16, prompt_len=512, max_new=32)
+# Leaves rwkv6-7b's init sets flat, and the seeded noise phase 4c puts there:
+# "uniform" draws from [0, 1) (token-shift interpolation weights), a number
+# is a normal std.  With the init's zeros the token-shift mix returns x for
+# every target and the decay is constant in time, so a fault that moves the
+# decay along the sequence would reach neither K6's inputs nor the gate.
+RWKV_FLAT_NOISE = {"mu_base": "uniform", "mu": "uniform", "mu_k": "uniform", "mu_r": "uniform",
+                   "mix_w2": 0.02, "decay_w2": 0.05}
+
+
+def closed_form_tol(chunk: int) -> float:
+    """The chunked closed form's own f32 rounding relative to max |out|: a
+    pairwise decay is exp of a difference of two in-chunk cumsums of log w,
+    which reach chunk x 88 in magnitude when w nears the 1e-38 clip, and so
+    carries ~2**-23 x chunk x 88 of relative error where the serial
+    recurrence carries none (1.3e-3 at chunk 128)."""
+    return max(TOL["float32"], 2.0**-23 * chunk * 88)
 
 
 def fail(msg: str) -> None:
@@ -100,6 +127,7 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as k1
     from repro_torch.kernels import moe_gmm as k4
     from repro_torch.kernels import rmsnorm as k3
+    from repro_torch.kernels import rwkv6_scan as k6
     from repro_torch.models import lm
     from repro_torch.nn import core as nn_core
     from repro_torch.nn import ffn as ffn_mod
@@ -124,6 +152,7 @@ def main() -> None:
     k1._entry()
     k2._entry()
     k4._entry()
+    k6._entry()
     k3.rmsnorm(torch.zeros(1, 8, device=dev), torch.zeros(8, device=dev))  # Triton JIT
     torch.cuda.synchronize()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
@@ -309,9 +338,15 @@ def main() -> None:
     }
 
     def timed(kernel_fn, plain_fn, library_fn, n_bytes, n_flops, peak, shape) -> dict:
+        """Times of kernel, plain version and library call (None: there is
+        no single PyTorch call for the function) beside the bound."""
         b, by = bound_ms(n_bytes, n_flops, peak)
         return {"ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn), "bound_ms": b,
-                "bound_by": by, "library_ms": time_ms(library_fn), "shape": shape}
+                "bound_by": by, "library_ms": time_ms(library_fn) if library_fn else None,
+                "shape": shape}
+
+    def fmt_ms(t) -> str:
+        return "none" if t is None else f"{t:.4f} ms"
 
     # K1, K2, K3 at deepseek-moe-16b's shapes: head dim 128, one query row
     # per KV head (MHA), d 2048
@@ -396,6 +431,74 @@ def main() -> None:
         "replaces": "src/repro/kernels/moe_gmm.py:54", "max_abs_err": err4,
         **k4_times["prefill"], "decode": k4_times["decode"],
     }
+    # K6: the CPU tests' sweep, a ragged V tile (V = 40 = 16 + 16 + 8, V != K),
+    # strong and weak decays, rwkv6-7b's prefill shape (chunk 128) at batch 1
+    # and 8; every case starts from a non-zero state.  Each is held against
+    # the serial oracle and the chunked closed form, relative to max |out|
+    # and max |state|.
+    rcfg = get_config(RWKV_ARCH)
+    rK = rcfg.rwkv.head_dim
+    rH, rS, rL = rcfg.d_model // rK, RWKV_SERVE["prompt_len"], rcfg.rwkv.chunk
+
+    def rwkv_inputs(B, T, H, K, V, dt, decay="mixed"):
+        """r, k with std K**-0.5, v normal, w by decay law (f32), u, state."""
+        r, k = (randn(B, T, H, K) * K**-0.5 for _ in range(2))
+        if decay == "strong":  # 10**U(-37.5, -30): down to the chunked form's clip
+            w = 10.0 ** (torch.rand(B, T, H, K, generator=gen, device=dev) * 7.5 - 37.5)
+        elif decay == "weak":
+            w = 1.0 - torch.rand(B, T, H, K, generator=gen, device=dev) * 1e-3
+        else:
+            w = torch.exp(-torch.exp(randn(B, T, H, K) * 0.5))
+        return (r.to(dt), k.to(dt), randn(B, T, H, V, dtype=dt), w, (randn(H, K) * 0.5).to(dt),
+                randn(B, H, K, V) * 0.1)
+
+    def hold_rel(case, got, want, tol) -> float:
+        """Holds max |got - want| / max |want| of out and of the state to
+        ``tol`` (a non-finite value fails too); returns max |got - want|."""
+        diffs = [float((g.float() - w_.float()).abs().max()) for g, w_ in zip(got, want)]
+        rel = max(d / float(w_.float().abs().max()) for d, w_ in zip(diffs, want))
+        ok = rel <= tol and all(bool(torch.isfinite(g.float()).all()) for g in got)
+        checks.append({"kernel": "rwkv6_scan", "case": case, "max_abs_err": max(diffs),
+                       "max_rel_err": rel, "tol": tol, "ok": ok})
+        print(f"  rwkv6_scan {case}: max_rel_err {rel:.3e} (tol {tol:.1e}), max_abs_err "
+              f"{max(diffs):.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"rwkv6_scan {case} disagrees with its plain version")
+        return max(diffs)
+
+    err6 = 0.0
+    k6_cases = [((2, 64, 3, 8, 8), 16, "mixed"), ((1, 32, 2, 16, 16), 32, "mixed"),
+                ((2, 48, 1, 8, 8), 16, "mixed"), ((1, 64, 4, 64, 40), 32, "mixed"),
+                ((1, 64, 4, 16, 16), 32, "strong"), ((1, 64, 4, 16, 16), 32, "weak"),
+                ((1, rS, rH, rK, rK), rL, "mixed"), ((1, rS, rH, rK, rK), rL, "strong"),
+                ((8, 128, rH, rK, rK), rL, "mixed")]
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        for (B_, T_, H_, K_, V_), L_, decay in k6_cases:
+            x = rwkv_inputs(B_, T_, H_, K_, V_, dt, decay)
+            got = k6.rwkv6_scan(*x, chunk=L_)
+            case = f"{dn} {(B_, T_, H_, K_, V_)} chunk {L_} {decay} decays"
+            err6 = max(err6, hold_rel(f"{case} vs serial", got, ref.rwkv6_scan_ref(*x), TOL[dn]))
+            if V_ == K_:  # the chunked form assumes V == K
+                tol = closed_form_tol(L_) if decay == "strong" and dt == torch.float32 else TOL[dn]
+                err6 = max(err6, hold_rel(f"{case} vs chunked", got,
+                                          ref.rwkv6_scan_chunked(*x, chunk=L_), tol))
+    k6_times = {}
+    for B_, T_ in ((1, rS), (8, 128)):  # the served prefill, and batch 8
+        x = rwkv_inputs(B_, T_, rH, rK, rK, torch.bfloat16)
+        out_bytes = B_ * T_ * rH * rK * 2 + x[5].numel() * 4
+        k6_times[B_] = timed(lambda: k6.rwkv6_scan(*x, chunk=rL),
+                             lambda: ref.rwkv6_scan_chunked(*x, chunk=rL), None,
+                             nbytes(*x) + out_bytes, 4 * B_ * T_ * rH * rK * rK, peaks["float32"],
+                             f"B={B_} T={T_} H={rH} K=V={rK} r/k/v/u bf16, w/state f32, "
+                             f"chunk {rL}")
+    del x, got
+    records["rwkv6_scan"] = {
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:80", "max_abs_err": err6,
+        **k6_times[1], "batch8": k6_times[8],
+    }
     for name in ("flash_attention", "decode_attention"):
         records[name]["max_abs_err"] = {"flash_attention": err1, "decode_attention": err2}[name]
         records[name][MOE_ARCH] = moe_shape_times[name]
@@ -404,71 +507,98 @@ def main() -> None:
                                     if k.startswith("rmsnorm")}
     for r in records.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"library {fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}) at {r['shape']}", flush=True)
-    for name, t in list(moe_shape_times.items()) + [("moe_gmm decode", k4_times["decode"])]:
-        print(f"  {name} at {MOE_ARCH}'s shape: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+    others = [(f"{name} at {MOE_ARCH}'s shape", t) for name, t in moe_shape_times.items()]
+    others += [(f"moe_gmm decode at {MOE_ARCH}'s shape", k4_times["decode"]),
+               ("rwkv6_scan at batch 8", k6_times[8])]
+    for name, t in others:
+        print(f"  {name}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {fmt_ms(t['library_ms'])}, bound "
               f"{t['bound_ms']:.5f} ms ({t['bound_by']}) at {t['shape']}", flush=True)
 
+    def init_model(c) -> tuple[dict, dict]:
+        """Seeded random weights drawn on the card, with the draw's time and
+        peak memory."""
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        p = lm.init_params(c, SEED, device=dev)
+        torch.cuda.synchronize()
+        rec = {"seconds": time.time() - t0,
+               "params_b": sum(t.numel() for t in _leaves(p)) / 1e9,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "weights_gb": sum(t.numel() * t.element_size() for t in _leaves(p)) / 1e9}
+        print(f"init {c.name}: {json.dumps(rec)}", flush=True)
+        return p, rec
+
+    def serve_run(c, p, spec: dict) -> tuple:
+        """Serve ``spec["requests"]`` random prompts (drawn from SEED) through
+        the port's Engine, with the launch counts reset just before; fails
+        unless every request is delivered in full.  Returns (engine,
+        prompts, each request's tokens, the run's record)."""
+        log = EventLog()
+        eng = Engine(c, p, ServeConfig(max_batch=spec["max_batch"], max_seq=spec["max_seq"],
+                                       seed=SEED), log=log)
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, c.vocab_size, spec["prompt_len"]).tolist()
+                   for _ in range(spec["requests"])]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.time()
+        rids = [eng.submit(pr, max_new=spec["max_new"]) for pr in prompts]
+        results = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        outs = [results.get(rid, []) for rid in rids]
+        gen_tokens = sum(len(v) for v in results.values())
+        prefill_ms = [1e3 * d for d in log.durations("prefill")]
+        tick_ms = [1e3 * d for d in log.durations("decode_tick")]
+        rec = {
+            "arch": c.name, **spec, "generated_tokens": gen_tokens, "wall_s": wall,
+            "tokens_per_s": gen_tokens / wall,
+            "mean_prefill_ms": float(np.mean(prefill_ms)),
+            "mean_decode_tick_ms": float(np.mean(tick_ms)), "decode_ticks": len(tick_ms),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernels": launch_counts(),
+        }
+        print(f"serve: {json.dumps(rec)}", flush=True)
+        if len(results) != len(rids) or any(len(v) != spec["max_new"] for v in outs):
+            fail(f"{c.name}: serving did not deliver every request in full")
+        return eng, prompts, outs, rec
+
+    def step_breakdown(c, eng, spec: dict, prompt: list) -> dict:
+        """Where a decode tick (every slot, cache position prompt_len + 8) and
+        a prefill spend their time: device busy time from torch.profiler,
+        wall time from a run without the profiler."""
+        B = spec["max_batch"]
+        steps = {
+            "decode_tick": lambda: lm.decode_step(
+                eng.params, c, torch.zeros(B, dtype=torch.long, device=dev),
+                torch.full((B,), spec["prompt_len"] + 8, dtype=torch.int32, device=dev),
+                eng.caches),
+            "prefill": lambda: lm.prefill(eng.params, c, torch.tensor([prompt], device=dev),
+                                          max_seq=spec["max_seq"]),
+        }
+        return {name: profile_step(fn) for name, fn in steps.items()}
+
     # -- 4. serve full-width qwen2-0.5b through the port's Engine ----------
-    t0 = time.time()
-    params = lm.init_params(cfg, SEED, device=dev)
-    torch.cuda.synchronize()
-    print(f"init {ARCH}: {sum(t.numel() for t in _leaves(params)) / 1e6:.1f} M params in "
-          f"{time.time() - t0:.1f} s", flush=True)
-    log = EventLog()
-    eng = Engine(cfg, params, ServeConfig(max_batch=SERVE["max_batch"],
-                                          max_seq=SERVE["max_seq"], seed=SEED), log=log)
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, SERVE["prompt_len"]).tolist()
-               for _ in range(SERVE["requests"])]
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.time()
-    rids = [eng.submit(p, max_new=SERVE["max_new"]) for p in prompts]
-    results = eng.run_to_completion()
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = launch_counts()
-    gen_tokens = sum(len(v) for v in results.values())
-    prefill_ms = [1e3 * d for d in log.durations("prefill")]
-    tick_ms = [1e3 * d for d in log.durations("decode_tick")]
-    serve = {
-        "arch": ARCH, **SERVE, "generated_tokens": gen_tokens, "wall_s": wall,
-        "tokens_per_s": gen_tokens / wall,
-        "mean_prefill_ms": float(np.mean(prefill_ms)),
-        "mean_decode_tick_ms": float(np.mean(tick_ms)), "decode_ticks": len(tick_ms),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernels": counts,
-    }
-    print(f"serve: {json.dumps(serve)}", flush=True)
+    params, _ = init_model(cfg)
+    eng, prompts, outs, serve = serve_run(cfg, params, SERVE)
+    counts, n_ticks = serve["kernels"], serve["decode_ticks"]
     n_layers = cfg.n_layers
-    if sorted(results) != sorted(rids) or any(len(v) != SERVE["max_new"] for v in results.values()):
-        fail("serving did not deliver every request in full")
     if counts["flash_attention"] != n_layers * SERVE["requests"]:
         fail(f"flash_attention launched {counts['flash_attention']} times, "
              f"expected {n_layers} x {SERVE['requests']}")
-    if counts["decode_attention"] != n_layers * len(tick_ms):
+    if counts["decode_attention"] != n_layers * n_ticks:
         fail(f"decode_attention launched {counts['decode_attention']} times, "
-             f"expected {n_layers} x {len(tick_ms)} ticks")
-    forwards = SERVE["requests"] + len(tick_ms)  # 2 norms per layer + the final one
+             f"expected {n_layers} x {n_ticks} ticks")
+    forwards = SERVE["requests"] + n_ticks  # 2 norms per layer + the final one
     if counts["rmsnorm"] != (2 * n_layers + 1) * forwards:
         fail(f"rmsnorm launched {counts['rmsnorm']} times, expected "
              f"{2 * n_layers + 1} x {forwards} forwards")
     for name in records:
         records[name]["launches"] = counts[name]
 
-    # where a decode tick and a prefill spend their time: device busy time
-    # from torch.profiler, wall time from a run without the profiler
-    steps_prof = {
-        "decode_tick": lambda: lm.decode_step(
-            eng.params, cfg, torch.zeros(SERVE["max_batch"], dtype=torch.long, device=dev),
-            torch.full((SERVE["max_batch"],), SERVE["prompt_len"] + 8, dtype=torch.int32,
-                       device=dev), eng.caches),
-        "prefill": lambda: lm.prefill(eng.params, cfg, torch.tensor([prompts[0]], device=dev),
-                                      max_seq=SERVE["max_seq"]),
-    }
-    breakdown = {name: profile_step(fn) for name, fn in steps_prof.items()}
+    breakdown = step_breakdown(cfg, eng, SERVE, prompts[0])
     for name, b in breakdown.items():
         print(f"{name}: {json.dumps(b)}", flush=True)
 
@@ -482,7 +612,7 @@ def main() -> None:
     # with the served weights in f32 and in bf16
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
     params32 = _map(lambda t: t.float(), eng.params)
-    req0 = results[rids[0]]
+    req0 = outs[0]
     def teacher_forced(p, c, impl, prompt, outs, max_seq, steps=8):
         """Logits (steps + 1, 1, V) of a prefill of ``prompt`` and ``steps``
         decode steps fed the served tokens ``outs``."""
@@ -531,70 +661,27 @@ def main() -> None:
         fail("the engine's first token is not the argmax of its prefill logits")
 
     # -- 4b. serve full-width, full-depth deepseek-moe-16b --------------------
-    del eng, params, steps_prof, table, logits, k32, f32, kl, pl
+    del eng, params, table, logits, k32, f32, kl, pl
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    mparams = lm.init_params(mcfg, SEED, device=dev)
-    torch.cuda.synchronize()
-    moe_init = {"seconds": time.time() - t0,
-                "params_b": sum(t.numel() for t in _leaves(mparams)) / 1e9,
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "weights_gb": sum(t.numel() * t.element_size() for t in _leaves(mparams)) / 1e9}
-    print(f"init {MOE_ARCH}: {json.dumps(moe_init)}", flush=True)
-    mlog = EventLog()
-    meng = Engine(mcfg, mparams, ServeConfig(max_batch=MOE_SERVE["max_batch"],
-                                             max_seq=MOE_SERVE["max_seq"], seed=SEED), log=mlog)
-    rng = np.random.default_rng(SEED)
-    mprompts = [rng.integers(0, mcfg.vocab_size, MOE_SERVE["prompt_len"]).tolist()
-                for _ in range(MOE_SERVE["requests"])]
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.time()
-    mrids = [meng.submit(p, max_new=MOE_SERVE["max_new"]) for p in mprompts]
-    mresults = meng.run_to_completion()
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    mcounts = launch_counts()
-    gen_tokens = sum(len(v) for v in mresults.values())
-    prefill_ms = [1e3 * d for d in mlog.durations("prefill")]
-    tick_ms = [1e3 * d for d in mlog.durations("decode_tick")]
-    moe_serve = {
-        "arch": MOE_ARCH, **MOE_SERVE, "generated_tokens": gen_tokens, "wall_s": wall,
-        "tokens_per_s": gen_tokens / wall,
-        "mean_prefill_ms": float(np.mean(prefill_ms)),
-        "mean_decode_tick_ms": float(np.mean(tick_ms)), "decode_ticks": len(tick_ms),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernels": mcounts,
-    }
-    print(f"serve: {json.dumps(moe_serve)}", flush=True)
-    if sorted(mresults) != sorted(mrids) or any(len(v) != MOE_SERVE["max_new"]
-                                                for v in mresults.values()):
-        fail(f"{MOE_ARCH}: serving did not deliver every request in full")
+    mparams, moe_init = init_model(mcfg)
+    meng, mprompts, mouts, moe_serve = serve_run(mcfg, mparams, MOE_SERVE)
+    mcounts, n_ticks = moe_serve["kernels"], moe_serve["decode_ticks"]
     n_layers = mcfg.n_layers
     n_moe = sum(mcfg.layer_spec(i).ffn == "moe" for i in range(n_layers))  # 27
-    forwards = MOE_SERVE["requests"] + len(tick_ms)
+    forwards = MOE_SERVE["requests"] + n_ticks
     want_counts = {"moe_gmm": 3 * n_moe * forwards,  # w1 (+ silu), w3, w2 per MoE layer
                    "flash_attention": n_layers * MOE_SERVE["requests"],
-                   "decode_attention": n_layers * len(tick_ms),
-                   "rmsnorm": (2 * n_layers + 1) * forwards}
+                   "decode_attention": n_layers * n_ticks,
+                   "rmsnorm": (2 * n_layers + 1) * forwards, "rwkv6_scan": 0}
     if mcounts != want_counts:
         fail(f"{MOE_ARCH}: launch counts {mcounts}, expected {want_counts} "
-             f"({forwards} forwards, {len(tick_ms)} ticks)")
+             f"({forwards} forwards, {n_ticks} ticks)")
     for name in records:
         records[name]["launches"] += mcounts[name]
 
-    msteps_prof = {
-        "decode_tick": lambda: lm.decode_step(
-            meng.params, mcfg, torch.zeros(MOE_SERVE["max_batch"], dtype=torch.long, device=dev),
-            torch.full((MOE_SERVE["max_batch"],), MOE_SERVE["prompt_len"] + 8,
-                       dtype=torch.int32, device=dev), meng.caches),
-        "prefill": lambda: lm.prefill(meng.params, mcfg, torch.tensor([mprompts[0]], device=dev),
-                                      max_seq=MOE_SERVE["max_seq"]),
-    }
-    moe_breakdown = {name: profile_step(fn) for name, fn in msteps_prof.items()}
+    moe_breakdown = step_breakdown(mcfg, meng, MOE_SERVE, mprompts[0])
     for name, b in moe_breakdown.items():
         print(f"{MOE_ARCH} {name}: {json.dumps(b)}", flush=True)
-    del msteps_prof
     meng.caches = None  # the engine's caches are not needed past here
 
     # gate (a): one served MoE layer (period 0, model layer 1) through the
@@ -648,7 +735,7 @@ def main() -> None:
         picks.clear()
         ffn_mod.moe_apply = recording_moe_apply
         try:
-            lg = teacher_forced(p, c, impl, mprompts[0], mresults[mrids[0]],
+            lg = teacher_forced(p, c, impl, mprompts[0], mouts[0],
                                 MOE_SERVE["max_seq"])
         finally:
             ffn_mod.moe_apply = real_moe_apply
@@ -689,6 +776,72 @@ def main() -> None:
     print(f"{MOE_ARCH} bf16 (c), full depth, kernels vs plain (reported, no bound): "
           f"{json.dumps(gate_c)}", flush=True)
 
+    # -- 4c. serve full-width, full-depth rwkv6-7b ---------------------------
+    del meng, mparams
+    picks.clear()
+    torch.cuda.empty_cache()
+    rparams, rwkv_init = init_model(rcfg)
+    for sub in rparams["blocks"]["pos0"].values():  # mixer and ffn
+        for name, law in RWKV_FLAT_NOISE.items():
+            if name in sub:
+                t = sub[name]
+                noise = (torch.rand(t.shape, generator=gen, device=dev) if law == "uniform"
+                         else torch.randn(t.shape, generator=gen, device=dev) * law)
+                t.copy_(noise)
+    reng, rprompts, routs, rwkv_serve = serve_run(rcfg, rparams, RWKV_SERVE)
+    rcounts, n_ticks = rwkv_serve["kernels"], rwkv_serve["decode_ticks"]
+    forwards = RWKV_SERVE["requests"] + n_ticks
+    want_counts = {"rwkv6_scan": rcfg.n_layers * RWKV_SERVE["requests"],  # one per layer, prefill
+                   "rmsnorm": (2 * rcfg.n_layers + 1) * forwards,
+                   "flash_attention": 0, "decode_attention": 0, "moe_gmm": 0}
+    if rcounts != want_counts:
+        fail(f"{RWKV_ARCH}: launch counts {rcounts}, expected {want_counts} "
+             f"({forwards} forwards, {n_ticks} ticks)")
+    for name in records:
+        records[name]["launches"] += rcounts[name]
+    rwkv_breakdown = step_breakdown(rcfg, reng, RWKV_SERVE, rprompts[0])
+    for name, b in rwkv_breakdown.items():
+        print(f"{RWKV_ARCH} {name}: {json.dumps(b)}", flush=True)
+    del reng
+
+    # the first request's prefill + 8 teacher-forced decode steps through the
+    # kernels and through the plain versions at full depth, in bf16 (reported)
+    # and with the served weights in f32 (gated); the f32 copy (30.3 GB) fits
+    # beside the bf16 weights once deepseek-moe-16b is gone
+    rlog = {label: teacher_forced(rparams, rcfg, impl, rprompts[0], routs[0],
+                                  RWKV_SERVE["max_seq"])
+            for label, impl in (("kernel", "kernel"), ("plain", "plain"))}
+    rcfg32 = dataclasses.replace(rcfg, param_dtype="float32", activation_dtype="float32")
+    rparams32 = _map(lambda t: t.float(), rparams)
+    del rparams
+    for label, impl in (("kernel_f32", "kernel"), ("plain_f32", "plain")):
+        rlog[label] = teacher_forced(rparams32, rcfg32, impl, rprompts[0], routs[0],
+                                     RWKV_SERVE["max_seq"])
+    rwkv_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del rparams32
+    for name, lg in rlog.items():
+        if lg.shape != (9, 1, rcfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+            fail(f"{RWKV_ARCH} {name} logits {tuple(lg.shape)} not finite or misshapen")
+    kl, pl, k32, f32 = (rlog[n] for n in ("kernel", "plain", "kernel_f32", "plain_f32"))
+    rwkv_gate = {
+        "kernel_vs_plain_f32": float((k32 - f32).abs().max()),
+        "max_abs_logit": float(f32.abs().max()),
+        "argmax_kernel_eq_plain_f32": int((k32.argmax(-1) == f32.argmax(-1)).sum()),
+        "kernel_vs_plain_bf16": float((kl - pl).abs().max()),
+        "kernel_bf16_vs_f32": float((kl - f32).abs().max()),
+        "plain_bf16_vs_f32": float((pl - f32).abs().max()),
+        "argmax_kernel_bf16_eq_f32": int((kl.argmax(-1) == f32.argmax(-1)).sum()),
+        "steps": 9, "layers": rcfg.n_layers, "peak_mem_gb": rwkv_peak_gb,
+    }
+    print(f"{RWKV_ARCH} logits, full width and depth, prefill + 8 teacher-forced decode "
+          f"steps, kernels vs plain: {json.dumps(rwkv_gate)} (tol {F32_LOGIT_TOL} on "
+          f"kernel_vs_plain_f32; bf16 reported)", flush=True)
+    if rwkv_gate["kernel_vs_plain_f32"] > F32_LOGIT_TOL:
+        fail(f"{RWKV_ARCH}: f32 logits through the kernels disagree with the plain versions")
+    if int(torch.argmax(kl[0, 0])) != routs[0][0]:
+        fail(f"{RWKV_ARCH}: the engine's first token is not the argmax of its prefill logits")
+    del rlog, kl, pl, k32, f32
+
     # -- 5. report ----------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
@@ -696,6 +849,8 @@ def main() -> None:
             MOE_ARCH: {"init": moe_init, "serve": moe_serve, "breakdown": moe_breakdown,
                        "gate_a_max_abs_err": gate_a, "gate_b_f32": gate_b,
                        "gate_c_bf16": gate_c},
+            RWKV_ARCH: {"init": rwkv_init, "serve": rwkv_serve, "breakdown": rwkv_breakdown,
+                        "logits": rwkv_gate},
             "seconds": time.time() - t_start}
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)

@@ -1,20 +1,21 @@
 """Architecture registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-The port knows the ``ga`` architectures with dense or MoE FFNs.  The other
-architectures of ``repro.configs`` raise ``NotImplementedError`` naming the
-ROADMAP item that brings their layers.
+The port knows the ``ga`` architectures with dense or MoE FFNs and the RWKV6
+architecture.  The other architectures of ``repro.configs`` raise
+``NotImplementedError`` naming the ROADMAP item that brings their layers.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import LayerSpec, ModelConfig, MoEConfig, reduced
+from repro_torch.configs.base import LayerSpec, ModelConfig, MoEConfig, RWKVConfig, reduced
 
 _ARCH_MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
 # Archs of the JAX package that the port does not run yet, and why.
@@ -24,7 +25,6 @@ _NOT_PORTED = {
     "chameleon-34b": "M10 (QK-norm and the vlm frontend stub)",
     "jamba-1.5-large": "M10 and K5 (Mamba mixer, mamba_scan kernel)",
     "musicgen-large": "M10 (audio frontend stub)",
-    "rwkv6-7b": "M10 and K6 (RWKV6 time/channel mix)",
 }
 
 
@@ -42,4 +42,5 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
 
 
-__all__ = ["LayerSpec", "ModelConfig", "MoEConfig", "get_config", "list_archs", "reduced"]
+__all__ = ["LayerSpec", "ModelConfig", "MoEConfig", "RWKVConfig", "get_config", "list_archs",
+           "reduced"]

@@ -6,8 +6,8 @@ pattern position over the periods; the port walks the stacked axis with a
 Python loop.
 
 The copy holds the fields the ported serving path reads; each has the JAX
-package's name, default and meaning.  Training, Mamba / RWKV and sharding
-fields arrive with the slices that read them (ROADMAP M9, M10).
+package's name, default and meaning.  Training, Mamba and sharding fields
+arrive with the slices that read them (ROADMAP M9, M10).
 """
 from __future__ import annotations
 
@@ -34,6 +34,14 @@ class MoEConfig:
     router_aux_weight: float = 0.01
     router_z_weight: float = 1e-3
     # jitter etc. omitted: deterministic routing for reproducibility
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64  # low-rank dim of the data-dependent decay MLP (RWKV6 "Finch")
+    mix_lora: int = 32  # low-rank dim of the token-shift mix MLPs
+    chunk: int = 128  # chunked-scan block length: a full-sequence T must divide by min(chunk, T)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +72,7 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"
     moe: Optional[MoEConfig] = None
+    rwkv: Optional[RWKVConfig] = None
     # Sharding knobs of the JAX package (GSPMD head padding, activation
     # constraints, sequence-sharded decode).  On one card they change
     # nothing; the port accepts them so a JAX config carries over.
@@ -109,4 +118,7 @@ def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
             n_shared=min(cfg.moe.n_shared, 1),
             d_expert=32 if cfg.moe.d_expert else 0,
         )
+    if cfg.rwkv is not None:
+        changes["rwkv"] = dataclasses.replace(cfg.rwkv, head_dim=16, decay_lora=8, mix_lora=8,
+                                              chunk=16)
     return dataclasses.replace(cfg, **changes)

@@ -24,6 +24,7 @@ from repro_torch.kernels.decode_attention import decode_attention as _decode_ker
 from repro_torch.kernels.flash_attention import flash_attention as _fa_kernel
 from repro_torch.kernels.moe_gmm import gmm as _gmm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_kernel
 
 IMPLS = ("auto", "kernel", "plain")
 _IMPL = "auto"
@@ -202,3 +203,44 @@ def moe_ffn(
         return _ref.moe_ffn_ref(x, w1, w3, w2, act=act)
     h = _gmm_kernel(x, w1, epilogue=act) * _gmm_kernel(x, w3)
     return _gmm_kernel(h, w2)
+
+
+def rwkv6_scan(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: torch.Tensor,
+    *,
+    chunk: int = 32,
+    remat_chunks: bool = False,
+    impl: Optional[str] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 WKV scan: r, k, w (B, T, H, K); v (B, T, H, V); u (H, K);
+    state (B, H, K, V) -> (out (B, T, H, V) in r's dtype, final state).
+
+    T must be a multiple of min(chunk, T) on every route, as in the JAX
+    package, though the kernel itself walks any T.  ``remat_chunks`` only
+    matters for a backward pass; it is accepted and ignored.
+    """
+    T = r.shape[1]
+    if T % min(chunk, T):
+        raise ValueError(f"T={T} must be a multiple of chunk={min(chunk, T)}")
+    if _resolve(impl, r) == "plain":
+        return _ref.rwkv6_scan_chunked(r, k, v, w, u, state, chunk=chunk)
+    return _rwkv6_kernel(r, k, v, w, u, state, chunk=chunk)
+
+
+def rwkv6_step(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+    state: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the recurrence: r, k, w (B, H, K); v (B, H, V);
+    state (B, H, K, V) -> (out (B, H, V) in r's dtype, state in its dtype).
+    Plain PyTorch, as the JAX package's step is plain jnp."""
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    sf = state.float()
+    kv = kf[..., :, None] * vf[..., None, :]
+    out = torch.einsum("bhk,bhkv->bhv", rf, sf + u.float()[None, :, :, None] * kv)
+    return out.to(r.dtype), (wf[..., None] * sf + kv).to(state.dtype)

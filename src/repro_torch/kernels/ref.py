@@ -1,15 +1,17 @@
 """Plain PyTorch versions of the ported kernels (counterpart of
 ``repro/kernels/ref.py``).
 
-Each is the simplest correct implementation, materialising the full score
-matrix.  The CPU path of every kernel wrapper runs them, the CPU tests hold
-them against the JAX package, and ``chip_smoke.py`` holds each CUDA/Triton
-kernel against them on the card.
+Each is the simplest correct implementation (the attention versions
+materialise the full score matrix).  The CPU path of every kernel wrapper
+runs them, the CPU tests hold them against the JAX package, and
+``chip_smoke.py`` holds each CUDA/Triton kernel against them on the card.
 
 Shape conventions:
   attention   q: (B, Sq, Hq, D);  k, v: (B, Skv, Hkv, D);  Hq % Hkv == 0
   decode      q: (B, Hq, D);      cache: (B, S, Hkv, D);   pos_ids: (B, S)
   gmm         x: (E, C, D);       w: (E, D, F)
+  rwkv6 scan  r, k, w: (B, T, H, K);  v: (B, T, H, V);  u: (H, K);
+              state: (B, H, K, V)
 """
 from __future__ import annotations
 
@@ -131,3 +133,81 @@ def moe_ffn_ref(
     as ``repro/kernels/ref.py::moe_ffn_ref`` does."""
     h = EPILOGUES[act](gmm_ref(x, w1).float()) * gmm_ref(x, w3).float()
     return gmm_ref(h.to(x.dtype), w2)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch) WKV scan
+# ---------------------------------------------------------------------------
+
+
+def rwkv6_scan_ref(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Serial per-step recurrence, the oracle:
+
+      out_t = r_t · (S_t + diag(u) k_t v_tᵀ);   S_{t+1} = diag(w_t) S_t + k_t v_tᵀ
+
+    f32 math; returns (out (B, T, H, V) in r's dtype, state in its dtype).
+    """
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf, s = u.float(), state.float()
+    outs = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B, H, K, V)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uf[None, :, :, None] * kv))
+        s = wf[:, t, :, :, None] * s + kv
+    return torch.stack(outs, 1).to(r.dtype), s.to(state.dtype)
+
+
+def rwkv6_scan_chunked(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: torch.Tensor,
+    *,
+    chunk: int = 32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked closed form of the same recurrence (the JAX package's
+    production path).  Within a chunk of L steps, with cum = cumsum(log w):
+
+      out_t = r_t·(P_t ⊙ S₀) + Σ_{s<t} r_t·(D_{ts} ⊙ k_s) v_s + (r_t·(u ⊙ k_t)) v_t
+      D_{ts} = exp(cum_{t-1} − cum_s) ≤ 1,   P_t = exp(cum_{t-1})
+
+    The pairwise decays stay in this log-space difference form: each is at
+    most 1, where exp(cum_{t-1}) · exp(−cum_s) would overflow once a
+    chunk's −cum reaches ~88.  The (B, L, L, H, K) pairwise tensor is
+    materialised in f32.  T must be a multiple of min(chunk, T).
+    """
+    B, T, H, K = r.shape
+    L = min(chunk, T)
+    if T % L:
+        raise ValueError(f"T={T} must be a multiple of chunk={L}")
+    rf, kf, vf = (a.float() for a in (r, k, v))
+    lw = torch.log(w.float().clamp(1e-38, 1.0))
+    uf, s = u.float(), state.float()
+    tri = torch.ones(L, L, dtype=torch.bool, device=r.device).tril(-1)  # strict s < t
+    eye = torch.eye(L, device=r.device)
+    outs = []
+    for c0 in range(0, T, L):
+        rc, kc, vc, lwc = (a[:, c0:c0 + L] for a in (rf, kf, vf, lw))  # (B, L, H, ·)
+        cum = lwc.cumsum(1)  # inclusive: cum_t = Σ_{i<=t} lw_i
+        prev = cum - lwc  # cum_{t-1}
+        dmat = prev[:, :, None] - cum[:, None, :]  # (B, L, L, H, K): t = dim 1, s = dim 2
+        dmat = torch.where(tri[None, :, :, None, None], dmat, NEG_INF)
+        att = torch.einsum("bthk,btshk,bshk->bths", rc, dmat.exp(), kc)
+        diag = torch.einsum("bthk,hk,bthk->bth", rc, uf, kc)  # u-bonus at s == t
+        att = att + diag[..., None] * eye[None, :, None, :]
+        intra = torch.einsum("bths,bshv->bthv", att, vc)
+        inter = torch.einsum("bthk,bhkv->bthv", rc * prev.exp(), s)
+        # chunk-end state: exp(cum_{L-1}) ⊙ S₀ + Σ_s exp(cum_{L-1} − cum_s) k_s v_sᵀ
+        dend = (cum[:, -1:] - cum).exp()
+        s = cum[:, -1].exp()[..., None] * s + torch.einsum("bshk,bshv->bhkv", kc * dend, vc)
+        outs.append(intra + inter)
+    return torch.cat(outs, 1).to(r.dtype), s.to(state.dtype)

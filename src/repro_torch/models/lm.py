@@ -1,4 +1,5 @@
-"""Decoder-only LM over a per-layer pattern spec: attention with dense or MoE FFNs.
+"""Decoder-only LM over a per-layer pattern spec: attention with dense or MoE
+FFNs, and RWKV6 time mix with its channel mix.
 
 Counterpart of ``repro/models/lm.py``.  Parameters and caches keep the JAX
 package's tree: layers outside whole periods live under ``head{i}`` /
@@ -13,9 +14,9 @@ Surfaces:
   * ``prefill``      — forward + KV cache construction + last-pos logits.
   * ``decode_step``  — one token per sequence against the caches.
 
-Mamba and RWKV mixers and the vlm/audio frontends raise
-``NotImplementedError`` (ROADMAP item M10); the training loss, which reads
-the MoE layers' aux losses, is M9, so serving discards them.
+The Mamba mixer and the vlm/audio frontends raise ``NotImplementedError``
+(ROADMAP item M10); the training loss, which reads the MoE layers' aux
+losses, is M9, so serving discards them.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.nn import attention as attn
 from repro_torch.nn import core as nn
 from repro_torch.nn import ffn as ffn_mod
+from repro_torch.nn import rwkv as rwkv_mod
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -38,9 +40,9 @@ def torch_dtype(name: str) -> torch.dtype:
 def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
     if cfg.frontend != "text":
         raise NotImplementedError(f"frontend {cfg.frontend!r} is ROADMAP item M10")
-    if spec.mixer not in ("ga", "swa"):
+    if spec.mixer not in ("ga", "swa", "rwkv"):
         raise NotImplementedError(f"mixer {spec.mixer!r} is ROADMAP item M10")
-    if spec.ffn not in ("dense", "moe", "none"):
+    if spec.ffn not in ("dense", "moe", "rwkv_ffn", "none"):
         raise NotImplementedError(f"ffn {spec.ffn!r} is ROADMAP item M10")
 
 
@@ -52,13 +54,14 @@ def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
 def _block_init(pf: nn.ParamFactory, cfg: ModelConfig, spec: LayerSpec) -> dict:
     _check_supported(cfg, spec)
     p: dict = {"norm1": nn.rmsnorm_init(pf, cfg.d_model)}
-    p["mixer"] = attn.attention_init(pf, cfg)
+    p["mixer"] = (rwkv_mod.time_mix_init(pf, cfg) if spec.mixer == "rwkv"
+                  else attn.attention_init(pf, cfg))
     if cfg.post_block_norms:
         p["norm1_post"] = nn.rmsnorm_init(pf, cfg.d_model)
     if spec.ffn != "none":
         p["norm2"] = nn.rmsnorm_init(pf, cfg.d_model)
-        p["ffn"] = (ffn_mod.moe_init(pf, cfg) if spec.ffn == "moe"
-                    else ffn_mod.ffn_init(pf, cfg))
+        init = {"moe": ffn_mod.moe_init, "rwkv_ffn": rwkv_mod.channel_mix_init}
+        p["ffn"] = init.get(spec.ffn, ffn_mod.ffn_init)(pf, cfg)
         if cfg.post_block_norms:
             p["norm2_post"] = nn.rmsnorm_init(pf, cfg.d_model)
     return p
@@ -105,8 +108,16 @@ def init_params(
 
 
 def _block_cache(cfg, spec, batch, max_seq, dtype, device) -> dict:
+    """A block's decode state: the KV cache of an attention mixer, or the
+    shift vectors and f32 WKV state of an RWKV block."""
     _check_supported(cfg, spec)
-    return {"mixer": attn.init_cache(cfg, spec.mixer, batch, max_seq, dtype, device)}
+    if spec.mixer == "rwkv":
+        c = {"mixer": rwkv_mod.init_time_cache(cfg, batch, dtype, device)}
+    else:
+        c = {"mixer": attn.init_cache(cfg, spec.mixer, batch, max_seq, dtype, device)}
+    if spec.ffn == "rwkv_ffn":
+        c["ffn"] = rwkv_mod.init_channel_cache(cfg, batch, dtype, device)
+    return c
 
 
 def init_caches(
@@ -159,10 +170,12 @@ def _block_apply(
     """One block; its cache (if any) is updated in place.  An MoE block's
     aux losses are discarded (serving)."""
     h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    h, _ = attn.attention_apply(
-        p["mixer"], h, cfg, spec.mixer, positions, mode=mode,
-        cache=cache.get("mixer") if cache else None,
-    )
+    mixer_cache = cache.get("mixer") if cache else None
+    if spec.mixer == "rwkv":
+        h, _ = rwkv_mod.time_mix_apply(p["mixer"], h, cfg, mode=mode, cache=mixer_cache)
+    else:
+        h, _ = attn.attention_apply(p["mixer"], h, cfg, spec.mixer, positions, mode=mode,
+                                    cache=mixer_cache)
     if "norm1_post" in p:
         h = nn.rmsnorm(p["norm1_post"], h, cfg.norm_eps)
     x = x + h
@@ -170,6 +183,9 @@ def _block_apply(
         h = nn.rmsnorm(p["norm2"], x, cfg.norm_eps)
         if spec.ffn == "moe":
             h, _ = ffn_mod.moe_apply(p["ffn"], h, cfg)
+        elif spec.ffn == "rwkv_ffn":
+            h, _ = rwkv_mod.channel_mix_apply(p["ffn"], h, cfg,
+                                              cache=cache.get("ffn") if cache else None)
         else:
             h = ffn_mod.ffn_apply(p["ffn"], h, cfg)
         if "norm2_post" in p:

@@ -8,7 +8,8 @@ functions: ``foo_init(pf, ...)`` declares its parameters through a
 
 The port draws its own initial values from a ``torch.Generator`` under the
 same laws (normal std 0.02 unless scaled, embedding std ``dim**-0.5``, zero
-biases and norm scales); it does not reproduce ``jax.random``'s bits.
+biases and norm scales, the deterministic inits of the RWKV layers); it does
+not reproduce ``jax.random``'s bits.
 """
 from __future__ import annotations
 
@@ -49,26 +50,38 @@ class ParamFactory:
     def param(
         self,
         shape: Sequence[int],
-        init: str = "normal",
+        init: str | Callable[[tuple[int, ...]], torch.Tensor] = "normal",
         scale: Optional[float] = None,
         dtype: Optional[torch.dtype] = None,
     ) -> torch.Tensor:
+        """One parameter of ``shape`` (plus the stacked leading axes).
+
+        ``init`` is ``"normal"`` (std ``scale``, default 0.02), ``"zeros"``,
+        ``"ones"``, or a deterministic callable ``init(shape)`` that returns
+        one period's f32 values; it is called once per period, as the JAX
+        package's vmapped init calls it once per period key.
+        """
         shape = self._lead + tuple(shape)
         dtype = dtype or self.param_dtype
-        if init == "normal":
-            # Drawn in f32 one leading slice at a time (one period of a
-            # stacked leaf), so the f32 draw of a large stacked leaf (deepseek's
-            # experts: 27 x 738 MB) never exists whole beside the weights.
-            std = 0.02 if scale is None else scale
-            out = torch.empty(shape, dtype=dtype, device=self.device)
-            for part in (out.unbind(0) if self._lead else (out,)):
-                x = torch.randn(part.shape, generator=self.generator, dtype=torch.float32,
-                                device=self.device)
-                part.copy_(x.mul_(std))
-            return out
         if init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=self.device)
-        raise ValueError(f"unknown init {init!r}")
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=self.device)
+        if init != "normal" and not callable(init):
+            raise ValueError(f"unknown init {init!r}")
+        # Drawn in f32 one leading slice at a time (one period of a stacked
+        # leaf), so the f32 draw of a large stacked leaf (deepseek's experts:
+        # 27 x 738 MB) never exists whole beside the weights.
+        std = 0.02 if scale is None else scale
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        for part in (out.unbind(0) if self._lead else (out,)):
+            if callable(init):
+                x = init(tuple(part.shape)).to(self.device)
+            else:
+                x = torch.randn(part.shape, generator=self.generator, dtype=torch.float32,
+                                device=self.device).mul_(std)
+            part.copy_(x)
+        return out
 
 
 def linear_init(

@@ -6,6 +6,12 @@ decode batch keeps its caches on the device; a new request is prefilled
 alone (batch 1) and its cache is copied into its slot in place; one batched
 decode step per tick advances every slot.
 
+Every cache leaf is ``(B, ...)``, or ``(n_periods, B, ...)`` under
+``blocks``: attention KV caches and their ``pos_ids``, and the RWKV6 blocks'
+``shift`` vectors (B, D) and f32 ``wkv`` states (B, H, K, V).  A prefill's
+leaves are copied into the slot along that batch axis, so a recurrent state
+is replaced whole when a request takes over a slot.
+
 Request lifecycle events (spawn/exit) and the ``prefill`` / ``decode_tick``
 brackets flow into the :class:`~repro_torch.core.events.EventLog`, as in the
 JAX engine.

@@ -16,13 +16,16 @@ import numpy as np  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as jax_decode  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.moe_gmm import gmm as jax_gmm  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
+from repro.kernels.rwkv6_scan import rwkv6_scan as jax_rwkv6  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm import gmm  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -215,6 +218,159 @@ def test_gmm_rejects_unknown_epilogue():
     x = torch.zeros(1, 2, 3)
     with pytest.raises(ValueError, match="epilogue"):
         gmm(x, torch.zeros(1, 3, 4), epilogue="relu")
+
+
+# ---------------------------------------------------------------------------
+# K6 RWKV6 WKV scan
+# ---------------------------------------------------------------------------
+
+
+def _rwkv6_inputs(seed, B, T, H, K, decay="mixed"):
+    """r, k, v, w, u, state as numpy f32.  r and k have std K**-0.5, so that
+    r·k is O(1) at every head size (standard normals at K = 64 put outputs
+    near 100, where the tolerance would test f32 sums, not the algorithm).
+    Decays: "mixed" is tests/test_kernels.py's law exp(-exp(N(0, 0.5²)));
+    "strong" puts w in [10**-37.5, 1e-30], down to the chunked form's
+    1e-38 clip (the state forgets at once); "subnormal" in [1e-45, 1e-38],
+    below the smallest normal f32; "weak" in [0.999, 1]."""
+    rng = np.random.default_rng(seed)
+    r, k = (rng.standard_normal((B, T, H, K), np.float32) * K**-0.5 for _ in range(2))
+    v = rng.standard_normal((B, T, H, K), np.float32)
+    if decay == "strong":
+        w = 10.0 ** rng.uniform(-37.5, -30, (B, T, H, K))
+    elif decay == "subnormal":
+        w = 10.0 ** rng.uniform(-45, -38, (B, T, H, K))
+    elif decay == "weak":
+        w = 1.0 - rng.uniform(0, 1e-3, (B, T, H, K))
+    else:
+        w = np.exp(-np.exp(rng.standard_normal((B, T, H, K)) * 0.5))
+    u = rng.standard_normal((H, K), np.float32) * 0.5
+    s0 = rng.standard_normal((B, H, K, K), np.float32) * 0.1
+    return r, k, v, w.astype(np.float32), u, s0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,K,chunk", [(2, 64, 3, 8, 16), (1, 32, 2, 16, 32),
+                                           (2, 48, 1, 8, 16), (1, 64, 64, 64, 32)])
+def test_rwkv6_scan_vs_pallas(B, T, H, K, chunk, dtype):
+    """tests/test_kernels.py's shapes and the full head shape (64 heads of
+    64), a non-zero state, w cast to the dtype as there: the port's op on
+    the CPU (the chunked plain version) against the Pallas kernel in
+    interpret mode and against the JAX serial oracle."""
+    arrays = _rwkv6_inputs(51, B, T, H, K)
+    pairs = [_pair(a, dtype) for a in arrays[:5]] + [_pair(arrays[5], "float32")]
+    jx, tx = [j for j, _ in pairs], [t for _, t in pairs]
+    want_o, want_s = jax_ref.rwkv6_scan_ref(*jx)
+    pal_o, pal_s = jax_rwkv6(*jx, chunk=chunk, interpret=True)
+    got_o, got_s = ops.rwkv6_scan(*tx, chunk=chunk)
+    assert got_o.dtype == tx[0].dtype and tuple(got_o.shape) == (B, T, H, K)
+    assert got_s.dtype == torch.float32 and tuple(got_s.shape) == (B, H, K, K)
+    for want in (want_o, pal_o):
+        _close(want, got_o, **tols(dtype))
+    for want in (want_s, pal_s):
+        _close(want, got_s, **tols(dtype))
+    # the port's own serial oracle, and the kernel wrapper's CPU route
+    ref_o, ref_s = ref.rwkv6_scan_ref(*tx)
+    _close(want_o, ref_o, **tols(dtype))
+    _close(want_s, ref_s, **tols(dtype))
+    torch.testing.assert_close(rwkv6_scan(*tx, chunk=chunk)[0], got_o)
+
+
+def closed_form_tol(chunk: int) -> float:
+    """The chunked closed form's own f32 rounding, relative to max |out|.
+
+    Each pairwise decay is exp of a difference of two in-chunk cumsums of
+    log w, which reach chunk x 88 in magnitude when w nears the 1e-38 clip.
+    The difference carries about one ulp of that magnitude, 2**-23 x chunk x
+    88, and exp turns it into the same relative error of a term whose decay
+    is ~1 (the previous step's k vᵀ).  The serial recurrence has no such
+    term.  At chunk 32 that is 3.4e-4; at mixed decays the cumsums stay
+    small and the usual 3e-5 holds."""
+    return 2.0**-23 * chunk * 88
+
+
+@pytest.mark.parametrize("decay", ["strong", "weak"])
+def test_rwkv6_scan_extreme_decays(decay):
+    """Decays at both ends of (0, 1]: w near 1e-38 over a 32-step chunk (a
+    cum of ~-2800, which exp(cum_{t-1}) · exp(-cum_s) would overflow) and w
+    near 1, which carries the state across chunks.  The serial oracles and
+    the final states agree within 3e-5; the closed form's outputs, the
+    port's and Pallas', within its own rounding at strong decays."""
+    B, T, H, K, chunk = 1, 64, 4, 16, 32
+    arrays = _rwkv6_inputs(52, B, T, H, K, decay)
+    jx = [jnp.asarray(a) for a in arrays]
+    tx = [torch.from_numpy(a) for a in arrays]
+    want_o, want_s = jax_ref.rwkv6_scan_ref(*jx)
+    ref_o, ref_s = ref.rwkv6_scan_ref(*tx)
+    _close(want_o, ref_o, **tols("float32"))
+    _close(want_s, ref_s, **tols("float32"))
+    pal_o, pal_s = jax_rwkv6(*jx, chunk=chunk, interpret=True)
+    got_o, got_s = ops.rwkv6_scan(*tx, chunk=chunk)
+    assert bool(torch.isfinite(got_o).all()) and bool(torch.isfinite(got_s).all())
+    tol_o = (dict(atol=closed_form_tol(chunk) * float(np.abs(want_o).max()), rtol=0.0)
+             if decay == "strong" else tols("float32"))
+    pallas = (torch.from_numpy(np.array(pal_o)), torch.from_numpy(np.array(pal_s)))
+    for closed_o, closed_s in (pallas, (got_o, got_s)):
+        _close(want_o, closed_o, **tol_o)
+        _close(want_s, closed_s, **tols("float32"))
+    if decay == "strong":  # the final state is the last step's k vᵀ alone
+        kv = tx[1][:, -1, :, :, None] * tx[2][:, -1, :, None, :]
+        torch.testing.assert_close(got_s, kv, atol=3e-5, rtol=3e-5)
+
+
+def test_rwkv6_scan_subnormal_decays_stay_finite():
+    """w below the smallest normal f32 (1.18e-38).  XLA on the CPU flushes
+    such values to zero, so the JAX package's chunked form takes log(0) and
+    returns NaN there (ROADMAP R7); the port's chunked form clips at 1e-38
+    and stays finite, and matches the JAX serial oracle, which multiplies
+    the state by the flushed w and so agrees up to a 1e-38 factor."""
+    arrays = _rwkv6_inputs(55, 1, 64, 4, 16, "subnormal")
+    tx = [torch.from_numpy(a) for a in arrays]
+    want_o, want_s = jax_ref.rwkv6_scan_ref(*(jnp.asarray(a) for a in arrays))
+    got_o, got_s = ops.rwkv6_scan(*tx, chunk=32)
+    assert bool(torch.isfinite(got_o).all()) and bool(torch.isfinite(got_s).all())
+    _close(want_o, got_o, atol=closed_form_tol(32) * float(np.abs(want_o).max()), rtol=0.0)
+    _close(want_s, got_s, **tols("float32"))
+
+
+def test_rwkv6_step_matches_scan():
+    """ops.rwkv6_step, step by step, reproduces the scan and the JAX step
+    (tests/test_kernels.py::test_ops_decode_steps_match_scans)."""
+    B, T, H, K = 2, 8, 2, 8
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in _rwkv6_inputs(53, B, T, H, K))
+    want_o, want_s = ops.rwkv6_scan(r, k, v, w, u, s0, chunk=T)
+    st, outs = s0, []
+    for t in range(T):
+        o, st = ops.rwkv6_step(r[:, t], k[:, t], v[:, t], w[:, t], u, st)
+        jo, _ = jax_ops.rwkv6_step(*(jnp.asarray(a[:, t].numpy()) for a in (r, k, v, w)),
+                                   jnp.asarray(u.numpy()), jnp.asarray(st.numpy()))
+        outs.append(o)
+    torch.testing.assert_close(torch.stack(outs, 1), want_o, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(st, want_s, atol=2e-5, rtol=2e-5)
+    # the step's dtypes: out in r's, state in the state's
+    o, s = ops.rwkv6_step(r[:, 0].bfloat16(), k[:, 0].bfloat16(), v[:, 0].bfloat16(),
+                          w[:, 0].bfloat16(), u.bfloat16(), s0)
+    assert (o.dtype, s.dtype) == (torch.bfloat16, torch.float32)
+
+
+def test_rwkv6_scan_chunk_contract():
+    """T must be a multiple of min(chunk, T) on every route, where the JAX
+    op asserts it too (ROADMAP R6); T <= chunk always passes."""
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in _rwkv6_inputs(54, 1, 20, 2, 8))
+    for impl in ("auto", "plain"):
+        with pytest.raises(ValueError, match="multiple of chunk=16"):
+            ops.rwkv6_scan(r, k, v, w, u, s0, chunk=16, impl=impl)
+    with pytest.raises(AssertionError, match="multiple of chunk=16"):
+        jax_ops.rwkv6_scan(*(jnp.asarray(a.numpy()) for a in (r, k, v, w, u, s0)), chunk=16)
+    out, _ = ops.rwkv6_scan(r, k, v, w, u, s0, chunk=32, remat_chunks=True)
+    assert tuple(out.shape) == (1, 20, 2, 8)
+
+
+def test_rwkv6_wrapper_refuses_other_devices():
+    r = torch.zeros(1, 4, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        rwkv6_scan(r, r, r, r, torch.zeros(2, 8, device="meta"),
+                   torch.zeros(1, 2, 8, 8, device="meta"))
 
 
 # ---------------------------------------------------------------------------

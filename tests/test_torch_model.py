@@ -21,14 +21,16 @@ from repro.models import lm as jax_lm  # noqa: E402
 from repro.nn import attention as jax_attn  # noqa: E402
 from repro.nn import core as jax_nn  # noqa: E402
 from repro.nn import ffn as jax_ffn  # noqa: E402
+from repro.nn import rwkv as jax_rwkv  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.nn import attention as attn  # noqa: E402
 from repro_torch.nn import core as nn  # noqa: E402
 from repro_torch.nn import ffn  # noqa: E402
+from repro_torch.nn import rwkv  # noqa: E402
 
-ARCHS = ["qwen2-0.5b", "smollm-360m", "deepseek-moe-16b", "dbrx-132b"]
+ARCHS = ["qwen2-0.5b", "smollm-360m", "deepseek-moe-16b", "dbrx-132b", "rwkv6-7b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -71,11 +73,15 @@ def test_config_copies_match_jax(arch):
                       (reduced(get_config(arch)), jax_reduced(jax_get_config(arch)))):
         fields = dataclasses.asdict(port)
         assert fields == {k: v for k, v in dataclasses.asdict(ref).items() if k in fields}
-        assert (ref.mamba, ref.rwkv, ref.fused_attention_vjp) == (None, None, False)
+        assert (ref.mamba, ref.fused_attention_vjp) == (None, False)
         assert (port.n_periods, port.period) == (ref.n_periods, ref.period)
+        # the RWKV sub-config: the same fields and values, or absent on both
+        assert (port.rwkv is None) == (ref.rwkv is None)
+        if port.rwkv is not None:
+            assert dataclasses.asdict(port.rwkv) == dataclasses.asdict(ref.rwkv)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-27b", "jamba-1.5-large", "rwkv6-7b", "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["gemma2-27b", "jamba-1.5-large", "chameleon-34b"])
 def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP item M10"):
         get_config(arch)
@@ -102,7 +108,8 @@ def test_init_params_tree_matches_jax(arch):
 
     walk(jshapes, p)
     assert float(p["final_norm"]["scale"].abs().max()) == 0.0
-    w = p["blocks"]["pos0"]["ffn"]["w1"]
+    ffn_p = p["blocks"]["pos0"]["ffn"]
+    w = ffn_p["w1"] if "w1" in ffn_p else ffn_p["wk"]  # dense / MoE, or RWKV channel mix
     w = w["w"] if isinstance(w, dict) else w  # an MoE layer's experts are a bare leaf
     assert abs(float(w.std()) - 0.02) < 0.002
     assert abs(float(p["embed"]["table"].std()) - cfg.d_model**-0.5) < 0.01
@@ -373,3 +380,170 @@ def test_unported_layers_raise():
     cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")), frontend="vlm_stub")
     with pytest.raises(NotImplementedError, match="M10"):
         lm.init_params(cfg, 0, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the RWKV6 layers
+# ---------------------------------------------------------------------------
+
+# Leaves the JAX init sets to zeros or ones.  At init they make the ddlerp
+# return x for every target and the decay constant in time, so the parity
+# tests below overwrite them with seeded noise on both sides.
+_RWKV_FLAT_LEAVES = {"mu_base": 0.5, "mu": 0.5, "mix_w2": 0.3, "decay_w2": 0.5, "mu_k": 0.5,
+                     "mu_r": 0.5, "ln_scale": 0.3, "ln_bias": 0.3}
+
+
+def _perturb_rwkv(tree, seed):
+    """A copy of a JAX param tree (numpy leaves) with every flat-init RWKV
+    leaf replaced by noise (ln_scale around 1)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k in _RWKV_FLAT_LEAVES:
+                noise = rng.standard_normal(v.shape) * _RWKV_FLAT_LEAVES[k]
+                out[k] = (noise + (k == "ln_scale")).astype(v.dtype)
+            else:
+                out[k] = v
+        return out
+
+    return walk(jax.tree.map(np.asarray, tree))
+
+
+def _rwkv_layer(init_name, seed):
+    jcfg, cfg, _, _ = _both("rwkv6-7b")
+    jp = getattr(jax_rwkv, init_name)(jax_nn.ValueFactory(jax.random.PRNGKey(seed), jnp.float32),
+                                      jcfg)
+    jp = _perturb_rwkv(jp, seed)
+    return jcfg, cfg, jax.tree.map(jnp.asarray, jp), params_from_jax(jp, cfg, device="cpu")
+
+
+def test_rwkv_init_laws():
+    """The port's own init: the decay base in every period, ones and zeros
+    where the JAX init puts them, f32 for w0 and the group-norm affine."""
+    cfg = reduced(get_config("rwkv6-7b"))
+    p = lm.init_params(cfg, 0, device="cpu")["blocks"]["pos0"]
+    tm, cm = p["mixer"], p["ffn"]
+    H, K = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    base = -6.0 + 5.0 * (np.arange(K, dtype=np.float32) / (K - 1)) ** 0.7
+    for leaf in ("w0", "ln_scale", "ln_bias"):
+        assert tm[leaf].dtype == torch.float32 and tuple(tm[leaf].shape) == (cfg.n_periods, H, K)
+    np.testing.assert_allclose(tm["w0"].numpy(), np.broadcast_to(base, (cfg.n_periods, H, K)),
+                               rtol=1e-6)
+    assert bool((tm["ln_scale"] == 1).all()) and bool((tm["ln_bias"] == 0).all())
+    for leaf in ("mu_base", "mu", "mix_w2", "decay_w2"):
+        assert bool((tm[leaf] == 0).all()), leaf
+    assert bool((cm["mu_k"] == 0).all()) and bool((cm["mu_r"] == 0).all())
+    assert abs(float(tm["u"].std()) - 0.5) < 0.1
+
+
+def test_bridge_rwkv_leaves_keep_their_dtypes():
+    """In a bf16 model the f32 leaves (w0, ln_scale, ln_bias) cross as f32
+    and the bf16 leaves bit for bit."""
+    jcfg, cfg, jp, p = _both("rwkv6-7b", param_dtype="bfloat16", activation_dtype="bfloat16")
+    jm, tm = jp["blocks"]["pos0"]["mixer"], p["blocks"]["pos0"]["mixer"]
+    for leaf in ("w0", "ln_scale", "ln_bias"):
+        assert tm[leaf].dtype == torch.float32
+        np.testing.assert_array_equal(tm[leaf].numpy(), np.asarray(jm[leaf]))
+    for jw, tw in ((jm["u"], tm["u"]), (jm["mix_w1"], tm["mix_w1"]),
+                   (jm["recv"]["w"], tm["recv"]["w"]),
+                   (jp["blocks"]["pos0"]["ffn"]["wk"]["w"], p["blocks"]["pos0"]["ffn"]["wk"]["w"])):
+        assert tw.dtype == torch.bfloat16
+        np.testing.assert_array_equal(tw.view(torch.int16).numpy().view(np.uint16),
+                                      np.asarray(jw).view(np.uint16))
+
+
+@pytest.mark.parametrize("with_cache", [False, True])
+def test_time_mix_apply_full_and_decode(with_cache):
+    """repro.nn.rwkv.time_mix_apply with every flat-init leaf perturbed: a
+    full sequence (no cache, or filling one), then three decode steps
+    against the cache (shift and f32 WKV state compared each step)."""
+    jcfg, cfg, jp, p = _rwkv_layer("time_mix_init", 11)
+    rng = np.random.default_rng(12)
+    B, S, D = 2, 16, cfg.d_model
+    H, K = D // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    x = rng.standard_normal((B, S, D), np.float32)
+    jc = jax_rwkv.init_time_cache(jcfg, B, jnp.float32) if with_cache else None
+    tc = rwkv.init_time_cache(cfg, B, torch.float32, torch.device("cpu")) if with_cache else None
+    jo, jc = jax_rwkv.time_mix_apply(jp, jnp.asarray(x), jcfg, mode="full", cache=jc)
+    to, tc = rwkv.time_mix_apply(p, _t(x), cfg, mode="full", cache=tc)
+    _close(jo, to)
+    if not with_cache:
+        assert tc is None
+        return
+    assert tuple(tc["wkv"].shape) == (B, H, K, K) and tc["wkv"].dtype == torch.float32
+    _tree_close(jc, tc)
+    for _ in range(3):
+        xt = rng.standard_normal((B, 1, D), np.float32)
+        jo, jc = jax_rwkv.time_mix_apply(jp, jnp.asarray(xt), jcfg, mode="decode", cache=jc)
+        to, tc = rwkv.time_mix_apply(p, _t(xt), cfg, mode="decode", cache=tc)
+        _close(jo, to)
+        _tree_close(jc, tc)
+    # the shift cache holds the last input of the sub-layer
+    np.testing.assert_array_equal(tc["shift"].numpy(), xt[:, -1])
+
+
+def test_channel_mix_apply_full_and_decode():
+    jcfg, cfg, jp, p = _rwkv_layer("channel_mix_init", 13)
+    rng = np.random.default_rng(14)
+    B, S, D = 2, 10, cfg.d_model
+    x = rng.standard_normal((B, S, D), np.float32)
+    jc = jax_rwkv.init_channel_cache(jcfg, B, jnp.float32)
+    tc = rwkv.init_channel_cache(cfg, B, torch.float32, torch.device("cpu"))
+    jo, jc = jax_rwkv.channel_mix_apply(jp, jnp.asarray(x), jcfg, cache=jc)
+    to, tc = rwkv.channel_mix_apply(p, _t(x), cfg, cache=tc)
+    _close(jo, to)
+    _tree_close(jc, tc)
+    for _ in range(3):
+        xt = rng.standard_normal((B, 1, D), np.float32)
+        jo, jc = jax_rwkv.channel_mix_apply(jp, jnp.asarray(xt), jcfg, cache=jc)
+        to, tc = rwkv.channel_mix_apply(p, _t(xt), cfg, cache=tc)
+        _close(jo, to)
+        _tree_close(jc, tc)
+    jo, _ = jax_rwkv.channel_mix_apply(jp, jnp.asarray(x), jcfg)
+    to, none = rwkv.channel_mix_apply(p, _t(x), cfg)
+    assert none is None
+    _close(jo, to)
+
+
+def test_rwkv_model_with_perturbed_leaves_matches_jax():
+    """Reduced rwkv6-7b with every flat-init leaf perturbed, so the
+    data-dependent mix and decay act: prefill, caches and four decode steps
+    against the JAX model."""
+    jcfg, cfg, jp, _ = _both("rwkv6-7b")
+    noisy = _perturb_rwkv(jp, 15)
+    jp, p = jax.tree.map(jnp.asarray, noisy), params_from_jax(noisy, cfg, device="cpu")
+    B, S = 2, 16
+    toks = np.random.default_rng(16).integers(0, cfg.vocab_size, (B, S + 4))
+    jl, jc = jax_lm.prefill(jp, jcfg, jnp.asarray(toks[:, :S], jnp.int32), max_seq=32)
+    tl, tc = lm.prefill(p, cfg, _t(toks[:, :S]), max_seq=32)
+    _close(jl, tl)
+    _tree_close(jc, tc)
+    for t in range(S, S + 4):
+        cur = np.full((B,), t, np.int32)
+        jl, jc = jax_lm.decode_step(jp, jcfg, jnp.asarray(toks[:, t], jnp.int32),
+                                    jnp.asarray(cur), jc)
+        tl, tc = lm.decode_step(p, cfg, _t(toks[:, t]), _t(cur), tc)
+        _close(jl, tl)
+    _tree_close(jc, tc)
+
+
+@pytest.mark.parametrize("S", [12, 16, 20, 32])
+def test_rwkv_prefill_chunk_contract(S):
+    """A prompt longer than the scan's chunk (16 reduced, 128 at full width)
+    must be a multiple of it, in the JAX package and in the port alike
+    (ROADMAP R6): 20 fails on both sides, 12, 16 and 32 pass on both."""
+    jcfg, cfg, jp, p = _both("rwkv6-7b")
+    toks = np.zeros((1, S), np.int64)
+    if S % cfg.rwkv.chunk and S > cfg.rwkv.chunk:
+        with pytest.raises(AssertionError, match="multiple of chunk"):
+            jax_lm.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32), max_seq=S)
+        with pytest.raises(ValueError, match="multiple of chunk"):
+            lm.prefill(p, cfg, _t(toks), max_seq=S)
+    else:
+        jl, _ = jax_lm.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32), max_seq=S)
+        tl, _ = lm.prefill(p, cfg, _t(toks), max_seq=S)
+        _close(jl, tl)

@@ -30,6 +30,7 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 
 ARCHS = ["qwen2-0.5b", "smollm-360m"]
+KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "moe_gmm", "rwkv6_scan")
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -67,7 +68,7 @@ def test_engine_matches_jax_engine(arch):
     assert eng.run_to_completion() == jeng.run_to_completion()
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b", "rwkv6-7b"])
 def test_engine_matches_jax_direct_decode(arch):
     """Each request's tokens equal the JAX model's own prefill + greedy
     decode loop for that request alone."""
@@ -104,6 +105,35 @@ def test_prefill_lands_in_its_own_slot():
         for leaf in ("k", "v", "pos_ids"):
             got = eng.caches["blocks"]["pos0"]["mixer"][leaf][:, slot]
             torch.testing.assert_close(got, own["blocks"]["pos0"]["mixer"][leaf][:, 0])
+
+
+def test_rwkv_state_lands_in_its_own_slot():
+    """An RWKV6 model's recurrent caches (the two shift vectors and the f32
+    WKV state of every period) land in the admitted request's slot, and a
+    decode tick advances each slot from its own state."""
+    cfg, params, eng, _ = _setup("rwkv6-7b", max_batch=3)
+    a, b = _prompts(cfg.vocab_size, n=2, length=8)
+    eng.submit(a, max_new=3)
+    eng.submit(b, max_new=3)
+    eng._admit()
+    blocks = eng.caches["blocks"]["pos0"]
+    assert tuple(blocks["mixer"]["wkv"].shape)[:2] == (cfg.n_periods, 3)
+    assert blocks["mixer"]["wkv"].dtype == torch.float32
+    own = []
+    for slot, prompt in enumerate((a, b)):
+        _, c = lm.prefill(params, cfg, torch.tensor([prompt]), max_seq=64)
+        own.append(c)
+        for sub, leaf in (("mixer", "shift"), ("mixer", "wkv"), ("ffn", "shift")):
+            torch.testing.assert_close(blocks[sub][leaf][:, slot],
+                                       c["blocks"]["pos0"][sub][leaf][:, 0])
+    assert float(blocks["mixer"]["wkv"][:, 2].abs().max()) == 0.0  # the free slot is untouched
+    tok = [eng.active[s].out[-1] for s in (0, 1)]
+    eng._decode_tick()
+    for slot, prompt in enumerate((a, b)):
+        _, c = lm.decode_step(params, cfg, torch.tensor([tok[slot]]),
+                              torch.tensor([len(prompt)], dtype=torch.int32), own[slot])
+        torch.testing.assert_close(blocks["mixer"]["wkv"][:, slot],
+                                   c["blocks"]["pos0"]["mixer"]["wkv"][:, 0])
 
 
 def test_continuous_batching_more_requests_than_slots():
@@ -171,8 +201,7 @@ def test_serve_driver_json_on_cpu():
         assert key in rec, key
     assert rec["requests"] == 3 and rec["generated_tokens"] == 12
     assert rec["device"] == "cpu"
-    assert rec["kernels"] == {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0,
-                              "moe_gmm": 0}
+    assert rec["kernels"] == dict.fromkeys(KERNELS, 0)
 
 
 def test_serve_driver_runs_moe_arch_on_cpu():
@@ -183,8 +212,19 @@ def test_serve_driver_runs_moe_arch_on_cpu():
                       "--requests", "3", "--max-new", "4", "--max-batch", "2"])
     assert rec["arch"] == "deepseek-moe-16b-smoke"
     assert rec["requests"] == 3 and rec["generated_tokens"] == 12
-    assert rec["kernels"] == dict.fromkeys(("flash_attention", "decode_attention", "rmsnorm",
-                                            "moe_gmm"), 0)
+    assert rec["kernels"] == dict.fromkeys(KERNELS, 0)
+
+
+def test_serve_driver_runs_rwkv_arch_on_cpu():
+    """--arch rwkv6-7b --reduced --device cpu: 16-token prompts, one chunk
+    of the reduced scan each."""
+    from repro_torch.launch import serve
+
+    rec = serve.main(["--arch", "rwkv6-7b", "--reduced", "--device", "cpu",
+                      "--requests", "3", "--max-new", "4", "--max-batch", "2"])
+    assert rec["arch"] == "rwkv6-7b-smoke"
+    assert rec["requests"] == 3 and rec["generated_tokens"] == 12
+    assert rec["kernels"] == dict.fromkeys(KERNELS, 0)
 
 
 def test_serve_driver_refuses_missing_cuda(monkeypatch):
