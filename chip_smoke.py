@@ -15,9 +15,13 @@ failure of which exits non-zero:
    dim 64, d 896; deepseek-moe-16b: head dim 128, d 2048, the grouped
    matmul at its prefill and decode capacities; rwkv6-7b: the WKV scan at
    its prefill shape, at batch 8, with strong and weak decays and a ragged
-   V tile), within 2e-2 (bf16) or 1e-4 (f32); time kernel, plain version
-   and one PyTorch library call where there is one (a yardstick the port
-   never calls) at the serving shapes, with L2 flushed before each launch,
+   V tile; jamba-1.5-large: the selective scan at its prefill shape, at
+   batch 8, with strong and weak decays and a ragged channel tile, K1 and
+   K2 at head dim 128 with 8 query heads per KV head, K3 at d 8192 and at
+   the Mamba norms' widths 512 and 16, K4 at 16 experts of 8192 x 24576),
+   within 2e-2 (bf16) or 1e-4 (f32); time kernel, plain version and one
+   PyTorch library call where there is one (a yardstick the port never
+   calls) at the serving shapes, with L2 flushed before each launch,
    beside the card's bound for the same work;
 4. serve full-width qwen2-0.5b (bf16, random weights from a seed, 8 slots,
    1024-slot caches, 16 requests of 512 prompt tokens, 64 new tokens,
@@ -42,7 +46,19 @@ failure of which exits non-zero:
    first request's prefill + 8 teacher-forced decode steps through the
    kernels and through the plain versions at full depth, in f32 within
    F32_LOGIT_TOL (bf16 reported beside it);
-5. print the per-kernel JSON line (launches from all three serving runs),
+4d. free it, and serve full-width jamba-1.5-large cut to its first five
+   layers (every layer kind of its pattern: Mamba with a dense and with an
+   MoE FFN, and the attention layer; 48.1 GB of bf16 weights; the leaves
+   its init sets flat get seeded noise, MAMBA_FLAT_NOISE) the same way (16
+   requests of 512 prompt tokens, 32 new tokens), every prefill's selective
+   scan through K5, with exact launch counts of all six kernels; then (a)
+   one served Mamba layer at the prefill shape through the kernels vs the
+   plain versions, in bf16 and f32; (c) the first request's prefill + 8
+   teacher-forced decode steps at depth 5 in bf16, reported only; and,
+   with the bf16 model freed, (b) the same at depth 2 in f32 (weights drawn
+   in f32 from the same seed) within F32_LOGIT_TOL, with the routing's
+   top-k agreement;
+5. print the per-kernel JSON line (launches from all four serving runs),
    the card line, and last the ``{"ok": true, "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
@@ -84,6 +100,21 @@ RWKV_SERVE = dict(max_batch=8, max_seq=1024, requests=16, prompt_len=512, max_ne
 # decay along the sequence would reach neither K6's inputs nor the gate.
 RWKV_FLAT_NOISE = {"mu_base": "uniform", "mu": "uniform", "mu_k": "uniform", "mu_r": "uniform",
                    "mix_w2": 0.02, "decay_w2": 0.05}
+JAMBA_ARCH = "jamba-1.5-large"
+# 72 layers are 796 GB in bf16; the first five (mamba/dense, mamba/moe,
+# mamba/dense, mamba/moe, ga/dense) run every layer kind of the pattern and
+# hold 48.1 GB of the card's 80
+JAMBA_LAYERS = 5
+JAMBA_SERVE = dict(max_batch=8, max_seq=1024, requests=16, prompt_len=512, max_new=32)
+JAMBA_GATE_LAYERS = 2  # gate (b): mamba/dense + mamba/moe in f32, 48.7 GB
+# Leaves a Mamba mixer's init sets flat, and the std of the seeded noise
+# phase 4d adds to them (the three norms' scales: dt_norm, b_norm, c_norm).
+# At init A_log is the same row log(1..N) for every channel and D is all
+# ones, so a fault that indexes A or D with the wrong channel changes
+# nothing.  A = -exp(A_log) stays negative, so every decay stays in (0, 1).
+MAMBA_FLAT_NOISE = {"A_log": 0.5, "D": 0.5, "conv_b": 0.1, "dt_norm": 0.3, "b_norm": 0.3,
+                    "c_norm": 0.3}
+SFU_EXP_PER_CLOCK = 16  # ex2 results per clock per SM on Hopper (sm_90)
 
 
 def closed_form_tol(chunk: int) -> float:
@@ -125,12 +156,14 @@ def main() -> None:
     from repro_torch.kernels import _build, launch_counts, ops, ref, reset_launches
     from repro_torch.kernels import decode_attention as k2
     from repro_torch.kernels import flash_attention as k1
+    from repro_torch.kernels import mamba_scan as k5
     from repro_torch.kernels import moe_gmm as k4
     from repro_torch.kernels import rmsnorm as k3
     from repro_torch.kernels import rwkv6_scan as k6
     from repro_torch.models import lm
     from repro_torch.nn import core as nn_core
     from repro_torch.nn import ffn as ffn_mod
+    from repro_torch.nn import mamba as mamba_mod
     from repro_torch.serving.engine import Engine, ServeConfig
 
     t_start = time.time()
@@ -145,6 +178,14 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     peaks = card_peaks(smi)
+    # the special-function units' exponential rate at the card's top clock
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    peaks["exp_per_s"] = SFU_EXP_PER_CLOCK * n_sm * max_sm_mhz * 1e6
+    print(f"{n_sm} SMs, max SM clock {max_sm_mhz:.0f} MHz: {peaks['exp_per_s']:.4g} "
+          "exponentials/s on the SFUs", flush=True)
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.time()
@@ -152,6 +193,7 @@ def main() -> None:
     k1._entry()
     k2._entry()
     k4._entry()
+    k5._entry()
     k6._entry()
     k3.rmsnorm(torch.zeros(1, 8, device=dev), torch.zeros(8, device=dev))  # Triton JIT
     torch.cuda.synchronize()
@@ -190,8 +232,12 @@ def main() -> None:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in evs) / iters
 
-    def bound_ms(n_bytes: float, n_flops: float, peak_flops: float) -> tuple[float, str]:
-        t_bytes, t_ops = n_bytes / peaks["bytes_per_s"], n_flops / peak_flops
+    def bound_ms(n_bytes: float, n_flops: float, peak_flops: float,
+                 n_exps: float = 0.0) -> tuple[float, str]:
+        """The larger of bytes over the memory rate and operations over
+        their peak: FLOPs, and exponentials on the special-function units."""
+        t_bytes = n_bytes / peaks["bytes_per_s"]
+        t_ops = max(n_flops / peak_flops, n_exps / peaks["exp_per_s"])
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
     def nbytes(*ts) -> int:
@@ -337,10 +383,11 @@ def main() -> None:
         "shape": f"({B}, {dm}) bf16 (decode rows); ({S}, {dm}): {times3[(S, dm)]}",
     }
 
-    def timed(kernel_fn, plain_fn, library_fn, n_bytes, n_flops, peak, shape) -> dict:
+    def timed(kernel_fn, plain_fn, library_fn, n_bytes, n_flops, peak, shape,
+              n_exps: float = 0.0) -> dict:
         """Times of kernel, plain version and library call (None: there is
         no single PyTorch call for the function) beside the bound."""
-        b, by = bound_ms(n_bytes, n_flops, peak)
+        b, by = bound_ms(n_bytes, n_flops, peak, n_exps)
         return {"ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn), "bound_ms": b,
                 "bound_by": by, "library_ms": time_ms(library_fn) if library_fn else None,
                 "shape": shape}
@@ -452,18 +499,19 @@ def main() -> None:
         return (r.to(dt), k.to(dt), randn(B, T, H, V, dtype=dt), w, (randn(H, K) * 0.5).to(dt),
                 randn(B, H, K, V) * 0.1)
 
-    def hold_rel(case, got, want, tol) -> float:
+    def hold_rel(case, got, want, tol, kernel="rwkv6_scan", fatal=True) -> float:
         """Holds max |got - want| / max |want| of out and of the state to
-        ``tol`` (a non-finite value fails too); returns max |got - want|."""
+        ``tol`` (a non-finite value fails too); returns max |got - want|.
+        With ``fatal=False`` a disagreement is only recorded in ``checks``."""
         diffs = [float((g.float() - w_.float()).abs().max()) for g, w_ in zip(got, want)]
         rel = max(d / float(w_.float().abs().max()) for d, w_ in zip(diffs, want))
         ok = rel <= tol and all(bool(torch.isfinite(g.float()).all()) for g in got)
-        checks.append({"kernel": "rwkv6_scan", "case": case, "max_abs_err": max(diffs),
+        checks.append({"kernel": kernel, "case": case, "max_abs_err": max(diffs),
                        "max_rel_err": rel, "tol": tol, "ok": ok})
-        print(f"  rwkv6_scan {case}: max_rel_err {rel:.3e} (tol {tol:.1e}), max_abs_err "
+        print(f"  {kernel} {case}: max_rel_err {rel:.3e} (tol {tol:.1e}), max_abs_err "
               f"{max(diffs):.3e} {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"rwkv6_scan {case} disagrees with its plain version")
+        if not ok and fatal:
+            fail(f"{kernel} {case} disagrees with its plain version")
         return max(diffs)
 
     err6 = 0.0
@@ -499,32 +547,169 @@ def main() -> None:
         "replaces": "src/repro/kernels/rwkv6_scan.py:80", "max_abs_err": err6,
         **k6_times[1], "batch8": k6_times[8],
     }
+    # K5: the CPU tests' shapes (a ragged channel tile at DI = 40 = 32 + 8),
+    # strong and weak decays, and jamba-1.5-large's prefill shape (chunk 256)
+    # at batch 1 and 8; every case starts from a non-zero state.  Each is held
+    # against the serial oracle and the chunked form, relative to max |y| and
+    # max |state|.
+    jfull = get_config(JAMBA_ARCH)
+    jDI, jN, _, jR = mamba_mod._dims(jfull)  # 16384, 16, d_conv, dt_rank 512
+    jS, jL = JAMBA_SERVE["prompt_len"], jfull.mamba.chunk
+
+    def mamba_inputs(B, T, DI, N, dt_, decay="mixed"):
+        """x, dt, A, Bm, C, D, state; the laws of tests/test_torch_kernels.py:
+        "strong" puts every decay exp(dt A) below e^-40, "weak" dt below 1e-3."""
+        def unif(*shape):
+            return torch.rand(shape, generator=gen, device=dev)
+        if decay == "strong":
+            dt, A = 2 + 3 * unif(B, T, DI), -torch.exp(3 + unif(DI, N))
+        else:
+            dt = unif(B, T, DI) * 1e-3 if decay == "weak" else F.softplus(randn(B, T, DI))
+            A = -torch.exp(randn(DI, N) * 0.3)
+        return (randn(B, T, DI, dtype=dt_), dt.to(dt_), A, randn(B, T, N, dtype=dt_),
+                randn(B, T, N, dtype=dt_), randn(DI), randn(B, DI, N) * 0.1)
+
+    err5 = 0.0
+    k5_cases = [((2, 64, 12, 4), 16, "mixed"), ((1, 32, 8, 8), 32, "mixed"),
+                ((2, 64, 40, 16), 32, "mixed"), ((1, 64, 12, 8), 16, "strong"),
+                ((1, 64, 12, 8), 16, "weak"), ((1, jS, jDI, jN), jL, "mixed"),
+                ((1, jS, jDI, jN), jL, "strong"), ((1, jS, jDI, jN), jL, "weak"),
+                ((8, jS, jDI, jN), jL, "mixed")]
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        for (B_, T_, DI_, N_), L_, decay in k5_cases:
+            x = mamba_inputs(B_, T_, DI_, N_, dt, decay)
+            got = k5.mamba_scan(*x, chunk=L_)
+            case = f"{dn} {(B_, T_, DI_, N_)} chunk {L_} {decay} decays"
+            for form, want in (("serial", ref.mamba_scan_ref(*x)),
+                               ("chunked", ref.mamba_scan_chunked(*x, chunk=L_))):
+                err5 = max(err5, hold_rel(f"{case} vs {form}", got, want, TOL[dn], "mamba_scan"))
+    k5_times = {}
+    for B_ in (1, 8):  # the served prefill, and batch 8
+        x = mamba_inputs(B_, jS, jDI, jN, torch.bfloat16)
+        n_el = B_ * jS * jDI * jN
+        # per state element and step: dt·A, the decay product, (dt x)·B, the
+        # sum, C·h and its sum (5 FLOPs) and one exponential; per channel
+        # and step dt·x and D·x + y (3 FLOPs)
+        n_bytes, n_flops = nbytes(*x, x[0], x[6]), 5 * n_el + 3 * B_ * jS * jDI
+        k5_times[B_] = timed(lambda: k5.mamba_scan(*x, chunk=jL),
+                             lambda: ref.mamba_scan_chunked(*x, chunk=jL), None, n_bytes, n_flops,
+                             peaks["float32"], f"B={B_} T={jS} DI={jDI} N={jN} x/dt/B/C bf16, "
+                             f"A/D/state f32, chunk {jL}", n_exps=n_el)
+        k5_times[B_]["bound_parts_ms"] = {"bytes": 1e3 * n_bytes / peaks["bytes_per_s"],
+                                          "flops": 1e3 * n_flops / peaks["float32"],
+                                          "exponentials": 1e3 * n_el / peaks["exp_per_s"]}
+        print(f"  mamba_scan bound parts at B={B_}: {json.dumps(k5_times[B_]['bound_parts_ms'])}",
+              flush=True)
+    del x, got, want
+    records["mamba_scan"] = {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:65", "max_abs_err": err5,
+        **k5_times[1], "batch8": k5_times[8],
+    }
+
+    # K1, K2, K3, K4 at jamba-1.5-large's shapes: head dim 128 with 8 query
+    # heads per KV head, d 8192, the Mamba norms at dt_rank 512 and d_state
+    # 16, and 16 experts of 8192 x 24576 at the prefill and decode capacities
+    jHq, jHkv, jD = jfull.n_heads, jfull.n_kv_heads, jfull.head_dim
+    jB, jSc, jdm = JAMBA_SERVE["max_batch"], JAMBA_SERVE["max_seq"], jfull.d_model
+    jnorm_shapes = ((jB, jdm), (jS, jdm), (jS, jR), (jS, jN), (jB, jR), (jB, jN))
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        q, k, v = (randn(1, jS, h, jD, dtype=dt) for h in (jHq, jHkv, jHkv))
+        err1 = max(err1, hold("flash_attention", f"{dn} {JAMBA_ARCH} 1x{jS}x{jHq}/{jHkv}x{jD}",
+                              k1.flash_attention(q, k, v), ref.mha_ref(q, k, v), dn))
+        qd, kc, vc = randn(jB, jHq, jD, dtype=dt), randn(jB, jSc, jHkv, jD, dtype=dt), \
+            randn(jB, jSc, jHkv, jD, dtype=dt)
+        pos = torch.arange(jSc, dtype=torch.int32, device=dev)[None].repeat(jB, 1)
+        cur = torch.full((jB,), jSc - 1, dtype=torch.int32, device=dev)
+        err2 = max(err2, hold("decode_attention", f"{dn} {JAMBA_ARCH} {jB}x{jSc}x{jHq}/{jHkv}x{jD}",
+                              k2.decode_attention(qd, kc, vc, pos, cur),
+                              ref.decode_attention_ref(qd, kc, vc, pos, cur), dn))
+        for shape in jnorm_shapes:
+            x, sc = randn(*shape, dtype=dt), randn(shape[-1]) * 0.1
+            err3 = max(err3, hold("rmsnorm", f"{dn} {JAMBA_ARCH} {shape}", k3.rmsnorm(x, sc),
+                                  ref.rmsnorm_ref(x, sc), dn))
+    jamba_shape_times = {  # bf16, the last dtype above
+        "flash_attention": timed(
+            lambda: k1.flash_attention(q, k, v), lambda: ref.mha_ref(q, k, v),
+            (lambda qs=q.transpose(1, 2).contiguous(), ks_=k.transpose(1, 2).contiguous(),
+             vs_=v.transpose(1, 2).contiguous(): F.scaled_dot_product_attention(
+                 qs, ks_, vs_, is_causal=True, enable_gqa=True)),
+            nbytes(q, k, v, q), 4 * jD * jHq * (jS * (jS + 1) // 2), peaks["bfloat16"],
+            f"B=1 S={jS} Hq={jHq} Hkv={jHkv} D={jD} bf16 causal"),
+        "decode_attention": timed(
+            lambda: k2.decode_attention(qd, kc, vc, pos, cur),
+            lambda: ref.decode_attention_ref(qd, kc, vc, pos, cur),
+            (lambda qs=qd[:, :, None], ks_=kc.transpose(1, 2).contiguous(),
+             vs_=vc.transpose(1, 2).contiguous(): F.scaled_dot_product_attention(
+                 qs, ks_, vs_, enable_gqa=True)),
+            nbytes(qd, kc, vc, qd, pos, cur), 4 * jD * jHq * jB * jSc, peaks["bfloat16"],
+            f"B={jB} S={jSc} Hq={jHq} Hkv={jHkv} D={jD} bf16, all {jB * jSc} slots live"),
+    }
+    for shape in ((jS, jR), (jS, jN)):  # the Mamba norms' new widths, prefill rows
+        x, sc = randn(*shape, dtype=torch.bfloat16), randn(shape[-1]) * 0.1
+        jamba_shape_times[f"rmsnorm {shape}"] = timed(
+            lambda: k3.rmsnorm(x, sc), lambda: ref.rmsnorm_ref(x, sc),
+            lambda w=(1.0 + sc).to(torch.bfloat16), n=shape[-1]: F.rms_norm(
+                x, (n,), weight=w, eps=1e-6),
+            nbytes(x, x, sc), 4 * x.numel(), peaks["float32"], f"{shape} bf16")
+    del q, k, v, qd, kc, vc
+    jm = jfull.moe
+    jcaps = {"prefill": ffn_mod._capacity(jS, jm), "decode": ffn_mod._capacity(jB, jm)}  # 80, 8
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        for D_, F_, epi in ((jdm, jm.d_expert, "silu"), (jm.d_expert, jdm, None)):
+            x = randn(jm.n_experts, jcaps["prefill"], D_, dtype=dt)
+            w = (randn(jm.n_experts, D_, F_) * 0.02).to(dt)
+            err4 = max(err4, hold("moe_gmm", f"{dn} {JAMBA_ARCH} prefill ({jm.n_experts},"
+                                  f"{jcaps['prefill']},{D_})@({jm.n_experts},{D_},{F_}) "
+                                  f"epilogue={epi}", k4.gmm(x, w, epilogue=epi),
+                                  ref.gmm_ref(x, w, epilogue=epi), dn))
+            del x, w
+    w = (randn(jm.n_experts, jdm, jm.d_expert) * 0.02).to(torch.bfloat16)
+    for phase, C_ in jcaps.items():  # the w1 / w3 product, bf16, no epilogue
+        x = randn(jm.n_experts, C_, jdm, dtype=torch.bfloat16)
+        jamba_shape_times[f"moe_gmm {phase}"] = timed(
+            lambda: k4.gmm(x, w), lambda: ref.gmm_ref(x, w), lambda: torch.bmm(x, w),
+            nbytes(x, w) + jm.n_experts * C_ * jm.d_expert * 2,
+            2 * jm.n_experts * C_ * jdm * jm.d_expert, peaks["bfloat16"],
+            f"({jm.n_experts},{C_},{jdm})@({jm.n_experts},{jdm},{jm.d_expert}) bf16 ({phase})")
+    del x, w
+    torch.cuda.empty_cache()
     for name in ("flash_attention", "decode_attention"):
         records[name]["max_abs_err"] = {"flash_attention": err1, "decode_attention": err2}[name]
         records[name][MOE_ARCH] = moe_shape_times[name]
     records["rmsnorm"]["max_abs_err"] = err3
     records["rmsnorm"][MOE_ARCH] = {k: v for k, v in moe_shape_times.items()
                                     if k.startswith("rmsnorm")}
+    records["moe_gmm"]["max_abs_err"] = err4
+    for name in ("flash_attention", "decode_attention", "rmsnorm", "moe_gmm"):
+        records[name][JAMBA_ARCH] = {k: v for k, v in jamba_shape_times.items()
+                                     if k.split()[0] == name}
     for r in records.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}) at {r['shape']}", flush=True)
     others = [(f"{name} at {MOE_ARCH}'s shape", t) for name, t in moe_shape_times.items()]
     others += [(f"moe_gmm decode at {MOE_ARCH}'s shape", k4_times["decode"]),
-               ("rwkv6_scan at batch 8", k6_times[8])]
+               ("rwkv6_scan at batch 8", k6_times[8]), ("mamba_scan at batch 8", k5_times[8])]
+    others += [(f"{name} at {JAMBA_ARCH}'s shape", t) for name, t in jamba_shape_times.items()]
     for name, t in others:
         print(f"  {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library {fmt_ms(t['library_ms'])}, bound "
               f"{t['bound_ms']:.5f} ms ({t['bound_by']}) at {t['shape']}", flush=True)
 
     def init_model(c) -> tuple[dict, dict]:
-        """Seeded random weights drawn on the card, with the draw's time and
-        peak memory."""
+        """Seeded random weights drawn on the card, with the draw's time, the
+        memory already held before it and the peak."""
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
         t0 = time.time()
         p = lm.init_params(c, SEED, device=dev)
         torch.cuda.synchronize()
-        rec = {"seconds": time.time() - t0,
+        rec = {"seconds": time.time() - t0, "held_before_gb": held,
                "params_b": sum(t.numel() for t in _leaves(p)) / 1e9,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "weights_gb": sum(t.numel() * t.element_size() for t in _leaves(p)) / 1e9}
@@ -632,7 +817,7 @@ def main() -> None:
                               ("kernel", "kernel", cfg, eng.params),
                               ("plain", "plain", cfg, eng.params)):
         logits[label] = teacher_forced(p, c, impl, prompts[0], req0, SERVE["max_seq"])
-    del params32
+    del params32, p  # the loop's last p is the served weights
     k32, f32, kl, pl = (logits[n] for n in ("kernel_f32", "plain_f32", "kernel", "plain"))
     for name, lg in logits.items():
         if lg.shape != (9, 1, cfg.vocab_size) or lg.dtype != torch.float32:
@@ -672,7 +857,7 @@ def main() -> None:
     want_counts = {"moe_gmm": 3 * n_moe * forwards,  # w1 (+ silu), w3, w2 per MoE layer
                    "flash_attention": n_layers * MOE_SERVE["requests"],
                    "decode_attention": n_layers * n_ticks,
-                   "rmsnorm": (2 * n_layers + 1) * forwards, "rwkv6_scan": 0}
+                   "rmsnorm": (2 * n_layers + 1) * forwards, "rwkv6_scan": 0, "mamba_scan": 0}
     if mcounts != want_counts:
         fail(f"{MOE_ARCH}: launch counts {mcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
@@ -731,21 +916,20 @@ def main() -> None:
         picks.append(top.sort(-1)[0].reshape(-1, cfg.moe.top_k))
         return real_moe_apply(p, x, cfg, **kw)
 
-    def moe_run(p, c, impl):
+    def moe_run(p, c, impl, prompt, outs, max_seq):
         picks.clear()
         ffn_mod.moe_apply = recording_moe_apply
         try:
-            lg = teacher_forced(p, c, impl, mprompts[0], mouts[0],
-                                MOE_SERVE["max_seq"])
+            lg = teacher_forced(p, c, impl, prompt, outs, max_seq)
         finally:
             ffn_mod.moe_apply = real_moe_apply
         return lg, torch.cat(picks)
 
-    def compare(kernel_run, plain_run, n_layers_run) -> dict:
+    def compare(kernel_run, plain_run, n_layers_run, c) -> dict:
         (lk, pk), (lp, pp) = kernel_run, plain_run
         for lg in (lk, lp):
-            if lg.shape != (9, 1, mcfg.vocab_size) or not bool(torch.isfinite(lg).all()):
-                fail(f"{MOE_ARCH} logits {tuple(lg.shape)} not finite or misshapen")
+            if lg.shape != (9, 1, c.vocab_size) or not bool(torch.isfinite(lg).all()):
+                fail(f"{c.name} logits {tuple(lg.shape)} not finite or misshapen")
         same = (pk == pp).all(-1)
         return {"max_abs_diff": float((lk - lp).abs().max()),
                 "max_abs_logit": float(lp.abs().max()),
@@ -758,8 +942,9 @@ def main() -> None:
     params4 = {k: v for k, v in mparams.items() if k != "blocks"}
     params4["blocks"] = _map(lambda t: t[:cfg4.n_periods], mparams["blocks"])
     params4 = _map(lambda t: t.float(), params4)
-    gate_b = compare(moe_run(params4, cfg4, "kernel"), moe_run(params4, cfg4, "plain"),
-                     MOE_GATE_LAYERS)
+    mreq = (mprompts[0], mouts[0], MOE_SERVE["max_seq"])
+    gate_b = compare(moe_run(params4, cfg4, "kernel", *mreq),
+                     moe_run(params4, cfg4, "plain", *mreq), MOE_GATE_LAYERS, mcfg)
     del params4
     print(f"{MOE_ARCH} f32 gate (b), full width, {MOE_GATE_LAYERS} layers, prefill + 8 "
           f"teacher-forced decode steps, kernels vs plain: {json.dumps(gate_b)} "
@@ -771,8 +956,8 @@ def main() -> None:
             "picked other experts)")
     if gate_failures:
         fail(f"{MOE_ARCH}: " + "; ".join(gate_failures))
-    gate_c = compare(moe_run(mparams, mcfg, "kernel"), moe_run(mparams, mcfg, "plain"),
-                     mcfg.n_layers)
+    gate_c = compare(moe_run(mparams, mcfg, "kernel", *mreq),
+                     moe_run(mparams, mcfg, "plain", *mreq), mcfg.n_layers, mcfg)
     print(f"{MOE_ARCH} bf16 (c), full depth, kernels vs plain (reported, no bound): "
           f"{json.dumps(gate_c)}", flush=True)
 
@@ -788,12 +973,13 @@ def main() -> None:
                 noise = (torch.rand(t.shape, generator=gen, device=dev) if law == "uniform"
                          else torch.randn(t.shape, generator=gen, device=dev) * law)
                 t.copy_(noise)
+    del sub, t, noise  # the loop's names would keep the channel mix's 8.6 GB alive
     reng, rprompts, routs, rwkv_serve = serve_run(rcfg, rparams, RWKV_SERVE)
     rcounts, n_ticks = rwkv_serve["kernels"], rwkv_serve["decode_ticks"]
     forwards = RWKV_SERVE["requests"] + n_ticks
     want_counts = {"rwkv6_scan": rcfg.n_layers * RWKV_SERVE["requests"],  # one per layer, prefill
                    "rmsnorm": (2 * rcfg.n_layers + 1) * forwards,
-                   "flash_attention": 0, "decode_attention": 0, "moe_gmm": 0}
+                   "flash_attention": 0, "decode_attention": 0, "moe_gmm": 0, "mamba_scan": 0}
     if rcounts != want_counts:
         fail(f"{RWKV_ARCH}: launch counts {rcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
@@ -842,6 +1028,103 @@ def main() -> None:
         fail(f"{RWKV_ARCH}: the engine's first token is not the argmax of its prefill logits")
     del rlog, kl, pl, k32, f32
 
+    # -- 4d. serve full-width jamba-1.5-large, cut to its first five layers --
+    torch.cuda.empty_cache()
+    jcfg = dataclasses.replace(jfull, n_layers=JAMBA_LAYERS)
+    jparams, jamba_init = init_model(jcfg)
+    seed_mamba_noise(jparams, gen)
+    jeng, jprompts, jouts, jamba_serve = serve_run(jcfg, jparams, JAMBA_SERVE)
+    jcounts, n_ticks = jamba_serve["kernels"], jamba_serve["decode_ticks"]
+    specs = [jcfg.layer_spec(i) for i in range(jcfg.n_layers)]
+    n_mamba = sum(sp.mixer == "mamba" for sp in specs)  # 4
+    n_attn = sum(sp.mixer in ("ga", "swa") for sp in specs)  # 1
+    n_moe = sum(sp.ffn == "moe" for sp in specs)  # 2
+    forwards = JAMBA_SERVE["requests"] + n_ticks
+    want_counts = {"mamba_scan": n_mamba * JAMBA_SERVE["requests"],  # one per Mamba layer, prefill
+                   "flash_attention": n_attn * JAMBA_SERVE["requests"],
+                   "decode_attention": n_attn * n_ticks,
+                   "moe_gmm": 3 * n_moe * forwards,
+                   # norm1 and norm2 of every layer, dt / B / C norms of every
+                   # Mamba layer, the final norm
+                   "rmsnorm": (2 * jcfg.n_layers + 3 * n_mamba + 1) * forwards,
+                   "rwkv6_scan": 0}
+    if jcounts != want_counts:
+        fail(f"{JAMBA_ARCH}: launch counts {jcounts}, expected {want_counts} "
+             f"({forwards} forwards, {n_ticks} ticks)")
+    for name in records:
+        records[name]["launches"] += jcounts[name]
+    jamba_breakdown = step_breakdown(jcfg, jeng, JAMBA_SERVE, jprompts[0])
+    for name, b in jamba_breakdown.items():
+        print(f"{JAMBA_ARCH} {name}: {json.dumps(b)}", flush=True)
+    jeng.caches = None
+
+    # gate (a): one served Mamba layer (layer 0) at the prefill shape through
+    # the kernels (one K5, three K3 launches) and through the plain versions,
+    # y and the final SSM state relative to their max |.|, in bf16 (the
+    # served weights) and in f32 (the same weights cast)
+    gate_failures = []
+    jcfg32 = dataclasses.replace(jcfg, param_dtype="float32", activation_dtype="float32")
+    layer0 = jparams["tail0"]["mixer"]
+    gate_a_mamba = {}
+    for dt, c, p_ in ((torch.bfloat16, jcfg, layer0),
+                      (torch.float32, jcfg32, _map(lambda t: t.float(), layer0))):
+        dn = str(dt).removeprefix("torch.")
+        x = randn(1, jS, jdm, dtype=dt)
+        runs = {}
+        for impl in ("kernel", "plain"):
+            before = launch_counts()
+            cache = mamba_mod.init_cache(c, 1, dt, dev)
+            with ops.impl_scope(impl):
+                y, cache = mamba_mod.mamba_apply(p_, x, c, cache=cache)
+            runs[impl] = (y, cache["ssm"])
+            launched = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+            if launched != ({"mamba_scan": 1, "rmsnorm": 3} if impl == "kernel" else {}):
+                fail(f"gate (a) {dn}: launches {launched} through the {impl} route")
+        case = f"{dn} layer 0, x (1, {jS}, {jdm}), y and final state"
+        gate_a_mamba[case] = hold_rel(case, runs["kernel"], runs["plain"], TOL[dn],
+                                      f"{JAMBA_ARCH} Mamba layer (gate a)", fatal=False)
+        gate_a_mamba[case + " max_rel_err"] = checks[-1]["max_rel_err"]
+        if not checks[-1]["ok"]:
+            gate_failures.append(f"gate (a) {case}: max_rel_err {checks[-1]['max_rel_err']:.3e}")
+    del layer0, p_, x, y, cache, runs
+
+    # (c): the first request's prefill + 8 teacher-forced decode steps at
+    # depth 5 in bf16, kernels vs plain, reported only
+    jreq = (jprompts[0], jouts[0], JAMBA_SERVE["max_seq"])
+    run_k = moe_run(jparams, jcfg, "kernel", *jreq)
+    if int(torch.argmax(run_k[0][0, 0])) != jouts[0][0]:
+        fail(f"{JAMBA_ARCH}: the engine's first token is not the argmax of its prefill logits")
+    gate_c_jamba = compare(run_k, moe_run(jparams, jcfg, "plain", *jreq), jcfg.n_layers, jcfg)
+    gate_c_jamba["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{JAMBA_ARCH} bf16 (c), full width, {jcfg.n_layers} layers, kernels vs plain "
+          f"(reported, no bound): {json.dumps(gate_c_jamba)}", flush=True)
+    del jeng, jparams, run_k
+
+    # gate (b): the same at depth 2 in f32, with the bf16 model freed (an f32
+    # copy of five layers, 96 GB, does not fit): weights drawn in f32 from
+    # the same seed, noise seeded as above
+    picks.clear()
+    torch.cuda.empty_cache()
+    jcfg2 = dataclasses.replace(jcfg32, n_layers=JAMBA_GATE_LAYERS)
+    jparams2, jamba_init2 = init_model(jcfg2)
+    seed_mamba_noise(jparams2, gen)
+    torch.cuda.reset_peak_memory_stats()
+    gate_b_jamba = compare(moe_run(jparams2, jcfg2, "kernel", *jreq),
+                           moe_run(jparams2, jcfg2, "plain", *jreq), JAMBA_GATE_LAYERS, jcfg2)
+    gate_b_jamba["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del jparams2
+    picks.clear()
+    print(f"{JAMBA_ARCH} f32 gate (b), full width, {JAMBA_GATE_LAYERS} layers, prefill + 8 "
+          f"teacher-forced decode steps, kernels vs plain: {json.dumps(gate_b_jamba)} "
+          f"(tol {F32_LOGIT_TOL} on max_abs_diff)", flush=True)
+    if gate_b_jamba["max_abs_diff"] > F32_LOGIT_TOL:
+        gate_failures.append(
+            f"gate (b): f32 logits through the kernels disagree with the plain versions "
+            f"({gate_b_jamba['topk_flipped_tokens']} of {gate_b_jamba['routed_tokens']} routed "
+            "tokens picked other experts)")
+    if gate_failures:
+        fail(f"{JAMBA_ARCH}: " + "; ".join(gate_failures))
+
     # -- 5. report ----------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
@@ -851,6 +1134,10 @@ def main() -> None:
                        "gate_c_bf16": gate_c},
             RWKV_ARCH: {"init": rwkv_init, "serve": rwkv_serve, "breakdown": rwkv_breakdown,
                         "logits": rwkv_gate},
+            JAMBA_ARCH: {"layers": JAMBA_LAYERS, "init": jamba_init, "serve": jamba_serve,
+                         "breakdown": jamba_breakdown, "gate_a": gate_a_mamba,
+                         "gate_b_f32": gate_b_jamba, "gate_b_init": jamba_init2,
+                         "gate_c_bf16": gate_c_jamba},
             "seconds": time.time() - t_start}
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
@@ -901,6 +1188,21 @@ def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
         "host_ops": host_ops,
         "top_kernels": [(e.key[:90], dev_us(e) / 1e3, e.count) for e in rows[:top]],
     }
+
+
+def seed_mamba_noise(params, gen) -> None:
+    """Adds MAMBA_FLAT_NOISE's seeded noise, in place, to the flat-init
+    leaves of every Mamba mixer in ``params``."""
+    import torch
+
+    if "A_log" in params:
+        for name, std in MAMBA_FLAT_NOISE.items():
+            t = params[name]["scale"] if isinstance(params[name], dict) else params[name]
+            t.add_((torch.randn(t.shape, generator=gen, device=t.device) * std).to(t.dtype))
+        return
+    for sub in params.values():
+        if isinstance(sub, dict):
+            seed_mamba_noise(sub, gen)
 
 
 def _map(fn, tree):

@@ -1,14 +1,16 @@
 """Architecture registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-The port knows the ``ga`` architectures with dense or MoE FFNs and the RWKV6
-architecture.  The other architectures of ``repro.configs`` raise
-``NotImplementedError`` naming the ROADMAP item that brings their layers.
+The port knows the ``ga`` architectures with dense or MoE FFNs, the RWKV6
+architecture and the hybrid Mamba/attention architecture (jamba).  The
+other architectures of ``repro.configs`` raise ``NotImplementedError``
+naming the ROADMAP item that brings their layers.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import LayerSpec, ModelConfig, MoEConfig, RWKVConfig, reduced
+from repro_torch.configs.base import (LayerSpec, MambaConfig, ModelConfig, MoEConfig, RWKVConfig,
+                                      reduced)
 
 _ARCH_MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
@@ -16,6 +18,7 @@ _ARCH_MODULES = {
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "jamba-1.5-large": "repro_torch.configs.jamba_1_5_large",
 }
 
 # Archs of the JAX package that the port does not run yet, and why.
@@ -23,7 +26,6 @@ _NOT_PORTED = {
     "gemma3-4b": "M10 (sliding-window pattern, post-block norms, frontends)",
     "gemma2-27b": "M10 (softcaps and sliding-window pattern)",
     "chameleon-34b": "M10 (QK-norm and the vlm frontend stub)",
-    "jamba-1.5-large": "M10 and K5 (Mamba mixer, mamba_scan kernel)",
     "musicgen-large": "M10 (audio frontend stub)",
 }
 
@@ -42,5 +44,5 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
 
 
-__all__ = ["LayerSpec", "ModelConfig", "MoEConfig", "RWKVConfig", "get_config", "list_archs",
-           "reduced"]
+__all__ = ["LayerSpec", "MambaConfig", "ModelConfig", "MoEConfig", "RWKVConfig", "get_config",
+           "list_archs", "reduced"]

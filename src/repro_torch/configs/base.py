@@ -6,8 +6,8 @@ pattern position over the periods; the port walks the stacked axis with a
 Python loop.
 
 The copy holds the fields the ported serving path reads; each has the JAX
-package's name, default and meaning.  Training, Mamba and sharding fields
-arrive with the slices that read them (ROADMAP M9, M10).
+package's name, default and meaning.  Training and sharding fields arrive
+with the slices that read them (ROADMAP M9, M13).
 """
 from __future__ import annotations
 
@@ -34,6 +34,15 @@ class MoEConfig:
     router_aux_weight: float = 0.01
     router_z_weight: float = 1e-3
     # jitter etc. omitted: deterministic routing for reproducibility
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+    chunk: int = 256  # chunked-scan block length: a full-sequence T must divide by min(chunk, T)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +81,7 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"
     moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
     rwkv: Optional[RWKVConfig] = None
     # Sharding knobs of the JAX package (GSPMD head padding, activation
     # constraints, sequence-sharded decode).  On one card they change
@@ -118,6 +128,8 @@ def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
             n_shared=min(cfg.moe.n_shared, 1),
             d_expert=32 if cfg.moe.d_expert else 0,
         )
+    if cfg.mamba is not None:
+        changes["mamba"] = dataclasses.replace(cfg.mamba, d_state=8, chunk=16)
     if cfg.rwkv is not None:
         changes["rwkv"] = dataclasses.replace(cfg.rwkv, head_dim=16, decay_lora=8, mix_lora=8,
                                               chunk=16)

@@ -8,7 +8,7 @@ that its main path went through the kernels.
 from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0,
-                            "moe_gmm": 0, "rwkv6_scan": 0}
+                            "moe_gmm": 0, "rwkv6_scan": 0, "mamba_scan": 0}
 
 
 def reset_launches() -> None:

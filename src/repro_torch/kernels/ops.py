@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _fa_kernel
+from repro_torch.kernels.mamba_scan import mamba_scan as _mamba_kernel
 from repro_torch.kernels.moe_gmm import gmm as _gmm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_kernel
@@ -244,3 +245,45 @@ def rwkv6_step(
     kv = kf[..., :, None] * vf[..., None, :]
     out = torch.einsum("bhk,bhkv->bhv", rf, sf + u.float()[None, :, :, None] * kv)
     return out.to(r.dtype), (wf[..., None] * sf + kv).to(state.dtype)
+
+
+def mamba_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    C: torch.Tensor,
+    D: torch.Tensor,
+    state: torch.Tensor,
+    *,
+    chunk: int = 128,
+    remat_chunks: bool = False,
+    impl: Optional[str] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan: x, dt (B, T, DI); A (DI, N); Bm, C (B, T, N);
+    D (DI,); state (B, DI, N) -> (y (B, T, DI) in x's dtype, final state).
+
+    T must be a multiple of min(chunk, T) on every route, as in the JAX
+    package, though the kernel itself walks any T.  ``remat_chunks`` only
+    matters for a backward pass; it is accepted and ignored.
+    """
+    T = x.shape[1]
+    if T % min(chunk, T):
+        raise ValueError(f"T={T} must be a multiple of chunk={min(chunk, T)}")
+    if _resolve(impl, x) == "plain":
+        return _ref.mamba_scan_chunked(x, dt, A, Bm, C, D, state, chunk=chunk)
+    return _mamba_kernel(x, dt, A, Bm, C, D, state, chunk=chunk)
+
+
+def mamba_step(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, C: torch.Tensor,
+    D: torch.Tensor, state: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the recurrence: x, dt (B, DI); Bm, C (B, N);
+    state (B, DI, N) -> (y (B, DI) in x's dtype, state in its dtype).
+    Plain PyTorch, as the JAX package's step is plain jnp."""
+    xf, dtf, bf, cf = (a.float() for a in (x, dt, Bm, C))
+    af, df, hf = A.float(), D.float(), state.float()
+    h = torch.exp(dtf[..., None] * af[None]) * hf + (dtf * xf)[..., None] * bf[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h, cf) + df[None] * xf
+    return y.to(x.dtype), h.to(state.dtype)

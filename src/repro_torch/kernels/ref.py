@@ -12,6 +12,8 @@ Shape conventions:
   gmm         x: (E, C, D);       w: (E, D, F)
   rwkv6 scan  r, k, w: (B, T, H, K);  v: (B, T, H, V);  u: (H, K);
               state: (B, H, K, V)
+  mamba scan  x, dt: (B, T, DI);  A: (DI, N);  Bm, C: (B, T, N);  D: (DI,);
+              state: (B, DI, N)
 """
 from __future__ import annotations
 
@@ -211,3 +213,80 @@ def rwkv6_scan_chunked(
         s = cum[:, -1].exp()[..., None] * s + torch.einsum("bshk,bshv->bhkv", kc * dend, vc)
         outs.append(intra + inter)
     return torch.cat(outs, 1).to(r.dtype), s.to(state.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective scan
+# ---------------------------------------------------------------------------
+
+
+def mamba_scan_ref(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    C: torch.Tensor,
+    D: torch.Tensor,
+    state: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Serial per-step recurrence, the oracle:
+
+      h_t = exp(dt_t ⊙ A) h_{t-1} + (dt_t x_t) ⊗ B_t;   y_t = C_t·h_t + D ⊙ x_t
+
+    f32 math; returns (y (B, T, DI) in x's dtype, state in its dtype).
+    """
+    xf, dtf, bf, cf = (a.float() for a in (x, dt, Bm, C))
+    af, df, h = A.float(), D.float(), state.float()
+    ys = []
+    for t in range(x.shape[1]):
+        da = torch.exp(dtf[:, t, :, None] * af[None])  # (B, DI, N)
+        h = da * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]) + df[None] * xf[:, t])
+    return torch.stack(ys, 1).to(x.dtype), h.to(state.dtype)
+
+
+def mamba_scan_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    C: torch.Tensor,
+    D: torch.Tensor,
+    state: torch.Tensor,
+    *,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked form of the same recurrence (the JAX package's production
+    path): chunks of L steps in sequence, and inside a chunk an inclusive
+    scan of the pairs (a_t, b_t) = (exp(dt_t ⊙ A), (dt_t x_t) ⊗ B_t) under
+
+      (a_l, b_l) ∘ (a_r, b_r) = (a_l a_r, b_l a_r + b_r)
+
+    with the carried state prepended as step 0 (a = 1).  torch has no
+    associative scan, so this one is Hillis–Steele: log2(L + 1) rounds, each
+    combining every pair with the one ``d`` steps before it.  The
+    (B, L + 1, DI, N) f32 pairs are materialised per chunk.  T must be a
+    multiple of min(chunk, T).
+    """
+    B, T, DI = x.shape
+    L = min(chunk, T)
+    if T % L:
+        raise ValueError(f"T={T} must be a multiple of chunk={L}")
+    xf, dtf, bf, cf = (a.float() for a in (x, dt, Bm, C))
+    af, df, h = A.float(), D.float(), state.float()
+    ys = []
+    for c0 in range(0, T, L):
+        xc, dtc, bc, cc = (a[:, c0:c0 + L] for a in (xf, dtf, bf, cf))
+        a = torch.exp(dtc[..., None] * af[None, None])  # (B, L, DI, N)
+        b = (dtc * xc)[..., None] * bc[:, :, None, :]
+        a = torch.cat([torch.ones_like(a[:, :1]), a], 1)
+        b = torch.cat([h[:, None], b], 1)
+        d = 1
+        while d <= L:
+            b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], 1)
+            a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], 1)
+            d *= 2
+        hs = b[:, 1:]  # (B, L, DI, N): the state after each step
+        ys.append(torch.einsum("bldn,bln->bld", hs, cc) + df * xc)
+        h = hs[:, -1].clone()  # a view would keep the chunk's whole stack alive
+    return torch.cat(ys, 1).to(x.dtype), h.to(state.dtype)

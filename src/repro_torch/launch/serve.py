@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --prompt-len 512 --max-seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large --reduced --device cpu
 
 Counterpart of ``repro/launch/serve.py``.  Weights are random, drawn from
 ``--seed`` on the device; prompts are uniform random token ids from the same
@@ -10,8 +11,9 @@ seed.  Prints one JSON line with the JAX driver's fields (``arch``,
 ``requests``, ``generated_tokens``, ``tokens_per_s``, ``mean_prefill_ms``,
 ``wall_s``, ``sample``) plus ``device`` and ``kernels``, the launch count of
 each Hopper kernel in the run (all 0 on the CPU, where the plain versions
-run).  An RWKV6 model's prompt longer than its scan chunk (16 reduced, 128
-at full width) must be a multiple of it.  Dispatch, trace, fleet, metrics
+run).  An RWKV6 or Mamba model's prompt longer than its scan chunk (16
+reduced; 128 for RWKV6 and 256 for Mamba at full width) must be a multiple
+of it.  Full-depth jamba-1.5-large (796 GB in bf16) does not fit one card.  Dispatch, trace, fleet, metrics
 and tune flags arrive with ROADMAP items M7, M8, M11 and M12.
 """
 from __future__ import annotations

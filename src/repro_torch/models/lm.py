@@ -1,5 +1,5 @@
-"""Decoder-only LM over a per-layer pattern spec: attention with dense or MoE
-FFNs, and RWKV6 time mix with its channel mix.
+"""Decoder-only LM over a per-layer pattern spec: attention or Mamba mixers
+with dense or MoE FFNs, and RWKV6 time mix with its channel mix.
 
 Counterpart of ``repro/models/lm.py``.  Parameters and caches keep the JAX
 package's tree: layers outside whole periods live under ``head{i}`` /
@@ -14,9 +14,9 @@ Surfaces:
   * ``prefill``      — forward + KV cache construction + last-pos logits.
   * ``decode_step``  — one token per sequence against the caches.
 
-The Mamba mixer and the vlm/audio frontends raise ``NotImplementedError``
-(ROADMAP item M10); the training loss, which reads the MoE layers' aux
-losses, is M9, so serving discards them.
+The vlm/audio frontends raise ``NotImplementedError`` (ROADMAP item M10);
+the training loss, which reads the MoE layers' aux losses, is M9, so
+serving discards them.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.nn import attention as attn
 from repro_torch.nn import core as nn
 from repro_torch.nn import ffn as ffn_mod
+from repro_torch.nn import mamba as mamba_mod
 from repro_torch.nn import rwkv as rwkv_mod
 
 
@@ -40,8 +41,6 @@ def torch_dtype(name: str) -> torch.dtype:
 def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
     if cfg.frontend != "text":
         raise NotImplementedError(f"frontend {cfg.frontend!r} is ROADMAP item M10")
-    if spec.mixer not in ("ga", "swa", "rwkv"):
-        raise NotImplementedError(f"mixer {spec.mixer!r} is ROADMAP item M10")
     if spec.ffn not in ("dense", "moe", "rwkv_ffn", "none"):
         raise NotImplementedError(f"ffn {spec.ffn!r} is ROADMAP item M10")
 
@@ -54,8 +53,8 @@ def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
 def _block_init(pf: nn.ParamFactory, cfg: ModelConfig, spec: LayerSpec) -> dict:
     _check_supported(cfg, spec)
     p: dict = {"norm1": nn.rmsnorm_init(pf, cfg.d_model)}
-    p["mixer"] = (rwkv_mod.time_mix_init(pf, cfg) if spec.mixer == "rwkv"
-                  else attn.attention_init(pf, cfg))
+    init = {"rwkv": rwkv_mod.time_mix_init, "mamba": mamba_mod.mamba_init}
+    p["mixer"] = init.get(spec.mixer, attn.attention_init)(pf, cfg)
     if cfg.post_block_norms:
         p["norm1_post"] = nn.rmsnorm_init(pf, cfg.d_model)
     if spec.ffn != "none":
@@ -108,11 +107,14 @@ def init_params(
 
 
 def _block_cache(cfg, spec, batch, max_seq, dtype, device) -> dict:
-    """A block's decode state: the KV cache of an attention mixer, or the
-    shift vectors and f32 WKV state of an RWKV block."""
+    """A block's decode state: the KV cache of an attention mixer, the conv
+    window and f32 SSM state of a Mamba mixer, or the shift vectors and f32
+    WKV state of an RWKV block."""
     _check_supported(cfg, spec)
     if spec.mixer == "rwkv":
         c = {"mixer": rwkv_mod.init_time_cache(cfg, batch, dtype, device)}
+    elif spec.mixer == "mamba":
+        c = {"mixer": mamba_mod.init_cache(cfg, batch, dtype, device)}
     else:
         c = {"mixer": attn.init_cache(cfg, spec.mixer, batch, max_seq, dtype, device)}
     if spec.ffn == "rwkv_ffn":
@@ -173,6 +175,8 @@ def _block_apply(
     mixer_cache = cache.get("mixer") if cache else None
     if spec.mixer == "rwkv":
         h, _ = rwkv_mod.time_mix_apply(p["mixer"], h, cfg, mode=mode, cache=mixer_cache)
+    elif spec.mixer == "mamba":
+        h, _ = mamba_mod.mamba_apply(p["mixer"], h, cfg, mode=mode, cache=mixer_cache)
     else:
         h, _ = attn.attention_apply(p["mixer"], h, cfg, spec.mixer, positions, mode=mode,
                                     cache=mixer_cache)

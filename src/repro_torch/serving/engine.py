@@ -7,8 +7,10 @@ alone (batch 1) and its cache is copied into its slot in place; one batched
 decode step per tick advances every slot.
 
 Every cache leaf is ``(B, ...)``, or ``(n_periods, B, ...)`` under
-``blocks``: attention KV caches and their ``pos_ids``, and the RWKV6 blocks'
-``shift`` vectors (B, D) and f32 ``wkv`` states (B, H, K, V).  A prefill's
+``blocks``: attention KV caches and their ``pos_ids``, the Mamba blocks'
+``conv`` windows (B, d_conv - 1, DI) and f32 ``ssm`` states (B, DI, N), and
+the RWKV6 blocks' ``shift`` vectors (B, D) and f32 ``wkv`` states
+(B, H, K, V).  A prefill's
 leaves are copied into the slot along that batch axis, so a recurrent state
 is replaced whole when a request takes over a slot.
 

@@ -23,6 +23,7 @@ from repro.kernels.rwkv6_scan import rwkv6_scan as jax_rwkv6  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels.moe_gmm import gmm  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
@@ -371,6 +372,147 @@ def test_rwkv6_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="no kernel for device"):
         rwkv6_scan(r, r, r, r, torch.zeros(2, 8, device="meta"),
                    torch.zeros(1, 2, 8, 8, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# K5 Mamba-1 selective scan
+# ---------------------------------------------------------------------------
+#
+# The Pallas kernel cannot be the reference here: on this jax its
+# ``pl.store`` raises in interpret mode too (ROADMAP R1).  The port's plain
+# versions are held against the JAX serial oracle ``ref.mamba_scan_ref``
+# and the JAX chunked form ``ref.mamba_scan_chunked``, which is what the
+# JAX model runs off the TPU.  f32 tolerance 2e-5: the two sides sum C·h
+# and combine the scan's pairs in other orders (the JAX associative scan is
+# an odd/even tree, the port's Hillis–Steele).
+
+
+def _mamba_inputs(seed, B, T, DI, N, decay="mixed"):
+    """x, dt, A, Bm, C, D, state as numpy f32.  "mixed" is
+    tests/test_kernels.py's law: dt = softplus(N(0, 1)), A = -exp(N(0, 0.3²)).
+    "strong": dt in [2, 5] and A = -exp(U(3, 4)), so every decay
+    exp(dt A) is below e^-40 and most underflow to 0 (the state forgets at
+    once).  "weak": dt in [0, 1e-3], so decays are ~1 and the state carries
+    across chunks."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, DI))
+    if decay == "strong":
+        dt = rng.uniform(2, 5, (B, T, DI))
+        A = -np.exp(rng.uniform(3, 4, (DI, N)))
+    else:
+        dt = (rng.uniform(0, 1e-3, (B, T, DI)) if decay == "weak"
+              else np.logaddexp(rng.standard_normal((B, T, DI)), 0))
+        A = -np.exp(rng.standard_normal((DI, N)) * 0.3)
+    Bm, C = (rng.standard_normal((B, T, N)) for _ in range(2))
+    D = rng.standard_normal(DI)
+    h0 = rng.standard_normal((B, DI, N)) * 0.1
+    return tuple(a.astype(np.float32) for a in (x, dt, A, Bm, C, D, h0))
+
+
+def _mamba_pairs(arrays, dtype):
+    """x, dt, Bm, C in ``dtype``; A, D and the state in f32 (as the model
+    passes them)."""
+    pairs = [_pair(a, dtype if i in (0, 1, 3, 4) else "float32") for i, a in enumerate(arrays)]
+    return [j for j, _ in pairs], [t for _, t in pairs]
+
+
+def _mamba_tols(dtype):
+    return tols(dtype) if dtype == "bfloat16" else dict(atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,DI,N,chunk", [(2, 64, 12, 4, 16), (1, 32, 8, 8, 32),
+                                            (2, 64, 40, 16, 32)])
+def test_mamba_scan_vs_jax(B, T, DI, N, chunk, dtype):
+    """tests/test_kernels.py's two shapes and one at N = 16 (jamba's state
+    size) with DI = 40, a ragged channel tile on the card; a non-zero
+    state.  The port's serial oracle against the JAX oracle, and the
+    port's op on the CPU (the chunked plain version) against the JAX
+    chunked form and the JAX oracle."""
+    jx, tx = _mamba_pairs(_mamba_inputs(61, B, T, DI, N), dtype)
+    want_y, want_s = jax_ref.mamba_scan_ref(*jx)
+    jch_y, jch_s = jax_ref.mamba_scan_chunked(*jx, chunk=chunk)
+    ref_y, ref_s = ref.mamba_scan_ref(*tx)
+    got_y, got_s = ops.mamba_scan(*tx, chunk=chunk)
+    for y, s in ((ref_y, ref_s), (got_y, got_s)):
+        assert y.dtype == tx[0].dtype and tuple(y.shape) == (B, T, DI)
+        assert s.dtype == torch.float32 and tuple(s.shape) == (B, DI, N)
+    _close(want_y, ref_y, **_mamba_tols(dtype))
+    _close(want_s, ref_s, **_mamba_tols(dtype))
+    for want_y_, want_s_ in ((jch_y, jch_s), (want_y, want_s)):
+        _close(want_y_, got_y, **_mamba_tols(dtype))
+        _close(want_s_, got_s, **_mamba_tols(dtype))
+    # the kernel wrapper's CPU route is the chunked plain version
+    torch.testing.assert_close(mamba_scan(*tx, chunk=chunk)[0], got_y)
+
+
+@pytest.mark.parametrize("decay", ["strong", "weak"])
+def test_mamba_scan_extreme_decays(decay):
+    """Decays at both ends of (0, 1): exp(dt A) underflowing to 0, and ~1
+    over a 64-step sequence in 16-step chunks (the state crosses three chunk
+    boundaries).  Both plain versions against both JAX forms, in f32."""
+    arrays = _mamba_inputs(62, 2, 64, 12, 8, decay)
+    jx = [jnp.asarray(a) for a in arrays]
+    tx = [torch.from_numpy(a) for a in arrays]
+    want_y, want_s = jax_ref.mamba_scan_ref(*jx)
+    jch_y, jch_s = jax_ref.mamba_scan_chunked(*jx, chunk=16)
+    for y, s in (ref.mamba_scan_ref(*tx), ops.mamba_scan(*tx, chunk=16)):
+        assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+        for want_y_, want_s_ in ((want_y, want_s), (jch_y, jch_s)):
+            _close(want_y_, y, **_mamba_tols("float32"))
+            _close(want_s_, s, **_mamba_tols("float32"))
+    if decay == "strong":  # the final state is the last step's (dt x) ⊗ B alone
+        x, dt, _, Bm = tx[:4]
+        last = (dt[:, -1] * x[:, -1])[..., None] * Bm[:, -1, None, :]
+        torch.testing.assert_close(ops.mamba_scan(*tx, chunk=16)[1], last, atol=2e-5, rtol=2e-5)
+
+
+def test_mamba_step_matches_scan():
+    """ops.mamba_step, step by step, reproduces the scan and the JAX step
+    (tests/test_kernels.py::test_ops_decode_steps_match_scans)."""
+    B, T, DI, N = 2, 8, 12, 8
+    x, dt, A, Bm, C, D, s0 = (torch.from_numpy(a) for a in _mamba_inputs(63, B, T, DI, N))
+    want_y, want_s = ops.mamba_scan(x, dt, A, Bm, C, D, s0, chunk=T)
+    st, ys = s0, []
+    for t in range(T):
+        jy, js = jax_ops.mamba_step(*(jnp.asarray(a[:, t].numpy()) for a in (x, dt)),
+                                    jnp.asarray(A.numpy()),
+                                    *(jnp.asarray(a[:, t].numpy()) for a in (Bm, C)),
+                                    jnp.asarray(D.numpy()), jnp.asarray(st.numpy()))
+        y, st = ops.mamba_step(x[:, t], dt[:, t], A, Bm[:, t], C[:, t], D, st)
+        _close(jy, y, atol=2e-5, rtol=2e-5)
+        _close(js, st, atol=2e-5, rtol=2e-5)
+        ys.append(y)
+    torch.testing.assert_close(torch.stack(ys, 1), want_y, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(st, want_s, atol=2e-5, rtol=2e-5)
+    # the step's dtypes: y in x's, state in the state's
+    y, s = ops.mamba_step(x[:, 0].bfloat16(), dt[:, 0].bfloat16(), A, Bm[:, 0].bfloat16(),
+                          C[:, 0].bfloat16(), D, s0)
+    assert (y.dtype, s.dtype) == (torch.bfloat16, torch.float32)
+
+
+def test_mamba_scan_chunk_contract():
+    """T must be a multiple of min(chunk, T) on every route, where the JAX
+    op asserts it too (ROADMAP R8); T <= chunk always passes."""
+    arrays = _mamba_inputs(64, 1, 20, 8, 4)
+    tx = [torch.from_numpy(a) for a in arrays]
+    for impl in ("auto", "plain"):
+        with pytest.raises(ValueError, match="multiple of chunk=16"):
+            ops.mamba_scan(*tx, chunk=16, impl=impl)
+    with pytest.raises(ValueError, match="multiple of chunk=16"):
+        ref.mamba_scan_chunked(*tx, chunk=16)
+    with pytest.raises(AssertionError, match="multiple of chunk=16"):
+        jax_ops.mamba_scan(*(jnp.asarray(a) for a in arrays), chunk=16)
+    y, _ = ops.mamba_scan(*tx, chunk=32, remat_chunks=True)
+    assert tuple(y.shape) == (1, 20, 8)
+
+
+def test_mamba_wrapper_refuses_other_devices():
+    x = torch.zeros(1, 4, 8, device="meta")
+    bc = torch.zeros(1, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        mamba_scan(x, x, torch.zeros(8, 16, device="meta"), bc, bc,
+                   torch.zeros(8, device="meta"), torch.zeros(1, 8, 16, device="meta"))
 
 
 # ---------------------------------------------------------------------------

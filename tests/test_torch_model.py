@@ -21,6 +21,7 @@ from repro.models import lm as jax_lm  # noqa: E402
 from repro.nn import attention as jax_attn  # noqa: E402
 from repro.nn import core as jax_nn  # noqa: E402
 from repro.nn import ffn as jax_ffn  # noqa: E402
+from repro.nn import mamba as jax_mamba  # noqa: E402
 from repro.nn import rwkv as jax_rwkv  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -28,9 +29,11 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.nn import attention as attn  # noqa: E402
 from repro_torch.nn import core as nn  # noqa: E402
 from repro_torch.nn import ffn  # noqa: E402
+from repro_torch.nn import mamba  # noqa: E402
 from repro_torch.nn import rwkv  # noqa: E402
 
-ARCHS = ["qwen2-0.5b", "smollm-360m", "deepseek-moe-16b", "dbrx-132b", "rwkv6-7b"]
+ARCHS = ["qwen2-0.5b", "smollm-360m", "deepseek-moe-16b", "dbrx-132b", "rwkv6-7b",
+         "jamba-1.5-large"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -73,15 +76,18 @@ def test_config_copies_match_jax(arch):
                       (reduced(get_config(arch)), jax_reduced(jax_get_config(arch)))):
         fields = dataclasses.asdict(port)
         assert fields == {k: v for k, v in dataclasses.asdict(ref).items() if k in fields}
-        assert (ref.mamba, ref.fused_attention_vjp) == (None, False)
+        assert ref.fused_attention_vjp is False
         assert (port.n_periods, port.period) == (ref.n_periods, ref.period)
-        # the RWKV sub-config: the same fields and values, or absent on both
-        assert (port.rwkv is None) == (ref.rwkv is None)
-        if port.rwkv is not None:
-            assert dataclasses.asdict(port.rwkv) == dataclasses.asdict(ref.rwkv)
+        # the Mamba and RWKV sub-configs: the same fields and values, or
+        # absent on both
+        for sub in ("mamba", "rwkv"):
+            assert (getattr(port, sub) is None) == (getattr(ref, sub) is None), sub
+            if getattr(port, sub) is not None:
+                assert dataclasses.asdict(getattr(port, sub)) == \
+                    dataclasses.asdict(getattr(ref, sub)), sub
 
 
-@pytest.mark.parametrize("arch", ["gemma2-27b", "jamba-1.5-large", "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["gemma2-27b", "gemma3-4b", "chameleon-34b"])
 def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP item M10"):
         get_config(arch)
@@ -539,6 +545,183 @@ def test_rwkv_prefill_chunk_contract(S):
     jcfg, cfg, jp, p = _both("rwkv6-7b")
     toks = np.zeros((1, S), np.int64)
     if S % cfg.rwkv.chunk and S > cfg.rwkv.chunk:
+        with pytest.raises(AssertionError, match="multiple of chunk"):
+            jax_lm.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32), max_seq=S)
+        with pytest.raises(ValueError, match="multiple of chunk"):
+            lm.prefill(p, cfg, _t(toks), max_seq=S)
+    else:
+        jl, _ = jax_lm.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32), max_seq=S)
+        tl, _ = lm.prefill(p, cfg, _t(toks), max_seq=S)
+        _close(jl, tl)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba layer
+# ---------------------------------------------------------------------------
+
+# Leaves the JAX init sets flat (the same A_log row for every channel, D all
+# ones, zero conv bias and norm scales), with the std of the seeded noise
+# the tests below add to them on both sides.  At init a fault that indexes
+# A or D with the wrong channel, or swaps channel tiles, changes nothing.
+# A = -exp(A_log) stays negative, so every decay stays in (0, 1).
+_MAMBA_FLAT_LEAVES = {"A_log": 0.5, "D": 0.5, "conv_b": 0.1, "scale": 0.3}
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _perturb_mamba(tree, seed):
+    """A copy of a JAX param tree (numpy leaves) with seeded noise added to
+    every flat-init Mamba leaf (and to every norm scale)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k in _MAMBA_FLAT_LEAVES:
+                out[k] = (v + rng.standard_normal(v.shape) * _MAMBA_FLAT_LEAVES[k]).astype(v.dtype)
+            else:
+                out[k] = v
+        return out
+
+    return walk(jax.tree.map(np.asarray, tree))
+
+
+def _mamba_layer(seed, dtype="float32"):
+    jcfg, cfg, _, _ = _both("jamba-1.5-large", param_dtype=dtype, activation_dtype=dtype)
+    vf = jax_nn.ValueFactory(jax.random.PRNGKey(seed), DTYPES[dtype][0])
+    jp = _perturb_mamba(jax_mamba.mamba_init(vf, jcfg), seed)
+    return jcfg, cfg, jax.tree.map(jnp.asarray, jp), params_from_jax(jp, cfg, device="cpu")
+
+
+def test_mamba_init_laws():
+    """The port's own init: A_log = log(1..N) in every channel and period,
+    D ones, zero conv bias and norm scales, softplus(dt_bias) in
+    [1e-3, 1e-1], conv_w std 1/sqrt(d_conv), and f32 for A_log, dt_bias, D."""
+    cfg = reduced(get_config("jamba-1.5-large"))
+    m = lm.init_params(cfg, 0, device="cpu")["blocks"]["pos0"]["mixer"]
+    DI, N, DC, R = mamba._dims(cfg)
+    assert (DI, N, DC, R) == (128, 8, 4, 4)
+    for leaf in ("A_log", "dt_bias", "D"):
+        assert m[leaf].dtype == torch.float32, leaf
+    np.testing.assert_allclose(m["A_log"].numpy(),
+                               np.broadcast_to(np.log(np.arange(1, N + 1)), (1, DI, N)), rtol=1e-6)
+    assert bool((m["D"] == 1).all()) and bool((m["conv_b"] == 0).all())
+    for norm in ("dt_norm", "b_norm", "c_norm"):
+        assert bool((m[norm]["scale"] == 0).all()), norm
+    dt = torch.nn.functional.softplus(m["dt_bias"])
+    assert float(dt.min()) >= 1e-3 * (1 - 1e-5) and float(dt.max()) <= 0.1 * (1 + 1e-5)
+    assert float(dt.max()) / float(dt.min()) > 20  # log-uniform, not a constant
+    assert abs(float(m["conv_w"].std()) - DC**-0.5) < 0.05
+
+
+def test_bridge_mamba_leaves_keep_their_dtypes():
+    """In a bf16 model the f32 leaves (A_log, dt_bias, D) cross as f32 and
+    the bf16 leaves bit for bit."""
+    jcfg, cfg, jp, p = _both("jamba-1.5-large", param_dtype="bfloat16",
+                             activation_dtype="bfloat16")
+    jm, tm = jp["blocks"]["pos0"]["mixer"], p["blocks"]["pos0"]["mixer"]
+    for leaf in ("A_log", "dt_bias", "D"):
+        assert tm[leaf].dtype == torch.float32
+        np.testing.assert_array_equal(tm[leaf].numpy(), np.asarray(jm[leaf]))
+    for jw, tw in ((jm["conv_w"], tm["conv_w"]),
+                   *((jm[k]["w"], tm[k]["w"]) for k in ("in_proj", "x_proj", "dt_proj"))):
+        assert tw.dtype == torch.bfloat16
+        np.testing.assert_array_equal(tw.view(torch.int16).numpy().view(np.uint16),
+                                      np.asarray(jw).view(np.uint16))
+
+
+@pytest.mark.parametrize("dtype,S,with_cache", [("float32", 16, False), ("float32", 16, True),
+                                                ("float32", 2, True), ("bfloat16", 16, True)])
+def test_mamba_apply_full_and_decode(dtype, S, with_cache):
+    """repro.nn.mamba.mamba_apply with every flat-init leaf perturbed: a
+    full sequence (no cache, or filling one; S = 2 is shorter than the conv
+    window, so the cache keeps part of its old rows), then three decode
+    steps against the cache (conv window and f32 SSM state compared each
+    step).  bf16 at tests/test_kernels.py's 2e-2: XLA on the CPU and eager
+    torch round the conv sum and the casts at different places."""
+    jcfg, cfg, jp, p = _mamba_layer(17, dtype)
+    jd, td = DTYPES[dtype]
+    tol = TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
+    rng = np.random.default_rng(18)
+    B, D = 2, cfg.d_model
+    DI, N, DC, _ = mamba._dims(cfg)
+    x = rng.standard_normal((B, S, D), np.float32)
+    jc = tc = None
+    if with_cache:
+        jc = jax_mamba.init_cache(jcfg, B, jd)
+        tc = mamba.init_cache(cfg, B, td, torch.device("cpu"))
+        old = rng.standard_normal((B, DC - 1, DI), np.float32)  # rows a short prompt keeps
+        jc["conv"] = jnp.asarray(old, jd)
+        tc["conv"].copy_(_t(old))
+    jo, jc = jax_mamba.mamba_apply(jp, jnp.asarray(x, jd), jcfg, mode="full", cache=jc)
+    to, tc = mamba.mamba_apply(p, _t(x).to(td), cfg, mode="full", cache=tc)
+    assert to.dtype == td
+    _close(jo, to, **tol)
+    if not with_cache:
+        assert tc is None
+        return
+    assert tuple(tc["ssm"].shape) == (B, DI, N) and tc["ssm"].dtype == torch.float32
+    assert tuple(tc["conv"].shape) == (B, DC - 1, DI) and tc["conv"].dtype == td
+    _tree_close(jc, tc, **tol)
+    for _ in range(3):
+        xt = rng.standard_normal((B, 1, D), np.float32)
+        jo, jc = jax_mamba.mamba_apply(jp, jnp.asarray(xt, jd), jcfg, mode="decode", cache=jc)
+        to, tc = mamba.mamba_apply(p, _t(xt).to(td), cfg, mode="decode", cache=tc)
+        _close(jo, to, **tol)
+        _tree_close(jc, tc, **tol)
+
+
+def test_mamba_dt_matches_jax_above_softplus_threshold():
+    """dt = softplus(dt_proj(dt_norm(...)) + dt_bias), B and C against
+    repro.nn.mamba._ssm_inputs with dt_bias spread over [-40, 40]: dt from
+    ~1e-18 to past 20, where the init's LogUniform dt_bias never reaches."""
+    jcfg, cfg, jp, p = _mamba_layer(21)
+    DI = mamba._dims(cfg)[0]
+    bias = np.linspace(-40, 40, DI, dtype=np.float32)
+    jp["dt_bias"], p["dt_bias"] = jnp.asarray(bias), _t(bias)
+    xs = np.random.default_rng(22).standard_normal((2, 5, DI), np.float32)
+    jdt, jb, jc = jax_mamba._ssm_inputs(jp, jnp.asarray(xs), jcfg)
+    dt, b, c = mamba._ssm_inputs(p, _t(xs), cfg)
+    assert dt.dtype == torch.float32 and float(dt.max()) > 20
+    _close(jdt, dt, atol=1e-5, rtol=1e-6)
+    _close(jb, b)
+    _close(jc, c)
+
+
+@pytest.mark.parametrize("n_layers", [8, 5])
+def test_jamba_with_perturbed_leaves_matches_jax(n_layers):
+    """Reduced jamba with every flat-init Mamba leaf perturbed: prefill,
+    caches and four decode steps against the JAX model in f32.  8 layers is
+    one whole period (stacked (1, B, ...) caches); 5 layers is the served
+    cut's pattern, every layer a ``tail{i}`` leaf and no period."""
+    jcfg, cfg, jp, _ = _both("jamba-1.5-large", n_layers=n_layers)
+    assert cfg.n_periods == (1 if n_layers == 8 else 0)
+    noisy = _perturb_mamba(jp, 19)
+    jp, p = jax.tree.map(jnp.asarray, noisy), params_from_jax(noisy, cfg, device="cpu")
+    B, S = 2, 16
+    toks = np.random.default_rng(20).integers(0, cfg.vocab_size, (B, S + 4))
+    jl, jc = jax_lm.prefill(jp, jcfg, jnp.asarray(toks[:, :S], jnp.int32), max_seq=32)
+    tl, tc = lm.prefill(p, cfg, _t(toks[:, :S]), max_seq=32)
+    _close(jl, tl)
+    _tree_close(jc, tc)
+    for t in range(S, S + 4):
+        cur = np.full((B,), t, np.int32)
+        jl, jc = jax_lm.decode_step(jp, jcfg, jnp.asarray(toks[:, t], jnp.int32),
+                                    jnp.asarray(cur), jc)
+        tl, tc = lm.decode_step(p, cfg, _t(toks[:, t]), _t(cur), tc)
+        _close(jl, tl)
+    _tree_close(jc, tc)
+
+
+@pytest.mark.parametrize("S", [12, 16, 20, 32])
+def test_mamba_prefill_chunk_contract(S):
+    """A prompt longer than the scan's chunk (16 reduced, 256 at full width)
+    must be a multiple of it, in the JAX package and in the port alike
+    (ROADMAP R8): 20 fails on both sides, 12, 16 and 32 pass on both."""
+    jcfg, cfg, jp, p = _both("jamba-1.5-large")
+    toks = np.zeros((1, S), np.int64)
+    if S % cfg.mamba.chunk and S > cfg.mamba.chunk:
         with pytest.raises(AssertionError, match="multiple of chunk"):
             jax_lm.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32), max_seq=S)
         with pytest.raises(ValueError, match="multiple of chunk"):

@@ -30,7 +30,7 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 
 ARCHS = ["qwen2-0.5b", "smollm-360m"]
-KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "moe_gmm", "rwkv6_scan")
+KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "moe_gmm", "rwkv6_scan", "mamba_scan")
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -68,7 +68,7 @@ def test_engine_matches_jax_engine(arch):
     assert eng.run_to_completion() == jeng.run_to_completion()
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b", "rwkv6-7b", "jamba-1.5-large"])
 def test_engine_matches_jax_direct_decode(arch):
     """Each request's tokens equal the JAX model's own prefill + greedy
     decode loop for that request alone."""
@@ -134,6 +134,36 @@ def test_rwkv_state_lands_in_its_own_slot():
                               torch.tensor([len(prompt)], dtype=torch.int32), own[slot])
         torch.testing.assert_close(blocks["mixer"]["wkv"][:, slot],
                                    c["blocks"]["pos0"]["mixer"]["wkv"][:, 0])
+
+
+def test_mamba_state_lands_in_its_own_slot():
+    """A jamba model's Mamba caches (the raw conv window and the f32 SSM
+    state of every period) land in the admitted request's slot, and a
+    decode tick advances each slot from its own state."""
+    cfg, params, eng, _ = _setup("jamba-1.5-large", max_batch=3)
+    a, b = _prompts(cfg.vocab_size, n=2, length=8)
+    eng.submit(a, max_new=3)
+    eng.submit(b, max_new=3)
+    eng._admit()
+    mixer = eng.caches["blocks"]["pos0"]["mixer"]
+    assert tuple(mixer["ssm"].shape)[:2] == (cfg.n_periods, 3)
+    assert mixer["ssm"].dtype == torch.float32
+    own = []
+    for slot, prompt in enumerate((a, b)):
+        _, c = lm.prefill(params, cfg, torch.tensor([prompt]), max_seq=64)
+        own.append(c)
+        for leaf in ("conv", "ssm"):
+            own_leaf = c["blocks"]["pos0"]["mixer"][leaf][:, 0]
+            torch.testing.assert_close(mixer[leaf][:, slot], own_leaf)
+    assert float(mixer["ssm"][:, 2].abs().max()) == 0.0  # the free slot is untouched
+    tok = [eng.active[s].out[-1] for s in (0, 1)]
+    eng._decode_tick()
+    for slot, prompt in enumerate((a, b)):
+        _, c = lm.decode_step(params, cfg, torch.tensor([tok[slot]]),
+                              torch.tensor([len(prompt)], dtype=torch.int32), own[slot])
+        for leaf in ("conv", "ssm"):
+            own_leaf = c["blocks"]["pos0"]["mixer"][leaf][:, 0]
+            torch.testing.assert_close(mixer[leaf][:, slot], own_leaf)
 
 
 def test_continuous_batching_more_requests_than_slots():
@@ -223,6 +253,18 @@ def test_serve_driver_runs_rwkv_arch_on_cpu():
     rec = serve.main(["--arch", "rwkv6-7b", "--reduced", "--device", "cpu",
                       "--requests", "3", "--max-new", "4", "--max-batch", "2"])
     assert rec["arch"] == "rwkv6-7b-smoke"
+    assert rec["requests"] == 3 and rec["generated_tokens"] == 12
+    assert rec["kernels"] == dict.fromkeys(KERNELS, 0)
+
+
+def test_serve_driver_runs_jamba_arch_on_cpu():
+    """--arch jamba-1.5-large --reduced --device cpu: 16-token prompts, one
+    chunk of the reduced scan each."""
+    from repro_torch.launch import serve
+
+    rec = serve.main(["--arch", "jamba-1.5-large", "--reduced", "--device", "cpu",
+                      "--requests", "3", "--max-new", "4", "--max-batch", "2"])
+    assert rec["arch"] == "jamba-1.5-large-smoke"
     assert rec["requests"] == 3 and rec["generated_tokens"] == 12
     assert rec["kernels"] == dict.fromkeys(KERNELS, 0)
 
