@@ -18,11 +18,17 @@ failure of which exits non-zero:
    V tile; jamba-1.5-large: the selective scan at its prefill shape, at
    batch 8, with strong and weak decays and a ragged channel tile, K1 and
    K2 at head dim 128 with 8 query heads per KV head, K3 at d 8192 and at
-   the Mamba norms' widths 512 and 16, K4 at 16 experts of 8192 x 24576),
+   the Mamba norms' widths 512 and 16, K4 at 16 experts of 8192 x 24576;
+   K1 in bf16 with q_offset and Sq < Sk, ragged 200-token sequences at
+   head dim 64 and 128, G = 8 with a window and a softcap; K2 in bf16 at a
+   half-empty cache, S = 1000, G = 1, 7, 8 and 16 and a ring buffer with a
+   window, each also against the split-KV plain version at the kernel's
+   own split, and a row without a live slot, which must be exactly 0),
    within 2e-2 (bf16) or 1e-4 (f32); time kernel, plain version and one
    PyTorch library call where there is one (a yardstick the port never
    calls) at the serving shapes, with L2 flushed before each launch,
-   beside the card's bound for the same work;
+   beside the card's bound for the same work (K1 also in f32, its CUDA-
+   core instance);
 4. serve full-width qwen2-0.5b (bf16, random weights from a seed, 8 slots,
    1024-slot caches, 16 requests of 512 prompt tokens, 64 new tokens,
    greedy) through the port's Engine with the launch counts reset just
@@ -30,7 +36,10 @@ failure of which exits non-zero:
    request's prefill logits and 8 teacher-forced decode steps through the
    kernels against the same through the plain versions, in f32 within
    F32_LOGIT_TOL (bf16 differences are reported beside them), and report
-   the device busy share of a decode tick and a prefill from torch.profiler;
+   the device busy share of a decode tick and a prefill from torch.profiler,
+   whose kernel names must show K1's tensor-core instance (and not the
+   SIMT one) in the bf16 prefill and both K2 passes in the tick (also for
+   deepseek-moe-16b and jamba-1.5-large below);
 4b. free it, and serve full-width, full-depth deepseek-moe-16b the same way
    (16 requests of 512 prompt tokens, 32 new tokens), with exact launch
    counts of all four kernels; then three gates: (a) one served MoE layer
@@ -260,6 +269,18 @@ def main() -> None:
             fail(f"{kernel} {case} disagrees with its plain version")
         return err
 
+    def timed(kernel_fn, plain_fn, library_fn, n_bytes, n_flops, peak, shape,
+              n_exps: float = 0.0) -> dict:
+        """Times of kernel, plain version and library call (None: there is
+        no single PyTorch call for the function) beside the bound."""
+        b, by = bound_ms(n_bytes, n_flops, peak, n_exps)
+        return {"ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn), "bound_ms": b,
+                "bound_by": by, "library_ms": time_ms(library_fn) if library_fn else None,
+                "shape": shape}
+
+    def fmt_ms(t) -> str:
+        return "none" if t is None else f"{t:.4f} ms"
+
     # -- 3. kernels against their plain versions ---------------------------
     print("kernels vs plain:", flush=True)
     # K1: the CPU tests' sweep, q_offset, and the prefill shape
@@ -289,7 +310,35 @@ def main() -> None:
             randn(1, S, Hkv, D, dtype=dt)
         err1 = max(err1, hold("flash_attention", f"{dn} serving 1x{S}x{Hq}/{Hkv}x{D}",
                               k1.flash_attention(q, k, v), ref.mha_ref(q, k, v), dn))
-    # timing at the serving shape (bf16, causal)
+    # K1 in bf16 on the tensor cores: q_offset with Sq < Sk, ragged Sq = Sk
+    # = 200 at D 64 and 128 with G = 8, and G = 8 with a window that starts
+    # inside a tile and a softcap at D 128 (the D = 16 and 32 cases are in
+    # the sweep above)
+    # (drawn from a fork of the generator, so later phases draw what they did
+    # before these cases existed)
+    gen_state = gen.get_state()
+    k1_edges = [(2, 16, 80, 4, 2, 64, None, None, 64), (1, 100, 300, 16, 2, 128, 37, 30.0, 200),
+                (1, 200, 200, 8, 1, 64, None, None, 0), (1, 200, 200, 8, 1, 128, None, None, 0),
+                (1, S, S, 64, 8, 128, 100, 30.0, 0)]
+    for B_, Sq_, Sk_, Hq_, Hkv_, D_, w, cap, qo in k1_edges:
+        qe, ke, ve = (randn(B_, n, h, D_, dtype=torch.bfloat16)
+                      for n, h in ((Sq_, Hq_), (Sk_, Hkv_), (Sk_, Hkv_)))
+        err1 = max(err1, hold("flash_attention", f"bfloat16 {B_}x{Sq_}x{Sk_}x{Hq_}/{Hkv_}x{D_} "
+                              f"w={w} cap={cap} q_offset={qo}",
+                              k1.flash_attention(qe, ke, ve, window=w, softcap=cap, q_offset=qo),
+                              ref.mha_ref(qe, ke, ve, window=w, softcap=cap, q_offset=qo),
+                              "bfloat16"))
+    del qe, ke, ve
+    gen.set_state(gen_state)
+    # timing at the serving shape (bf16, causal; and the f32 instance)
+    q32, k32_, v32 = (t.float() for t in (q, k, v))
+    k1_f32 = timed(lambda: k1.flash_attention(q32, k32_, v32), lambda: ref.mha_ref(q32, k32_, v32),
+                   (lambda qs=q32.transpose(1, 2).contiguous(), ks_=k32_.transpose(1, 2).contiguous(),
+                    vs_=v32.transpose(1, 2).contiguous(): F.scaled_dot_product_attention(
+                        qs, ks_, vs_, is_causal=True, enable_gqa=True)),
+                   nbytes(q32, k32_, v32, q32), 4 * D * Hq * (S * (S + 1) // 2), peaks["float32"],
+                   f"B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} f32 causal ({k1.instance(torch.float32, D)})")
+    del q32, k32_, v32
     qs, ks_, vs_ = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = S * (S + 1) // 2
     b1, by1 = bound_ms(nbytes(q, k, v, q), 4 * D * Hq * pairs, peaks["bfloat16"])
@@ -303,7 +352,9 @@ def main() -> None:
         "bound_ms": b1, "bound_by": by1,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks_, vs_, is_causal=True, enable_gqa=True)),
-        "shape": f"B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal",
+        "shape": f"B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal "
+                 f"({k1.instance(torch.bfloat16, D)})",
+        "float32": k1_f32,
     }
 
     # K2: the CPU tests' sweep, a ring buffer, and the decode shape
@@ -336,6 +387,67 @@ def main() -> None:
         err2 = max(err2, hold("decode_attention", f"{dn} serving {B}x{Sc}x{Hq}/{Hkv}x{D}",
                               k2.decode_attention(q, kc, vc, pos, cur),
                               ref.decode_attention_ref(q, kc, vc, pos, cur), dn))
+    # K2 in bf16 at the served shapes' edges, each also held against the
+    # split-KV plain version at the kernel's own split: the first tick after
+    # a 512-token prompt (513 of 1024 slots live), S = 1000 (the last range
+    # and its last tile ragged), G = 1, 7, 8 and 16, and a 256-slot ring
+    # with a window that starts inside a tile
+    n_sm_card = torch.cuda.get_device_properties(0).multi_processor_count
+    gen_state = gen.get_state()
+
+    def ring_pos(B_, size, curs):
+        """pos_ids of a ring of ``size`` slots holding positions cur - size + 1 .. cur."""
+        s_ = torch.arange(size, dtype=torch.int32, device=dev)[None]
+        base = torch.tensor(curs, dtype=torch.int32, device=dev)[:, None] - size + 1
+        return base + torch.remainder(s_ - base, size)
+
+    k2_edges = [("half-empty", 8, 1024, 14, 2, 64, [512] * 8, None, None),
+                ("S=1000", 8, 1000, 16, 16, 128, [999] * 8, None, None),
+                ("G=1", 8, 1024, 16, 16, 128, list(range(1016, 1024)), None, 30.0),
+                ("G=7", 8, 1024, 14, 2, 64, [1023, 700, 513, 100, 31, 32, 0, 1023], None, None),
+                ("G=8", 8, 1024, 64, 8, 128, [1023, 900, 600, 513, 300, 64, 5, 1023], None, None),
+                ("G=16", 4, 1024, 32, 2, 128, [1023, 513, 77, 1000], None, None),
+                ("ring window", 8, 256, 64, 8, 128, [700, 300, 255, 1000, 256, 511, 999, 257],
+                 100, None)]
+    for label, B_, S_, Hq_, Hkv_, D_, curs, w, cap in k2_edges:
+        qe, kce, vce = randn(B_, Hq_, D_, dtype=torch.bfloat16), \
+            randn(B_, S_, Hkv_, D_, dtype=torch.bfloat16), randn(B_, S_, Hkv_, D_, dtype=torch.bfloat16)
+        if label == "ring window":
+            pose = ring_pos(B_, S_, curs)
+        else:
+            pose = torch.arange(S_, dtype=torch.int32, device=dev)[None].repeat(B_, 1)
+        cure = torch.tensor(curs, dtype=torch.int32, device=dev)
+        got = k2.decode_attention(qe, kce, vce, pose, cure, window=w, softcap=cap)
+        n_split, chunk = k2.split_plan(B_, Hkv_, S_, n_sm_card)
+        case = f"bfloat16 {label} {B_}x{S_}x{Hq_}/{Hkv_}x{D_} w={w} cap={cap}"
+        err2 = max(err2, hold("decode_attention", case, got,
+                              ref.decode_attention_ref(qe, kce, vce, pose, cure, window=w,
+                                                       softcap=cap), "bfloat16"))
+        err2 = max(err2, hold("decode_attention", f"{case} vs split ref {n_split}x{chunk}", got,
+                              ref.decode_attention_split_ref(qe, kce, vce, pose, cure,
+                                                             n_split=n_split, chunk=chunk,
+                                                             window=w, softcap=cap), "bfloat16"))
+    # a row with no live slot gives exactly 0 (the Pallas kernel's result;
+    # the plain whole-cache version gives the mean of V there)
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        qe, kce, vce = randn(2, 16, 128, dtype=dt), randn(2, 1024, 2, 128, dtype=dt), \
+            randn(2, 1024, 2, 128, dtype=dt)
+        pose = torch.arange(1024, dtype=torch.int32, device=dev)[None].repeat(2, 1)
+        pose[0] = -1
+        cure = torch.tensor([600, 600], dtype=torch.int32, device=dev)
+        got = k2.decode_attention(qe, kce, vce, pose, cure)
+        dead_ok = bool((got[0] == 0).all())
+        checks.append({"kernel": "decode_attention", "case": f"{dn} row without a live slot is 0",
+                       "max_abs_err": float(got[0].float().abs().max()), "tol": 0.0, "ok": dead_ok})
+        print(f"  decode_attention {dn} row without a live slot: max |out| "
+              f"{float(got[0].float().abs().max()):.3e} {'ok' if dead_ok else 'FAIL'}", flush=True)
+        if not dead_ok:
+            fail(f"decode_attention {dn}: a row without a live slot is not 0")
+        hold("decode_attention", f"{dn} live row beside a dead one", got[1:],
+             ref.decode_attention_ref(qe, kce, vce, pose, cure)[1:], dn)
+    del qe, kce, vce, pose, cure, got
+    gen.set_state(gen_state)
     live = (pos >= 0) & (pos <= cur[:, None])
     n_live = int(live.sum())
     qs = q[:, :, None]
@@ -353,7 +465,9 @@ def main() -> None:
         "bound_ms": b2, "bound_by": by2,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks_, vs_, attn_mask=mask, enable_gqa=True)),
-        "shape": f"B={B} S={Sc} Hq={Hq} Hkv={Hkv} D={D} bf16, {n_live} live slots",
+        "shape": f"B={B} S={Sc} Hq={Hq} Hkv={Hkv} D={D} bf16, {n_live} live slots "
+                 f"({' + '.join(k2.instances(torch.bfloat16, D))}, split "
+                 f"{k2.split_plan(B, Hkv, Sc, n_sm_card)})",
     }
 
     # K3: an odd shape and both serving shapes (decode rows and prefill rows)
@@ -382,18 +496,6 @@ def main() -> None:
         **times3[(B, dm)],
         "shape": f"({B}, {dm}) bf16 (decode rows); ({S}, {dm}): {times3[(S, dm)]}",
     }
-
-    def timed(kernel_fn, plain_fn, library_fn, n_bytes, n_flops, peak, shape,
-              n_exps: float = 0.0) -> dict:
-        """Times of kernel, plain version and library call (None: there is
-        no single PyTorch call for the function) beside the bound."""
-        b, by = bound_ms(n_bytes, n_flops, peak, n_exps)
-        return {"ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn), "bound_ms": b,
-                "bound_by": by, "library_ms": time_ms(library_fn) if library_fn else None,
-                "shape": shape}
-
-    def fmt_ms(t) -> str:
-        return "none" if t is None else f"{t:.4f} ms"
 
     # K1, K2, K3 at deepseek-moe-16b's shapes: head dim 128, one query row
     # per KV head (MHA), d 2048
@@ -763,7 +865,26 @@ def main() -> None:
             "prefill": lambda: lm.prefill(eng.params, c, torch.tensor([prompt], device=dev),
                                           max_seq=spec["max_seq"]),
         }
-        return {name: profile_step(fn) for name, fn in steps.items()}
+        out = {name: profile_step(fn) for name, fn in steps.items()}
+        if any(c.layer_spec(i).mixer in ("ga", "swa") for i in range(c.n_layers)):
+            check_attention_kernels(c, out)
+        return out
+
+    def check_attention_kernels(c, steps: dict) -> None:
+        """The served bf16 prefill ran K1's tensor-core instance and not the
+        SIMT one; the decode tick ran both passes of K2's instance."""
+        dt = getattr(torch, c.activation_dtype)
+        names = steps["prefill"]["kernel_names"]
+        want, other = k1.instance(dt, c.head_dim), "flash_fwd_simt"
+        seen = {"prefill": [n[:60] for n in names if "flash_fwd" in n],
+                "decode_tick": [n[:60] for n in steps["decode_tick"]["kernel_names"]
+                                if "decode_" in n]}
+        print(f"{c.name} attention kernels: {json.dumps(seen)}", flush=True)
+        if not any(want in n for n in names) or (want != other and any(other in n for n in names)):
+            fail(f"{c.name}: the prefill ran {seen['prefill']}, expected {want} only")
+        for part in k2.instances(dt, c.head_dim):
+            if not any(part in n for n in seen["decode_tick"]):
+                fail(f"{c.name}: the decode tick ran {seen['decode_tick']}, missing {part}")
 
     # -- 4. serve full-width qwen2-0.5b through the port's Engine ----------
     params, _ = init_model(cfg)
@@ -1187,6 +1308,7 @@ def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
         "host_ops": host_ops,
         "top_kernels": [(e.key[:90], dev_us(e) / 1e3, e.count) for e in rows[:top]],
+        "kernel_names": sorted({e.key for e in rows}),
     }
 
 

@@ -21,6 +21,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
+// Lets the kernel take ``bytes`` of dynamic shared memory (above 48 KB a
+// launch is refused otherwise), once per kernel instance and device.
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
+  constexpr int kMaxDevices = 64;
+  static int allowed[kMaxDevices] = {};  // the largest size set so far, per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
+  return err;
+}
+
 extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

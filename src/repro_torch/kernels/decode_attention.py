@@ -6,15 +6,25 @@ against a KV cache whose slots carry absolute positions (``pos_ids``, -1 =
 empty), so full caches and sliding-window ring buffers share one mask.
 
 What bounds it on the card: reading the cache, once per token, is all the
-work; the products are ~1 FLOP per byte.  The kernel reads each K/V tile
-once into shared memory for all G query rows of its KV head and skips tiles
-without a live slot.  It runs one block per (batch row, KV head), which at
-serving batch sizes leaves most SMs idle; splitting the cache across blocks
-with an (acc, m, l) combine (``ref.decode_attention_ref(return_stats=True)``)
-is the known fix.
+work; the products are ~1 FLOP per byte, so what counts is blocks and bytes
+in flight.  One call launches two kernels (counted once):
 
-A CPU tensor takes the plain version, :func:`plain`
-(``ref.decode_attention_ref``); a CUDA tensor launches the kernel or raises.
+1. the split pass: the cache is split into ``n_split`` slot ranges
+   (:func:`split_plan`, from the shapes and the SM count alone, so the call
+   has fixed shapes and no host sync); a block per (range, KV head, batch
+   row) reads its tiles once for all G query rows, through ``cp.async``
+   rings, skips tiles without a live slot, and writes f32 partials
+   (acc, m, l) to scratch from ``torch.empty``.  bf16 at D >= 16 runs
+   ``decode_split_mma`` (the G rows padded to 16 as one ``mma.sync``
+   operand, P rounded to bf16); f32, and bf16 at D 8, run
+   ``decode_split_kernel`` on the CUDA cores (:func:`instances`);
+2. ``decode_combine_kernel``: merges the partials per query row in a fixed
+   order (``ref.decode_attention_split_ref`` is the same arithmetic).
+
+A row with no live slot returns zeros, as the Pallas kernel does; the plain
+version returns the mean of V there.  A CPU tensor takes the plain version,
+:func:`plain` (``ref.decode_attention_ref``); a CUDA tensor launches the
+kernels or raises.
 """
 from __future__ import annotations
 
@@ -30,14 +40,41 @@ from repro_torch.kernels.ref import decode_attention_ref as plain
 
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the instances csrc/decode_attention.cu builds
 MAX_GROUP = 16  # query heads per KV head (kMaxG in the source)
+TILE = 32  # cache slots per tile (kTile in the source); a split is whole tiles
+WAVES = 2  # blocks to aim for, in multiples of the SM count
+
+
+def split_plan(B: int, Hkv: int, S: int, n_sm: int) -> tuple[int, int]:
+    """``(n_split, chunk)``: split each (batch row, KV head)'s S slots into
+    ``n_split`` ranges of ``chunk`` slots (the last one shorter), ``chunk`` a
+    multiple of TILE, so that ``B * Hkv * n_split >= WAVES * n_sm`` where S
+    has enough tiles for it."""
+    tiles = -(-S // TILE)
+    want = -(-WAVES * n_sm // (B * Hkv))
+    per = max(1, tiles // want)  # tiles per range
+    return -(-tiles // per), per * TILE
+
+
+def instances(dtype: torch.dtype, head_dim: int) -> tuple[str, str]:
+    """The two kernels a call runs, a function of dtype and head dim only:
+    the split pass (bf16 at D >= 16 on the tensor cores, otherwise on the
+    CUDA cores) and the combine."""
+    split = ("decode_split_mma" if dtype == torch.bfloat16 and head_dim >= 16
+             else "decode_split_kernel")
+    return split, "decode_combine_kernel"
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
 def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -81,15 +118,23 @@ def decode_attention(
                     ("pos_ids", pos_ids), ("cur_pos", cur_pos)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous on {q.device}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must start on a 16-byte boundary")
     if window is not None and window < 1:
         raise ValueError(f"decode_attention: window {window} < 1")
     scale = 1.0 / math.sqrt(D) if scale is None else scale
+    dev_index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    n_split, chunk = split_plan(B, Hkv, S, _sm_count(dev_index))
     out = torch.empty_like(q)
+    # acc (B, Hkv, n_split, G, D), then m and l (B, Hkv, n_split, G)
+    partials = torch.empty(B * Hq * n_split * (D + 2), dtype=torch.float32, device=q.device)
     lib, fn = _entry()
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos_ids.data_ptr(),
-             cur_pos.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[q.dtype], B, S, Hq, Hkv, D,
+             cur_pos.data_ptr(), out.data_ptr(), partials.data_ptr(),
+             _build.DTYPE_CODES[q.dtype], B, S, Hq, Hkv, D,
              -1 if window is None else int(window), float(softcap or 0.0), float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             n_split, chunk, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out

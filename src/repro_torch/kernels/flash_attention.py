@@ -6,12 +6,18 @@ m / l / acc, causal, sliding ``window``, ``q_offset`` and tanh ``softcap``,
 GQA (query head h reads KV head h // G).
 
 What bounds it on the card: at the serving shapes the bytes (q, k, v in and
-out once) set the card's bound, not the products.  The kernel keeps scores,
-the running softmax and the accumulator in f32 registers, stages each K/V
-tile once in shared memory for a 64-row q tile, computes the KV range each
-tile needs from causal / window / q_offset instead of testing every tile,
-and masks the ragged Sq / Sk edges itself instead of padding copies.  The
-products run on the f32 CUDA cores in this first version.
+out once) set the card's bound, and only the tensor cores come near it.  The
+instance depends on dtype and head dim alone (:func:`instance`):
+
+* bf16 at D 16 / 32 / 64 / 128 runs ``flash_fwd_mma``, FlashAttention-2 on
+  the tensor cores (``mma.sync`` m16n8k16, 64 q rows a block, bf16 K / V
+  tiles of 64 keys in a 2-stage ``cp.async`` ring, the online softmax in
+  registers, P rounded to bf16 for P·V);
+* f32, and bf16 at D 8, run ``flash_fwd_simt``, the products on the f32
+  CUDA cores, exact to f32 rounding (the f32 end-to-end gates run it).
+
+Both compute each q tile's KV range from causal / window / q_offset and mask
+the ragged Sq / Sk edges themselves instead of padding copies.
 
 A CPU tensor takes the plain version, :func:`plain` (``ref.mha_ref``); a
 CUDA tensor launches the kernel or raises.
@@ -29,6 +35,14 @@ from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.ref import mha_ref as plain
 
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the instances csrc/flash_attention.cu builds
+MMA_HEAD_DIMS = (16, 32, 64, 128)  # bf16 head dims on the tensor cores (multiples of 16)
+
+
+def instance(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a launch runs: a function of dtype and head dim only."""
+    if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS:
+        return "flash_fwd_mma"
+    return "flash_fwd_simt"
 
 
 @functools.cache
@@ -72,6 +86,8 @@ def flash_attention(
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous on {q.device}")
+        if t.data_ptr() % 16:  # the tiles arrive by 16-byte copies
+            raise ValueError(f"flash_attention: {name} must start on a 16-byte boundary")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     scale = 1.0 / math.sqrt(D) if scale is None else scale

@@ -104,6 +104,56 @@ def decode_attention_ref(
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
+def decode_attention_split_ref(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos_ids: torch.Tensor,
+    cur_pos: torch.Tensor,
+    *,
+    n_split: int,
+    chunk: Optional[int] = None,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Split-KV decode attention, the arithmetic of the K2 kernel's two
+    passes: the S slots in ``n_split`` ranges of ``chunk`` (default
+    ceil(S / n_split)) slots, the last one shorter; each range's partials
+    ``decode_attention_ref(return_stats=True)``, with (0, NEG_INF, 0) for a
+    range without a live slot; then per row m = max m_i and
+    out = sum acc_i e^(m_i - m) / max(sum l_i e^(m_i - m), 1e-30), in range
+    order.  A row with no live slot at all gives zeros, as the Pallas
+    kernel does, where :func:`decode_attention_ref` gives the mean of V."""
+    B, Hq, D = q.shape
+    S = k_cache.shape[1]
+    chunk = -(-S // n_split) if chunk is None else chunk
+    if not (n_split - 1) * chunk < S <= n_split * chunk:
+        raise ValueError(f"{n_split} ranges of {chunk} slots do not cover S={S} exactly once")
+    parts = []
+    for i in range(n_split):
+        sl = slice(i * chunk, min(S, (i + 1) * chunk))
+        acc, m, l = decode_attention_ref(q, k_cache[:, sl], v_cache[:, sl], pos_ids[:, sl],
+                                         cur_pos, window=window, softcap=softcap, scale=scale,
+                                         return_stats=True)
+        p = pos_ids[:, sl]
+        live = (p >= 0) & (p <= cur_pos[:, None])
+        if window is not None:
+            live &= p > cur_pos[:, None] - window
+        dead = ~live.any(dim=1)[:, None, None]  # (B, 1, 1)
+        parts.append((torch.where(dead[..., None], 0.0, acc), torch.where(dead, NEG_INF, m),
+                      torch.where(dead, 0.0, l)))
+    m_max = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    num = torch.zeros_like(parts[0][0])
+    den = torch.zeros_like(parts[0][2])
+    for acc, m, l in parts:
+        w = torch.exp(m - m_max)
+        num = num + acc * w[..., None]
+        den = den + l * w
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)

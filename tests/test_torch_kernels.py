@@ -21,8 +21,11 @@ from repro.kernels.moe_gmm import gmm as jax_gmm  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro.kernels.rwkv6_scan import rwkv6_scan as jax_rwkv6  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ops, ref  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention import TILE as SPLIT_TILE  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention, split_plan  # noqa: E402
+from repro_torch.kernels.decode_attention import instances as decode_instances  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import instance as flash_instance  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels.moe_gmm import gmm  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
@@ -61,16 +64,26 @@ def _close(jax_out, torch_out, **tol):
         (2, 64, 64, 4, 2, 16, None, 30.0),      # softcap (gemma2)
         (2, 64, 64, 4, 2, 16, 16, 50.0),        # both
         (1, 40, 40, 2, 2, 8, None, None),       # ragged
+        # the shapes of the tensor-core instance (bf16, D 16..128): G = 8,
+        # ragged Sq = Sk = 200, the queries as the last 72 of 200 keys
+        # (q_offset 128), and a window starting inside a tile with a softcap
+        (1, 200, 200, 8, 1, 64, None, None),
+        (1, 200, 200, 8, 1, 128, None, None),
+        (1, 72, 200, 8, 1, 128, None, None),
+        (1, 96, 96, 8, 1, 128, 40, 30.0),
     ],
 )
 def test_flash_attention_vs_pallas(B, Sq, Sk, Hq, Hkv, D, window, softcap, dtype):
+    """With Sk > Sq the queries are the last Sq positions (q_offset = Sk - Sq)."""
     rng = np.random.default_rng(42)
     jq, tq = _pair(rng.standard_normal((B, Sq, Hq, D), np.float32), dtype)
     jk, tk = _pair(rng.standard_normal((B, Sk, Hkv, D), np.float32), dtype)
     jv, tv = _pair(rng.standard_normal((B, Sk, Hkv, D), np.float32), dtype)
-    want = jax_flash(jq, jk, jv, causal=True, window=window, softcap=softcap,
+    q_offset = Sk - Sq
+    want = jax_flash(jq, jk, jv, causal=True, window=window, softcap=softcap, q_offset=q_offset,
                      block_q=32, block_k=32, interpret=True)
-    got = flash_attention(tq, tk, tv, causal=True, window=window, softcap=softcap)
+    got = flash_attention(tq, tk, tv, causal=True, window=window, softcap=softcap,
+                          q_offset=q_offset)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     _close(want, got, **tols(dtype))
 
@@ -148,6 +161,107 @@ def test_decode_split_kv_combine_matches_whole_cache():
     got = (acc / l[..., None]).reshape(B, Hq, D)
     torch.testing.assert_close(got, ref.decode_attention_ref(q, k, v, pos, cur),
                                atol=3e-5, rtol=3e-5)
+
+
+def _decode_inputs(rng, B, Hq, Hkv, D, S, dtype):
+    return (_pair(rng.standard_normal((B, Hq, D), np.float32), dtype),
+            _pair(rng.standard_normal((B, S, Hkv, D), np.float32), dtype),
+            _pair(rng.standard_normal((B, S, Hkv, D), np.float32), dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 5])
+def test_decode_split_ref_vs_pallas(n_split, dtype):
+    """The split-KV arithmetic of the K2 kernel (partials per slot range,
+    then the fixed-order combine) against the Pallas kernel, with ranges
+    of ceil(43 / n_split) slots that do not divide S = 43."""
+    B, Hq, Hkv, D, S = 2, 6, 2, 16, 43
+    rng = np.random.default_rng(47)
+    (jq, tq), (jk, tk), (jv, tv) = _decode_inputs(rng, B, Hq, Hkv, D, S, dtype)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S)).copy()
+    cur = np.array([S - 1, 20], np.int32)
+    want = jax_decode(jq, jk, jv, jnp.asarray(pos), jnp.asarray(cur), block_s=16,
+                      interpret=True)
+    got = ref.decode_attention_split_ref(tq, tk, tv, torch.from_numpy(pos),
+                                         torch.from_numpy(cur), n_split=n_split)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(want, got, **tols(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_ref_dead_range(dtype):
+    """A ring buffer whose window leaves the first of three ranges without a
+    live slot: that range contributes (0, -1e30, 0) and the result is the
+    whole cache's."""
+    B, Hq, Hkv, D, S = 2, 4, 1, 16, 48
+    rng = np.random.default_rng(48)
+    (jq, tq), (jk, tk), (jv, tv) = _decode_inputs(rng, B, Hq, Hkv, D, S, dtype)
+    cur = np.array([100, 95], np.int32)
+    base = cur[:, None] - S + 1  # slot s holds the position p = s (mod S) in (cur - S, cur]
+    pos = (base + (np.arange(S)[None] - base) % S).astype(np.int32)
+    window = 10  # live: p > cur - 10, slots 0..4 and 43..47 / slots 38..47
+    live = pos > cur[:, None] - window
+    assert not live[:, 16:32].any() and live[:, 32:].any(axis=1).all()
+    args = (torch.from_numpy(pos), torch.from_numpy(cur))
+    got = ref.decode_attention_split_ref(tq, tk, tv, *args, n_split=3, window=window)
+    torch.testing.assert_close(got.float(), ref.decode_attention_ref(tq, tk, tv, *args,
+                                                                     window=window).float(),
+                               **tols(dtype))
+    want = jax_decode(jq, jk, jv, jnp.asarray(pos), jnp.asarray(cur), window=window,
+                      block_s=16, interpret=True)
+    _close(want, got, **tols(dtype))
+
+
+def test_decode_row_without_live_slot_is_zero():
+    """Row 0 has no live slot: the Pallas kernel (interpret mode) and the
+    split-KV version give zeros, the whole-cache plain version the mean of
+    V; row 1 agrees everywhere."""
+    B, Hq, Hkv, D, S = 2, 4, 2, 16, 40
+    rng = np.random.default_rng(49)
+    (jq, tq), (jk, tk), (jv, tv) = _decode_inputs(rng, B, Hq, Hkv, D, S, "float32")
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S)).copy()
+    pos[0] = -1
+    cur = np.array([30, 30], np.int32)
+    want = np.asarray(jax_decode(jq, jk, jv, jnp.asarray(pos), jnp.asarray(cur), block_s=16,
+                                 interpret=True))
+    args = (torch.from_numpy(pos), torch.from_numpy(cur))
+    split = ref.decode_attention_split_ref(tq, tk, tv, *args, n_split=2)
+    whole = ref.decode_attention_ref(tq, tk, tv, *args)
+    assert (want[0] == 0).all() and (split[0] == 0).all()
+    mean_v = tv[0].mean(dim=0).repeat_interleave(Hq // Hkv, dim=0)
+    torch.testing.assert_close(whole[0], mean_v, atol=3e-5, rtol=3e-5)
+    _close(want[1:], split[1:], **tols("float32"))
+    _close(want[1:], whole[1:], **tols("float32"))
+
+
+@pytest.mark.parametrize("S", [1, 40, 1000, 1024, 4096])
+@pytest.mark.parametrize("B,Hkv,n_sm", [(8, 2, 132), (8, 16, 132), (8, 8, 132), (1, 1, 132),
+                                        (64, 16, 132), (2, 4, 8)])
+def test_split_plan_covers_the_cache_once(B, Hkv, S, n_sm):
+    n_split, chunk = split_plan(B, Hkv, S, n_sm)
+    assert chunk % SPLIT_TILE == 0 and n_split >= 1
+    ranges = [range(i * chunk, min(S, (i + 1) * chunk)) for i in range(n_split)]
+    assert all(len(r) > 0 for r in ranges)
+    assert [s for r in ranges for s in r] == list(range(S))
+    # the kernel's own contract (decode_attention_fwd refuses anything else)
+    assert (n_split - 1) * chunk < S <= n_split * chunk
+
+
+@pytest.mark.parametrize("B,Hkv", [(8, 2), (8, 16), (8, 8)])  # qwen2, deepseek, jamba decode
+def test_split_plan_fills_the_card_at_the_served_shapes(B, Hkv):
+    n_split, chunk = split_plan(B, Hkv, 1024, 132)
+    assert B * Hkv * n_split >= 2 * 132
+
+
+def test_attention_instances_depend_on_dtype_and_head_dim_only():
+    for D in (16, 32, 64, 128):
+        assert flash_instance(torch.bfloat16, D) == "flash_fwd_mma"
+        assert decode_instances(torch.bfloat16, D) == ("decode_split_mma",
+                                                       "decode_combine_kernel")
+    for dt, D in ((torch.bfloat16, 8), (torch.float32, 8), (torch.float32, 64),
+                  (torch.float32, 128)):
+        assert flash_instance(dt, D) == "flash_fwd_simt"
+        assert decode_instances(dt, D)[0] == "decode_split_kernel"
 
 
 # ---------------------------------------------------------------------------
