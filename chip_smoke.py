@@ -23,12 +23,16 @@ failure of which exits non-zero:
    head dim 64 and 128, G = 8 with a window and a softcap; K2 in bf16 at a
    half-empty cache, S = 1000, G = 1, 7, 8 and 16 and a ring buffer with a
    window, each also against the split-KV plain version at the kernel's
-   own split, and a row without a live slot, which must be exactly 0),
-   within 2e-2 (bf16) or 1e-4 (f32); time kernel, plain version and one
-   PyTorch library call where there is one (a yardstick the port never
-   calls) at the serving shapes, with L2 flushed before each launch,
-   beside the card's bound for the same work (K1 also in f32, its CUDA-
-   core instance);
+   own split, and a row without a live slot, which must be exactly 0; K4
+   in bf16 at every row-tile count of its tensor-core instance, a D and an
+   F tail, and a view off a 16-byte boundary, which must take the WMMA
+   instance; every K4 check runs twice into NaN-filled memory and the two
+   results must be the same bytes), within 2e-2 (bf16) or 1e-4 (f32); time
+   kernel, plain version and one PyTorch library call where there is one
+   (a yardstick the port never calls) at the serving shapes, with L2
+   flushed before each launch, beside the card's bound for the same work
+   (K1 also in f32, its CUDA-core instance; K4's WMMA instance at a ragged
+   F);
 4. serve full-width qwen2-0.5b (bf16, random weights from a seed, 8 slots,
    1024-slot caches, 16 requests of 512 prompt tokens, 64 new tokens,
    greedy) through the port's Engine with the launch counts reset just
@@ -39,7 +43,8 @@ failure of which exits non-zero:
    the device busy share of a decode tick and a prefill from torch.profiler,
    whose kernel names must show K1's tensor-core instance (and not the
    SIMT one) in the bf16 prefill and both K2 passes in the tick (also for
-   deepseek-moe-16b and jamba-1.5-large below);
+   deepseek-moe-16b and jamba-1.5-large below, whose prefill and tick must
+   also show K4's tensor-core instance gmm_mma and neither other one);
 4b. free it, and serve full-width, full-depth deepseek-moe-16b the same way
    (16 requests of 512 prompt tokens, 32 new tokens), with exact launch
    counts of all four kernels; then three gates: (a) one served MoE layer
@@ -543,8 +548,27 @@ def main() -> None:
             lambda w=(1.0 + sc).to(torch.bfloat16): F.rms_norm(x, (dm2,), weight=w, eps=1e-6),
             nbytes(x, x, sc), 4 * x.numel(), peaks["float32"], f"{shape} bf16")
 
+    def gmm_twice(x, w, epi=None):
+        """K4 twice on the same inputs, each time into the block the caching
+        allocator last freed, filled with NaN just before (so a tile the
+        kernel leaves unwritten shows); the two results must be the same
+        bytes (a race in the cp.async ring shows as a difference)."""
+        outs = []
+        for _ in range(2):
+            torch.full((x.shape[0], x.shape[1], w.shape[2]), float("nan"), dtype=x.dtype,
+                       device=dev)
+            outs.append(k4.gmm(x, w, epilogue=epi))
+        if not torch.equal(outs[0].view(torch.uint8), outs[1].view(torch.uint8)):
+            fail(f"moe_gmm {tuple(x.shape)}@{tuple(w.shape)} epilogue={epi}: two runs differ")
+        return outs[0]
+
+    def gmm_instance(x, w) -> str:
+        return k4.instance(x.dtype, x.shape[2], w.shape[2],
+                           x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
     # K4: the CPU tests' shapes and epilogues, then deepseek-moe-16b's three
-    # grouped matmuls per MoE layer at the prefill and decode capacities
+    # grouped matmuls per MoE layer at the prefill and decode capacities;
+    # every K4 check runs twice (gmm_twice)
     err4 = 0.0
     m = mcfg.moe
     caps = {"prefill": ffn_mod._capacity(mS, m), "decode": ffn_mod._capacity(mB, m)}  # 64, 8
@@ -553,8 +577,8 @@ def main() -> None:
         for E_, C_, D_, F_ in ((4, 16, 32, 24), (2, 20, 24, 12), (8, 8, 8, 8)):
             x, w = randn(E_, C_, D_, dtype=dt), randn(E_, D_, F_, dtype=dt)
             for epi in (None, "silu", "gelu"):
-                err4 = max(err4, hold("moe_gmm", f"{dn} {(E_, C_, D_, F_)} epilogue={epi}",
-                                      k4.gmm(x, w, epilogue=epi),
+                err4 = max(err4, hold("moe_gmm", f"{dn} {(E_, C_, D_, F_)} epilogue={epi} "
+                                      f"[{gmm_instance(x, w)}]", gmm_twice(x, w, epi),
                                       ref.gmm_ref(x, w, epilogue=epi), dn))
         for phase, C_ in caps.items():
             for D_, F_, epi in ((dm2, m.d_expert, "silu"), (dm2, m.d_expert, None),
@@ -562,10 +586,49 @@ def main() -> None:
                 x = randn(m.n_experts, C_, D_, dtype=dt)
                 w = (randn(m.n_experts, D_, F_) * 0.02).to(dt)
                 err4 = max(err4, hold("moe_gmm", f"{dn} {phase} ({m.n_experts},{C_},{D_})@"
-                                      f"({m.n_experts},{D_},{F_}) epilogue={epi}",
-                                      k4.gmm(x, w, epilogue=epi),
+                                      f"({m.n_experts},{D_},{F_}) epilogue={epi} "
+                                      f"[{gmm_instance(x, w)}]", gmm_twice(x, w, epi),
                                       ref.gmm_ref(x, w, epilogue=epi), dn))
-    k4_times = {}
+    # K4 bf16 on gmm_mma: every row-tile count the plan chooses (1-8, and 2
+    # and 3 row blocks past 128 rows) at 16 experts of 8192 x 1536, each
+    # epilogue; a D tail and an F tail (against the 64-deep stages and the
+    # 256-wide F tiles); a view off a 16-byte boundary, which must take the
+    # WMMA instance; and that instance's time at a ragged F.  Drawn from a
+    # fork of the generator, so later phases draw what they did before.
+    gen_state = gen.get_state()
+    bf = torch.bfloat16
+    sweep_c = (1, 8, 15, 16, 17, 33, 64, 80, 96, 112, 128, 129, 300)
+    if {k4.tile_plan(16, C_, 1536).row_tiles for C_ in sweep_c} != set(
+            range(1, k4.MAX_ROW_TILES + 1)):
+        fail("the K4 sweep misses a row-tile count of gmm_mma")
+    for D_, F_, cs in ((8192, 1536, sweep_c), (8200, 1536, (80,)), (8192, 1416, (80,))):
+        w = (randn(16, D_, F_) * 0.02).to(bf)
+        for C_ in cs:
+            x = randn(16, C_, D_, dtype=bf)
+            for epi in (None, "silu", "gelu"):
+                err4 = max(err4, hold("moe_gmm", f"bfloat16 (16,{C_},{D_})@(16,{D_},{F_}) "
+                                      f"epilogue={epi} [{gmm_instance(x, w)}, row tiles "
+                                      f"{k4.tile_plan(16, C_, F_).row_tiles}]",
+                                      gmm_twice(x, w, epi), ref.gmm_ref(x, w, epilogue=epi),
+                                      "bfloat16"))
+            if gmm_instance(x, w) != "gmm_mma":
+                fail(f"moe_gmm {tuple(x.shape)}@{tuple(w.shape)} took {gmm_instance(x, w)}")
+    buf = randn(16 * 80 * 8192 + 1, dtype=bf)
+    x = buf[1:].view(16, 80, 8192)  # 2 bytes past an allocation's start
+    names = [n for n in profile_step(lambda: k4.gmm(x, w))["kernel_names"] if "gmm_" in n]
+    if gmm_instance(x, w) != "gmm_bf16_kernel" or not names or any(
+            "gmm_bf16_kernel" not in n for n in names):
+        fail(f"moe_gmm on an unaligned view ran {names}, expected gmm_bf16_kernel only")
+    err4 = max(err4, hold("moe_gmm", f"bfloat16 {tuple(x.shape)}@{tuple(w.shape)} x at +2 "
+                          f"bytes [{gmm_instance(x, w)}]", gmm_twice(x, w),
+                          ref.gmm_ref(x, w), "bfloat16"))
+    del buf
+    x, w = randn(16, 80, 8192, dtype=bf), (randn(16, 8192, 1412) * 0.02).to(bf)
+    k4_times = {"wmma ragged": timed(
+        lambda: k4.gmm(x, w), lambda: ref.gmm_ref(x, w), lambda: torch.bmm(x, w),
+        nbytes(x, w) + 16 * 80 * 1412 * 2, 2 * 16 * 80 * 8192 * 1412, peaks["bfloat16"],
+        f"(16,80,8192)@(16,8192,1412) bf16 ({gmm_instance(x, w)})")}
+    gen.set_state(gen_state)
     for phase, C_ in caps.items():  # the w1 / w3 product, bf16, no epilogue
         x = randn(m.n_experts, C_, dm2, dtype=torch.bfloat16)
         w = (randn(m.n_experts, dm2, m.d_expert) * 0.02).to(torch.bfloat16)
@@ -579,6 +642,7 @@ def main() -> None:
         "name": "moe_gmm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:54", "max_abs_err": err4,
         **k4_times["prefill"], "decode": k4_times["decode"],
+        "wmma ragged": k4_times["wmma ragged"],
     }
     # K6: the CPU tests' sweep, a ragged V tile (V = 40 = 16 + 16 + 8, V != K),
     # strong and weak decays, rwkv6-7b's prefill shape (chunk 128) at batch 1
@@ -767,7 +831,7 @@ def main() -> None:
             w = (randn(jm.n_experts, D_, F_) * 0.02).to(dt)
             err4 = max(err4, hold("moe_gmm", f"{dn} {JAMBA_ARCH} prefill ({jm.n_experts},"
                                   f"{jcaps['prefill']},{D_})@({jm.n_experts},{D_},{F_}) "
-                                  f"epilogue={epi}", k4.gmm(x, w, epilogue=epi),
+                                  f"epilogue={epi} [{gmm_instance(x, w)}]", gmm_twice(x, w, epi),
                                   ref.gmm_ref(x, w, epilogue=epi), dn))
             del x, w
     w = (randn(jm.n_experts, jdm, jm.d_expert) * 0.02).to(torch.bfloat16)
@@ -796,6 +860,7 @@ def main() -> None:
               f"({r['bound_by']}) at {r['shape']}", flush=True)
     others = [(f"{name} at {MOE_ARCH}'s shape", t) for name, t in moe_shape_times.items()]
     others += [(f"moe_gmm decode at {MOE_ARCH}'s shape", k4_times["decode"]),
+               ("moe_gmm WMMA instance at a ragged F", k4_times["wmma ragged"]),
                ("rwkv6_scan at batch 8", k6_times[8]), ("mamba_scan at batch 8", k5_times[8])]
     others += [(f"{name} at {JAMBA_ARCH}'s shape", t) for name, t in jamba_shape_times.items()]
     for name, t in others:
@@ -868,7 +933,20 @@ def main() -> None:
         out = {name: profile_step(fn) for name, fn in steps.items()}
         if any(c.layer_spec(i).mixer in ("ga", "swa") for i in range(c.n_layers)):
             check_attention_kernels(c, out)
+        if any(c.layer_spec(i).ffn == "moe" for i in range(c.n_layers)):
+            check_gmm_kernels(c, out)
         return out
+
+    def check_gmm_kernels(c, steps: dict) -> None:
+        """The served bf16 prefill and tick ran K4's gmm_mma instance, and
+        neither the WMMA nor the SIMT one."""
+        seen = {name: [n[:60] for n in b["kernel_names"] if "gmm_" in n]
+                for name, b in steps.items()}
+        print(f"{c.name} grouped-matmul kernels: {json.dumps(seen)}", flush=True)
+        for name, found in seen.items():
+            if not any("gmm_mma" in n for n in found) or any(
+                    "gmm_bf16_kernel" in n or "gmm_f32_kernel" in n for n in found):
+                fail(f"{c.name}: the {name} ran {found}, expected gmm_mma only")
 
     def check_attention_kernels(c, steps: dict) -> None:
         """The served bf16 prefill ran K1's tensor-core instance and not the

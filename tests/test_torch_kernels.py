@@ -27,6 +27,7 @@ from repro_torch.kernels.decode_attention import instances as decode_instances  
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import instance as flash_instance  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
+from repro_torch.kernels import moe_gmm as k4  # noqa: E402
 from repro_torch.kernels.moe_gmm import gmm  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
@@ -288,11 +289,16 @@ def test_rmsnorm_vs_pallas(shape, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("epilogue", [None, "silu", "gelu"])
-@pytest.mark.parametrize("E,C,D,F", [(4, 16, 32, 24), (2, 20, 24, 12), (8, 8, 8, 8)])
+@pytest.mark.parametrize("E,C,D,F", [(4, 16, 32, 24), (2, 20, 24, 12), (8, 8, 8, 8),
+                                     (2, 8, 72, 40), (2, 17, 72, 40), (2, 80, 72, 40),
+                                     (2, 129, 72, 40)])
 def test_gmm_vs_pallas(E, C, D, F, epilogue, dtype):
-    """tests/test_kernels.py's shapes (ragged against 8-wide blocks), each
-    epilogue, against the Pallas kernel in interpret mode; both accumulate
-    in f32 and round once, so they differ by the order of f32 sums."""
+    """tests/test_kernels.py's shapes (ragged against 8-wide blocks), and
+    the capacities gmm_mma's plan covers with one row tile (8), a ragged
+    one (17), one block (80) and two row blocks (129), at a D and F ragged
+    against its 64-deep stages and 256-wide F tiles; each epilogue,
+    against the Pallas kernel in interpret mode.  Both accumulate in f32
+    and round once, so they differ by the order of f32 sums."""
     rng = np.random.default_rng(49)
     jx, tx = _pair(rng.standard_normal((E, C, D), np.float32), dtype)
     jw, tw = _pair(rng.standard_normal((E, D, F), np.float32), dtype)
@@ -327,6 +333,48 @@ def test_moe_ffn_vs_jax(jax_impl, dtype):
         assert got.dtype == tx.dtype and got.shape == tx.shape
         cross = dtype == "bfloat16" and jax_impl != same_rounding
         _close(want, got, **(dict(atol=5e-2, rtol=5e-2) if cross else tols(dtype)))
+
+
+# the served K4 shapes (E, C, D, F): jamba-1.5-large's and
+# deepseek-moe-16b's w1 / w3 products at the prefill and decode capacities,
+# and their w2 products at the prefill capacity
+SERVED_GMM = [(16, 80, 8192, 24576), (16, 8, 8192, 24576), (64, 64, 2048, 1408),
+              (64, 8, 2048, 1408), (16, 80, 24576, 8192), (64, 64, 1408, 2048)]
+
+
+@pytest.mark.parametrize("E,C,D,F", SERVED_GMM)
+def test_gmm_tile_plan_at_the_served_shapes(E, C, D, F):
+    """One block holds every C row, so each weight element is read once;
+    the ring fits a block's shared memory, at least 3 deep, with >= 32 KB
+    of weights in flight ahead of the tile being multiplied; the grid fills
+    the card's 132 SMs."""
+    p = k4.tile_plan(E, C, F)
+    assert p.row_blocks == 1 and p.rows(C) == [range(C)]
+    assert p.row_tiles == -(-C // k4.ROW_TILE)
+    assert p.smem_bytes == p.stages * k4.stage_bytes(p.row_tiles) <= k4.BLOCK_SMEM
+    assert p.stages >= 3 and p.bk >= 64 and (p.stages - 1) * p.bk * p.bn * 2 >= 32 << 10
+    assert p.grid == (-(-F // p.bn), 1, E) and p.grid[0] * p.grid[1] * p.grid[2] >= 132
+    assert k4.instance(torch.bfloat16, D, F, aligned=True) == "gmm_mma"
+
+
+@pytest.mark.parametrize("C", [1, 8, 16, 17, 80, 128, 129, 300])
+def test_gmm_tile_plan_rows_cover_c_once(C):
+    p = k4.tile_plan(4, C, 40)
+    ranges = p.rows(C)
+    assert len(ranges) == p.row_blocks == p.grid[1] and all(len(r) > 0 for r in ranges)
+    assert [c for r in ranges for c in r] == list(range(C))
+    assert 1 <= p.row_tiles <= k4.MAX_ROW_TILES and p.smem_bytes <= k4.BLOCK_SMEM
+    # csrc/moe_gmm.cu's own contract (moe_gmm_mma_fwd refuses anything else)
+    rows = k4.ROW_TILE * p.row_tiles
+    assert (p.row_blocks - 1) * rows < C <= p.row_blocks * rows
+
+
+def test_gmm_instances_depend_on_dtype_shape_and_alignment_only():
+    assert k4.instance(torch.bfloat16, 72, 40, aligned=True) == "gmm_mma"
+    for D, F, aligned in ((72, 12, True), (20, 40, True), (72, 40, False)):
+        assert k4.instance(torch.bfloat16, D, F, aligned) == "gmm_bf16_kernel"
+    for D, F, aligned in ((72, 40, True), (72, 12, False)):
+        assert k4.instance(torch.float32, D, F, aligned) == "gmm_f32_kernel"
 
 
 def test_gmm_rejects_unknown_epilogue():
