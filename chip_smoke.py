@@ -26,8 +26,12 @@ failure of which exits non-zero:
    own split, and a row without a live slot, which must be exactly 0; K4
    in bf16 at every row-tile count of its tensor-core instance, a D and an
    F tail, and a view off a 16-byte boundary, which must take the WMMA
-   instance; every K4 check runs twice into NaN-filled memory and the two
-   results must be the same bytes), within 2e-2 (bf16) or 1e-4 (f32); time
+   instance; K6 also at its plan's edges: V ragged against the 64-column
+   tile, T past the 32-step stages, shorter than the ring and one stage at
+   batch 8, one head, V = 6 and r off a 16-byte boundary (element-wise
+   loads), and the served shape with L2 flushed before each run; every K4
+   and K6 check runs twice into NaN-filled memory and the two results must
+   be the same bytes), within 2e-2 (bf16) or 1e-4 (f32); time
    kernel, plain version and one PyTorch library call where there is one
    (a yardstick the port never calls) at the serving shapes, with L2
    flushed before each launch, beside the card's bound for the same work
@@ -44,7 +48,9 @@ failure of which exits non-zero:
    whose kernel names must show K1's tensor-core instance (and not the
    SIMT one) in the bf16 prefill and both K2 passes in the tick (also for
    deepseek-moe-16b and jamba-1.5-large below, whose prefill and tick must
-   also show K4's tensor-core instance gmm_mma and neither other one);
+   also show K4's tensor-core instance gmm_mma and neither other one, and
+   rwkv6-7b, whose bf16 prefill must show K6's rwkv6_scan_tiled with its
+   cp.async ring and no other K6 kernel);
 4b. free it, and serve full-width, full-depth deepseek-moe-16b the same way
    (16 requests of 512 prompt tokens, 32 new tokens), with exact launch
    counts of all four kernels; then three gates: (a) one served MoE layer
@@ -680,23 +686,89 @@ def main() -> None:
             fail(f"{kernel} {case} disagrees with its plain version")
         return max(diffs)
 
+    def scan_twice(x, chunk, cold=False):
+        """K6 twice on the same inputs, each time into the blocks the caching
+        allocator last freed, filled with NaN just before (so an output the
+        kernel leaves unwritten shows); the two results must be the same
+        bytes (a race in the cp.async ring shows as a difference).  With
+        ``cold``, L2 is flushed before each run, so the ring's stages come
+        from device memory and a stage read before it lands shows."""
+        r_, v_, s_ = x[0], x[2], x[5]
+        outs = []
+        for _ in range(2):
+            nan_o = torch.full((*r_.shape[:3], v_.shape[3]), float("nan"), dtype=r_.dtype,
+                               device=dev)
+            nan_s = torch.full_like(s_, float("nan"))
+            del nan_o, nan_s
+            if cold:
+                flush_buf.zero_()
+            outs.append(k6.rwkv6_scan(*x, chunk=chunk))
+        for a, b_ in zip(*outs):
+            if not torch.equal(a.view(torch.uint8), b_.view(torch.uint8)):
+                fail(f"rwkv6_scan {tuple(r_.shape)} V={v_.shape[3]} {r_.dtype}: two runs differ")
+        return outs[0]
+
+    def scan_case(x) -> str:
+        """The plan a K6 launch takes, and whether its ring is filled by
+        16-byte cp.async copies or element by element."""
+        r_, v_ = x[0], x[2]
+        B_, _, H_, K_ = r_.shape
+        p = k6.scan_plan(B_, H_, K_, v_.shape[3], n_sm, r_.element_size())
+        vec = (all(t.data_ptr() % 16 == 0 for t in x[:4])
+               and v_.shape[3] * r_.element_size() % 16 == 0)
+        return (f"[{p.vb} columns a block, {p.grid[0] * p.grid[1]} blocks, "
+                f"{'cp.async' if vec else 'element-wise'}]")
+
     err6 = 0.0
-    k6_cases = [((2, 64, 3, 8, 8), 16, "mixed"), ((1, 32, 2, 16, 16), 32, "mixed"),
-                ((2, 48, 1, 8, 8), 16, "mixed"), ((1, 64, 4, 64, 40), 32, "mixed"),
-                ((1, 64, 4, 16, 16), 32, "strong"), ((1, 64, 4, 16, 16), 32, "weak"),
-                ((1, rS, rH, rK, rK), rL, "mixed"), ((1, rS, rH, rK, rK), rL, "strong"),
-                ((8, 128, rH, rK, rK), rL, "mixed")]
+
+    def hold_k6(cases) -> None:
+        nonlocal err6
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).removeprefix("torch.")
+            for (B_, T_, H_, K_, V_), L_, decay in cases:
+                x = rwkv_inputs(B_, T_, H_, K_, V_, dt, decay)
+                got = scan_twice(x, L_)
+                case = f"{dn} {(B_, T_, H_, K_, V_)} chunk {L_} {decay} decays {scan_case(x)}"
+                err6 = max(err6, hold_rel(f"{case} vs serial", got, ref.rwkv6_scan_ref(*x),
+                                          TOL[dn]))
+                if V_ == K_:  # the chunked form assumes V == K
+                    tol = (closed_form_tol(L_) if decay == "strong" and dt == torch.float32
+                           else TOL[dn])
+                    err6 = max(err6, hold_rel(f"{case} vs chunked", got,
+                                              ref.rwkv6_scan_chunked(*x, chunk=L_), tol))
+
+    hold_k6([((2, 64, 3, 8, 8), 16, "mixed"), ((1, 32, 2, 16, 16), 32, "mixed"),
+             ((2, 48, 1, 8, 8), 16, "mixed"), ((1, 64, 4, 64, 40), 32, "mixed"),
+             ((1, 64, 4, 16, 16), 32, "strong"), ((1, 64, 4, 16, 16), 32, "weak"),
+             ((1, rS, rH, rK, rK), rL, "mixed"), ((1, rS, rH, rK, rK), rL, "strong"),
+             ((8, 128, rH, rK, rK), rL, "mixed")])
+    # the plan's edges under the tiling: V ragged against the 64-column tile
+    # (V 40 above is against the 16-column one), T past the 32-step stages
+    # and shorter than the ring, T one stage at batch 8 (whole-head blocks in
+    # two waves, whose first stage is read soon after it is issued: a ring
+    # wait one stage short shows here and at no batch-1 shape), one head (4
+    # blocks), V = 6 (rows of 12 or 24 bytes: element-wise), the served shape
+    # with r off a 16-byte boundary (element-wise), and the served shape with
+    # L2 flushed before each run.  Drawn from a fork of the generator, so
+    # later phases draw what they did before.
+    gen_state = gen.get_state()
+    hold_k6([((4, 40, 32, 64, 72), 40, "mixed"), ((1, 50, 4, 64, 64), 50, "mixed"),
+             ((2, 5, 3, 16, 16), 5, "mixed"), ((8, 32, rH, rK, rK), 32, "mixed"),
+             ((1, 64, 1, 64, 64), 64, "mixed"), ((2, 40, 2, 8, 6), 40, "mixed")])
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).removeprefix("torch.")
-        for (B_, T_, H_, K_, V_), L_, decay in k6_cases:
-            x = rwkv_inputs(B_, T_, H_, K_, V_, dt, decay)
-            got = k6.rwkv6_scan(*x, chunk=L_)
-            case = f"{dn} {(B_, T_, H_, K_, V_)} chunk {L_} {decay} decays"
-            err6 = max(err6, hold_rel(f"{case} vs serial", got, ref.rwkv6_scan_ref(*x), TOL[dn]))
-            if V_ == K_:  # the chunked form assumes V == K
-                tol = closed_form_tol(L_) if decay == "strong" and dt == torch.float32 else TOL[dn]
-                err6 = max(err6, hold_rel(f"{case} vs chunked", got,
-                                          ref.rwkv6_scan_chunked(*x, chunk=L_), tol))
+        x = list(rwkv_inputs(1, 64, rH, rK, rK, dt))
+        buf = torch.empty(x[0].numel() + 1, dtype=dt, device=dev)
+        x[0] = buf[1:].view(x[0].shape).copy_(x[0])
+        case = f"{dn} (1, 64, {rH}, {rK}, {rK}) r at +{x[0].element_size()} bytes {scan_case(x)}"
+        err6 = max(err6, hold_rel(f"{case} vs serial", scan_twice(x, 64),
+                                  ref.rwkv6_scan_ref(*x), TOL[dn]))
+        del buf
+        x = rwkv_inputs(1, rS, rH, rK, rK, dt)
+        err6 = max(err6, hold_rel(f"{dn} {(1, rS, rH, rK, rK)} L2 flushed before each run "
+                                  f"{scan_case(x)} vs serial", scan_twice(x, rL, cold=True),
+                                  ref.rwkv6_scan_ref(*x), TOL[dn]))
+    gen.set_state(gen_state)
     k6_times = {}
     for B_, T_ in ((1, rS), (8, 128)):  # the served prefill, and batch 8
         x = rwkv_inputs(B_, T_, rH, rK, rK, torch.bfloat16)
@@ -706,7 +778,7 @@ def main() -> None:
                              nbytes(*x) + out_bytes, 4 * B_ * T_ * rH * rK * rK, peaks["float32"],
                              f"B={B_} T={T_} H={rH} K=V={rK} r/k/v/u bf16, w/state f32, "
                              f"chunk {rL}")
-    del x, got
+    del x
     records["rwkv6_scan"] = {
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
@@ -935,7 +1007,19 @@ def main() -> None:
             check_attention_kernels(c, out)
         if any(c.layer_spec(i).ffn == "moe" for i in range(c.n_layers)):
             check_gmm_kernels(c, out)
+        if any(c.layer_spec(i).mixer == "rwkv" for i in range(c.n_layers)):
+            check_scan_kernels(c, out)
         return out
+
+    def check_scan_kernels(c, steps: dict) -> None:
+        """The served bf16 prefill ran K6's tiled kernel with its ring filled
+        by cp.async, and no other K6 kernel."""
+        names = [n for n in steps["prefill"]["kernel_names"] if "rwkv6" in n]
+        print(f"{c.name} WKV-scan kernels: {json.dumps([n[:90] for n in names])}", flush=True)
+        want = re.compile(r"rwkv6_scan_tiled<__nv_bfloat16,\s*(\(int\))?64,\s*((\(bool\))?1|true)>")
+        if not names or any(want.search(n) is None for n in names):
+            fail(f"{c.name}: the prefill ran {names}, expected rwkv6_scan_tiled"
+                 "<__nv_bfloat16, 64, true> only")
 
     def check_gmm_kernels(c, steps: dict) -> None:
         """The served bf16 prefill and tick ran K4's gmm_mma instance, and

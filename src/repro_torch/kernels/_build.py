@@ -19,6 +19,7 @@ that fails raises: nothing falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -100,6 +101,13 @@ def load(name: str) -> ctypes.CDLL:
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the kernels' plans
+    size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

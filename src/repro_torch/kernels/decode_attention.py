@@ -65,11 +65,6 @@ def instances(dtype: torch.dtype, head_dim: int) -> tuple[str, str]:
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.cache
 def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_fwd
@@ -125,7 +120,7 @@ def decode_attention(
         raise ValueError(f"decode_attention: window {window} < 1")
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     dev_index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    n_split, chunk = split_plan(B, Hkv, S, _sm_count(dev_index))
+    n_split, chunk = split_plan(B, Hkv, S, _build.sm_count(dev_index))
     out = torch.empty_like(q)
     # acc (B, Hkv, n_split, G, D), then m and l (B, Hkv, n_split, G)
     partials = torch.empty(B * Hq * n_split * (D + 2), dtype=torch.float32, device=q.device)
