@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py [--record PATH]
 
-Needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or on PATH) and ``triton``;
-runs from the repository root (it imports ``src/repro_torch``).  Phases, any
+Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or on PATH); runs
+from the repository root (it imports ``src/repro_torch``).  Phases, any
 failure of which exits non-zero:
 
 1. print the card (``nvidia-smi`` name and power limit); TF32 off;
-2. build the CUDA kernels (one ``nvcc`` per source, in parallel) and
-   compile the Triton kernel, printing the build time and ptxas' report;
+2. build the CUDA kernels (one ``nvcc`` per source, in parallel), printing
+   the build time and ptxas' report (per instance for K3 and K5, none of
+   whose instances may spill, nor K5's take more than 128 registers);
 3. hold each kernel against its plain PyTorch version on the card, at the
    CPU tests' shapes and at both served models' shapes (qwen2-0.5b: head
    dim 64, d 896; deepseek-moe-16b: head dim 128, d 2048, the grouped
@@ -17,26 +18,32 @@ failure of which exits non-zero:
    its prefill shape, at batch 8, with strong and weak decays and a ragged
    V tile; jamba-1.5-large: the selective scan at its prefill shape, at
    batch 8, with strong and weak decays and a ragged channel tile, K1 and
-   K2 at head dim 128 with 8 query heads per KV head, K3 at d 8192 and at
-   the Mamba norms' widths 512 and 16, K4 at 16 experts of 8192 x 24576;
-   K1 in bf16 with q_offset and Sq < Sk, ragged 200-token sequences at
-   head dim 64 and 128, G = 8 with a window and a softcap; K2 in bf16 at a
-   half-empty cache, S = 1000, G = 1, 7, 8 and 16 and a ring buffer with a
-   window, each also against the split-KV plain version at the kernel's
-   own split, and a row without a live slot, which must be exactly 0; K4
-   in bf16 at every row-tile count of its tensor-core instance, a D and an
-   F tail, and a view off a 16-byte boundary, which must take the WMMA
-   instance; K6 also at its plan's edges: V ragged against the 64-column
-   tile, T past the 32-step stages, shorter than the ring and one stage at
-   batch 8, one head, V = 6 and r off a 16-byte boundary (element-wise
-   loads), and the served shape with L2 flushed before each run; every K4
-   and K6 check runs twice into NaN-filled memory and the two results must
-   be the same bytes), within 2e-2 (bf16) or 1e-4 (f32); time
-   kernel, plain version and one PyTorch library call where there is one
-   (a yardstick the port never calls) at the serving shapes, with L2
-   flushed before each launch, beside the card's bound for the same work
-   (K1 also in f32, its CUDA-core instance; K4's WMMA instance at a ragged
-   F);
+   K2 at head dim 128 with 8 query heads per KV head, K4 at 16 experts of
+   8192 x 24576; K3 at every served shape, 8 decode rows and 512 prefill
+   rows of d 896, 2048, 4096 and 8192 and of jamba's Mamba norms' 512 and
+   16, and at (3, 5, 96), a D off 16 bytes and a view off a 16-byte
+   boundary; K1 in bf16 with q_offset and Sq < Sk, ragged 200-token
+   sequences at head dim 64 and 128, G = 8 with a window and a softcap; K2
+   in bf16 at a half-empty cache, S = 1000, G = 1, 7, 8 and 16 and a ring
+   buffer with a window, each also against the split-KV plain version at
+   the kernel's own split, and a row without a live slot, which must be
+   exactly 0; K4 in bf16 at every row-tile count of its tensor-core
+   instance, a D and an F tail, and a view off a 16-byte boundary, which
+   must take the WMMA instance; K6 also at its plan's edges: V ragged
+   against the 64-column tile, T past the 32-step stages, shorter than the
+   ring and one stage at batch 8, one head, V = 6 and r off a 16-byte
+   boundary (element-wise loads), and the served shape with L2 flushed
+   before each run; K5 also at T = 50 (past its step group and stage), DI
+   ragged against its channel tile, T of one ring stage at batch 8, and the
+   served shape with L2 flushed before each run; every K3, K4, K5 and K6
+   check runs twice into NaN-filled memory and the two results must be the
+   same bytes), within 2e-2 (bf16) or 1e-4 (f32); time kernel, plain
+   version and one PyTorch library call where there is one (a yardstick
+   the port never calls) at the serving shapes, with L2 flushed before
+   each launch, beside the card's bound for the same work (K1 also in f32,
+   its CUDA-core instance; K4's WMMA instance at a ragged F; K3 at every
+   served shape, beside the card's launch floor: an empty kernel launched
+   through the same route);
 4. serve full-width qwen2-0.5b (bf16, random weights from a seed, 8 slots,
    1024-slot caches, 16 requests of 512 prompt tokens, 64 new tokens,
    greedy) through the port's Engine with the launch counts reset just
@@ -50,7 +57,10 @@ failure of which exits non-zero:
    deepseek-moe-16b and jamba-1.5-large below, whose prefill and tick must
    also show K4's tensor-core instance gmm_mma and neither other one, and
    rwkv6-7b, whose bf16 prefill must show K6's rwkv6_scan_tiled with its
-   cp.async ring and no other K6 kernel);
+   cp.async ring and no other K6 kernel, and jamba-1.5-large, whose bf16
+   prefill must show K5's mamba_scan_ring with its cp.async ring and no
+   other K5 kernel); every profile must show K3's rmsnorm_rows and no
+   other RMSNorm kernel;
 4b. free it, and serve full-width, full-depth deepseek-moe-16b the same way
    (16 requests of 512 prompt tokens, 32 new tokens), with exact launch
    counts of all four kernels; then three gates: (a) one served MoE layer
@@ -215,15 +225,23 @@ def main() -> None:
     k4._entry()
     k5._entry()
     k6._entry()
-    k3.rmsnorm(torch.zeros(1, 8, device=dev), torch.zeros(8, device=dev))  # Triton JIT
+    k3._entry()
     torch.cuda.synchronize()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
+    ptxas = {}
     for name, path in paths.items():  # ptxas -v: one report per template instance
-        log_text = path.with_suffix(".log").read_text()
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log_text)]
-        spills = sum(int(n) > 0 for n in re.findall(r"(\d+) bytes spill stores", log_text))
+        ptxas[name] = ptxas_instances(path.with_suffix(".log").read_text())
+        regs = [r for _, r, _ in ptxas[name]]
+        spills = sum(n > 0 for _, _, n in ptxas[name])
         print(f"  {name}: {len(regs)} instances, max {max(regs, default=0)} registers, "
               f"{spills} with spills ({path.with_suffix('.log').name})", flush=True)
+    for name in ("rmsnorm", "mamba_scan"):
+        for fn_name, regs, spill in ptxas[name]:
+            print(f"    {fn_name[:72]}: {regs} registers, {spill} bytes spilled", flush=True)
+        if any(spill for *_, spill in ptxas[name]):
+            fail(f"an instance of {name} spills registers")
+    if any(regs > 128 for _, regs, _ in ptxas["mamba_scan"]):
+        fail("an instance of mamba_scan takes more than 128 registers (4 blocks an SM)")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -481,35 +499,84 @@ def main() -> None:
                  f"{k2.split_plan(B, Hkv, Sc, n_sm_card)})",
     }
 
-    # K3: an odd shape and both serving shapes (decode rows and prefill rows)
+    # K3: every served shape, 8 decode rows and 512 prefill rows of each
+    # model's norm widths (qwen2 d 896, deepseek d 2048, rwkv6-7b d 4096,
+    # jamba d 8192 and its Mamba norms' dt_rank 512 and d_state 16), an odd
+    # shape, a D off 16 bytes and a view off a 16-byte boundary (both
+    # element-wise), in f32 and bf16; every check runs twice into NaN-filled
+    # memory (norm_twice).  Timed in bf16 at every served shape, beside the
+    # card's launch floor.  Drawn from a fork of the generator, so later
+    # phases draw what they would without these cases.
     err3 = 0.0
     dm = cfg.d_model
-    times3 = {}
+    jfull = get_config(JAMBA_ARCH)
+    jDI, jN, _, jR = mamba_mod._dims(jfull)  # 16384, 16, d_conv, dt_rank 512
+    norm_widths = {ARCH: (dm,), MOE_ARCH: (get_config(MOE_ARCH).d_model,),
+                   RWKV_ARCH: (get_config(RWKV_ARCH).d_model,), JAMBA_ARCH: (jfull.d_model, jR, jN)}
+    served_norms = [(r, d) for ds in norm_widths.values() for d in ds for r in (B, S)]
+
+    def norm_twice(x, s):
+        """K3 twice on the same inputs, each time into the block the caching
+        allocator last freed, filled with NaN just before (so an element the
+        kernel leaves unwritten shows); the two results must be the same
+        bytes."""
+        outs = []
+        for _ in range(2):
+            torch.full_like(x, float("nan"))
+            outs.append(k3.rmsnorm(x, s))
+        if not torch.equal(outs[0].view(torch.uint8), outs[1].view(torch.uint8)):
+            fail(f"rmsnorm {tuple(x.shape)} {x.dtype}: two runs differ")
+        return outs[0]
+
+    def norm_case(x) -> str:
+        """The plan a K3 launch takes, and whether it loads 16 bytes a lane."""
+        p = k3.norm_plan(x.numel() // x.shape[-1], x.shape[-1], x.element_size(), n_sm)
+        vec = x.data_ptr() % 16 == 0 and x.shape[-1] * x.element_size() % 16 == 0
+        return (f"[{p.lanes} lanes x {p.chunks} chunks a row, {p.threads} threads, {p.grid} "
+                f"blocks, {'16-byte' if vec else 'element-wise'}]")
+
+    gen_state = gen.get_state()
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).removeprefix("torch.")
-        for shape in ((3, 5, 96), (B, dm), (S, dm)):
-            x, s = randn(*shape, dtype=dt), randn(shape[-1]) * 0.1
-            err3 = max(err3, hold("rmsnorm", f"{dn} {shape}", k3.rmsnorm(x, s),
+        for shape in (*served_norms, (3, 5, 96), (4, 100), "view"):
+            if shape == "view":  # qwen2's decode rows, 2 (bf16) or 4 (f32) bytes past the start
+                buf = randn(B * dm + 1, dtype=dt)
+                x, shape = buf[1:].view(B, dm), f"({B}, {dm}) at +{buf.element_size()} bytes"
+            else:
+                x = randn(*shape, dtype=dt)
+            s = randn(x.shape[-1]) * 0.1
+            err3 = max(err3, hold("rmsnorm", f"{dn} {shape} {norm_case(x)}", norm_twice(x, s),
                                   ref.rmsnorm_ref(x, s), dn))
-            if dt == torch.bfloat16 and shape != (3, 5, 96):
-                w = (1.0 + s).to(dt)
-                b3, by3 = bound_ms(nbytes(x, x, s), 4 * x.numel(), peaks["float32"])
-                times3[shape] = {
-                    "ms": time_ms(lambda: k3.rmsnorm(x, s)),
-                    "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, s)),
-                    "bound_ms": b3, "bound_by": by3,
-                    "library_ms": time_ms(lambda: F.rms_norm(x, (dm,), weight=w, eps=1e-6)),
-                }
-                print(f"  rmsnorm {shape} bf16 times: {times3[shape]}", flush=True)
+    del buf
+    gen.set_state(gen_state)
+    floor_ms = time_ms(lambda: k3.launch_floor(dev))
+    print(f"  launch floor (an empty kernel of one block, through the same route): "
+          f"{floor_ms:.4f} ms", flush=True)
+    times3 = {}
+    for shape in served_norms:
+        x = randn(*shape, dtype=torch.bfloat16)
+        s = randn(shape[-1]) * 0.1
+        times3[shape] = timed(
+            lambda: k3.rmsnorm(x, s), lambda: ref.rmsnorm_ref(x, s),
+            lambda w=(1.0 + s).to(torch.bfloat16), n=shape[-1]: F.rms_norm(
+                x, (n,), weight=w, eps=1e-6),
+            nbytes(x, x, s), 4 * x.numel(), peaks["float32"], f"{shape} bf16 {norm_case(x)}")
+        t = times3[shape]
+        # the same bytes moved with no arithmetic: one PyTorch copy of x
+        t["copy_ms"] = time_ms(lambda y=torch.empty_like(x): y.copy_(x))
+        print(f"  rmsnorm {shape} bf16: kernel {t['ms']:.4f} ms ({t['ms'] - floor_ms:.4f} above "
+              f"the floor), F.rms_norm {t['library_ms']:.4f}, copy {t['copy_ms']:.4f}, plain "
+              f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.6f} ({t['bound_by']}) "
+              f"{norm_case(x)}", flush=True)
     records["rmsnorm"] = {
-        "name": "rmsnorm", "route": "triton", "source": "src/repro_torch/kernels/rmsnorm.py",
+        "name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:27", "max_abs_err": err3,
-        **times3[(B, dm)],
-        "shape": f"({B}, {dm}) bf16 (decode rows); ({S}, {dm}): {times3[(S, dm)]}",
+        **times3[(B, dm)], "floor_ms": floor_ms,
+        "served": {str(shape): t for shape, t in times3.items()},
     }
 
-    # K1, K2, K3 at deepseek-moe-16b's shapes: head dim 128, one query row
-    # per KV head (MHA), d 2048
+    # K1, K2 at deepseek-moe-16b's shapes: head dim 128, one query row per
+    # KV head (MHA)
     mcfg = get_config(MOE_ARCH)
     mHq, mHkv, mD = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim
     mS, mB, mSc, dm2 = (MOE_SERVE["prompt_len"], MOE_SERVE["max_batch"], MOE_SERVE["max_seq"],
@@ -526,10 +593,6 @@ def main() -> None:
         err2 = max(err2, hold("decode_attention", f"{dn} {MOE_ARCH} {mB}x{mSc}x{mHq}/{mHkv}x{mD}",
                               k2.decode_attention(qd, kc, vc, pos, cur),
                               ref.decode_attention_ref(qd, kc, vc, pos, cur), dn))
-        for shape in ((mB, dm2), (mS, dm2)):
-            x, sc = randn(*shape, dtype=dt), randn(dm2) * 0.1
-            err3 = max(err3, hold("rmsnorm", f"{dn} {MOE_ARCH} {shape}", k3.rmsnorm(x, sc),
-                                  ref.rmsnorm_ref(x, sc), dn))
     # timings in bf16 (the last dtype above)
     moe_shape_times = {
         "flash_attention": timed(
@@ -547,12 +610,6 @@ def main() -> None:
             nbytes(qd, kc, vc, qd, pos, cur), 4 * mD * mHq * mB * mSc, peaks["bfloat16"],
             f"B={mB} S={mSc} Hq={mHq} Hkv={mHkv} D={mD} bf16, all {mB * mSc} slots live"),
     }
-    for shape in ((mB, dm2), (mS, dm2)):
-        x, sc = randn(*shape, dtype=torch.bfloat16), randn(dm2) * 0.1
-        moe_shape_times[f"rmsnorm {shape}"] = timed(
-            lambda: k3.rmsnorm(x, sc), lambda: ref.rmsnorm_ref(x, sc),
-            lambda w=(1.0 + sc).to(torch.bfloat16): F.rms_norm(x, (dm2,), weight=w, eps=1e-6),
-            nbytes(x, x, sc), 4 * x.numel(), peaks["float32"], f"{shape} bf16")
 
     def gmm_twice(x, w, epi=None):
         """K4 twice on the same inputs, each time into the block the caching
@@ -789,9 +846,7 @@ def main() -> None:
     # strong and weak decays, and jamba-1.5-large's prefill shape (chunk 256)
     # at batch 1 and 8; every case starts from a non-zero state.  Each is held
     # against the serial oracle and the chunked form, relative to max |y| and
-    # max |state|.
-    jfull = get_config(JAMBA_ARCH)
-    jDI, jN, _, jR = mamba_mod._dims(jfull)  # 16384, 16, d_conv, dt_rank 512
+    # max |state|, and runs twice into NaN-filled memory (mamba_twice).
     jS, jL = JAMBA_SERVE["prompt_len"], jfull.mamba.chunk
 
     def mamba_inputs(B, T, DI, N, dt_, decay="mixed"):
@@ -807,21 +862,75 @@ def main() -> None:
         return (randn(B, T, DI, dtype=dt_), dt.to(dt_), A, randn(B, T, N, dtype=dt_),
                 randn(B, T, N, dtype=dt_), randn(DI), randn(B, DI, N) * 0.1)
 
+    def mamba_twice(x, chunk, cold=False):
+        """K5 twice on the same inputs, each time into the blocks the caching
+        allocator last freed, filled with NaN just before (so an output the
+        kernel leaves unwritten shows); the two results must be the same
+        bytes (a race in the cp.async ring shows as a difference).  With
+        ``cold``, L2 is flushed before each run, so the ring's stages come
+        from device memory and a stage read before it lands shows."""
+        outs = []
+        for _ in range(2):
+            nan_y, nan_s = torch.full_like(x[0], float("nan")), torch.full_like(x[6], float("nan"))
+            del nan_y, nan_s
+            if cold:
+                flush_buf.zero_()
+            outs.append(k5.mamba_scan(*x, chunk=chunk))
+        for a, b_ in zip(*outs):
+            if not torch.equal(a.view(torch.uint8), b_.view(torch.uint8)):
+                fail(f"mamba_scan {tuple(x[0].shape)} N={x[2].shape[1]} {x[0].dtype}: "
+                     "two runs differ")
+        return outs[0]
+
+    def mamba_case(x) -> str:
+        """The plan a K5 launch takes, and whether its ring is filled by
+        16-byte cp.async copies or element by element."""
+        B_, _, DI_ = x[0].shape
+        N_ = x[2].shape[1]
+        p = k5.mamba_plan(B_, DI_, N_, x[0].element_size(), n_sm)
+        vec = (all(t.data_ptr() % 16 == 0 for t in (x[0], x[1], x[3], x[4]))
+               and DI_ * x[0].element_size() % 16 == 0 and N_ * x[0].element_size() % 16 == 0)
+        return (f"[{p.channels} channels x {p.steps}-step stages a block, "
+                f"{p.grid[0] * p.grid[1]} blocks, {p.waves} wave(s), "
+                f"{'cp.async' if vec else 'element-wise'}]")
+
     err5 = 0.0
+
+    def hold_k5(cases, dt, cold=False) -> None:
+        nonlocal err5
+        dn = str(dt).removeprefix("torch.")
+        for (B_, T_, DI_, N_), L_, decay in cases:
+            x = mamba_inputs(B_, T_, DI_, N_, dt, decay)
+            got = mamba_twice(x, L_, cold)
+            case = (f"{dn} {(B_, T_, DI_, N_)} chunk {L_} {decay} decays"
+                    f"{' L2 flushed before each run' if cold else ''} {mamba_case(x)}")
+            forms = [("serial", ref.mamba_scan_ref(*x))]
+            if not cold:
+                forms.append(("chunked", ref.mamba_scan_chunked(*x, chunk=L_)))
+            for form, want in forms:
+                err5 = max(err5, hold_rel(f"{case} vs {form}", got, want, TOL[dn], "mamba_scan"))
+
     k5_cases = [((2, 64, 12, 4), 16, "mixed"), ((1, 32, 8, 8), 32, "mixed"),
                 ((2, 64, 40, 16), 32, "mixed"), ((1, 64, 12, 8), 16, "strong"),
                 ((1, 64, 12, 8), 16, "weak"), ((1, jS, jDI, jN), jL, "mixed"),
                 ((1, jS, jDI, jN), jL, "strong"), ((1, jS, jDI, jN), jL, "weak"),
                 ((8, jS, jDI, jN), jL, "mixed")]
     for dt in (torch.float32, torch.bfloat16):
-        dn = str(dt).removeprefix("torch.")
-        for (B_, T_, DI_, N_), L_, decay in k5_cases:
-            x = mamba_inputs(B_, T_, DI_, N_, dt, decay)
-            got = k5.mamba_scan(*x, chunk=L_)
-            case = f"{dn} {(B_, T_, DI_, N_)} chunk {L_} {decay} decays"
-            for form, want in (("serial", ref.mamba_scan_ref(*x)),
-                               ("chunked", ref.mamba_scan_chunked(*x, chunk=L_))):
-                err5 = max(err5, hold_rel(f"{case} vs {form}", got, want, TOL[dn], "mamba_scan"))
+        hold_k5(k5_cases, dt)
+    # the plan's edges: T = 50 (past the 4-step group and the 16- to 64-step
+    # stage), DI ragged against the 32- and 64-channel tiles (1000 = 31 x 32
+    # + 8, 200 = 3 x 64 + 8), T of exactly one ring stage at batch 8 (a ring
+    # wait one stage short shows there and at no batch-1 shape in K6), and
+    # the served shape with L2 flushed before each run.  Drawn from a fork of
+    # the generator, so later phases draw what they did before.
+    gen_state = gen.get_state()
+    for dt in (torch.float32, torch.bfloat16):
+        one = k5.mamba_plan(8, jDI, jN, torch.finfo(dt).bits // 8, n_sm).steps
+        hold_k5([((2, 50, 40, 16), 50, "mixed"), ((1, 50, 64, 8), 50, "mixed"),
+                 ((1, 64, 1000, 16), 64, "mixed"), ((2, 64, 200, 8), 64, "mixed"),
+                 ((8, one, jDI, jN), one, "mixed")], dt)
+        hold_k5([((1, jS, jDI, jN), jL, "mixed")], dt, cold=True)
+    gen.set_state(gen_state)
     k5_times = {}
     for B_ in (1, 8):  # the served prefill, and batch 8
         x = mamba_inputs(B_, jS, jDI, jN, torch.bfloat16)
@@ -839,7 +948,7 @@ def main() -> None:
                                           "exponentials": 1e3 * n_el / peaks["exp_per_s"]}
         print(f"  mamba_scan bound parts at B={B_}: {json.dumps(k5_times[B_]['bound_parts_ms'])}",
               flush=True)
-    del x, got, want
+    del x
     records["mamba_scan"] = {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -847,12 +956,11 @@ def main() -> None:
         **k5_times[1], "batch8": k5_times[8],
     }
 
-    # K1, K2, K3, K4 at jamba-1.5-large's shapes: head dim 128 with 8 query
-    # heads per KV head, d 8192, the Mamba norms at dt_rank 512 and d_state
-    # 16, and 16 experts of 8192 x 24576 at the prefill and decode capacities
+    # K1, K2, K4 at jamba-1.5-large's shapes: head dim 128 with 8 query
+    # heads per KV head, d 8192, and 16 experts of 8192 x 24576 at the
+    # prefill and decode capacities
     jHq, jHkv, jD = jfull.n_heads, jfull.n_kv_heads, jfull.head_dim
     jB, jSc, jdm = JAMBA_SERVE["max_batch"], JAMBA_SERVE["max_seq"], jfull.d_model
-    jnorm_shapes = ((jB, jdm), (jS, jdm), (jS, jR), (jS, jN), (jB, jR), (jB, jN))
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).removeprefix("torch.")
         q, k, v = (randn(1, jS, h, jD, dtype=dt) for h in (jHq, jHkv, jHkv))
@@ -865,10 +973,6 @@ def main() -> None:
         err2 = max(err2, hold("decode_attention", f"{dn} {JAMBA_ARCH} {jB}x{jSc}x{jHq}/{jHkv}x{jD}",
                               k2.decode_attention(qd, kc, vc, pos, cur),
                               ref.decode_attention_ref(qd, kc, vc, pos, cur), dn))
-        for shape in jnorm_shapes:
-            x, sc = randn(*shape, dtype=dt), randn(shape[-1]) * 0.1
-            err3 = max(err3, hold("rmsnorm", f"{dn} {JAMBA_ARCH} {shape}", k3.rmsnorm(x, sc),
-                                  ref.rmsnorm_ref(x, sc), dn))
     jamba_shape_times = {  # bf16, the last dtype above
         "flash_attention": timed(
             lambda: k1.flash_attention(q, k, v), lambda: ref.mha_ref(q, k, v),
@@ -886,13 +990,6 @@ def main() -> None:
             nbytes(qd, kc, vc, qd, pos, cur), 4 * jD * jHq * jB * jSc, peaks["bfloat16"],
             f"B={jB} S={jSc} Hq={jHq} Hkv={jHkv} D={jD} bf16, all {jB * jSc} slots live"),
     }
-    for shape in ((jS, jR), (jS, jN)):  # the Mamba norms' new widths, prefill rows
-        x, sc = randn(*shape, dtype=torch.bfloat16), randn(shape[-1]) * 0.1
-        jamba_shape_times[f"rmsnorm {shape}"] = timed(
-            lambda: k3.rmsnorm(x, sc), lambda: ref.rmsnorm_ref(x, sc),
-            lambda w=(1.0 + sc).to(torch.bfloat16), n=shape[-1]: F.rms_norm(
-                x, (n,), weight=w, eps=1e-6),
-            nbytes(x, x, sc), 4 * x.numel(), peaks["float32"], f"{shape} bf16")
     del q, k, v, qd, kc, vc
     jm = jfull.moe
     jcaps = {"prefill": ffn_mod._capacity(jS, jm), "decode": ffn_mod._capacity(jB, jm)}  # 80, 8
@@ -919,11 +1016,8 @@ def main() -> None:
     for name in ("flash_attention", "decode_attention"):
         records[name]["max_abs_err"] = {"flash_attention": err1, "decode_attention": err2}[name]
         records[name][MOE_ARCH] = moe_shape_times[name]
-    records["rmsnorm"]["max_abs_err"] = err3
-    records["rmsnorm"][MOE_ARCH] = {k: v for k, v in moe_shape_times.items()
-                                    if k.startswith("rmsnorm")}
     records["moe_gmm"]["max_abs_err"] = err4
-    for name in ("flash_attention", "decode_attention", "rmsnorm", "moe_gmm"):
+    for name in ("flash_attention", "decode_attention", "moe_gmm"):
         records[name][JAMBA_ARCH] = {k: v for k, v in jamba_shape_times.items()
                                      if k.split()[0] == name}
     for r in records.values():
@@ -1009,7 +1103,32 @@ def main() -> None:
             check_gmm_kernels(c, out)
         if any(c.layer_spec(i).mixer == "rwkv" for i in range(c.n_layers)):
             check_scan_kernels(c, out)
+        if any(c.layer_spec(i).mixer == "mamba" for i in range(c.n_layers)):
+            check_mamba_kernels(c, out)
+        check_norm_kernels(c, out)
         return out
+
+    def check_norm_kernels(c, steps: dict) -> None:
+        """Every profiled step ran K3's CUDA kernel, and no other RMSNorm
+        kernel (the Triton kernel it replaced was ``_rmsnorm_kernel``)."""
+        seen = {name: [n[:70] for n in b["kernel_names"] if "rmsnorm" in n.lower()]
+                for name, b in steps.items()}
+        print(f"{c.name} RMSNorm kernels: {json.dumps(seen)}", flush=True)
+        for name, found in seen.items():
+            if not found or any("rmsnorm_rows<" not in n for n in found):
+                fail(f"{c.name}: the {name} ran {found}, expected rmsnorm_rows only")
+
+    def check_mamba_kernels(c, steps: dict) -> None:
+        """The served bf16 prefill ran K5's ring kernel with 16-byte cp.async
+        copies, and no other K5 kernel."""
+        names = [n for n in steps["prefill"]["kernel_names"] if "mamba" in n]
+        print(f"{c.name} selective-scan kernels: {json.dumps([n[:90] for n in names])}",
+              flush=True)
+        want = re.compile(
+            r"mamba_scan_ring<__nv_bfloat16,\s*(\(int\))?16,\s*((\(bool\))?1|true)>")
+        if not names or any(want.search(n) is None for n in names):
+            fail(f"{c.name}: the prefill ran {names}, expected mamba_scan_ring"
+                 "<__nv_bfloat16, 16, true> only")
 
     def check_scan_kernels(c, steps: dict) -> None:
         """The served bf16 prefill ran K6's tiled kernel with its ring filled
@@ -1065,6 +1184,7 @@ def main() -> None:
              f"{2 * n_layers + 1} x {forwards} forwards")
     for name in records:
         records[name]["launches"] = counts[name]
+    norm_launches = add_norm_launches({}, cfg, SERVE, n_ticks)
 
     breakdown = step_breakdown(cfg, eng, SERVE, prompts[0])
     for name, b in breakdown.items():
@@ -1146,6 +1266,7 @@ def main() -> None:
              f"({forwards} forwards, {n_ticks} ticks)")
     for name in records:
         records[name]["launches"] += mcounts[name]
+    add_norm_launches(norm_launches, mcfg, MOE_SERVE, n_ticks)
 
     moe_breakdown = step_breakdown(mcfg, meng, MOE_SERVE, mprompts[0])
     for name, b in moe_breakdown.items():
@@ -1268,6 +1389,7 @@ def main() -> None:
              f"({forwards} forwards, {n_ticks} ticks)")
     for name in records:
         records[name]["launches"] += rcounts[name]
+    add_norm_launches(norm_launches, rcfg, RWKV_SERVE, n_ticks)
     rwkv_breakdown = step_breakdown(rcfg, reng, RWKV_SERVE, rprompts[0])
     for name, b in rwkv_breakdown.items():
         print(f"{RWKV_ARCH} {name}: {json.dumps(b)}", flush=True)
@@ -1336,6 +1458,12 @@ def main() -> None:
              f"({forwards} forwards, {n_ticks} ticks)")
     for name in records:
         records[name]["launches"] += jcounts[name]
+    add_norm_launches(norm_launches, jcfg, JAMBA_SERVE, n_ticks)
+    records["rmsnorm"]["launches_by_shape"] = {str(k): n for k, n in norm_launches.items()}
+    print(f"rmsnorm launches by (rows, D), all four serving runs: "
+          f"{json.dumps(records['rmsnorm']['launches_by_shape'])}", flush=True)
+    if sum(norm_launches.values()) != records["rmsnorm"]["launches"]:
+        fail("rmsnorm launches by shape do not add up to its launch count")
     jamba_breakdown = step_breakdown(jcfg, jeng, JAMBA_SERVE, jprompts[0])
     for name, b in jamba_breakdown.items():
         print(f"{JAMBA_ARCH} {name}: {json.dumps(b)}", flush=True)
@@ -1426,8 +1554,9 @@ def main() -> None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
         args.record.write_text(json.dumps(full, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records.values()]}), flush=True)
+            "bound_ms", "bound_by", "library_ms", "floor_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in records.values()]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1472,6 +1601,38 @@ def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
         "top_kernels": [(e.key[:90], dev_us(e) / 1e3, e.count) for e in rows[:top]],
         "kernel_names": sorted({e.key for e in rows}),
     }
+
+
+def add_norm_launches(into: dict, c, spec: dict, n_ticks: int) -> dict:
+    """Adds a serving run's RMSNorm launches by (rows, D) to ``into``: norm1
+    and norm2 of every layer and the final norm at d_model, and a Mamba
+    layer's dt / B / C norms at dt_rank and d_state, for each of the
+    requests' prefills (prompt_len rows) and each decode tick (max_batch
+    rows)."""
+    n_mamba = sum(c.layer_spec(i).mixer == "mamba" for i in range(c.n_layers))
+    widths = {c.d_model: 2 * c.n_layers + 1}
+    if n_mamba:
+        from repro_torch.nn import mamba as mamba_mod
+
+        _, N, _, R = mamba_mod._dims(c)
+        widths[R] = widths.get(R, 0) + n_mamba
+        widths[N] = widths.get(N, 0) + 2 * n_mamba
+    for rows, n in ((spec["prompt_len"], spec["requests"]), (spec["max_batch"], n_ticks)):
+        for d, per in widths.items():
+            into[(rows, d)] = into.get((rows, d), 0) + per * n
+    return into
+
+
+def ptxas_instances(log_text: str) -> list[tuple[str, int, int]]:
+    """(mangled name, registers, bytes of spill stores) of each kernel that
+    ``nvcc -Xptxas=-v`` reported."""
+    out = []
+    for part in log_text.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        out.append((part.split("'")[0], int(regs.group(1)) if regs else 0,
+                    int(spill.group(1)) if spill else 0))
+    return out
 
 
 def seed_mamba_noise(params, gen) -> None:

@@ -4,7 +4,7 @@
 Each is the simplest correct implementation (the attention versions
 materialise the full score matrix).  The CPU path of every kernel wrapper
 runs them, the CPU tests hold them against the JAX package, and
-``chip_smoke.py`` holds each CUDA/Triton kernel against them on the card.
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
 
 Shape conventions:
   attention   q: (B, Sq, Hq, D);  k, v: (B, Skv, Hkv, D);  Hq % Hkv == 0

@@ -3,8 +3,8 @@
 On the CPU each port wrapper runs its plain PyTorch version; the JAX side
 runs the Pallas kernel with ``interpret=True``, as tests/test_kernels.py
 does.  The same inputs, drawn with numpy from a seed, feed both.  The CUDA
-and Triton kernels themselves are held against the same plain versions on
-the card by chip_smoke.py.
+kernels themselves are held against the same plain versions on the card
+by chip_smoke.py.
 """
 import pytest
 
@@ -26,9 +26,11 @@ from repro_torch.kernels.decode_attention import decode_attention, split_plan  #
 from repro_torch.kernels.decode_attention import instances as decode_instances  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import instance as flash_instance  # noqa: E402
+from repro_torch.kernels import mamba_scan as k5  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels import moe_gmm as k4  # noqa: E402
 from repro_torch.kernels.moe_gmm import gmm  # noqa: E402
+from repro_torch.kernels import rmsnorm as k3  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as k6  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
@@ -272,7 +274,7 @@ def test_attention_instances_depend_on_dtype_and_head_dim_only():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(8, 896), (3, 5, 96)])
+@pytest.mark.parametrize("shape", [(8, 896), (3, 5, 96), (2, 16), (4, 512), (2, 100)])
 def test_rmsnorm_vs_pallas(shape, dtype):
     rng = np.random.default_rng(47)
     jx, tx = _pair(rng.standard_normal(shape, np.float32), dtype)
@@ -281,6 +283,47 @@ def test_rmsnorm_vs_pallas(shape, dtype):
     got = rmsnorm(tx, torch.from_numpy(scale), eps=1e-6)
     assert got.dtype == tx.dtype and got.shape == tx.shape
     _close(want, got, **tols(dtype))
+
+
+# the served (rows, D) of K3: 8 decode rows and 512 prefill rows of qwen2's,
+# deepseek's, rwkv6-7b's and jamba's d_model and jamba's Mamba norms (dt_rank
+# 512, d_state 16), and a D off 16 bytes
+NORM_SHAPES = [(r, d) for d in (896, 2048, 4096, 8192, 512, 16) for r in (8, 512)] + [(4, 100)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("rows,D", NORM_SHAPES)
+def test_norm_plan_covers_each_element_once(rows, D, itemsize):
+    """Over the plan's grid and threads, the lanes hold each (row, element)
+    exactly once; a row's lanes are consecutive lanes of one warp or whole
+    warps of one block, and a block is whole warps."""
+    p = k3.norm_plan(rows, D, itemsize, n_sm=132)
+    assert p.lanes & (p.lanes - 1) == 0 and p.threads % 32 == 0 and p.threads <= 1024
+    assert p.chunks in (1, 2, 4, 8)
+    assert (p.threads % p.lanes == 0) if p.lanes <= 32 else (p.threads == p.lanes)
+    counts = np.zeros((rows, D), np.int64)
+    for blk in range(p.grid):
+        for t in range(p.threads):
+            row, cols = p.elements(blk, t)
+            if row is not None:
+                counts[row, cols] += 1
+    assert (counts == 1).all()
+
+
+@pytest.mark.parametrize("rows,D,lanes,chunks", [
+    (8, 16, 2, 1), (512, 16, 2, 1), (8, 512, 32, 2), (512, 512, 32, 2), (8, 896, 64, 2),
+    (512, 896, 32, 4), (8, 2048, 128, 2), (512, 2048, 64, 4), (8, 4096, 256, 2),
+    (512, 4096, 128, 4), (8, 8192, 256, 4), (512, 8192, 256, 4)])
+def test_norm_plan_lanes_at_the_served_widths(rows, D, lanes, chunks):
+    """In bf16, D 16 packs 16 rows a warp (2 lanes of 16 bytes a row); a
+    prefill row of up to 128 chunks takes one warp (shuffles only), a wider
+    one 4 chunks a lane over whole warps of one block; decode rows (8, fewer
+    warps than SMs) spread to 2 chunks a lane, up to 256 lanes."""
+    p = k3.norm_plan(rows, D, 2, n_sm=132)
+    assert (p.lanes, p.chunks) == (lanes, chunks)
+    assert p.rows_per_block * p.lanes == p.threads if lanes <= 32 else p.rows_per_block == 1
+    if D == 16:
+        assert 32 // p.lanes == 16
 
 
 # ---------------------------------------------------------------------------
@@ -748,6 +791,82 @@ def test_mamba_scan_chunk_contract():
         jax_ops.mamba_scan(*(jnp.asarray(a) for a in arrays), chunk=16)
     y, _ = ops.mamba_scan(*tx, chunk=32, remat_chunks=True)
     assert tuple(y.shape) == (1, 20, 8)
+
+
+@pytest.mark.parametrize("DI", [12, 40, 16384])
+@pytest.mark.parametrize("N", k5.STATE_SIZES)
+def test_mamba_plan_covers_every_channel_once(N, DI):
+    """Over the plan's grid and threads, the lanes hold each (b, channel,
+    state value) exactly once; channels past DI are masked."""
+    B = 2
+    p = k5.mamba_plan(B, DI, N, 2, n_sm=132)
+    assert p.threads == p.channels * p.lanes == k5.THREADS and p.lanes * p.values == N
+    assert p.values == min(N, k5.MAX_VALUES)
+    assert p.steps % p.group == 0
+    seen = {}
+    for bx in range(p.grid[0]):
+        for by in range(p.grid[1]):
+            for t in range(p.threads):
+                b, ch, values = p.channel((bx, by), t)
+                for e in ((b, ch, n) for n in values if ch is not None):
+                    seen[e] = seen.get(e, 0) + 1
+    assert set(seen) == {(b, c, n) for b in range(B) for c in range(DI) for n in range(N)}
+    assert set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("N", k5.STATE_SIZES)
+def test_mamba_plan_runs_the_served_prefill_in_one_wave(N, itemsize):
+    """At (1, 512, 16384, 16) every block is resident at once on 132 SMs (256
+    blocks of 64 channels; 4 a block's register cap allows, which its
+    ring's shared memory leaves room for inside 227 KB), and every state
+    size's ring fits the same."""
+    p = k5.mamba_plan(1, 16384, N, itemsize, n_sm=132)
+    assert p.resident == k5.MIN_BLOCKS
+    assert p.resident * (p.smem_bytes + k5.BLOCK_RESERVED) <= 232448
+    assert p.steps * p.channels * itemsize == k5.STAGE_BYTES
+    if N == 16:
+        assert p.grid == (256, 1) and p.waves == 1 and p.grid[0] <= 132 * p.resident
+    assert k5.mamba_plan(8, 16384, N, itemsize, n_sm=132).waves > 1
+
+
+def _mamba_kernel_emulation(x, dt, A, Bm, C, D, s0, plan):
+    """The kernel's arithmetic in f32: decays exp2(dt · A log2 e); lane g of
+    a channel holds the plan's state values v·g .. v·g + v - 1 and sums C·h
+    over them in that order; the lanes' partial sums of each step are added
+    pairwise (g with g ^ 1, then ^ 2), as the reduce-scatter adds them; y =
+    D·x + the sum."""
+    import math
+
+    B, T, DI = x.shape
+    N = A.shape[1]
+    a2 = A * math.log2(math.e)
+    h = s0.clone()
+    ys = []
+    for t in range(T):
+        dv, xv = dt[:, t], x[:, t]
+        h = torch.exp2(dv[..., None] * a2) * h + (dv * xv)[..., None] * Bm[:, t, None, :]
+        part = (C[:, t, None, :] * h).reshape(B, DI, plan.lanes, plan.values)
+        acc = part[..., 0]
+        for j in range(1, plan.values):
+            acc = acc + part[..., j]
+        while acc.shape[-1] > 1:
+            acc = acc[..., 0::2] + acc[..., 1::2]
+        ys.append(D * xv + acc[..., 0])
+    return torch.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("B,T,DI,N", [(2, 64, 12, 4), (1, 50, 40, 16), (2, 32, 20, 8)])
+def test_mamba_kernel_decomposition_matches_the_oracle(B, T, DI, N):
+    """The kernel's order of operations, emulated in f32, holds the serial
+    oracle within 1e-5 relative to max |y| and max |state| (the CUDA kernel
+    itself is held on the card by chip_smoke.py)."""
+    arrays = [torch.from_numpy(a) for a in _mamba_inputs(65, B, T, DI, N)]
+    plan = k5.mamba_plan(B, DI, N, 4, n_sm=132)
+    got = _mamba_kernel_emulation(*arrays, plan)
+    want = ref.mamba_scan_ref(*arrays)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 def test_mamba_wrapper_refuses_other_devices():
