@@ -43,16 +43,26 @@ failure of which exits non-zero:
    each launch, beside the card's bound for the same work (K1 also in f32,
    its CUDA-core instance; K4's WMMA instance at a ragged F; K3 at every
    served shape, beside the card's launch floor: an empty kernel launched
-   through the same route);
+   through the same route; and K3 and the empty kernel GRAPH_LAUNCHES times
+   in one CUDA graph, per launch, beside the same launches issued eagerly);
 4. serve full-width qwen2-0.5b (bf16, random weights from a seed, 8 slots,
    1024-slot caches, 16 requests of 512 prompt tokens, 64 new tokens,
    greedy) through the port's Engine with the launch counts reset just
-   before, and check the exact launch counts; then hold the first
+   before: first through ``Engine(compiled=False)``, then through the
+   default compiled engine, whose decode ticks and prefills are replays of
+   CUDA graphs (as for each model below); check the exact launch counts
+   on the compiled run, the same counts on the eager run, the replay
+   counts (decode: ticks - 1, prefill: requests - 1) and that every
+   request's tokens are the same in both runs; then hold the first
    request's prefill logits and 8 teacher-forced decode steps through the
    kernels against the same through the plain versions, in f32 within
-   F32_LOGIT_TOL (bf16 differences are reported beside them), and report
-   the device busy share of a decode tick and a prefill from torch.profiler,
-   whose kernel names must show K1's tensor-core instance (and not the
+   F32_LOGIT_TOL (bf16 differences are reported beside them), and the f32
+   kernel steps against the same steps as graph replays within
+   GRAPH_F32_TOL; and report the device busy share of a decode tick and a
+   prefill from torch.profiler, eager and replayed (a replayed tick may
+   dispatch at most COMPILED_TICK_HOST_OPS host ops), whose kernel names
+   (in the eager steps, and in the replays where the profiler names them)
+   must show K1's tensor-core instance (and not the
    SIMT one) in the bf16 prefill and both K2 passes in the tick (also for
    deepseek-moe-16b and jamba-1.5-large below, whose prefill and tick must
    also show K4's tensor-core instance gmm_mma and neither other one, and
@@ -88,8 +98,9 @@ failure of which exits non-zero:
    with the bf16 model freed, (b) the same at depth 2 in f32 (weights drawn
    in f32 from the same seed) within F32_LOGIT_TOL, with the routing's
    top-k agreement;
-5. print the per-kernel JSON line (launches from all four serving runs),
-   the card line, and last the ``{"ok": true, "device": ...}`` line.
+5. print the script's run time, the per-kernel JSON line (launches from the
+   four compiled serving runs), the card line, and last the ``{"ok": true,
+   "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
 run, the profiles) there as JSON.
@@ -98,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -145,6 +157,14 @@ JAMBA_GATE_LAYERS = 2  # gate (b): mamba/dense + mamba/moe in f32, 48.7 GB
 MAMBA_FLAT_NOISE = {"A_log": 0.5, "D": 0.5, "conv_b": 0.1, "dt_norm": 0.3, "b_norm": 0.3,
                     "c_norm": 0.3}
 SFU_EXP_PER_CLOCK = 16  # ex2 results per clock per SM on Hopper (sm_90)
+# A replayed decode tick dispatches two copies into its static buffers and
+# one graph launch; an eager one dispatches 1852-4098 ops on these models.
+COMPILED_TICK_HOST_OPS = 20
+# Graph replays run the same kernels on the same inputs as eager calls, in
+# the same order, so their f32 logits should agree exactly.
+GRAPH_F32_TOL = 1e-5
+GRAPH_LAUNCHES = 256  # K3 launches captured in one graph to time a launch inside it
+PROFILER_SESSIONS = 3  # sessions a profile may open before one sees the card's kernels
 
 
 def closed_form_tol(chunk: int) -> float:
@@ -183,7 +203,7 @@ def main() -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.core.events import EventLog
-    from repro_torch.kernels import _build, launch_counts, ops, ref, reset_launches
+    from repro_torch.kernels import _build, launch_counts, ops, ref, reset_launches, uncounted
     from repro_torch.kernels import decode_attention as k2
     from repro_torch.kernels import flash_attention as k1
     from repro_torch.kernels import mamba_scan as k5
@@ -194,6 +214,7 @@ def main() -> None:
     from repro_torch.nn import core as nn_core
     from repro_torch.nn import ffn as ffn_mod
     from repro_torch.nn import mamba as mamba_mod
+    from repro_torch.serving.compiled import Graphs
     from repro_torch.serving.engine import Engine, ServeConfig
 
     t_start = time.time()
@@ -678,10 +699,14 @@ def main() -> None:
                 fail(f"moe_gmm {tuple(x.shape)}@{tuple(w.shape)} took {gmm_instance(x, w)}")
     buf = randn(16 * 80 * 8192 + 1, dtype=bf)
     x = buf[1:].view(16, 80, 8192)  # 2 bytes past an allocation's start
-    names = [n for n in profile_step(lambda: k4.gmm(x, w))["kernel_names"] if "gmm_" in n]
+    prof = profile_step(lambda: k4.gmm(x, w))
+    names = [n for n in prof["kernel_names"] if "gmm_" in n]
+    print(f"  moe_gmm on an unaligned view: the profile saw {[n[:60] for n in names]}",
+          flush=True)
     if gmm_instance(x, w) != "gmm_bf16_kernel" or not names or any(
             "gmm_bf16_kernel" not in n for n in names):
-        fail(f"moe_gmm on an unaligned view ran {names}, expected gmm_bf16_kernel only")
+        fail(f"moe_gmm on an unaligned view ran {names}, expected gmm_bf16_kernel only (the "
+             f"profile saw {len(prof['kernel_names'])} kernels in all)")
     err4 = max(err4, hold("moe_gmm", f"bfloat16 {tuple(x.shape)}@{tuple(w.shape)} x at +2 "
                           f"bytes [{gmm_instance(x, w)}]", gmm_twice(x, w),
                           ref.gmm_ref(x, w), "bfloat16"))
@@ -1034,6 +1059,56 @@ def main() -> None:
               f"{t['plain_ms']:.4f} ms, library {fmt_ms(t['library_ms'])}, bound "
               f"{t['bound_ms']:.5f} ms ({t['bound_by']}) at {t['shape']}", flush=True)
 
+    def queued_ms(fn, n: int) -> float:
+        """Device time per call of ``n`` calls of ``fn`` issued back to back
+        behind a sleep kernel long enough that the host has queued them all
+        before the first runs."""
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000_000)  # ~0.5 s of GPU clock cycles
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    # K3 inside a CUDA graph: GRAPH_LAUNCHES launches at qwen2's decode rows
+    # (8, 896) bf16 captured once and one replay timed, per launch, beside
+    # the same launches issued eagerly back to back and the empty kernel
+    # both ways; the replay's output must be the eager call's bytes.  This
+    # comes after phase 3's one profile (K4 on an unaligned view): on some of
+    # the card's machines that profile saw no kernel at all when a graph
+    # capture, or another profiler session, came before it in the process.
+    x = randn(B, dm, dtype=torch.bfloat16)
+    s = randn(dm) * 0.1
+    want = k3.rmsnorm(x, s)
+    side = torch.cuda.Stream()
+    in_graph = {}
+    for name, fn in (("rmsnorm", lambda: k3.rmsnorm(x, s)),
+                     ("launch_floor", lambda: k3.launch_floor(dev))):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm on the capture stream
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with uncounted(), torch.cuda.graph(g, stream=side):
+            outs = [fn() for _ in range(GRAPH_LAUNCHES)]
+        in_graph[name] = {"graph_ms_per_launch": time_ms(g.replay) / GRAPH_LAUNCHES,
+                          "eager_queued_ms_per_launch": queued_ms(fn, GRAPH_LAUNCHES)}
+        g.replay()
+        torch.cuda.synchronize()
+        if name == "rmsnorm" and not all(torch.equal(o.view(torch.uint8), want.view(torch.uint8))
+                                         for o in outs):
+            fail("rmsnorm replayed in a CUDA graph differs from its eager call")
+        del g, outs
+    print(f"  rmsnorm ({B}, {dm}) bf16 and the empty kernel, {GRAPH_LAUNCHES} launches in one "
+          f"CUDA graph against the same launches issued eagerly, ms per launch: "
+          f"{json.dumps(in_graph)} (one launch between events: kernel "
+          f"{times3[(B, dm)]['ms']:.4f}, floor {floor_ms:.4f})", flush=True)
+    records["rmsnorm"]["in_graph"] = in_graph
+
     def init_model(c) -> tuple[dict, dict]:
         """Seeded random weights drawn on the card, with the draw's time, the
         memory already held before it and the peak."""
@@ -1049,14 +1124,15 @@ def main() -> None:
         print(f"init {c.name}: {json.dumps(rec)}", flush=True)
         return p, rec
 
-    def serve_run(c, p, spec: dict) -> tuple:
+    def serve_run(c, p, spec: dict, compiled: bool = True) -> tuple:
         """Serve ``spec["requests"]`` random prompts (drawn from SEED) through
-        the port's Engine, with the launch counts reset just before; fails
-        unless every request is delivered in full.  Returns (engine,
-        prompts, each request's tokens, the run's record)."""
+        the port's Engine (compiled, its default, or ``compiled=False``),
+        with the launch counts reset just before; fails unless every
+        request is delivered in full.  Returns (engine, prompts, each
+        request's tokens, the run's record)."""
         log = EventLog()
         eng = Engine(c, p, ServeConfig(max_batch=spec["max_batch"], max_seq=spec["max_seq"],
-                                       seed=SEED), log=log)
+                                       seed=SEED), log=log, compiled=compiled)
         rng = np.random.default_rng(SEED)
         prompts = [rng.integers(0, c.vocab_size, spec["prompt_len"]).tolist()
                    for _ in range(spec["requests"])]
@@ -1071,23 +1147,79 @@ def main() -> None:
         gen_tokens = sum(len(v) for v in results.values())
         prefill_ms = [1e3 * d for d in log.durations("prefill")]
         tick_ms = [1e3 * d for d in log.durations("decode_tick")]
+        # compiled: the first of each runs eagerly, the second captures
+        first_two = {"prefill_ms": prefill_ms[:2], "decode_tick_ms": tick_ms[:2]}
         rec = {
-            "arch": c.name, **spec, "generated_tokens": gen_tokens, "wall_s": wall,
-            "tokens_per_s": gen_tokens / wall,
+            "arch": c.name, "compiled": compiled, **spec, "generated_tokens": gen_tokens,
+            "wall_s": wall, "tokens_per_s": gen_tokens / wall,
             "mean_prefill_ms": float(np.mean(prefill_ms)),
-            "mean_decode_tick_ms": float(np.mean(tick_ms)), "decode_ticks": len(tick_ms),
+            "median_prefill_ms": float(np.median(prefill_ms)),
+            "mean_decode_tick_ms": float(np.mean(tick_ms)),
+            "median_decode_tick_ms": float(np.median(tick_ms)), "decode_ticks": len(tick_ms),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernels": launch_counts(),
+            "graphs": eng.compiled_counts(), "first_two": first_two,
         }
         print(f"serve: {json.dumps(rec)}", flush=True)
         if len(results) != len(rids) or any(len(v) != spec["max_new"] for v in outs):
             fail(f"{c.name}: serving did not deliver every request in full")
         return eng, prompts, outs, rec
 
+    def serve_both(c, p, spec: dict) -> tuple:
+        """The serve set through ``Engine(compiled=False)``, freed, then
+        through the default compiled engine (whose CUDA graphs the card
+        replays), in one call.  Returns the compiled run's (engine, prompts,
+        tokens, record) and the eager run's (tokens, record)."""
+        eager_eng, _, eager_outs, eager_rec = serve_run(c, p, spec, compiled=False)
+        del eager_eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return (*serve_run(c, p, spec), eager_outs, eager_rec)
+
+    def check_compiled(c, spec: dict, rec: dict, outs: list, eager_rec: dict,
+                       eager_outs: list) -> dict:
+        """The compiled run against the eager one: the same launches, the
+        replays the warm-up order makes (the first decode tick and the first
+        prefill of the one prompt length run eagerly, the second of each
+        captures and replays, every later one replays), and every request's
+        tokens."""
+        ticks, n_req = rec["decode_ticks"], spec["requests"]
+        if eager_rec["kernels"] != rec["kernels"]:
+            fail(f"{c.name}: launch counts compiled {rec['kernels']} against eager "
+                 f"{eager_rec['kernels']}")
+        want = {"decode": {"calls": ticks, "captures": 1, "replays": ticks - 1},
+                "prefill": {spec["prompt_len"]: {"calls": n_req, "captures": 1,
+                                                 "replays": n_req - 1}}}
+        if rec["graphs"] != want:
+            fail(f"{c.name}: compiled steps {rec['graphs']}, expected {want}")
+        same = sum(a == b for a, b in zip(outs, eager_outs))
+        summary = {
+            "requests_with_equal_tokens": same, "requests": n_req,
+            "decode_replays": ticks - 1, "prefill_replays": n_req - 1,
+            "first_two_compiled": rec["first_two"],
+            **{f"{k}_{run}": r[k] for run, r in (("eager", eager_rec), ("compiled", rec))
+               for k in ("tokens_per_s", "wall_s", "median_decode_tick_ms",
+                         "median_prefill_ms", "peak_mem_gb")},
+        }
+        print(f"{c.name} compiled vs eager serve set: {json.dumps(summary)}", flush=True)
+        if same != n_req:
+            bad = next(i for i, (a, b) in enumerate(zip(outs, eager_outs)) if a != b)
+            fail(f"{c.name}: the compiled engine's tokens differ from the eager engine's in "
+                 f"{n_req - same} of {n_req} requests (first: request {bad}, "
+                 f"{outs[bad][:8]} against {eager_outs[bad][:8]})")
+        return {**summary, "eager_serve": eager_rec}
+
     def step_breakdown(c, eng, spec: dict, prompt: list) -> dict:
         """Where a decode tick (every slot, cache position prompt_len + 8) and
-        a prefill spend their time: device busy time from torch.profiler,
-        wall time from a run without the profiler."""
+        a prefill spend their time, eagerly and as replays of the compiled
+        engine's graphs: device busy time from torch.profiler, wall time
+        from a run without the profiler.  The kernel-name checks run on the
+        eager steps, and on the replays where the profiler names their
+        kernels; a replayed tick may dispatch at most COMPILED_TICK_HOST_OPS
+        host ops."""
         B = spec["max_batch"]
+        row = torch.tensor([prompt])
+        tok, pos = torch.zeros(B, dtype=torch.long), torch.full((B,), spec["prompt_len"] + 8,
+                                                                dtype=torch.int32)
         steps = {
             "decode_tick": lambda: lm.decode_step(
                 eng.params, c, torch.zeros(B, dtype=torch.long, device=dev),
@@ -1095,34 +1227,47 @@ def main() -> None:
                 eng.caches),
             "prefill": lambda: lm.prefill(eng.params, c, torch.tensor([prompt], device=dev),
                                           max_seq=spec["max_seq"]),
+            "decode_tick_compiled": lambda: eng.decode(tok, pos),
+            "prefill_compiled": lambda: eng.prefill(row),
         }
         out = {name: profile_step(fn) for name, fn in steps.items()}
-        if any(c.layer_spec(i).mixer in ("ga", "swa") for i in range(c.n_layers)):
-            check_attention_kernels(c, out)
-        if any(c.layer_spec(i).ffn == "moe" for i in range(c.n_layers)):
-            check_gmm_kernels(c, out)
-        if any(c.layer_spec(i).mixer == "rwkv" for i in range(c.n_layers)):
-            check_scan_kernels(c, out)
-        if any(c.layer_spec(i).mixer == "mamba" for i in range(c.n_layers)):
-            check_mamba_kernels(c, out)
-        check_norm_kernels(c, out)
+        compiled = {"prefill": out["prefill_compiled"], "decode_tick": out["decode_tick_compiled"]}
+        named = all(b["kernel_names"] for b in compiled.values())
+        print(f"{c.name} kernels named inside graph replays: {named}", flush=True)
+        for label, group in (("", {k: out[k] for k in ("prefill", "decode_tick")}),
+                             (" (compiled)", compiled if named else None)):
+            if group is None:
+                continue
+            if any(c.layer_spec(i).mixer in ("ga", "swa") for i in range(c.n_layers)):
+                check_attention_kernels(c, group, label)
+            if any(c.layer_spec(i).ffn == "moe" for i in range(c.n_layers)):
+                check_gmm_kernels(c, group, label)
+            if any(c.layer_spec(i).mixer == "rwkv" for i in range(c.n_layers)):
+                check_scan_kernels(c, group, label)
+            if any(c.layer_spec(i).mixer == "mamba" for i in range(c.n_layers)):
+                check_mamba_kernels(c, group, label)
+            check_norm_kernels(c, group, label)
+        if out["decode_tick_compiled"]["host_ops"] > COMPILED_TICK_HOST_OPS:
+            fail(f"{c.name}: a compiled decode tick dispatched "
+                 f"{out['decode_tick_compiled']['host_ops']} host ops, more than "
+                 f"{COMPILED_TICK_HOST_OPS}")
         return out
 
-    def check_norm_kernels(c, steps: dict) -> None:
+    def check_norm_kernels(c, steps: dict, label: str = "") -> None:
         """Every profiled step ran K3's CUDA kernel, and no other RMSNorm
         kernel (the Triton kernel it replaced was ``_rmsnorm_kernel``)."""
         seen = {name: [n[:70] for n in b["kernel_names"] if "rmsnorm" in n.lower()]
                 for name, b in steps.items()}
-        print(f"{c.name} RMSNorm kernels: {json.dumps(seen)}", flush=True)
+        print(f"{c.name}{label} RMSNorm kernels: {json.dumps(seen)}", flush=True)
         for name, found in seen.items():
             if not found or any("rmsnorm_rows<" not in n for n in found):
                 fail(f"{c.name}: the {name} ran {found}, expected rmsnorm_rows only")
 
-    def check_mamba_kernels(c, steps: dict) -> None:
+    def check_mamba_kernels(c, steps: dict, label: str = "") -> None:
         """The served bf16 prefill ran K5's ring kernel with 16-byte cp.async
         copies, and no other K5 kernel."""
         names = [n for n in steps["prefill"]["kernel_names"] if "mamba" in n]
-        print(f"{c.name} selective-scan kernels: {json.dumps([n[:90] for n in names])}",
+        print(f"{c.name}{label} selective-scan kernels: {json.dumps([n[:90] for n in names])}",
               flush=True)
         want = re.compile(
             r"mamba_scan_ring<__nv_bfloat16,\s*(\(int\))?16,\s*((\(bool\))?1|true)>")
@@ -1130,28 +1275,28 @@ def main() -> None:
             fail(f"{c.name}: the prefill ran {names}, expected mamba_scan_ring"
                  "<__nv_bfloat16, 16, true> only")
 
-    def check_scan_kernels(c, steps: dict) -> None:
+    def check_scan_kernels(c, steps: dict, label: str = "") -> None:
         """The served bf16 prefill ran K6's tiled kernel with its ring filled
         by cp.async, and no other K6 kernel."""
         names = [n for n in steps["prefill"]["kernel_names"] if "rwkv6" in n]
-        print(f"{c.name} WKV-scan kernels: {json.dumps([n[:90] for n in names])}", flush=True)
+        print(f"{c.name}{label} WKV-scan kernels: {json.dumps([n[:90] for n in names])}", flush=True)
         want = re.compile(r"rwkv6_scan_tiled<__nv_bfloat16,\s*(\(int\))?64,\s*((\(bool\))?1|true)>")
         if not names or any(want.search(n) is None for n in names):
             fail(f"{c.name}: the prefill ran {names}, expected rwkv6_scan_tiled"
                  "<__nv_bfloat16, 64, true> only")
 
-    def check_gmm_kernels(c, steps: dict) -> None:
+    def check_gmm_kernels(c, steps: dict, label: str = "") -> None:
         """The served bf16 prefill and tick ran K4's gmm_mma instance, and
         neither the WMMA nor the SIMT one."""
         seen = {name: [n[:60] for n in b["kernel_names"] if "gmm_" in n]
                 for name, b in steps.items()}
-        print(f"{c.name} grouped-matmul kernels: {json.dumps(seen)}", flush=True)
+        print(f"{c.name}{label} grouped-matmul kernels: {json.dumps(seen)}", flush=True)
         for name, found in seen.items():
             if not any("gmm_mma" in n for n in found) or any(
                     "gmm_bf16_kernel" in n or "gmm_f32_kernel" in n for n in found):
                 fail(f"{c.name}: the {name} ran {found}, expected gmm_mma only")
 
-    def check_attention_kernels(c, steps: dict) -> None:
+    def check_attention_kernels(c, steps: dict, label: str = "") -> None:
         """The served bf16 prefill ran K1's tensor-core instance and not the
         SIMT one; the decode tick ran both passes of K2's instance."""
         dt = getattr(torch, c.activation_dtype)
@@ -1160,7 +1305,7 @@ def main() -> None:
         seen = {"prefill": [n[:60] for n in names if "flash_fwd" in n],
                 "decode_tick": [n[:60] for n in steps["decode_tick"]["kernel_names"]
                                 if "decode_" in n]}
-        print(f"{c.name} attention kernels: {json.dumps(seen)}", flush=True)
+        print(f"{c.name}{label} attention kernels: {json.dumps(seen)}", flush=True)
         if not any(want in n for n in names) or (want != other and any(other in n for n in names)):
             fail(f"{c.name}: the prefill ran {seen['prefill']}, expected {want} only")
         for part in k2.instances(dt, c.head_dim):
@@ -1169,7 +1314,7 @@ def main() -> None:
 
     # -- 4. serve full-width qwen2-0.5b through the port's Engine ----------
     params, _ = init_model(cfg)
-    eng, prompts, outs, serve = serve_run(cfg, params, SERVE)
+    eng, prompts, outs, serve, eager_outs, eager_serve = serve_both(cfg, params, SERVE)
     counts, n_ticks = serve["kernels"], serve["decode_ticks"]
     n_layers = cfg.n_layers
     if counts["flash_attention"] != n_layers * SERVE["requests"]:
@@ -1182,6 +1327,7 @@ def main() -> None:
     if counts["rmsnorm"] != (2 * n_layers + 1) * forwards:
         fail(f"rmsnorm launched {counts['rmsnorm']} times, expected "
              f"{2 * n_layers + 1} x {forwards} forwards")
+    compiled_vs_eager = {ARCH: check_compiled(cfg, SERVE, serve, outs, eager_serve, eager_outs)}
     for name in records:
         records[name]["launches"] = counts[name]
     norm_launches = add_norm_launches({}, cfg, SERVE, n_ticks)
@@ -1214,13 +1360,49 @@ def main() -> None:
                 out.append(lg)
         return torch.stack(out)
 
+    def teacher_forced_graphs(p, c, prompt, outs, max_seq, steps=8):
+        """The same as replays of CUDA graphs (``serving/compiled.py``, the
+        engine's steps): the prefill's second call (captured, then replayed)
+        and ``steps`` decode steps, each one a replay (the decode step's
+        eager first call advances a copy of the caches).  Returns the logits
+        and the steps' calls, captures and replays."""
+        graphs = Graphs(dev)
+        row = torch.tensor([prompt])
+        pre = graphs.step(lambda t: lm.prefill(p, c, t, max_seq=max_seq))
+        pre(row)
+        lg, pool_caches = pre(row)
+        caches = _map(torch.clone, pool_caches)  # out of the pool, as the engine's slot copy
+        out = [lg.clone()]
+        state = {"caches": _map(torch.clone, caches)}
+        dec = graphs.step(lambda t, pos: lm.decode_step(p, c, t, pos, state["caches"])[0])
+        for i in range(steps):
+            tok, at = torch.tensor([outs[i]]), torch.tensor([len(prompt) + i], dtype=torch.int32)
+            if i == 0:
+                dec(tok, at)  # eager, on the copy
+                state["caches"] = caches
+            out.append(dec(tok, at).clone())
+        return torch.stack(out), {"prefill": pre.counts(), "decode": dec.counts()}
+
     logits = {}
     for label, impl, c, p in (("kernel_f32", "kernel", cfg32, params32),
                               ("plain_f32", "plain", cfg32, params32),
                               ("kernel", "kernel", cfg, eng.params),
                               ("plain", "plain", cfg, eng.params)):
         logits[label] = teacher_forced(p, c, impl, prompts[0], req0, SERVE["max_seq"])
-    del params32, p  # the loop's last p is the served weights
+    # graph replays against eager steps, in f32 at full depth
+    graph_f32, graph_counts = teacher_forced_graphs(params32, cfg32, prompts[0], req0,
+                                                    SERVE["max_seq"])
+    graph_gate = {"graph_vs_eager_f32": float((graph_f32 - logits["kernel_f32"]).abs().max()),
+                  "steps": graph_f32.shape[0], "graphs": graph_counts}
+    print(f"serving logits, f32, prefill + 8 teacher-forced decode steps as CUDA graph replays "
+          f"vs eager: {json.dumps(graph_gate)} (tol {GRAPH_F32_TOL})", flush=True)
+    if graph_counts != {"prefill": {"calls": 2, "captures": 1, "replays": 1},
+                        "decode": {"calls": 9, "captures": 1, "replays": 8}}:
+        fail(f"the f32 graph comparison ran {graph_counts}, expected every step replayed")
+    if not bool(torch.isfinite(graph_f32).all()) or \
+            graph_gate["graph_vs_eager_f32"] > GRAPH_F32_TOL:
+        fail("f32 logits from CUDA graph replays disagree with the eager steps")
+    del params32, p, graph_f32  # the loop's last p is the served weights
     k32, f32, kl, pl = (logits[n] for n in ("kernel_f32", "plain_f32", "kernel", "plain"))
     for name, lg in logits.items():
         if lg.shape != (9, 1, cfg.vocab_size) or lg.dtype != torch.float32:
@@ -1250,9 +1432,11 @@ def main() -> None:
 
     # -- 4b. serve full-width, full-depth deepseek-moe-16b --------------------
     del eng, params, table, logits, k32, f32, kl, pl
+    gc.collect()
     torch.cuda.empty_cache()
     mparams, moe_init = init_model(mcfg)
-    meng, mprompts, mouts, moe_serve = serve_run(mcfg, mparams, MOE_SERVE)
+    meng, mprompts, mouts, moe_serve, eager_outs, eager_serve = serve_both(mcfg, mparams,
+                                                                          MOE_SERVE)
     mcounts, n_ticks = moe_serve["kernels"], moe_serve["decode_ticks"]
     n_layers = mcfg.n_layers
     n_moe = sum(mcfg.layer_spec(i).ffn == "moe" for i in range(n_layers))  # 27
@@ -1264,6 +1448,8 @@ def main() -> None:
     if mcounts != want_counts:
         fail(f"{MOE_ARCH}: launch counts {mcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
+    compiled_vs_eager[MOE_ARCH] = check_compiled(mcfg, MOE_SERVE, moe_serve, mouts, eager_serve,
+                                                 eager_outs)
     for name in records:
         records[name]["launches"] += mcounts[name]
     add_norm_launches(norm_launches, mcfg, MOE_SERVE, n_ticks)
@@ -1368,6 +1554,7 @@ def main() -> None:
     # -- 4c. serve full-width, full-depth rwkv6-7b ---------------------------
     del meng, mparams
     picks.clear()
+    gc.collect()
     torch.cuda.empty_cache()
     rparams, rwkv_init = init_model(rcfg)
     for sub in rparams["blocks"]["pos0"].values():  # mixer and ffn
@@ -1378,7 +1565,8 @@ def main() -> None:
                          else torch.randn(t.shape, generator=gen, device=dev) * law)
                 t.copy_(noise)
     del sub, t, noise  # the loop's names would keep the channel mix's 8.6 GB alive
-    reng, rprompts, routs, rwkv_serve = serve_run(rcfg, rparams, RWKV_SERVE)
+    reng, rprompts, routs, rwkv_serve, eager_outs, eager_serve = serve_both(rcfg, rparams,
+                                                                           RWKV_SERVE)
     rcounts, n_ticks = rwkv_serve["kernels"], rwkv_serve["decode_ticks"]
     forwards = RWKV_SERVE["requests"] + n_ticks
     want_counts = {"rwkv6_scan": rcfg.n_layers * RWKV_SERVE["requests"],  # one per layer, prefill
@@ -1387,6 +1575,8 @@ def main() -> None:
     if rcounts != want_counts:
         fail(f"{RWKV_ARCH}: launch counts {rcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
+    compiled_vs_eager[RWKV_ARCH] = check_compiled(rcfg, RWKV_SERVE, rwkv_serve, routs,
+                                                  eager_serve, eager_outs)
     for name in records:
         records[name]["launches"] += rcounts[name]
     add_norm_launches(norm_launches, rcfg, RWKV_SERVE, n_ticks)
@@ -1434,11 +1624,13 @@ def main() -> None:
     del rlog, kl, pl, k32, f32
 
     # -- 4d. serve full-width jamba-1.5-large, cut to its first five layers --
+    gc.collect()
     torch.cuda.empty_cache()
     jcfg = dataclasses.replace(jfull, n_layers=JAMBA_LAYERS)
     jparams, jamba_init = init_model(jcfg)
     seed_mamba_noise(jparams, gen)
-    jeng, jprompts, jouts, jamba_serve = serve_run(jcfg, jparams, JAMBA_SERVE)
+    jeng, jprompts, jouts, jamba_serve, eager_outs, eager_serve = serve_both(jcfg, jparams,
+                                                                            JAMBA_SERVE)
     jcounts, n_ticks = jamba_serve["kernels"], jamba_serve["decode_ticks"]
     specs = [jcfg.layer_spec(i) for i in range(jcfg.n_layers)]
     n_mamba = sum(sp.mixer == "mamba" for sp in specs)  # 4
@@ -1456,6 +1648,8 @@ def main() -> None:
     if jcounts != want_counts:
         fail(f"{JAMBA_ARCH}: launch counts {jcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
+    compiled_vs_eager[JAMBA_ARCH] = check_compiled(jcfg, JAMBA_SERVE, jamba_serve, jouts,
+                                                   eager_serve, eager_outs)
     for name in records:
         records[name]["launches"] += jcounts[name]
     add_norm_launches(norm_launches, jcfg, JAMBA_SERVE, n_ticks)
@@ -1515,6 +1709,7 @@ def main() -> None:
     # copy of five layers, 96 GB, does not fit): weights drawn in f32 from
     # the same seed, noise seeded as above
     picks.clear()
+    gc.collect()
     torch.cuda.empty_cache()
     jcfg2 = dataclasses.replace(jcfg32, n_layers=JAMBA_GATE_LAYERS)
     jparams2, jamba_init2 = init_model(jcfg2)
@@ -1539,7 +1734,8 @@ def main() -> None:
     # -- 5. report ----------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
-            "serving_logits": agree, "breakdown": breakdown,
+            "serving_logits": agree, "graph_f32": graph_gate, "breakdown": breakdown,
+            "compiled_vs_eager": compiled_vs_eager,
             MOE_ARCH: {"init": moe_init, "serve": moe_serve, "breakdown": moe_breakdown,
                        "gate_a_max_abs_err": gate_a, "gate_b_f32": gate_b,
                        "gate_c_bf16": gate_c},
@@ -1550,6 +1746,7 @@ def main() -> None:
                          "gate_b_f32": gate_b_jamba, "gate_b_init": jamba_init2,
                          "gate_c_bf16": gate_c_jamba},
             "seconds": time.time() - t_start}
+    print(f"chip_smoke: {full['seconds']:.1f} s", flush=True)
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
         args.record.write_text(json.dumps(full, indent=1))
@@ -1566,7 +1763,8 @@ def main() -> None:
 def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
     """Wall time of ``fn`` (median of ``reps``, no profiler) beside the device
     time torch.profiler attributes to its kernels, the top kernels by it,
-    and the number of PyTorch ops the host dispatched."""
+    the number of PyTorch ops the host dispatched and the number of kernels
+    the card ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1578,16 +1776,25 @@ def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
         fn()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
 
     def dev_us(e) -> float:
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # kernel rows only: an aten op's row repeats the device time of its kernels
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA), key=dev_us, reverse=True)
+    # On some of the card's machines a session comes back without any of the
+    # card's activity (PERF.md §6, PR 20): it says nothing of which kernels
+    # ran, so it is opened again, up to PROFILER_SESSIONS times.
+    for session in range(1, PROFILER_SESSIONS + 1):
+        if session > 1:
+            time.sleep(0.5)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # kernel rows only: an aten op's row repeats the device time of its kernels
+        rows = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA), key=dev_us,
+                      reverse=True)
+        if rows:
+            break
     # PyTorch ops the host dispatched (outermost aten calls only)
     host_ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
                    and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
@@ -1598,6 +1805,7 @@ def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
         "device_busy_ms": busy_ms if busy_ms > 0 else None,
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
         "host_ops": host_ops,
+        "device_kernels": sum(e.count for e in rows), "profiler_sessions": session,
         "top_kernels": [(e.key[:90], dev_us(e) / 1e3, e.count) for e in rows[:top]],
         "kernel_names": sorted({e.key for e in rows}),
     }

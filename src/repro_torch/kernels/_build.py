@@ -15,11 +15,18 @@ library is kept beside it as ``<name>-<hash>.log``.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.  A build or launch
 that fails raises: nothing falls back to the plain version.
+
+A wrapper may run inside a CUDA graph's capture (``serving/compiled.py``):
+it launches on ``torch.cuda.current_stream()``, which is then the capture
+stream.  The host work of a wrapper's first call (the build, the library
+load, the SM-count query, and each kernel instance's first shared-memory
+opt-in, ``allow_smem`` in ``csrc/common.cuh``) belongs in the eager call
+that precedes each capture; a build, load or query that would first happen
+inside a capture raises instead (:func:`refuse_in_capture`).
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -92,11 +99,21 @@ def build(names: Iterable[str] = SOURCES) -> dict[str, Path]:
     return out
 
 
+def refuse_in_capture(what: str) -> None:
+    """Raise if the current CUDA stream is capturing a graph: the host work
+    ``what`` (a build, a library load, a device query) must come first in an
+    eager call at the same shapes, never inside a capture."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} first happened inside a CUDA graph capture; call the "
+                           "kernel once eagerly at the same shapes before capturing it")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
+            refuse_in_capture(f"building and loading csrc/{name}.cu")
             lib = ctypes.CDLL(str(build([name])[name]))
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -104,11 +121,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-@functools.cache
+_SM_COUNTS: dict[int, int] = {}
+
+
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index`` (the kernels' plans
-    size their grids by it)."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
+    size their grids by it), queried once per device."""
+    n = _SM_COUNTS.get(index)
+    if n is None:
+        refuse_in_capture(f"the SM count query of device {index}")
+        n = _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -11,9 +11,13 @@ seed.  Prints one JSON line with the JAX driver's fields (``arch``,
 ``requests``, ``generated_tokens``, ``tokens_per_s``, ``mean_prefill_ms``,
 ``wall_s``, ``sample``) plus ``device`` and ``kernels``, the launch count of
 each Hopper kernel in the run (all 0 on the CPU, where the plain versions
-run).  An RWKV6 or Mamba model's prompt longer than its scan chunk (16
-reduced; 128 for RWKV6 and 256 for Mamba at full width) must be a multiple
-of it.  Full-depth jamba-1.5-large (796 GB in bf16) does not fit one card.  Dispatch, trace, fleet, metrics
+run).  On the card the engine runs compiled, as the JAX driver's engine
+jits its steps (no flag, as there is none for ``jit``): the first prefill
+of each prompt length and the first decode tick run eagerly, the second
+captures a CUDA graph, and every later one replays it; ``kernels`` counts
+the launches of the replays too.  An RWKV6 or Mamba model's prompt longer
+than its scan chunk (16 reduced; 128 for RWKV6 and 256 for Mamba at full
+width) must be a multiple of it.  Full-depth jamba-1.5-large (796 GB in bf16) does not fit one card.  Dispatch, trace, fleet, metrics
 and tune flags arrive with ROADMAP items M7, M8, M11 and M12.
 """
 from __future__ import annotations

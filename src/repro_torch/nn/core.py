@@ -134,8 +134,9 @@ def embedding_init(pf: ParamFactory, vocab: int, dim: int, *, scale: Optional[fl
 def embed(p: dict, ids: torch.Tensor, *, scale_by_dim: bool = False) -> torch.Tensor:
     out = F.embedding(ids, p["table"])
     if scale_by_dim:
-        # the factor is rounded to the table's dtype first, as in JAX
-        out = out * torch.tensor(math.sqrt(p["table"].shape[1]), dtype=out.dtype)
+        # the factor is rounded to the table's dtype first, as in JAX; a 0-dim
+        # tensor filled on out's device, so no host-to-device copy is needed
+        out = out * out.new_full((), math.sqrt(p["table"].shape[1]))
     return out
 
 

@@ -14,6 +14,20 @@ the RWKV6 blocks' ``shift`` vectors (B, D) and f32 ``wkv`` states
 leaves are copied into the slot along that batch axis, so a recurrent state
 is replaced whole when a request takes over a slot.
 
+Both surfaces are compiled, as the JAX engine ``jax.jit``s them
+(``serving/compiled.py``): on the card each prefill and each decode tick is
+the replay of a CUDA graph, captured once per prompt length (batch 1) and
+once for the decode step (always ``max_batch`` rows).  The first call of
+each shape runs eagerly and the second captures.  The tick's tokens and
+positions and the prompt's tokens are written into static buffers before a
+replay; the decode graph reads and writes ``caches`` in place (the
+counterpart of ``donate_argnums``); a prefill replay's caches live in the
+graphs' memory pool and are copied into the request's slot before the next
+replay.  Sampling stays outside the graphs.  On a CPU device the same
+static buffers feed eager calls.  ``compiled=False`` calls ``lm.prefill``
+and ``lm.decode_step`` directly, the counterpart of ``jax.disable_jit``,
+so that a check on the card can hold the two paths against each other.
+
 Request lifecycle events (spawn/exit) and the ``prefill`` / ``decode_tick``
 brackets flow into the :class:`~repro_torch.core.events.EventLog`, as in the
 JAX engine.
@@ -32,6 +46,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.events import GLOBAL_LOG, EventLog, current_span, next_span_id, span_scope
 from repro_torch.models import lm
+from repro_torch.serving.compiled import CompiledStep, Graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +88,7 @@ class Engine:
         scfg: ServeConfig,
         *,
         log: Optional[EventLog] = None,
+        compiled: bool = True,
     ) -> None:
         self.cfg = cfg
         self.params = params
@@ -81,6 +97,16 @@ class Engine:
         self.device = params["embed"]["table"].device
         B = scfg.max_batch
         self.caches = lm.init_caches(cfg, B, scfg.max_seq, self.device)
+        self.compiled = compiled
+        if compiled:
+            # the steps close over these, not over self (no reference cycle
+            # keeps a deleted engine's graphs and pool alive)
+            caches, S = self.caches, scfg.max_seq
+            self._graphs = Graphs(self.device)
+            self._decode = self._graphs.step(
+                lambda t, pos: lm.decode_step(params, cfg, t, pos, caches)[0])
+            self._prefill_fn = lambda t: lm.prefill(params, cfg, t, max_seq=S)
+            self._prefills: dict[int, CompiledStep] = {}
         self.cur_pos = np.zeros(B, np.int32)  # next position per slot
         self.active: list[Optional[Request]] = [None] * B
         self.queue: list[Request] = []
@@ -130,9 +156,7 @@ class Engine:
             req.slot = slot
             req.t_active = time.monotonic()
             with span_scope(req.span), self.log.lifecycle("prefill", req.rid):
-                tokens = torch.tensor([req.prompt], dtype=torch.long, device=self.device)
-                logits, new_caches = lm.prefill(self.params, self.cfg, tokens,
-                                                max_seq=self.scfg.max_seq)
+                logits, new_caches = self.prefill(torch.tensor([req.prompt], dtype=torch.long))
                 # stacked leaves are (n_periods, B, ...): the slot is axis 1
                 for name, sub in self.caches.items():
                     _copy_into_slot(sub, new_caches[name], slot, 1 if name == "blocks" else 0)
@@ -148,13 +172,8 @@ class Engine:
         for r in live:
             tokens[r.slot] = r.out[-1]
         with self.log.lifecycle("decode_tick", len(live)):
-            logits, self.caches = lm.decode_step(
-                self.params, self.cfg,
-                torch.from_numpy(tokens).to(self.device),
-                torch.from_numpy(self.cur_pos).to(self.device),
-                self.caches,
-            )
-            nxt = self._sample(logits).tolist()
+            logits = self.decode(torch.from_numpy(tokens), torch.from_numpy(self.cur_pos))
+            nxt = self._sample(logits).tolist()  # the tick's one device-to-host sync
         finished: list[Request] = []
         for r in live:
             self.cur_pos[r.slot] += 1
@@ -168,6 +187,38 @@ class Engine:
                 self.log.record("exit", "request", r.rid, span=r.span, parent=r.parent)
                 finished.append(r)
         return finished
+
+    # -- the two serving surfaces ---------------------------------------------
+
+    def prefill(self, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """``lm.prefill`` of one prompt, tokens (1, S) on any device: (logits
+        (1, V) f32, caches of batch 1).  Compiled, the outputs belong to this
+        length's graph and are overwritten by its next replay."""
+        if not self.compiled:
+            return lm.prefill(self.params, self.cfg, tokens.to(self.device),
+                              max_seq=self.scfg.max_seq)
+        step = self._prefills.get(tokens.shape[1])
+        if step is None:
+            step = self._prefills[tokens.shape[1]] = self._graphs.step(self._prefill_fn)
+        return step(tokens)
+
+    def decode(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """``lm.decode_step`` of every slot against ``self.caches``, advanced
+        in place: tokens (max_batch,) int64 and positions (max_batch,) int32
+        on any device -> logits (max_batch, V) f32.  Compiled, the logits
+        belong to the decode graph and are overwritten by its next replay."""
+        if not self.compiled:
+            return lm.decode_step(self.params, self.cfg, tokens.to(self.device),
+                                  positions.to(self.device), self.caches)[0]
+        return self._decode(tokens, positions)
+
+    def compiled_counts(self) -> dict:
+        """Calls, captures and replays of the decode step and of each prompt
+        length's prefill (empty when the engine is not compiled)."""
+        if not self.compiled:
+            return {}
+        return {"decode": self._decode.counts(),
+                "prefill": {n: step.counts() for n, step in self._prefills.items()}}
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         if self.scfg.temperature <= 0.0:
