@@ -9,8 +9,8 @@ failure of which exits non-zero:
 
 1. print the card (``nvidia-smi`` name and power limit); TF32 off;
 2. build the CUDA kernels (one ``nvcc`` per source, in parallel), printing
-   the build time and ptxas' report (per instance for K3 and K5, none of
-   whose instances may spill, nor K5's take more than 128 registers);
+   the build time and ptxas' report (per instance for K3, K5 and K1b, none
+   of whose instances may spill, nor K5's take more than 128 registers);
 3. hold each kernel against its plain PyTorch version on the card, at the
    CPU tests' shapes and at both served models' shapes (qwen2-0.5b: head
    dim 64, d 896; deepseek-moe-16b: head dim 128, d 2048, the grouped
@@ -98,9 +98,34 @@ failure of which exits non-zero:
    with the bf16 model freed, (b) the same at depth 2 in f32 (weights drawn
    in f32 from the same seed) within F32_LOGIT_TOL, with the routing's
    top-k agreement;
-5. print the script's run time, the per-kernel JSON line (launches from the
-   four compiled serving runs), the card line, and last the ``{"ok": true,
-   "device": ...}`` line.
+5. free it, and train smollm-360m (the training path: ``lm.loss_fn``,
+   ``training.step``, AdamW) through K1 with its log-sum-exp, the flash
+   backward K1b, K3 and its backward K3b: (a) K1's lse against
+   ``ref.flash_attention_lse_ref`` and (b) K1b against
+   ``ref.flash_attention_bwd_ref`` and against torch autograd through
+   ``ref.mha_ref`` (relative to each gradient's max |.|, BWD_TOL), at the
+   CPU tests' edge cases (q_offset, window + softcap, ragged Sq / Sk, G =
+   8, head dims 8 to 128) in f32 and bf16 and at the training shape (4,
+   2048, 15/5, 64) in bf16, each K1b run twice with bitwise-equal results;
+   (c) K3b against ``ref.rmsnorm_bwd_ref`` at (8192, 960) and every served
+   (rows, D), twice, bitwise equal; (d) one f32 train step at full width
+   and depth (batch 2 x 1024), kernels vs plain: the loss within
+   F32_LOSS_RTOL and every gradient leaf within F32_GRAD_TOL of its max
+   |.|; (e) TRAIN_STEPS bf16 steps at batch 4 x 2048 on ``SyntheticLM``,
+   the loss falling by more than 0.1, with the exact launches of every step
+   (2 x 32 K1, 32 K1b, 2 x 64 + 1 K3, 65 K3b: per-period remat runs each
+   period's forward again), step ms, tokens/s and peak memory (the
+   schedule launch.train gives 20 steps: peak lr 3e-4 after 10 warmup
+   steps); (f) one
+   step under torch.profiler, which must show the tensor-core K1 and K1b
+   and the K3 / K3b kernels; (g) K1 with its lse, K1b and K3b timed with L2
+   flushed beside their bounds, plain versions and SDPA's / ``F.rms_norm``'s
+   backward; (h) K2, K4, K5 and K6 refuse an input that requires grad
+   (ROADMAP R11); (i) ``python -m repro_torch.launch.train --arch
+   smollm-360m --steps 20`` in a child process, its loss falling;
+6. print the script's run time, the per-kernel JSON line (launches from the
+   four compiled serving runs; K1b's and K3b's from phase 5 (e)), the card
+   line, and last the ``{"ok": true, "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
 run, the profiles) there as JSON.
@@ -111,6 +136,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -165,6 +191,26 @@ COMPILED_TICK_HOST_OPS = 20
 GRAPH_F32_TOL = 1e-5
 GRAPH_LAUNCHES = 256  # K3 launches captured in one graph to time a launch inside it
 PROFILER_SESSIONS = 3  # sessions a profile may open before one sees the card's kernels
+# serving launches no backward kernel
+NO_BACKWARD = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20  # phase 5 (e): 20 bf16 steps of 8192 tokens
+# the schedule launch.train gives a run of TRAIN_STEPS steps: peak 3e-4 after
+# max(10, steps // 10) warmup steps, cosine to 0.1 x peak at the last step
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 10
+F32_GATE_BATCH, F32_GATE_SEQ = 2, 1024  # phase 5 (d): the f32 train step, kernels vs plain
+# K1b against its plain version, each gradient relative to its max |.|: in
+# f32 both sum the same f32 products in other orders (~1e-6 seen); in bf16
+# the kernel's inputs out and lse come from the bf16 forward, whose P is
+# rounded to bf16 (R10), ~3e-3 seen.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The f32 train step at full width and depth through the kernels and through
+# the plain versions: each kernel is within ~1e-6 of its plain version in
+# f32, and 32 layers of forward and backward keep the loss within 1e-4 of
+# itself and each gradient leaf within 1e-3 of its max |.|, where a wrong
+# kernel (or a gradient that skipped one) moves them by O(1).
+F32_LOSS_RTOL, F32_GRAD_TOL = 1e-4, 1e-3
+CLI_TIMEOUT_S = 300  # phase 5 (i): python -m repro_torch.launch.train on the card
 
 
 def closed_form_tol(chunk: int) -> float:
@@ -242,6 +288,7 @@ def main() -> None:
     t0 = time.time()
     paths = _build.build()
     k1._entry()
+    k1._bwd_entry()
     k2._entry()
     k4._entry()
     k5._entry()
@@ -256,7 +303,7 @@ def main() -> None:
         spills = sum(n > 0 for _, _, n in ptxas[name])
         print(f"  {name}: {len(regs)} instances, max {max(regs, default=0)} registers, "
               f"{spills} with spills ({path.with_suffix('.log').name})", flush=True)
-    for name in ("rmsnorm", "mamba_scan"):
+    for name in ("rmsnorm", "mamba_scan", "flash_attention_bwd"):
         for fn_name, regs, spill in ptxas[name]:
             print(f"    {fn_name[:72]}: {regs} registers, {spill} bytes spilled", flush=True)
         if any(spill for *_, spill in ptxas[name]):
@@ -1327,6 +1374,8 @@ def main() -> None:
     if counts["rmsnorm"] != (2 * n_layers + 1) * forwards:
         fail(f"rmsnorm launched {counts['rmsnorm']} times, expected "
              f"{2 * n_layers + 1} x {forwards} forwards")
+    if any(counts[name] for name in NO_BACKWARD):
+        fail(f"serving launched a backward kernel: {counts}")
     compiled_vs_eager = {ARCH: check_compiled(cfg, SERVE, serve, outs, eager_serve, eager_outs)}
     for name in records:
         records[name]["launches"] = counts[name]
@@ -1444,7 +1493,8 @@ def main() -> None:
     want_counts = {"moe_gmm": 3 * n_moe * forwards,  # w1 (+ silu), w3, w2 per MoE layer
                    "flash_attention": n_layers * MOE_SERVE["requests"],
                    "decode_attention": n_layers * n_ticks,
-                   "rmsnorm": (2 * n_layers + 1) * forwards, "rwkv6_scan": 0, "mamba_scan": 0}
+                   "rmsnorm": (2 * n_layers + 1) * forwards, "rwkv6_scan": 0, "mamba_scan": 0,
+                   **NO_BACKWARD}
     if mcounts != want_counts:
         fail(f"{MOE_ARCH}: launch counts {mcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
@@ -1571,7 +1621,8 @@ def main() -> None:
     forwards = RWKV_SERVE["requests"] + n_ticks
     want_counts = {"rwkv6_scan": rcfg.n_layers * RWKV_SERVE["requests"],  # one per layer, prefill
                    "rmsnorm": (2 * rcfg.n_layers + 1) * forwards,
-                   "flash_attention": 0, "decode_attention": 0, "moe_gmm": 0, "mamba_scan": 0}
+                   "flash_attention": 0, "decode_attention": 0, "moe_gmm": 0, "mamba_scan": 0,
+                   **NO_BACKWARD}
     if rcounts != want_counts:
         fail(f"{RWKV_ARCH}: launch counts {rcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
@@ -1644,7 +1695,7 @@ def main() -> None:
                    # norm1 and norm2 of every layer, dt / B / C norms of every
                    # Mamba layer, the final norm
                    "rmsnorm": (2 * jcfg.n_layers + 3 * n_mamba + 1) * forwards,
-                   "rwkv6_scan": 0}
+                   "rwkv6_scan": 0, **NO_BACKWARD}
     if jcounts != want_counts:
         fail(f"{JAMBA_ARCH}: launch counts {jcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
@@ -1731,11 +1782,293 @@ def main() -> None:
     if gate_failures:
         fail(f"{JAMBA_ARCH}: " + "; ".join(gate_failures))
 
-    # -- 5. report ----------------------------------------------------------
+    # -- 5. training: smollm-360m through K1 (with its lse), K1b, K3, K3b -----
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.training import optim
+    from repro_torch.training import step as step_mod
+
+    tcfg = get_config(TRAIN_ARCH)
+    tB, tS, tL = TRAIN_BATCH, TRAIN_SEQ, tcfg.n_layers
+    tHq, tHkv, tD, tdm = tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim, tcfg.d_model
+    print("training kernels vs plain:", flush=True)
+
+    # (a) K1's lse and (b) K1b, at the CPU tests' edge cases (q_offset,
+    # window + softcap, ragged Sq / Sk, G = 8, head dims 8 to 128) in f32 and
+    # bf16, smollm's heads at S = 256 in both, and its training shape in bf16;
+    # K1b also against torch autograd through ref.mha_ref, and run twice with
+    # bitwise-equal results (no atomics)
+    k1b_cases = [(2, 40, 64, 4, 2, 16, None, None, 24), (2, 64, 64, 4, 2, 16, 16, 50.0, 0),
+                 (1, 96, 96, 4, 1, 32, None, 30.0, 0), (1, 200, 200, 8, 1, 64, None, None, 0),
+                 (1, 100, 300, 16, 2, 128, 37, 30.0, 200), (1, 40, 40, 2, 2, 8, None, None, 0),
+                 (2, 256, 256, tHq, tHkv, tD, None, None, 0)]
+    err_lse = err_b = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        train_shape = [(tB, tS, tS, tHq, tHkv, tD, None, None, 0)] if dt == torch.bfloat16 else []
+        for B_, Sq_, Sk_, Hq_, Hkv_, D_, w, cap, qo in k1b_cases + train_shape:
+            q, k, v, do = (randn(B_, n, h, D_, dtype=dt)
+                           for n, h in ((Sq_, Hq_), (Sk_, Hkv_), (Sk_, Hkv_), (Sq_, Hq_)))
+            kw = dict(window=w, softcap=cap, q_offset=qo)
+            label = f"{dn} {B_}x{Sq_}x{Sk_}x{Hq_}/{Hkv_}x{D_} w={w} cap={cap} q_offset={qo}"
+            out, lse = k1.flash_attention(q, k, v, return_lse=True, **kw)
+            out_p, lse_p = ref.flash_attention_lse_ref(q, k, v, **kw)
+            hold("flash_attention", f"{label} out, lse written", out, out_p, dn)
+            err_lse = max(err_lse, hold("flash_attention lse", label, lse, lse_p, dn))
+            got = k1.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got, k1.flash_attention_bwd(q, k, v, out, lse, do, **kw))):
+                fail(f"flash_attention_bwd {label}: two runs differ")
+            want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+            err_b = max(err_b, hold_rel(f"{label} dq dk dv vs ref.flash_attention_bwd_ref", got,
+                                        want, BWD_TOL[dn], kernel="flash_attention_bwd"))
+            leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            auto = torch.autograd.grad(ref.mha_ref(*leaves, **kw), leaves, do.float())
+            hold_rel(f"{label} dq dk dv vs autograd through ref.mha_ref", got, auto,
+                     BWD_TOL[dn], kernel="flash_attention_bwd")
+            del q, k, v, do, out, lse, out_p, lse_p, got, want, leaves, auto
+
+    # (c) K3b at smollm's training rows and at every served (rows, D), f32
+    # and bf16, twice with bitwise-equal results
+    err3b = 0.0
+    for shape in [(tB * tS, tdm), *served_norms]:
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).removeprefix("torch.")
+            x, s_, dy = randn(*shape, dtype=dt), randn(shape[-1]) * 0.1, randn(*shape, dtype=dt)
+            got = k3.rmsnorm_bwd(x, s_, dy)
+            if not all(torch.equal(a, b) for a, b in zip(got, k3.rmsnorm_bwd(x, s_, dy))):
+                fail(f"rmsnorm_bwd {shape} {dn}: two runs differ")
+            err3b = max(err3b, hold_rel(f"{dn} {shape} dx, dscale", got,
+                                        ref.rmsnorm_bwd_ref(x, s_, dy), TOL[dn],
+                                        kernel="rmsnorm_bwd"))
+    del x, s_, dy, got
+
+    # launches of one train step with per-period remat ("nothing"): every
+    # period's forward runs again in the backward
+    want_step = {name: 0 for name in launch_counts()}
+    want_step.update({"flash_attention": 2 * tL, "flash_attention_bwd": tL,
+                      "rmsnorm": 2 * 2 * tL + 1, "rmsnorm_bwd": 2 * tL + 1})
+
+    # (d) one f32 train step at full width and depth, one set of weights,
+    # through the kernels (impl auto) and through the plain versions: the
+    # loss and every gradient leaf
+    cfg32 = dataclasses.replace(tcfg, param_dtype="float32", activation_dtype="float32")
+    p32 = lm.init_params(cfg32, SEED, device=dev)
+    for t in _leaves(p32):
+        t.requires_grad_()
+    b = SyntheticLM(DataConfig(tcfg.vocab_size, F32_GATE_SEQ, F32_GATE_BATCH, seed=SEED)).batch(0)
+    toks, labels = (torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels"))
+    names = [n for n, _ in _named_leaves(p32)]
+    torch.cuda.reset_peak_memory_stats()
+    f32_runs = {}
+    for impl in ("auto", "plain"):
+        reset_launches()
+        with ops.impl_scope(impl):
+            loss, _ = lm.loss_fn(p32, cfg32, toks, labels)
+            grads = torch.autograd.grad(loss, list(_leaves(p32)))
+        torch.cuda.synchronize()
+        f32_runs[impl] = (float(loss.detach()), grads, launch_counts())
+    if f32_runs["auto"][2] != want_step or any(f32_runs["plain"][2].values()):
+        fail(f"f32 train step launches: kernels {f32_runs['auto'][2]}, plain "
+             f"{f32_runs['plain'][2]}, expected {want_step} and none")
+    worst = max(((float((gk - gp).abs().max()) / max(float(gp.abs().max()), 1e-30), n)
+                 for n, gk, gp in zip(names, f32_runs["auto"][1], f32_runs["plain"][1])))
+    finite = all(bool(torch.isfinite(g).all()) for g in f32_runs["auto"][1])
+    f32_gate = {"loss_kernel": f32_runs["auto"][0], "loss_plain": f32_runs["plain"][0],
+                "loss_rel_diff": abs(f32_runs["auto"][0] - f32_runs["plain"][0])
+                / abs(f32_runs["plain"][0]),
+                "worst_leaf_rel_diff": worst[0], "worst_leaf": worst[1], "leaves": len(names),
+                "grads_finite": finite, "batch": F32_GATE_BATCH, "seq": F32_GATE_SEQ,
+                "layers": tL, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{TRAIN_ARCH} f32 train step, full width and depth, kernels vs plain: "
+          f"{json.dumps(f32_gate)} (tol {F32_LOSS_RTOL} on loss_rel_diff, {F32_GRAD_TOL} on "
+          "worst_leaf_rel_diff)", flush=True)
+    if not finite or f32_gate["loss_rel_diff"] > F32_LOSS_RTOL or worst[0] > F32_GRAD_TOL:
+        fail(f"{TRAIN_ARCH}: the f32 train step through the kernels disagrees with the plain "
+             "versions")
+    del p32, f32_runs, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) TRAIN_STEPS bf16 steps at full width and depth on SyntheticLM, the
+    # launch counts reset before each step and held after it
+    tcfg_train = step_mod.TrainConfig(opt=optim.AdamWConfig(
+        peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
+    data = SyntheticLM(DataConfig(tcfg.vocab_size, tS, tB, seed=SEED))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
+               for i in range(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    state = step_mod.init_train_state(tcfg, tcfg_train, SEED, dev)
+    train_step = step_mod.make_train_step(tcfg, tcfg_train)
+    losses, step_ms = [], []
+    train_launches = dict.fromkeys(want_step, 0)
+    for bt in batches:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, bt)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        got = launch_counts()
+        if got != want_step:
+            fail(f"{TRAIN_ARCH} train step {len(losses)}: launches {got}, expected {want_step}")
+        for name, n in got.items():
+            train_launches[name] += n
+    med_ms = float(np.median(step_ms))
+    train_rec = {"steps": TRAIN_STEPS, "batch": tB, "seq": tS, "peak_lr": TRAIN_LR,
+                 "remat_policy": tcfg.remat_policy, "losses": losses,
+                 "first_loss": losses[0], "last_loss": losses[-1], "step_ms": step_ms,
+                 "median_step_ms": med_ms, "tokens_per_s": tB * tS / (med_ms / 1e3),
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "launches_per_step": want_step, "launches": train_launches}
+    print(f"{TRAIN_ARCH} train: {json.dumps(train_rec)}", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] - 0.1:
+        fail(f"{TRAIN_ARCH}: the loss did not fall by more than 0.1 in {TRAIN_STEPS} steps")
+
+    # (f) one train step under torch.profiler
+    train_profile = profile_step(lambda: train_step(state, batches[0]))
+    print(f"{TRAIN_ARCH} train step profile: {json.dumps(train_profile)}", flush=True)
+    # the bf16 step ran the tensor-core instances of K1 and K1b and the K3 /
+    # K3b kernels, and no CUDA-core instance of K1 or K1b (a session that
+    # saw no kernel at all names none)
+    names = train_profile["kernel_names"]
+    want_names = [k1.instance(torch.bfloat16, tD), *k1.bwd_instances(torch.bfloat16, tD),
+                  "rmsnorm_rows", "rmsnorm_bwd_rows", "rmsnorm_bwd_dscale"]
+    other_names = ["flash_fwd_simt", *k1.bwd_instances(torch.float32, tD)]
+    ran = {w: any(f"::{w}<" in n or f"::{w}(" in n for n in names)
+           for w in want_names + other_names}
+    print(f"{TRAIN_ARCH} train step attention and norm kernels: {json.dumps(ran)}", flush=True)
+    if names and (not all(ran[w] for w in want_names) or any(ran[w] for w in other_names)):
+        fail(f"{TRAIN_ARCH} train step ran {ran}, expected {want_names} and none of "
+             f"{other_names}")
+    del state, train_step, batches, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) K1 with its lse, K1b and K3b at the training shape, L2 flushed,
+    # beside their bounds, plain versions and one PyTorch call each
+    q, k, v, do = (randn(tB, tS, h, tD, dtype=torch.bfloat16) for h in (tHq, tHkv, tHkv, tHq))
+    out, lse = k1.flash_attention(q, k, v, return_lse=True)
+    pairs = tB * tHq * (tS * (tS + 1) // 2)  # causal (query, key) pairs
+    qs, ks_, vs_, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qs, ks_, vs_))
+
+    def sdpa(grad: bool):
+        if not grad:
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, (qg, kg, vg), dos)
+
+    shape1 = f"B={tB} S={tS} Hq={tHq} Hkv={tHkv} D={tD} bf16 causal"
+    k1_lse = timed(lambda: k1.flash_attention(q, k, v, return_lse=True),
+                   lambda: ref.flash_attention_lse_ref(q, k, v), lambda: sdpa(False),
+                   nbytes(q, k, v, out, lse), 4 * tD * pairs, peaks["bfloat16"],
+                   f"{shape1} ({k1.instance(torch.bfloat16, tD)}, lse written)")
+    k1_lse["without_lse_ms"] = time_ms(lambda: k1.flash_attention(q, k, v))
+    k1b = timed(lambda: k1.flash_attention_bwd(q, k, v, out, lse, do),
+                lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do), None,
+                nbytes(q, k, v, out, lse, do, q, k, v), 10 * tD * pairs, peaks["bfloat16"],
+                f"{shape1} ({' + '.join(k1.bwd_instances(torch.bfloat16, tD))})")
+    k1b["library_ms"] = time_ms(lambda: sdpa(True)) - k1_lse["library_ms"]
+    k1b["library"] = "scaled_dot_product_attention forward + backward, less its forward"
+    # the f32 instance (the CUDA cores), which the f32 gate (d) runs
+    q, k, v, do, out, lse = (t.float() for t in (q, k, v, do, out, lse))
+    qg, kg, vg, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    qg, kg, vg = (t.requires_grad_() for t in (qg, kg, vg))
+    k1b["float32"] = timed(lambda: k1.flash_attention_bwd(q, k, v, out, lse, do),
+                           lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do), None,
+                           nbytes(q, k, v, out, lse, do, q, k, v), 10 * tD * pairs,
+                           peaks["float32"], f"B={tB} S={tS} Hq={tHq} Hkv={tHkv} D={tD} f32 "
+                           f"causal ({' + '.join(k1.bwd_instances(torch.float32, tD))})")
+    k1b["float32"]["library_ms"] = time_ms(lambda: sdpa(True)) - time_ms(lambda: sdpa(False))
+    x, s_, dy = (randn(tB * tS, tdm, dtype=torch.bfloat16), randn(tdm) * 0.1,
+                 randn(tB * tS, tdm, dtype=torch.bfloat16))
+    xg, wg = x.clone().requires_grad_(), (1.0 + s_).to(torch.bfloat16).requires_grad_()
+
+    def rms_norm_lib(grad: bool):
+        if not grad:
+            with torch.no_grad():
+                return F.rms_norm(xg, (tdm,), wg, 1e-6)
+        return torch.autograd.grad(F.rms_norm(xg, (tdm,), wg, 1e-6), (xg, wg), dy)
+
+    k3b = timed(lambda: k3.rmsnorm_bwd(x, s_, dy), lambda: ref.rmsnorm_bwd_ref(x, s_, dy),
+                None, nbytes(x, s_, dy, x, s_), 0.0, peaks["bfloat16"],
+                f"({tB * tS}, {tdm}) bf16")
+    k3b["library_ms"] = time_ms(lambda: rms_norm_lib(True)) - time_ms(lambda: rms_norm_lib(False))
+    k3b["library"] = "F.rms_norm forward + backward, less its forward"
+    print(f"  flash_attention without lse: kernel {k1_lse['without_lse_ms']:.4f} ms at {shape1}",
+          flush=True)
+    for name, t in (("flash_attention with lse", k1_lse), ("flash_attention_bwd", k1b),
+                    ("flash_attention_bwd f32", k1b["float32"]), ("rmsnorm_bwd", k3b)):
+        print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{fmt_ms(t['library_ms'])}, bound {t['bound_ms']:.5f} ms ({t['bound_by']}) at "
+              f"{t['shape']}", flush=True)
+    del q, k, v, do, out, lse, qs, ks_, vs_, dos, qg, kg, vg, x, s_, dy, xg, wg
+
+    # (h) R11: the forward-only kernels refuse an input that requires grad
+    def refuses(name, fn) -> None:
+        try:
+            fn()
+        except RuntimeError as e:
+            if "ROADMAP R11" not in str(e):
+                fail(f"{name}: raised {e!r}, not the R11 guard")
+            return
+        fail(f"{name} accepted an input that requires grad")
+
+    rg = lambda *shape: randn(*shape).requires_grad_()  # noqa: E731
+    pos8 = torch.arange(8, dtype=torch.int32, device=dev)[None]
+    cur8 = torch.full((1,), 7, dtype=torch.int32, device=dev)
+    refuses("decode_attention", lambda: k2.decode_attention(rg(1, 4, 16), randn(1, 8, 2, 16),
+                                                            randn(1, 8, 2, 16), pos8, cur8))
+    refuses("moe_gmm", lambda: k4.gmm(rg(2, 8, 16), randn(2, 16, 8)))
+    refuses("mamba_scan", lambda: k5.mamba_scan(rg(1, 8, 16), randn(1, 8, 16), randn(16, 8),
+                                                randn(1, 8, 8), randn(1, 8, 8), randn(16),
+                                                randn(1, 16, 8)))
+    refuses("rwkv6_scan", lambda: k6.rwkv6_scan(rg(1, 8, 2, 16), randn(1, 8, 2, 16),
+                                                randn(1, 8, 2, 16), randn(1, 8, 2, 16),
+                                                randn(2, 16), randn(1, 2, 16, 16)))
+    print("  R11 guard: decode_attention, moe_gmm, mamba_scan and rwkv6_scan refuse an input "
+          "that requires grad: ok", flush=True)
+
+    # (i) the training driver, as a user runs it, on the card
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
+                           "--steps", "20"], cwd=ROOT, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          timeout=CLI_TIMEOUT_S)
+    if proc.returncode != 0:
+        fail(f"repro_torch.launch.train exited {proc.returncode}: {proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"repro_torch.launch.train --arch {TRAIN_ARCH} --steps 20: {json.dumps(cli)}",
+          flush=True)
+    if not cli["last_loss"] < cli["first_loss"]:
+        fail("repro_torch.launch.train: the loss did not fall")
+
+    records["flash_attention"]["with_lse"] = k1_lse
+    records["flash_attention"]["train_launches"] = train_launches["flash_attention"]
+    records["flash_attention"]["lse_max_abs_err"] = err_lse
+    records["rmsnorm"]["train_launches"] = train_launches["rmsnorm"]
+    records["flash_attention_bwd"] = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_vjp.py:108", "max_abs_err": err_b,
+        "launches": train_launches["flash_attention_bwd"], **k1b,
+    }
+    records["rmsnorm_bwd"] = {
+        "name": "rmsnorm_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/nn/core.py:178", "max_abs_err": err3b,
+        "launches": train_launches["rmsnorm_bwd"], **k3b,
+    }
+    training = {"f32_gate": f32_gate, "train": train_rec, "profile": train_profile,
+                "cli": cli}
+
+    # -- 6. report ----------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
             "serving_logits": agree, "graph_f32": graph_gate, "breakdown": breakdown,
-            "compiled_vs_eager": compiled_vs_eager,
+            "compiled_vs_eager": compiled_vs_eager, TRAIN_ARCH: training,
             MOE_ARCH: {"init": moe_init, "serve": moe_serve, "breakdown": moe_breakdown,
                        "gate_a_max_abs_err": gate_a, "gate_b_f32": gate_b,
                        "gate_c_bf16": gate_c},
@@ -1860,6 +2193,14 @@ def seed_mamba_noise(params, gen) -> None:
 
 def _map(fn, tree):
     return {k: _map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
 
 
 def _leaves(tree):

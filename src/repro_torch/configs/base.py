@@ -5,9 +5,9 @@ periodic sequence of (mixer, ffn) block kinds.  Parameters are stacked per
 pattern position over the periods; the port walks the stacked axis with a
 Python loop.
 
-The copy holds the fields the ported serving path reads; each has the JAX
-package's name, default and meaning.  Training and sharding fields arrive
-with the slices that read them (ROADMAP M9, M13).
+The copy holds the fields the ported serving and training paths read; each
+has the JAX package's name, default and meaning.  The remaining sharding
+and dry-run fields arrive with the slices that read them (ROADMAP M13).
 """
 from __future__ import annotations
 
@@ -83,6 +83,22 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
     rwkv: Optional[RWKVConfig] = None
+    # training: the final-logit z-loss, the optimizer moments' storage
+    # dtype, per-period rematerialisation (nothing | dots | everything = no
+    # remat) and the token chunk of the cross-entropy
+    z_loss_weight: float = 1e-4
+    moment_dtype: str = "float32"
+    remat_policy: str = "nothing"
+    loss_chunk: int = 1024
+    # Carried so that a JAX config carries over, with no effect on one card:
+    # the backward of attention on the card is always the flash backward
+    # (K1b), which is what fused_attention_vjp selects in the JAX package;
+    # chunk_scan_remat checkpoints the Mamba / RWKV chunked scans, which
+    # have no backward on the card yet (ROADMAP K5b, K6b); and
+    # loss_table_replicated is a sharding choice.
+    fused_attention_vjp: bool = False
+    chunk_scan_remat: bool = False
+    loss_table_replicated: bool = False
     # Sharding knobs of the JAX package (GSPMD head padding, activation
     # constraints, sequence-sharded decode).  On one card they change
     # nothing; the port accepts them so a JAX config carries over.
@@ -117,8 +133,11 @@ def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:
         d_ff=128,
         vocab_size=256,
         sliding_window=16,
+        loss_chunk=32,
         param_dtype="float32",
         activation_dtype="float32",
+        moment_dtype="float32",
+        remat_policy="everything",
     )
     if cfg.moe is not None:
         changes["moe"] = dataclasses.replace(

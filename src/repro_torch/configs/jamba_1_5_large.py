@@ -39,4 +39,5 @@ CONFIG = ModelConfig(
     mamba=MambaConfig(d_state=16, d_conv=4, expand=2),
     tied_embeddings=False,
     act="silu",
+    moment_dtype="bfloat16",
 )

@@ -5,6 +5,13 @@
 (a CPU tensor takes the plain version and counts nothing), so a run can show
 that its main path went through the kernels.
 
+Every wrapper launches its kernel through ctypes, outside autograd, so on a
+CUDA tensor it refuses an input that needs a gradient (:func:`refuse_grad`,
+ROADMAP R11) instead of silently detaching it.  The differentiable route
+is ``ops``: ``ops.attention`` and ``ops.rmsnorm`` are
+``torch.autograd.Function``s whose backward is a kernel too (K1b, K3b);
+the other kernels have no backward kernel yet.
+
 A CUDA graph splits that count from the launches: capturing one runs the
 wrappers (which count) but launches nothing, and replaying it launches
 kernels without calling a wrapper.  So a capture runs inside
@@ -18,8 +25,21 @@ from __future__ import annotations
 from contextlib import contextmanager
 from typing import Iterator, Mapping
 
+import torch
+
 LAUNCHES: dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0,
-                            "moe_gmm": 0, "rwkv6_scan": 0, "mamba_scan": 0}
+                            "moe_gmm": 0, "rwkv6_scan": 0, "mamba_scan": 0,
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+
+
+def refuse_grad(kernel: str, instead: str, *tensors: torch.Tensor) -> None:
+    """Raise if grad mode is on and any of ``tensors`` requires grad: the
+    kernel's output would carry no gradient back to it (ROADMAP R11).
+    ``instead`` says what to call instead, or which ROADMAP item brings the
+    backward kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: an input requires grad, but the kernel has no autograd "
+                           f"(ROADMAP R11): {instead}; or run it under torch.no_grad()")
 
 
 def reset_launches() -> None:

@@ -43,8 +43,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("flash_attention", "decode_attention", "rmsnorm", "moe_gmm", "rwkv6_scan",
-           "mamba_scan")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "rmsnorm", "moe_gmm",
+           "rwkv6_scan", "mamba_scan")
 # element types the CUDA kernels take (enum ReproDtype in csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

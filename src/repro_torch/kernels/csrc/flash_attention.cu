@@ -41,6 +41,12 @@
 //   and 8 at D = 128 (32 rows a block); K / V tiles converted to f32 in
 //   static shared memory.
 //
+// Both write each row's log-sum-exp when the caller passes an lse buffer
+// (training): lse = m + log(max(l, 1e-30)) over the scaled, softcapped
+// scores, the lse of repro/kernels/flash_vjp.py's _fwd_impl, from the
+// m / l the online softmax already holds, so it costs one f32 store a row.
+// Serving passes null and writes nothing more.
+//
 // Work skipping (both): the KV range a q tile needs is computed from causal,
 // window and q_offset (the Pallas kernel's pl.when(any_live) per tile), and
 // ragged Sq / Sk edges are masked in the kernel (cp.async zero-fills rows
@@ -85,9 +91,9 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq, int Sk,
-              int Hq, int Hkv, int causal, int window, float softcap, float scale,
-              int q_offset) {
+              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+              float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal, int window,
+              float softcap, float scale, int q_offset) {
   static_assert(D % 16 == 0 && D <= 128, "head_dim must be a multiple of the mma depth 16");
   constexpr int RS = kRowStride<D>;
   constexpr int KC = D / 16;  // k-steps of S = Q K^T
@@ -252,12 +258,17 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   for (int i = 0; i < 2; ++i) {
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
-    l_r[i] = 1.f / fmaxf(l_r[i], 1e-30f);
+    l_r[i] = fmaxf(l_r[i], 1e-30f);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + warp * 16 + gr + i * 8;
     if (row >= Sq) continue;
+    // m is in the log2 domain; a row that saw no live key keeps -1e30
+    if (lse != nullptr && tq == 0)
+      lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] =
+          m_r[i] <= REPRO_NEG_INF ? REPRO_NEG_INF : m_r[i] * kLn2 + logf(l_r[i]);
+    l_r[i] = 1.f / l_r[i];
     __nv_bfloat16* op = o + (static_cast<size_t>(b) * Sq + row) * ldq + h * D + 2 * tq;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
@@ -267,17 +278,17 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 }
 
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                       int Sk, int Hq, int Hkv, int causal, int window, float softcap, float scale,
-                       int q_offset, cudaStream_t stream) {
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int Sq, int Sk, int Hq, int Hkv, int causal, int window, float softcap,
+                       float scale, int q_offset, cudaStream_t stream) {
   constexpr int smem = kMmaSmemBytes<D>;
   const cudaError_t attr = allow_smem<flash_fwd_mma<D>>(smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(Hq, B, (Sq + kBM - 1) / kBM);
   flash_fwd_mma<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, Hq, Hkv,
-      causal, window, softcap, scale, q_offset);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, Hq,
+      Hkv, causal, window, softcap, scale, q_offset);
   return cudaGetLastError();
 }
 
@@ -316,8 +327,8 @@ __device__ __forceinline__ void lds(const float* p, float* out) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, int Sq, int Sk, int Hq, int Hkv, int causal, int window,
-               float softcap, float scale, int q_offset) {
+               T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+               int causal, int window, float softcap, float scale, int q_offset) {
   constexpr int TPR = kTpr<D>, ROWS = kRows<D>;
   constexpr int DP = D / TPR;               // dims per thread
   constexpr int VW = DP >= 4 ? 4 : DP;      // vector width of a shared-memory read
@@ -422,6 +433,7 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
   if (row_ok) {
     const float lc = fmaxf(l, 1e-30f);
+    if (lse != nullptr && g == 0) lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] = m + logf(lc);
     T* op = o + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D;
 #pragma unroll
     for (int i = 0; i < NV; ++i)
@@ -432,26 +444,31 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 template <typename T, int D>
-cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                        int Sk, int Hq, int Hkv, int causal, int window, float softcap,
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int Sq, int Sk, int Hq, int Hkv, int causal, int window, float softcap,
                         float scale, int q_offset, cudaStream_t stream) {
   const dim3 grid((Sq + kRows<D> - 1) / kRows<D>, Hq, B);
   flash_fwd_simt<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, Hq, Hkv, causal, window, softcap, scale, q_offset);
+      static_cast<T*>(o), lse, Sq, Sk, Hq, Hkv, causal, window, softcap, scale, q_offset);
   return cudaGetLastError();
 }
 
-#define FA_ARGS q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, softcap, scale, q_offset, st
+#define FA_ARGS \
+  q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv, causal, window, softcap, scale, \
+      q_offset, st
 
 }  // namespace
 
-// window < 0: no sliding window.  softcap <= 0: no softcap.  The instance
-// depends on dtype and D only; an unsupported pair returns an error.
+// window < 0: no sliding window.  softcap <= 0: no softcap.  lse: null, or
+// f32 (B, Hq, Sq) for each row's log-sum-exp of its scaled, softcapped
+// scores (what the backward, flash_attention_bwd.cu, recomputes P from).
+// The instance depends on dtype and D only; an unsupported pair returns an
+// error.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int Sq, int Sk, int Hq, int Hkv, int D,
-                                   int causal, int window, float softcap, float scale,
-                                   int q_offset, void* stream) {
+                                   void* lse, int dtype, int B, int Sq, int Sk, int Hq,
+                                   int Hkv, int D, int causal, int window, float softcap,
+                                   float scale, int q_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
     switch (D) {

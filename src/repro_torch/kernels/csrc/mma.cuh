@@ -63,6 +63,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi, float* sum) {
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Runs use(i, frag) for i < N, where frag = the fragment load(i, frag)
 // fetched kFetch - 1 steps earlier: an ldmatrix's result is not consumed by

@@ -199,9 +199,144 @@ cudaError_t launch_t(const void* x, const float* scale, void* out, int rows, int
              : launch_c<T, false>(x, scale, out, rows, D, L, threads, chunks, eps, st);
 }
 
+// ---------------------------------------------------------------------------
+// K3b: the backward, dx and dscale from (x, scale, dy)
+// ---------------------------------------------------------------------------
+//
+// With r = rsqrt(mean(x^2) + eps) and g = dy (1 + scale), per row:
+//
+//   dx = r g - x r^3 (g . x) / D          dscale = sum over rows of dy x r
+//
+// in f32, dx in x's type.  The JAX model runs RMSNorm in jnp
+// (repro/nn/core.py::rmsnorm), so there is no TPU kernel to copy; this is
+// jax.grad of that function.  What bounds it: it reads x and dy and writes
+// dx once (smollm-360m's (8192, 960) bf16: 47 MB, 0.014 ms at 3.35 TB/s).
+//
+// One warp takes one row at a time (rows warp-strided over the grid); a
+// lane walks the row's 16-byte chunks lane, lane + 32, ... twice: once for
+// the two sums (sum x^2, sum g x; a butterfly of shuffles joins the warp's
+// lanes), once, from L1, for dx.  dscale's partial for the lane's columns
+// accumulates in the warp's own row of shared memory across every row the
+// warp takes, then the block sums its warps' rows in a fixed order into
+// one partial row, and rmsnorm_bwd_dscale sums the blocks' partials column
+// by column.  No atomics: equal inputs give equal results bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ scale,
+                 const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ partial,
+                 int rows, int D, float eps) {
+  constexpr int E = 16 / sizeof(T);
+  extern __shared__ __align__(16) float acc[];  // [warps][D]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, W = blockDim.x >> 5;
+  float* mine = acc + static_cast<size_t>(warp) * D;
+  const int C = D / E;
+  for (int c = lane; c < C; c += 32)
+#pragma unroll
+    for (int j = 0; j < E; ++j) mine[c * E + j] = 0.f;
+
+  for (int row = blockIdx.x * W + warp; row < rows; row += gridDim.x * W) {
+    const T* xr = x + static_cast<size_t>(row) * D;
+    const T* gr = dy + static_cast<size_t>(row) * D;
+    float ss = 0.f, sgx = 0.f;
+#pragma unroll 4
+    for (int c = lane; c < C; c += 32) {
+      const uint4 xv = *reinterpret_cast<const uint4*>(xr + c * E);
+      const uint4 gv = *reinterpret_cast<const uint4*>(gr + c * E);
+      const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w}, gw[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float xf = word_f32<T>(xw, j);
+        ss = fmaf(xf, xf, ss);
+        sgx = fmaf(word_f32<T>(gw, j) * (1.f + scale[c * E + j]), xf, sgx);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      sgx += __shfl_xor_sync(0xffffffffu, sgx, off);
+    }
+    const float r = rsqrtf(ss / static_cast<float>(D) + eps);
+    const float coef = r * r * r * sgx / static_cast<float>(D);
+    T* dr = dx + static_cast<size_t>(row) * D;
+#pragma unroll 4
+    for (int c = lane; c < C; c += 32) {
+      const uint4 xv = *reinterpret_cast<const uint4*>(xr + c * E);
+      const uint4 gv = *reinterpret_cast<const uint4*>(gr + c * E);
+      const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w}, gw[4] = {gv.x, gv.y, gv.z, gv.w};
+      uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float xf = word_f32<T>(xw, j), gf = word_f32<T>(gw, j);
+        const uint32_t b = out_bits<T>(r * gf * (1.f + scale[c * E + j]) - xf * coef);
+        if constexpr (sizeof(T) == 4)
+          o[j] = b;
+        else
+          o[j / 2] |= j % 2 ? b << 16 : b;
+        mine[c * E + j] += gf * xf * r;
+      }
+      *reinterpret_cast<uint4*>(dr + c * E) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < W; ++w) s += acc[static_cast<size_t>(w) * D + d];
+    partial[static_cast<size_t>(blockIdx.x) * D + d] = s;
+  }
+}
+
+// dscale[d] = sum over the n blocks' partial rows, in block order
+__global__ void rmsnorm_bwd_dscale(const float* __restrict__ partial, float* __restrict__ dscale,
+                                   int n, int D) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= D) return;
+  float s = 0.f;
+  for (int i = 0; i < n; ++i) s += partial[static_cast<size_t>(i) * D + d];
+  dscale[d] = s;
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const float* scale, const void* dy, void* dx,
+                       float* partial, float* dscale, int rows, int D, int warps, int grid,
+                       float eps, cudaStream_t st) {
+  const int smem = warps * D * static_cast<int>(sizeof(float));
+  cudaError_t err = allow_smem<rmsnorm_bwd_rows<T>>(smem);
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_rows<T><<<grid, 32 * warps, smem, st>>>(
+      static_cast<const T*>(x), scale, static_cast<const T*>(dy), static_cast<T*>(dx), partial,
+      rows, D, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_dscale<<<(D + 127) / 128, 128, 0, st>>>(partial, dscale, grid, D);
+  return cudaGetLastError();
+}
+
 __global__ void empty_kernel() {}
 
 }  // namespace
+
+// dtype: x / dy / dx; scale, partial (grid, D) and dscale (D,) f32.  warps
+// and grid from bwd_plan (kernels/rmsnorm.py); D * sizeof(T) a multiple of
+// 16 and every pointer 16-byte aligned.  Two kernels on ``stream``.
+extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
+                           void* partial, void* dscale, int dtype, int rows, int D, int warps,
+                           int grid, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int esize = dtype == kF32 ? 4 : 2;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(scale) |
+                         reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx);
+  if (rows < 1 || D < 1 || warps < 1 || 32 * warps > kMaxThreads || grid < 1 ||
+      (D * esize) % 16 || addr % 16)
+    return cudaErrorInvalidValue;
+  const float* sf = static_cast<const float*>(scale);
+  float *pf = static_cast<float*>(partial), *df = static_cast<float*>(dscale);
+  switch (dtype) {
+    case kF32: return launch_bwd<float>(x, sf, dy, dx, pf, df, rows, D, warps, grid, eps, st);
+    case kBF16:
+      return launch_bwd<__nv_bfloat16>(x, sf, dy, dx, pf, df, rows, D, warps, grid, eps, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // dtype: x / out; scale f32.  lanes (L), threads and chunks from norm_plan: L a
 // power of two, a divisor of threads when L <= 32 and equal to it above (one

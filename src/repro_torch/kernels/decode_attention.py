@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.ref import decode_attention_ref as plain
 
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the instances csrc/decode_attention.cu builds
@@ -91,6 +91,8 @@ def decode_attention(
     if q.device.type == "cpu":
         return plain(q, k_cache, v_cache, pos_ids, cur_pos, window=window,
                      softcap=softcap, scale=scale)
+    refuse_grad("decode_attention", "decode is serving-only, as in the JAX package", q, k_cache,
+                v_cache)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     B, Hq, D = q.shape

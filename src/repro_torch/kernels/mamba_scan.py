@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.ref import mamba_scan_chunked as plain
 
 STATE_SIZES = (4, 8, 16)  # the N instances the source compiles
@@ -123,6 +123,8 @@ def mamba_scan(
     """-> (y (B, T, DI) in x's dtype, final state (B, DI, N) f32)."""
     if x.device.type == "cpu":
         return plain(x, dt, A, Bm, C, D, state, chunk=chunk)
+    refuse_grad("mamba_scan", "its backward kernel is ROADMAP item K5b", x, dt, A, Bm, C, D,
+                state)
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan: no kernel for device {x.device}")
     if x.dim() != 3 or A.dim() != 2:

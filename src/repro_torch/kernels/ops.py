@@ -11,6 +11,15 @@ Counterpart of ``repro/kernels/ops.py``.  ``impl`` is one of:
 
 ``impl=None`` takes the process default (``set_default_impl`` /
 ``impl_scope``, initially ``auto``).
+
+Autograd: where a gradient is needed (grad mode on and an input that
+requires grad), ``attention`` and ``rmsnorm`` under ``auto`` / ``kernel``
+run as ``torch.autograd.Function``s, :class:`Attention` (K1 writing its
+log-sum-exp, then K1b) and :class:`RMSNorm` (K3, then K3b), on the CPU
+through the same classes with the plain versions inside.  ``plain`` stays
+torch autograd through ``kernels/ref.py``, an independent yardstick.  The
+other kernels have no backward kernel yet: on the card their wrappers
+refuse such inputs (ROADMAP R11), and only ``plain`` differentiates them.
 """
 from __future__ import annotations
 
@@ -22,9 +31,11 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _fa_kernel
+from repro_torch.kernels.flash_attention import flash_attention_bwd as _fa_bwd_kernel
 from repro_torch.kernels.mamba_scan import mamba_scan as _mamba_kernel
 from repro_torch.kernels.moe_gmm import gmm as _gmm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd as _rmsnorm_bwd_kernel
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_kernel
 
 IMPLS = ("auto", "kernel", "plain")
@@ -128,6 +139,48 @@ def tuned_scope(
 # ---------------------------------------------------------------------------
 
 
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class Attention(torch.autograd.Function):
+    """Flash attention with the flash backward: the forward saves (q, k, v,
+    out, lse); the backward recomputes P from them (K1 and K1b on the card,
+    ``ref.flash_attention_lse_ref`` and ``ref.flash_attention_bwd_ref`` on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
+        kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+        out, lse = _fa_kernel(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fa_bwd_kernel(q, k, v, out, lse, dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+class RMSNorm(torch.autograd.Function):
+    """(1 + scale) RMSNorm with its backward (K3 and K3b on the card,
+    ``ref.rmsnorm_ref`` and ``ref.rmsnorm_bwd_ref`` on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm_kernel(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = _rmsnorm_bwd_kernel(x, scale, dy.contiguous(), eps=ctx.eps)
+        return dx, dscale, None
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -143,6 +196,8 @@ def attention(
     if _resolve(impl, q) == "plain":
         return _ref.mha_ref(q, k, v, causal=causal, window=window, softcap=softcap,
                             q_offset=q_offset)
+    if _wants_grad(q, k, v):
+        return Attention.apply(q, k, v, causal, window, softcap, q_offset)
     return _fa_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
                       q_offset=q_offset)
 
@@ -172,6 +227,8 @@ def rmsnorm(
     """(1 + scale) RMSNorm, f32 math, x's dtype out."""
     if _resolve(impl, x) == "plain":
         return _ref.rmsnorm_ref(x, scale, eps=eps)
+    if _wants_grad(x, scale):
+        return RMSNorm.apply(x, scale, eps)
     return _rmsnorm_kernel(x, scale, eps=eps)
 
 

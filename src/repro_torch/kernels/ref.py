@@ -62,6 +62,101 @@ def mha_ref(
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def _attn_mask(Sq: int, Sk: int, causal: bool, window: Optional[int], q_offset: int,
+               k0: int, device: torch.device) -> torch.Tensor:
+    """(Sq, Sk) bool: which keys k0 .. k0 + Sk - 1 query rows at positions
+    q_offset .. q_offset + Sq - 1 see."""
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(k0, k0 + Sk, device=device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return ok
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention with its row log-sum-exp, what K1 writes for a backward:
+    (out (B, Sq, Hq, D) in q's dtype, lse f32 (B, Hq, Sq)), with
+    lse = m + log(max(l, 1e-30)) over the scaled, softcapped, masked scores,
+    the ``lse`` of ``repro/kernels/flash_vjp.py::_fwd_impl`` (query head h
+    = hk * G + g of its (B, Hkv, G, Sq))."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(B, Sq, Hkv, G, D).float() * scale, k.float())
+    s = _softcap(s, softcap)
+    s = torch.where(_attn_mask(Sq, Sk, causal, window, q_offset, 0, q.device), s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1).clamp(min=1e-30)  # (B, Hkv, G, Sq)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()) / l.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, Sq, Hq, D).to(q.dtype), (m + torch.log(l)).reshape(B, Hq, Sq)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    block_k: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward, a blockwise mirror of
+    ``repro/kernels/flash_vjp.py::_bwd_rule``: blocks of ``block_k`` keys,
+    each recomputing its scores from q and k and P = exp(s - lse), with
+    delta = sum dout * out, the softcap's chain rule 1 - (s / cap)^2 and the
+    masks; f32 math, (dq, dk, dv) in q / k / v's dtypes.  A masked pair has
+    P = 0 (``_bwd_rule`` zeroes its dS), so a row that sees no key gives
+    zero gradients."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    qf = q.reshape(B, Sq, Hkv, G, D).float()
+    do = dout.reshape(B, Sq, Hkv, G, D).float()
+    delta = torch.einsum("bqhgd,bqhgd->bhgq", do, out.reshape(B, Sq, Hkv, G, D).float())
+    lse = lse.float().reshape(B, Hkv, G, Sq)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((B, Sk, Hkv, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, Sk, block_k):
+        kf, vf = k[:, k0:k0 + block_k].float(), v[:, k0:k0 + block_k].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf * scale, kf)
+        chain = None
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s, chain = t * softcap, 1.0 - t * t
+        ok = _attn_mask(Sq, kf.shape[1], causal, window, q_offset, k0, q.device)
+        p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+        dv[:, k0:k0 + block_k] = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+        ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", do, vf) - delta[..., None])
+        if chain is not None:
+            ds = ds * chain
+        dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+        dk[:, k0:k0 + block_k] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    return dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def decode_attention_ref(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -158,6 +253,20 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torc
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`rmsnorm_ref` for output grad dy, f32 math:
+    with r = rsqrt(mean(x^2) + eps) and g = dy (1 + scale),
+    dx = r g - x r^3 mean(g x) (in x's dtype) and dscale = sum over rows of
+    dy x r (f32), as ``jax.grad`` of ``repro/nn/core.py::rmsnorm`` gives."""
+    xf, gf = x.float(), dy.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    g = gf * (1.0 + scale.float())
+    dx = r * g - xf * r.pow(3) * (g * xf).mean(dim=-1, keepdim=True)
+    dscale = (gf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale
 
 
 # Epilogues of the grouped matmul, applied to its f32 accumulator: the

@@ -17,8 +17,14 @@ of x and of the scale into registers before any arithmetic, so one trip to
 device memory serves both.  x is f32 or bf16 and contiguous; the scale f32
 (D,).  Rows off 16 bytes load element by element.
 
-A CPU tensor takes the plain version, :func:`plain` (``ref.rmsnorm_ref``);
-a CUDA tensor launches the kernel or raises.
+Its backward K3b (:func:`rmsnorm_bwd`, ``rmsnorm_bwd_rows`` and
+``rmsnorm_bwd_dscale`` in the same source) gives dx and dscale: one warp a
+row, the dscale partials summed per block in shared memory and then across
+blocks, without atomics (:func:`bwd_plan`).  ``ops.rmsnorm`` is the
+``torch.autograd.Function`` that runs the two.
+
+A CPU tensor takes the plain versions, :func:`plain` (``ref.rmsnorm_ref``)
+and ``ref.rmsnorm_bwd_ref``; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, refuse_grad
+from repro_torch.kernels.ref import rmsnorm_bwd_ref
 from repro_torch.kernels.ref import rmsnorm_ref as plain
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -101,8 +108,25 @@ def norm_plan(rows: int, D: int, itemsize: int, n_sm: int) -> NormPlan:
     return NormPlan(rows, D, itemsize, lanes, chunks, threads, per_block, -(-rows // per_block))
 
 
+BWD_WARPS = 8              # warps of a K3b block, where their dscale rows fit BWD_SMEM
+BWD_SMEM = 64 << 10        # bytes of shared memory a K3b block's dscale rows take at most
+BWD_BLOCKS_PER_SM = 2      # K3b blocks, at most: each writes one partial row of dscale
+
+
+def bwd_plan(rows: int, D: int, n_sm: int) -> tuple[int, int]:
+    """(warps a block, blocks) of K3b: each warp keeps an f32 row of D
+    dscale partials in shared memory, so a block takes as many warps (up to
+    ``BWD_WARPS``) as ``BWD_SMEM`` holds rows of D; the grid covers the rows
+    a warp each, up to ``BWD_BLOCKS_PER_SM`` blocks an SM, whose warps then
+    take several rows each."""
+    if rows < 1 or D < 1 or 4 * D > BWD_SMEM:
+        raise ValueError(f"rmsnorm_bwd: no plan for {rows} rows of {D}")
+    warps = min(BWD_WARPS, BWD_SMEM // (4 * D))
+    return warps, min(-(-rows // warps), BWD_BLOCKS_PER_SM * n_sm)
+
+
 @functools.cache
-def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr, ctypes._CFuncPtr]:
+def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr, ctypes._CFuncPtr, ctypes._CFuncPtr]:
     lib = _build.load("rmsnorm")
     fn = lib.rmsnorm_fwd
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
@@ -110,14 +134,17 @@ def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr, ctypes._CFuncPtr]:
     floor = lib.launch_floor
     floor.argtypes = [ctypes.c_void_p]
     floor.restype = ctypes.c_int
-    return lib, fn, floor
+    bwd = lib.rmsnorm_bwd
+    bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
+    return lib, fn, floor, bwd
 
 
 def launch_floor(device: torch.device | None = None) -> None:
     """Launch an empty kernel of one block through the same route as K3: the
     card's fixed cost of a launch, which ``chip_smoke.py`` times beside K3.
     The port's main path never calls it, and it counts no launch."""
-    lib, _, floor = _entry()
+    lib, _, floor, _ = _entry()
     _build.check(lib, floor(torch.cuda.current_stream(device).cuda_stream), "launch_floor")
 
 
@@ -125,6 +152,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
     """x: (..., D); scale: (D,) f32.  (1 + scale) RMSNorm, f32 math, x's dtype out."""
     if x.device.type == "cpu":
         return plain(x, scale, eps=eps)
+    refuse_grad("rmsnorm", "ops.rmsnorm differentiates through K3b", x, scale)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm: no kernel for device {x.device}")
     D = x.shape[-1]
@@ -139,10 +167,47 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
     rows = x.numel() // D
     if rows:
         p = norm_plan(rows, D, x.element_size(), _build.sm_count(x.device.index))
-        lib, fn, _ = _entry()
+        lib, fn, _, _ = _entry()
         err = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[x.dtype],
                  rows, D, p.lanes, p.threads, p.chunks, float(eps),
                  torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(lib, err, "rmsnorm")
         LAUNCHES["rmsnorm"] += 1
     return out
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3b: x, dy (..., D) of one dtype; scale (D,) f32 -> (dx in x's dtype,
+    dscale (D,) f32), the gradients of :func:`rmsnorm` for output grad dy."""
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_ref(x, scale, dy, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_bwd: no kernel for device {x.device}")
+    D = x.shape[-1]
+    if scale.shape != (D,) or scale.dtype != torch.float32:
+        raise ValueError(f"rmsnorm_bwd: scale must be f32 ({D},), got {scale.dtype} "
+                         f"{tuple(scale.shape)}")
+    if x.dtype not in DTYPES or dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd: x {x.dtype} {tuple(x.shape)}, dy {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    for name, t in (("x", x), ("scale", scale), ("dy", dy)):
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % CHUNK_BYTES:
+            raise ValueError(f"rmsnorm_bwd: {name} must be contiguous on {x.device} and start "
+                             "on a 16-byte boundary")
+    if D * x.element_size() % CHUNK_BYTES:
+        raise ValueError(f"rmsnorm_bwd: rows of {D} x {x.element_size()} bytes are not whole "
+                         "16-byte chunks")
+    dx = torch.empty_like(x)
+    dscale = torch.zeros(D, dtype=torch.float32, device=x.device)
+    rows = x.numel() // D
+    if rows:
+        warps, grid = bwd_plan(rows, D, _build.sm_count(x.device.index))
+        partial = torch.empty((grid, D), dtype=torch.float32, device=x.device)
+        lib, _, _, fn = _entry()
+        err = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                 dscale.data_ptr(), _build.DTYPE_CODES[x.dtype], rows, D, warps, grid, float(eps),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, err, "rmsnorm_bwd")
+        LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dscale

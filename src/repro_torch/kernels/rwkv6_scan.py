@@ -43,7 +43,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.ref import rwkv6_scan_chunked as plain
 
 HEAD_DIMS = (8, 16, 64)  # the K instances the source compiles
@@ -119,6 +119,7 @@ def rwkv6_scan(
     """-> (out (B, T, H, V) in r's dtype, final state (B, H, K, V) f32)."""
     if r.device.type == "cpu":
         return plain(r, k, v, w, u, state, chunk=chunk)
+    refuse_grad("rwkv6_scan", "its backward kernel is ROADMAP item K6b", r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
     if r.dim() != 4 or v.dim() != 4:

@@ -17,8 +17,9 @@ of each prompt length and the first decode tick run eagerly, the second
 captures a CUDA graph, and every later one replays it; ``kernels`` counts
 the launches of the replays too.  An RWKV6 or Mamba model's prompt longer
 than its scan chunk (16 reduced; 128 for RWKV6 and 256 for Mamba at full
-width) must be a multiple of it.  Full-depth jamba-1.5-large (796 GB in bf16) does not fit one card.  Dispatch, trace, fleet, metrics
-and tune flags arrive with ROADMAP items M7, M8, M11 and M12.
+width) must be a multiple of it.  Full-depth jamba-1.5-large (796 GB in
+bf16) does not fit one card.  Not here yet: ``--dispatch`` (ROADMAP M8),
+the trace and metrics flags (M11), ``--fleet`` and ``--tune`` (M12).
 """
 from __future__ import annotations
 

@@ -10,19 +10,28 @@ of it, so caches are written in place.
 
 Surfaces:
   * ``forward``      — hidden states for a full sequence (prefill) or one
-                       token per sequence (decode).
+                       token per sequence (decode); with ``return_aux``
+                       also the MoE layers' summed aux losses.
+  * ``loss_fn``      — token-chunked next-token cross-entropy + z-loss +
+                       the aux losses (training).
   * ``prefill``      — forward + KV cache construction + last-pos logits.
   * ``decode_step``  — one token per sequence against the caches.
 
-The vlm/audio frontends raise ``NotImplementedError`` (ROADMAP item M10);
-the training loss, which reads the MoE layers' aux losses, is M9, so
-serving discards them.
+Without caches (training), each period runs under
+``torch.utils.checkpoint`` as ``cfg.remat_policy`` says, as the JAX model's
+``jax.checkpoint`` around its scan body: ``nothing`` keeps only the
+period's inputs and recomputes the rest in the backward, ``dots`` keeps the
+matmul outputs too (selective checkpointing), ``everything`` is no remat.
+
+The vlm/audio frontends raise ``NotImplementedError`` (ROADMAP item M10).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -168,9 +177,10 @@ def _block_apply(
     *,
     mode: str,
     cache: Optional[dict],
-) -> torch.Tensor:
-    """One block; its cache (if any) is updated in place.  An MoE block's
-    aux losses are discarded (serving)."""
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """One block -> (x, its MoE aux losses, or None for a block without
+    MoE); its cache (if any) is updated in place."""
+    moe_aux = None
     h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
     mixer_cache = cache.get("mixer") if cache else None
     if spec.mixer == "rwkv":
@@ -186,7 +196,7 @@ def _block_apply(
     if spec.ffn != "none":
         h = nn.rmsnorm(p["norm2"], x, cfg.norm_eps)
         if spec.ffn == "moe":
-            h, _ = ffn_mod.moe_apply(p["ffn"], h, cfg)
+            h, moe_aux = ffn_mod.moe_apply(p["ffn"], h, cfg)
         elif spec.ffn == "rwkv_ffn":
             h, _ = rwkv_mod.channel_mix_apply(p["ffn"], h, cfg,
                                               cache=cache.get("ffn") if cache else None)
@@ -195,7 +205,28 @@ def _block_apply(
         if "norm2_post" in p:
             h = nn.rmsnorm(p["norm2_post"], h, cfg.norm_eps)
         x = x + h
-    return x
+    return x, moe_aux
+
+
+# matmul outputs that remat_policy "dots" keeps: dot products without batch
+# dims, as jax.checkpoint_policies.dots_with_no_batch_dims_saveable
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` run as ``remat_policy`` says (see the module docstring)."""
+    if policy == "everything":
+        return fn
+    if policy not in ("nothing", "dots"):
+        raise ValueError(f"remat_policy {policy!r} not in (nothing, dots, everything)")
+    context_fn = (functools.partial(ckpt.create_selective_checkpoint_contexts, _keep_dots)
+                  if policy == "dots" else ckpt.noop_context_fn)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=context_fn)
 
 
 def forward(
@@ -206,8 +237,10 @@ def forward(
     *,
     mode: str = "full",
     caches: Optional[dict] = None,
-) -> tuple[torch.Tensor, Optional[dict]]:
-    """tokens: (B, S) -> (hidden (B, S, D), caches).
+    return_aux: bool = False,
+):
+    """tokens: (B, S) -> (hidden (B, S, D), caches), or with ``return_aux``
+    (hidden, aux, caches), aux the f32 sum of the MoE layers' aux losses.
 
     ``caches`` are filled (prefill) or advanced (decode) in place and
     returned; ``None`` when none were given.
@@ -218,34 +251,90 @@ def forward(
         positions = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
     x = nn.embed(params["embed"], tokens, scale_by_dim=cfg.scale_embedding)
     x = x.to(torch_dtype(cfg.activation_dtype))
+    # the MoE aux losses are summed only when asked for: serving runs no
+    # extra kernel for them
+    aux = torch.zeros((), dtype=torch.float32, device=device) if return_aux else None
 
-    def run(p: dict, spec: LayerSpec, cache: Optional[dict]) -> None:
-        nonlocal x
-        x = _block_apply(p, x, cfg, spec, positions, mode=mode, cache=cache)
+    def block(p: dict, spec: LayerSpec, x, aux, cache: Optional[dict]):
+        x, moe_aux = _block_apply(p, x, cfg, spec, positions, mode=mode, cache=cache)
+        if aux is not None and moe_aux is not None:
+            aux = aux + moe_aux["moe_load_balance"] + moe_aux["moe_z_loss"]
+        return x, aux
 
     unscanned = _unscanned_layers(cfg)
     for name, spec in unscanned:
         if name.startswith("head"):
-            run(params[name], spec, caches[name] if caches else None)
+            x, aux = block(params[name], spec, x, aux, caches[name] if caches else None)
     if cfg.n_periods > 0:
         n, pattern = cfg.n_periods, list(enumerate(cfg.layer_pattern))
         p_views = {pos: _periods(params["blocks"][f"pos{pos}"], n) for pos, _ in pattern}
         c_views = {pos: _periods(caches["blocks"][f"pos{pos}"], n) if caches else [None] * n
                    for pos, _ in pattern}
-        for i in range(n):
+
+        def period(i: int, x, aux):
             for pos, spec in pattern:
-                run(p_views[pos][i], spec, c_views[pos][i])
+                x, aux = block(p_views[pos][i], spec, x, aux, c_views[pos][i])
+            return x, aux
+
+        if caches is None:  # a cache written in place must not be written twice
+            period = _remat(period, cfg.remat_policy)
+        for i in range(n):
+            x, aux = period(i, x, aux)
     for name, spec in unscanned:
         if name.startswith("tail"):
-            run(params[name], spec, caches[name] if caches else None)
+            x, aux = block(params[name], spec, x, aux, caches[name] if caches else None)
 
     x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, caches
+    return (x, aux, caches) if return_aux else (x, caches)
 
 
 def _logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     table = params["embed"] if cfg.tied_embeddings else params["lm_head"]
     return nn.softcap(nn.unembed(table, hidden), cfg.final_logit_softcap)  # f32
+
+
+# ---------------------------------------------------------------------------
+# Loss (token-chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(
+    params: dict, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Next-token cross-entropy over all positions -> (loss, {ce, z_loss,
+    aux, tokens}), loss = ce + z_loss + aux, all f32.
+
+    The logits are never whole: the B x S tokens run in chunks of
+    ``cfg.loss_chunk`` (one chunk of all of them when that does not divide
+    B x S, as in the JAX package), each under ``torch.utils.checkpoint``, so
+    a chunk's (chunk, V) f32 logits live only while it is computed, as
+    ``jax.checkpoint`` keeps them in the JAX loss.
+    """
+    hidden, aux, _ = forward(params, cfg, tokens, return_aux=True)
+    B, S, D = hidden.shape
+    T = B * S
+    chunk = min(cfg.loss_chunk, T)
+    if T % chunk:
+        chunk = T
+    h = hidden.reshape(T, D)
+    y = labels.reshape(T).long()
+    table = params["embed"] if cfg.tied_embeddings else params["lm_head"]
+
+    def chunk_loss(h_c, y_c):
+        logits = nn.softcap(nn.unembed(table, h_c), cfg.final_logit_softcap)  # (chunk, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(1, y_c[:, None])[:, 0]
+        return (lse - gold).sum(), lse.square().sum() * cfg.z_loss_weight
+
+    nll_sum = z_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, T, chunk):
+        nll, zl = ckpt.checkpoint(chunk_loss, h[c0:c0 + chunk], y[c0:c0 + chunk],
+                                  use_reentrant=False)
+        nll_sum, z_sum = nll_sum + nll, z_sum + zl
+    ce, z = nll_sum / T, z_sum / T
+    loss = ce + z + aux
+    return loss, {"ce": ce, "z_loss": z, "aux": aux,
+                  "tokens": torch.full((), float(T), device=hidden.device)}
 
 
 # ---------------------------------------------------------------------------

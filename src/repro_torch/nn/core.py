@@ -140,19 +140,40 @@ def embed(p: dict, ids: torch.Tensor, *, scale_by_dim: bool = False) -> torch.Te
     return out
 
 
+class _UnembedF32(torch.autograd.Function):
+    """x (N, D) @ table (V, D)^T -> f32 logits from bf16 operands on the card.
+    ``torch.mm(..., out_dtype=float32)`` has no derivative in PyTorch; its
+    backward here rounds the f32 logit gradient to the operands' bf16, as a
+    TPU's default-precision f32 product does, and multiplies in bf16 with
+    f32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, x, table):
+        ctx.save_for_backward(x, table)
+        return torch.mm(x, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        g = g.to(table.dtype)
+        dx = torch.mm(g, table) if ctx.needs_input_grad[0] else None
+        dtable = torch.mm(g.t(), x) if ctx.needs_input_grad[1] else None
+        return dx, dtable
+
+
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Project hidden states to f32 vocab logits (tied-embedding transpose).
 
     The JAX package multiplies bf16 operands into an f32 output.  On the
     card, ``torch.mm(..., out_dtype=float32)`` does the same (cuBLAS, f32
-    accumulation and output), reading the bf16 table as it is.  Elsewhere
-    (the CPU has no such product) both operands are cast to f32, exactly,
-    and multiplied in f32; a plain bf16 matmul would round its output to
-    bf16.
+    accumulation and output), reading the bf16 table as it is
+    (:class:`_UnembedF32`, which also gives it a backward).  Elsewhere (the
+    CPU has no such product) both operands are cast to f32, exactly, and
+    multiplied in f32; a plain bf16 matmul would round its output to bf16.
     """
     table = p["table"]
     if x.is_cuda and x.dtype == table.dtype == torch.bfloat16:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), table.t(), out_dtype=torch.float32)
+        out = _UnembedF32.apply(x.reshape(-1, x.shape[-1]), table)
         return out.reshape(*x.shape[:-1], table.shape[0])
     return torch.matmul(x.float(), table.float().t())
 

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -17,21 +18,24 @@ from repro.kernels.decode_attention import decode_attention as jax_decode  # noq
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.flash_vjp import _fwd_impl as jax_flash_fwd_lse  # noqa: E402
+from repro.kernels.flash_vjp import flash_attention_fused as jax_flash_vjp  # noqa: E402
 from repro.kernels.moe_gmm import gmm as jax_gmm  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro.kernels.rwkv6_scan import rwkv6_scan as jax_rwkv6  # noqa: E402
+from repro.nn.core import rmsnorm as jax_nn_rmsnorm  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import TILE as SPLIT_TILE  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention, split_plan  # noqa: E402
 from repro_torch.kernels.decode_attention import instances as decode_instances  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import instance as flash_instance  # noqa: E402
 from repro_torch.kernels import mamba_scan as k5  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels import moe_gmm as k4  # noqa: E402
 from repro_torch.kernels.moe_gmm import gmm  # noqa: E402
 from repro_torch.kernels import rmsnorm as k3  # noqa: E402
-from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as k6  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 
@@ -875,6 +879,158 @@ def test_mamba_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="no kernel for device"):
         mamba_scan(x, x, torch.zeros(8, 16, device="meta"), bc, bc,
                    torch.zeros(8, device="meta"), torch.zeros(1, 8, 16, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# K1's log-sum-exp, K1b (the flash backward) and K3b (the RMSNorm backward)
+# ---------------------------------------------------------------------------
+
+# the window / softcap / q_offset cases of tests/test_kernels_vjp.py
+VJP_CASES = [(None, None, 0), (16, None, 0), (None, 30.0, 0), (16, 50.0, 0), (None, None, 24)]
+
+
+def _vjp_inputs(q_offset: int, dtype: str, seed: int):
+    """(B, Sq, Hq, Hkv, D) = (2, 40, 4, 2, 16) and Sk = Sq + q_offset, as
+    tests/test_kernels_vjp.py draws them; q, k, v and the output cotangent."""
+    B, Sq, Hq, Hkv, D = 2, 40, 4, 2, 16
+    rng = np.random.default_rng(seed)
+    shapes = [(B, Sq, Hq, D), (B, Sq + q_offset, Hkv, D), (B, Sq + q_offset, Hkv, D),
+              (B, Sq, Hq, D)]
+    return [_pair(rng.standard_normal(s).astype(np.float32), dtype) for s in shapes]
+
+
+def _rel_close(got: torch.Tensor, want, tol: float, what: str):
+    """max |got - want| within ``tol`` of max |want|."""
+    want = np.asarray(want, np.float32)
+    err = float(np.abs(got.detach().float().numpy() - want).max())
+    assert err <= tol * float(np.abs(want).max()), f"{what}: {err:.3e}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,softcap,q_offset", VJP_CASES)
+def test_flash_attention_lse_vs_fwd_impl(window, softcap, q_offset, dtype):
+    """The plain version of K1 with its lse (and the wrapper's CPU route)
+    against flash_vjp._fwd_impl's (out, lse)."""
+    (qj, qt), (kj, kt), (vj, vt), _ = _vjp_inputs(q_offset, dtype, 61)
+    out_j, lse_j = jax_flash_fwd_lse(qj, kj, vj, True, window, softcap, None, q_offset, 16)
+    kw = dict(window=window, softcap=softcap, q_offset=q_offset)
+    out_t, lse_t = ref.flash_attention_lse_ref(qt, kt, vt, **kw)
+    B, Sq, Hq, _ = qt.shape
+    _close(out_j, out_t, **tols(dtype))
+    _close(np.asarray(lse_j).reshape(B, Hq, Sq), lse_t, **tols(dtype))
+    assert lse_t.dtype == torch.float32 and out_t.dtype == qt.dtype
+    out_w, lse_w = flash_attention(qt, kt, vt, return_lse=True, **kw)
+    assert torch.equal(out_w, out_t) and torch.equal(lse_w, lse_t)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,softcap,q_offset", VJP_CASES)
+def test_flash_attention_bwd_vs_flash_vjp(window, softcap, q_offset, dtype):
+    """ref.flash_attention_bwd_ref, the K1b wrapper's CPU route and the
+    autograd.Function behind ops.attention against jax.vjp of
+    flash_vjp.flash_attention_fused; each gradient relative to its max |.|
+    (f32: 1e-5, rounding; bf16: 2e-2, the inputs' rounding)."""
+    (qj, qt), (kj, kt), (vj, vt), (cj, ct) = _vjp_inputs(q_offset, dtype, 62)
+    out_j, vjp = jax.vjp(
+        lambda q, k, v: jax_flash_vjp(q, k, v, True, window, softcap, None, q_offset, 16),
+        qj, kj, vj)
+    want = vjp(cj)
+    kw = dict(window=window, softcap=softcap, q_offset=q_offset)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    out_t, lse_t = ref.flash_attention_lse_ref(qt, kt, vt, **kw)
+    got_ref = ref.flash_attention_bwd_ref(qt, kt, vt, out_t, lse_t, ct, **kw)
+    got_wrap = flash_attention_bwd(qt, kt, vt, out_t, lse_t, ct, **kw)
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    out_f = ops.attention(*leaves, **kw)
+    got_fn = torch.autograd.grad(out_f, leaves, ct)
+    _close(out_j, out_f.detach(), **tols(dtype))
+    for name, a, b, c, w in zip("qkv", got_ref, got_wrap, got_fn, want):
+        assert a.dtype == qt.dtype and torch.equal(a, b) and torch.equal(a, c)
+        _rel_close(a, w, tol, f"d{name}")
+
+
+def test_flash_attention_bwd_row_without_a_live_key_is_zero():
+    """A window with q_offset past it leaves the first rows no key: their
+    lse stays finite (the l floor), and every gradient is finite, with zero
+    dq for them."""
+    rng = np.random.default_rng(63)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   for s in ((1, 8, 2, 16), (1, 4, 2, 16), (1, 4, 2, 16), (1, 8, 2, 16)))
+    kw = dict(causal=False, window=2, q_offset=3)  # rows 2.. see no key of 0 .. 3
+    out, lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+    assert bool(torch.isfinite(lse).all())
+    dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    assert all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+    assert bool((dq[:, 2:] == 0).all()) and bool(dq[:, :2].abs().max() > 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 32), (3, 5, 96), (2, 960)])
+def test_rmsnorm_bwd_vs_jax_grad(shape, dtype):
+    """ref.rmsnorm_bwd_ref, the K3b wrapper's CPU route and the
+    autograd.Function behind ops.rmsnorm against jax.vjp of
+    repro.nn.core.rmsnorm (dx in x's dtype, dscale f32)."""
+    rng = np.random.default_rng(64)
+    (xj, xt) = _pair(rng.standard_normal(shape).astype(np.float32), dtype)
+    (sj, st) = _pair((rng.standard_normal(shape[-1]) * 0.1).astype(np.float32), "float32")
+    (gj, gt) = _pair(rng.standard_normal(shape).astype(np.float32), dtype)
+    _, vjp = jax.vjp(lambda x, s: jax_nn_rmsnorm({"scale": s}, x, 1e-6), xj, sj)
+    dx_j, ds_j = vjp(gj)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    got = ref.rmsnorm_bwd_ref(xt, st, gt)
+    assert all(torch.equal(a, b) for a, b in zip(got, rmsnorm_bwd(xt, st, gt)))
+    leaves = [xt.clone().requires_grad_(), st.clone().requires_grad_()]
+    got_fn = torch.autograd.grad(ops.rmsnorm(*leaves), leaves, gt)
+    for a, b, w, name in zip(got, got_fn, (dx_j, ds_j), ("dx", "dscale")):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+        _rel_close(a, w, tol, name)
+    assert got[0].dtype == xt.dtype and got[1].dtype == torch.float32
+
+
+def _meta(*shape, grad=False, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype, device="meta", requires_grad=grad)
+
+
+# each kernel wrapper on inputs off the CPU, the first one requiring grad or not
+GUARDED = {
+    "flash_attention": lambda g: flash_attention(_meta(1, 4, 2, 16, grad=g), _meta(1, 4, 2, 16),
+                                                 _meta(1, 4, 2, 16)),
+    "decode_attention": lambda g: decode_attention(
+        _meta(1, 2, 16, grad=g), _meta(1, 8, 2, 16), _meta(1, 8, 2, 16),
+        _meta(1, 8, dtype=torch.int32), _meta(1, dtype=torch.int32)),
+    "rmsnorm": lambda g: rmsnorm(_meta(4, 16, grad=g), _meta(16)),
+    "moe_gmm": lambda g: gmm(_meta(2, 8, 16, grad=g), _meta(2, 16, 8)),
+    "rwkv6_scan": lambda g: rwkv6_scan(*(_meta(1, 4, 2, 8, grad=g) for _ in range(4)),
+                                       _meta(2, 8), _meta(1, 2, 8, 8)),
+    "mamba_scan": lambda g: mamba_scan(_meta(1, 4, 8, grad=g), _meta(1, 4, 8), _meta(8, 16),
+                                       _meta(1, 4, 16), _meta(1, 4, 16), _meta(8),
+                                       _meta(1, 8, 16)),
+}
+
+
+@pytest.mark.parametrize("kernel", list(GUARDED))
+def test_wrappers_refuse_inputs_that_need_grad(kernel):
+    """R11: off the CPU a wrapper launches its kernel outside autograd, so an
+    input that requires grad under grad mode raises (naming the ROADMAP
+    item) instead of silently losing its gradient; under torch.no_grad(),
+    or for inputs that do not require grad, it goes on (here to the
+    device check, since a meta tensor has no kernel)."""
+    with pytest.raises(RuntimeError, match="ROADMAP R11"):
+        GUARDED[kernel](True)
+    with torch.no_grad(), pytest.raises(ValueError, match="no kernel for device"):
+        GUARDED[kernel](True)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        GUARDED[kernel](False)
+
+
+def test_plain_versions_stay_differentiable():
+    """On the CPU the plain versions of the forward-only kernels carry
+    gradients (the wrappers' guard only acts off the CPU)."""
+    rng = np.random.default_rng(65)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 16)).astype(np.float32)).requires_grad_()
+    w = torch.from_numpy(rng.standard_normal((2, 16, 8)).astype(np.float32)).requires_grad_()
+    gx, gw = torch.autograd.grad(gmm(x, w, epilogue="silu").sum(), (x, w))
+    assert float(gx.abs().sum()) > 0 and float(gw.abs().sum()) > 0
 
 
 # ---------------------------------------------------------------------------
