@@ -9,8 +9,11 @@ failure of which exits non-zero:
 
 1. print the card (``nvidia-smi`` name and power limit); TF32 off;
 2. build the CUDA kernels (one ``nvcc`` per source, in parallel), printing
-   the build time and ptxas' report (per instance for K3, K5 and K1b, none
-   of whose instances may spill, nor K5's take more than 128 registers);
+   the build time and ptxas' report (per instance for K3, K5 and both K1b
+   sources, none of whose instances may spill, nor K5's take more than 128
+   registers, nor the wgmma K1b's differ from the entry count its
+   setmaxnreg exchange assumes; the wgmma K1b's shared memory, blocks an
+   SM and any wgmma serialisation ptxas reports);
 3. hold each kernel against its plain PyTorch version on the card, at the
    CPU tests' shapes and at both served models' shapes (qwen2-0.5b: head
    dim 64, d 896; deepseek-moe-16b: head dim 128, d 2048, the grouped
@@ -105,8 +108,10 @@ failure of which exits non-zero:
    ``ref.flash_attention_bwd_ref`` and against torch autograd through
    ``ref.mha_ref`` (relative to each gradient's max |.|, BWD_TOL), at the
    CPU tests' edge cases (q_offset, window + softcap, ragged Sq / Sk, G =
-   8, head dims 8 to 128) in f32 and bf16 and at the training shape (4,
-   2048, 15/5, 64) in bf16, each K1b run twice with bitwise-equal results;
+   8, head dims 8 to 128; at D 64, the wgmma instance's, also window +
+   softcap + q_offset under GQA and Sq, Sk off its 64-row tiles at G = 8)
+   in f32 and bf16 and at the training shape (4, 2048, 15/5, 64) in bf16,
+   each K1b run twice with bitwise-equal results;
    (c) K3b against ``ref.rmsnorm_bwd_ref`` at (8192, 960) and every served
    (rows, D), twice, bitwise equal; (d) one f32 train step at full width
    and depth (batch 2 x 1024), kernels vs plain: the loss within
@@ -117,10 +122,12 @@ failure of which exits non-zero:
    period's forward again), step ms, tokens/s and peak memory (the
    schedule launch.train gives 20 steps: peak lr 3e-4 after 10 warmup
    steps); (f) one
-   step under torch.profiler, which must show the tensor-core K1 and K1b
-   and the K3 / K3b kernels; (g) K1 with its lse, K1b and K3b timed with L2
-   flushed beside their bounds, plain versions and SDPA's / ``F.rms_norm``'s
-   backward; (h) K2, K4, K5 and K6 refuse an input that requires grad
+   step under torch.profiler, which must show K1's ``flash_fwd_mma``, K1b's
+   wgmma pair (``flash_attention.bwd_instances``) and neither mma.sync K1b
+   kernel, and the K3 / K3b kernels; (g) K1 with its lse, K1b (also in
+   TFLOP/s) and K3b timed with L2 flushed beside their bounds, plain
+   versions and SDPA's / ``F.rms_norm``'s backward, and K3 at the training
+   rows beside ``F.rms_norm``; (h) K2, K4, K5 and K6 refuse an input that requires grad
    (ROADMAP R11); (i) ``python -m repro_torch.launch.train --arch
    smollm-360m --steps 20`` in a child process, its loss falling;
 6. print the script's run time, the per-kernel JSON line (launches from the
@@ -289,6 +296,7 @@ def main() -> None:
     paths = _build.build()
     k1._entry()
     k1._bwd_entry()
+    k1._sm90_entry()
     k2._entry()
     k4._entry()
     k5._entry()
@@ -303,11 +311,26 @@ def main() -> None:
         spills = sum(n > 0 for _, _, n in ptxas[name])
         print(f"  {name}: {len(regs)} instances, max {max(regs, default=0)} registers, "
               f"{spills} with spills ({path.with_suffix('.log').name})", flush=True)
-    for name in ("rmsnorm", "mamba_scan", "flash_attention_bwd"):
+    for name in ("rmsnorm", "mamba_scan", "flash_attention_bwd", "flash_attention_bwd_sm90"):
         for fn_name, regs, spill in ptxas[name]:
             print(f"    {fn_name[:72]}: {regs} registers, {spill} bytes spilled", flush=True)
         if any(spill for *_, spill in ptxas[name]):
             fail(f"an instance of {name} spills registers")
+    # the wgmma K1b: its shared memory (all dynamic) and blocks an SM, and
+    # any wgmma serialisation ptxas reports
+    sm90_cfg = k1.sm90_config(k1._sm90_entry()[0], 0)
+    print(f"  flash_attention_bwd_sm90 configuration: {json.dumps(sm90_cfg)}", flush=True)
+    # setmaxnreg's exchange balances only if ptxas gave every instance the
+    # entry count the source assumes (another would leave it waiting)
+    sm90_regs = {fn_name: (regs, sm90_cfg["entry_regs_" + ("dq" if "dq_wgmma" in fn_name
+                                                          else "dkdv")])
+                 for fn_name, regs, _ in ptxas["flash_attention_bwd_sm90"]}
+    if len(sm90_regs) != 4 or any(got != want for got, want in sm90_regs.values()):
+        fail(f"flash_attention_bwd_sm90: ptxas registers (got, entry count) {sm90_regs}: "
+             "four instances, each at its entry count, expected")
+    for line in paths["flash_attention_bwd_sm90"].with_suffix(".log").read_text().splitlines():
+        if "Performance Loss" in line:
+            print(f"    ptxas: {line.strip()[:200]}", flush=True)
     if any(regs > 128 for _, regs, _ in ptxas["mamba_scan"]):
         fail("an instance of mamba_scan takes more than 128 registers (4 blocks an SM)")
 
@@ -1802,7 +1825,10 @@ def main() -> None:
     k1b_cases = [(2, 40, 64, 4, 2, 16, None, None, 24), (2, 64, 64, 4, 2, 16, 16, 50.0, 0),
                  (1, 96, 96, 4, 1, 32, None, 30.0, 0), (1, 200, 200, 8, 1, 64, None, None, 0),
                  (1, 100, 300, 16, 2, 128, 37, 30.0, 200), (1, 40, 40, 2, 2, 8, None, None, 0),
-                 (2, 256, 256, tHq, tHkv, tD, None, None, 0)]
+                 (2, 256, 256, tHq, tHkv, tD, None, None, 0),
+                 # the wgmma instance's features at D 64: window + softcap +
+                 # q_offset with GQA, and Sq, Sk off its 64-row tiles at G = 8
+                 (2, 136, 264, 15, 5, 64, 48, 30.0, 128), (1, 200, 330, 8, 1, 64, 100, None, 130)]
     err_lse = err_b = 0.0
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).removeprefix("torch.")
@@ -1928,7 +1954,7 @@ def main() -> None:
         fail(f"{TRAIN_ARCH}: the loss did not fall by more than 0.1 in {TRAIN_STEPS} steps")
 
     # (f) one train step under torch.profiler
-    train_profile = profile_step(lambda: train_step(state, batches[0]))
+    train_profile = profile_step(lambda: train_step(state, batches[0]), top=12)
     print(f"{TRAIN_ARCH} train step profile: {json.dumps(train_profile)}", flush=True)
     # the bf16 step ran the tensor-core instances of K1 and K1b and the K3 /
     # K3b kernels, and no CUDA-core instance of K1 or K1b (a session that
@@ -1936,7 +1962,8 @@ def main() -> None:
     names = train_profile["kernel_names"]
     want_names = [k1.instance(torch.bfloat16, tD), *k1.bwd_instances(torch.bfloat16, tD),
                   "rmsnorm_rows", "rmsnorm_bwd_rows", "rmsnorm_bwd_dscale"]
-    other_names = ["flash_fwd_simt", *k1.bwd_instances(torch.float32, tD)]
+    other_names = ["flash_fwd_simt", *k1.bwd_instances(torch.float32, tD),
+                   *k1.bwd_instances(torch.bfloat16, 32)]  # the mma.sync pair, D 16 / 32 now
     ran = {w: any(f"::{w}<" in n or f"::{w}(" in n for n in names)
            for w in want_names + other_names}
     print(f"{TRAIN_ARCH} train step attention and norm kernels: {json.dumps(ran)}", flush=True)
@@ -1999,13 +2026,27 @@ def main() -> None:
                 f"({tB * tS}, {tdm}) bf16")
     k3b["library_ms"] = time_ms(lambda: rms_norm_lib(True)) - time_ms(lambda: rms_norm_lib(False))
     k3b["library"] = "F.rms_norm forward + backward, less its forward"
+    # K3 itself at the training rows: x read and out written once
+    k3_train = timed(lambda: k3.rmsnorm(x, s_), lambda: ref.rmsnorm_ref(x, s_),
+                     lambda: rms_norm_lib(False), nbytes(x, s_, x), 0.0, peaks["bfloat16"],
+                     f"({tB * tS}, {tdm}) bf16")
+    k3_train["library"] = "F.rms_norm forward"
+    # K1b's rate: on the bound's count (5 products, 10 D flops a causal
+    # pair) and on the 7 products the two passes do
+    k1b["tflops"] = 10 * tD * pairs / (k1b["ms"] * 1e-3) / 1e12
+    k1b["tflops_7_products"] = 14 * tD * pairs / (k1b["ms"] * 1e-3) / 1e12
+    k1b["library_tflops"] = 10 * tD * pairs / (k1b["library_ms"] * 1e-3) / 1e12
     print(f"  flash_attention without lse: kernel {k1_lse['without_lse_ms']:.4f} ms at {shape1}",
           flush=True)
     for name, t in (("flash_attention with lse", k1_lse), ("flash_attention_bwd", k1b),
-                    ("flash_attention_bwd f32", k1b["float32"]), ("rmsnorm_bwd", k3b)):
+                    ("flash_attention_bwd f32", k1b["float32"]), ("rmsnorm_bwd", k3b),
+                    ("rmsnorm", k3_train)):
         print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
               f"{fmt_ms(t['library_ms'])}, bound {t['bound_ms']:.5f} ms ({t['bound_by']}) at "
               f"{t['shape']}", flush=True)
+    print(f"  flash_attention_bwd: {k1b['tflops']:.1f} TFLOP/s on the bound's count (10 D "
+          f"flops a causal pair), {k1b['tflops_7_products']:.1f} on the 7 products done; "
+          f"SDPA's backward {k1b['library_tflops']:.1f}", flush=True)
     del q, k, v, do, out, lse, qs, ks_, vs_, dos, qg, kg, vg, x, s_, dy, xg, wg
 
     # (h) R11: the forward-only kernels refuse an input that requires grad
@@ -2050,9 +2091,10 @@ def main() -> None:
     records["flash_attention"]["train_launches"] = train_launches["flash_attention"]
     records["flash_attention"]["lse_max_abs_err"] = err_lse
     records["rmsnorm"]["train_launches"] = train_launches["rmsnorm"]
+    records["rmsnorm"]["train"] = k3_train
     records["flash_attention_bwd"] = {
         "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_vjp.py:108", "max_abs_err": err_b,
         "launches": train_launches["flash_attention_bwd"], **k1b,
     }

@@ -1,0 +1,1033 @@
+// Flash attention backward (K1b) in bf16 at head dim 64, designed for Hopper
+// (sm_90a): wgmma products fed by TMA rings, warp-specialised, persistent.
+//
+// Replaces repro/kernels/flash_vjp.py's _bwd_rule (a jnp custom_vjp, not
+// Pallas) at bf16 D 64, the shape the training path runs; the other dtypes
+// and head dims stay in flash_attention_bwd.cu.  It computes what that file
+// computes (see its header): from (q, k, v, out, lse, dout),
+//
+//   delta_i = sum_d dout_i,d out_i,d       P_ij = exp(s_ij - lse_i)
+//   dv_j   += P_ij dout_i                 dS_ij = P_ij (dout_i . v_j - delta_i) chain_ij
+//   dq_i   += scale dS_ij k_j             dk_j += scale dS_ij q_i
+//
+// over the live (i, j) pairs of causal / sliding window / q_offset / tanh
+// softcap GQA attention, with P and dS rounded to bf16 as product operands
+// and f32 sums.  Two passes, no float atomics, so equal inputs give equal
+// bytes; neither P nor dS ever reaches device memory:
+//
+// * flash_bwd_dq_wgmma: an item is 64 x WG_DQ q rows of one head.  It
+//   computes delta (and writes it, with lse * log2 e, to `stat`, per 64-row
+//   tile) and walks the key tiles the rows can see: S = Q K^T, dP = dO V^T,
+//   dQ += dS K.
+// * flash_bwd_dkdv_wgmma: an item is 64 x WG_DKDV keys of one KV head.  It
+//   walks the 64-row q tiles of its G query heads that can see those keys:
+//   S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q.
+//
+// What bounds it: at smollm-360m's training shape (4, 2048, 15/5, 64),
+// causal, the five products a fused backward needs are ~8.1e10 flops (10 D
+// a live pair) against ~42 MB of traffic, so the tensor cores set the
+// card's bound (~0.08 ms).  Two passes do 7 products (S and dP twice), each
+// m64 n64 k16: the width at which a thread's accumulators fit (dk / dv
+// holds four), and which, measured, sets the time (PERF.md).  What the
+// design does about it:
+//
+// * Products on wgmma.mma_async m64n64k16 (bf16 -> f32), one consumer
+//   warpgroup per 64 rows or keys, WG (1 or 2) of them a block.  S and dP
+//   (S^T, dP^T) take both operands from shared memory (K-major).  The P / dS
+//   products take A from registers (the f32 accumulator repacked to bf16:
+//   the accumulator's fragment is the A fragment of the next product) and B
+//   as the MN-major tile of dout, Q or K through wgmma's transpose bit, not
+//   a copy.
+// * Operands arrive by TMA (cp.async.bulk.tensor, 4-d tensor maps over the
+//   (B, S, H, 64) tensors, 64-row boxes of one head, 128-byte swizzle: a
+//   row of 64 bf16 is one swizzle row).  One producer thread keeps a ring
+//   of STAGES stages in flight, each with a full and an empty mbarrier;
+//   the tensor map zero-fills the ragged Sq / Sk edge.  A dkdv stage also
+//   carries its q tile's lse * log2 e and delta (512 bytes of `stat`, by
+//   cp.async.bulk under the same barrier).  An item's own tiles (K / V, or
+//   Q / dO / O) are double-buffered, so the next item's load overlaps the
+//   current item's products.  setmaxnreg gives the producer warpgroup's
+//   registers to the consumers; the exchange balances only at the entry
+//   count the constants below assume, so the host side refuses to launch
+//   a build whose kernels ptxas gave another count (the consumers'
+//   setmaxnreg would wait forever for registers the block does not hold).
+// * Software pipelining inside each consumer warpgroup: a step issues the
+//   next tile's S (dq: and dP) before this tile's exponentials, and leaves
+//   its dQ (dk / dv: dV and dK, then the next tile's dP^T) in flight into
+//   the next step, which releases this tile's stage once its wait completes
+//   them.  So the tensor cores hold queued products while the warpgroup
+//   computes P and dS, and a second warpgroup fills the rest.  Nothing
+//   between a wgmma's issue and its wait branches (a branch there makes
+//   ptxas serialise the wgmmas): the last step of a run is peeled off at
+//   compile time, the softcap is a template parameter, every element is
+//   masked by two compares against its row's (or key's) live interval, and
+//   a warp's barrier arrival is predicated.  Exponentials run as
+//   ex2.approx.ftz, one instruction (exp2f adds a rescale for results below
+//   2^-126; such P flush to 0).
+// * Balance: a persistent grid, its blocks' item lists computed in Python
+//   (flash_attention.bwd_plan: longest first onto the least loaded block)
+//   and passed in `plan` ([blocks + 1] offsets, then item ids).  A
+//   warpgroup passes the tiles of an item outside its run of tiles with a
+//   live pair (waits for them and releases them).
+//
+// Build-time configuration (defaults below; tools/k1b_variants.py builds
+// others): K1B_DQ_WG and K1B_DKDV_WG consumer warpgroups a block (1 or 2;
+// 1 spills), K1B_STAGES ring stages.
+#include <cuda.h>
+
+#include "mma.cuh"
+
+#ifndef K1B_DQ_WG
+#define K1B_DQ_WG 2
+#endif
+#ifndef K1B_DKDV_WG
+#define K1B_DKDV_WG 2
+#endif
+#ifndef K1B_STAGES
+#define K1B_STAGES 4
+#endif
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kT = 64;                       // rows (or keys) of a tile and of a warpgroup
+constexpr int kTileElems = kT * 64;          // a 64 x 64 bf16 tile: 64 rows of 128 bytes
+constexpr uint32_t kTileBytes = kTileElems * 2;
+constexpr int kStat = 2 * kT;                // stat floats per q tile: lse * log2 e, delta
+constexpr uint32_t kStatBytes = kStat * 4;
+// A barrier wait this long traps: a minute is far beyond any preemption or
+// time slice, so only a fault in the ring's bookkeeping reaches it
+constexpr unsigned long long kHangNs = 60000000000ull;
+
+// ---------------------------------------------------------------------------
+// mbarrier, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+// one arrival that also expects `bytes` of asynchronous copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// wait until the phase of parity `parity` has completed; a wait of kHangNs
+// traps (a CUDA error the caller sees) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const unsigned long long t0 = global_ns();
+  for (uint32_t n = 1; !mbar_try_wait(addr, parity); ++n)
+    if (n % 1024 == 0 && global_ns() - t0 > kHangNs) __trap();
+}
+
+// one 64-row box of one head of a (B, S, H, 64) tensor -> shared memory
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(head), "r"(row), "r"(batch),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+// `bytes` contiguous bytes (16-byte aligned) -> shared memory
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// a consumer warp is done with what `bar` guards: one arrival a warp, after
+// all its lanes, when `on` (a predicate, not a branch: a branch between a
+// wgmma's issue and its wait makes ptxas serialise the wgmmas)
+__device__ __forceinline__ void release(uint64_t* bar, int lane, bool on = true) {
+  __syncwarp();
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %1, 0;\n"
+      " @p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(static_cast<int>(on && lane == 0))
+      : "memory");
+}
+
+template <int N> __device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from reading an accumulator before the wait that
+// completes it (the wgmma asm "writes" it at issue)
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a 64-row tile of 128-byte rows stored
+// as TMA's 128-byte swizzle writes it (1024-byte aligned): layout B128,
+// stride between 8-row groups (SBO) 1024 bytes.  K-major (the 64 columns
+// are the product's K): a k16 step advances the start by 32 bytes, and LBO
+// is unused.  MN-major (the rows are K): a k16 step advances it by 16 rows,
+// 2048 bytes; LBO, the stride between 64-column atoms along MN, is unused
+// at N 64.  Both offsets hold 1024 bytes.
+__device__ __forceinline__ uint64_t tile_desc(const bf16* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+constexpr uint64_t kKStep = 32 >> 4;     // K-major k16 step, in descriptor units
+constexpr uint64_t kMNStep = 2048 >> 4;  // MN-major k16 step
+
+#define ACC32_STR                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define ACC32(d)                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64 f32) = (accumulate ? d : 0) + A (64 x 16, K-major smem) B (16 x 64, K-major smem)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_STR
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// d (64 x 64 f32) = (accumulate ? d : 0) + A (64 x 16, bf16 fragments in
+// registers) B (16 x 64 smem, K-major, or MN-major with kTransB)
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_STR
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB));
+}
+
+// Accumulator fragment of m64nNk16 (f32), thread t of the warpgroup (warp
+// w = t / 32, lane = 4 gr + tq): d[4 j + 2 h + c] = D[16 w + gr + 8 h][8 j +
+// 2 tq + c].  The A fragment of m64nNk16 from registers, k16 step kk, is
+// the same map over columns 16 kk .. 16 kk + 15: a[kk][2 (j & 1) + h] packs
+// columns (2 tq, 2 tq + 1) of n-tile j = 2 kk + (j & 1), row half h.
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+__device__ __forceinline__ void mma64(float (&d)[32], uint64_t a, uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss(d, a + kk * kKStep, b + kk * kKStep, kk > 0);
+}
+// d += A B, A in registers, B's tile MN-major (dQ += dS K)
+__device__ __forceinline__ void mma64_rs(float (&d)[32], const uint32_t (&a)[4][4], uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(d, a[kk], b + kk * kMNStep, 1);
+}
+
+// ---------------------------------------------------------------------------
+// the walk of an item, shared by the producer and the consumers (and by
+// flash_attention.bwd_walk in Python)
+// ---------------------------------------------------------------------------
+
+struct Range {
+  int start, n;  // first row (or key) of the first 64-tile, number of tiles
+};
+// the key tiles that rows [row0, row0 + rows) can see
+__device__ __forceinline__ Range dq_keys(int row0, int rows, int Sq, int Sk, int causal,
+                                         int window, int q_offset) {
+  const int last_row = min(Sq, row0 + rows) - 1;
+  const int hi = causal ? min(Sk, q_offset + last_row + 1) : Sk;
+  const int lo = window >= 0 ? max(0, q_offset + row0 - window + 1) : 0;
+  const int start = lo / kT * kT;
+  return {start, hi > start ? (hi - start + kT - 1) / kT : 0};
+}
+// the q tiles (of each head) whose rows can see keys [key0, key0 + keys)
+__device__ __forceinline__ Range dkdv_rows(int key0, int keys, int Sq, int Sk, int causal,
+                                           int window, int q_offset) {
+  const int last_key = min(Sk, key0 + keys) - 1;
+  const int lo = causal ? max(0, key0 - q_offset) : 0;
+  const int hi = window >= 0 ? min(Sq, last_key + window - q_offset) : Sq;
+  const int start = lo / kT * kT;
+  return {start, hi > start ? (hi - start + kT - 1) / kT : 0};
+}
+
+struct Attn {  // what decides a pair's liveness and its probability
+  int Sq, Sk, causal, window, q_offset;
+  float scale, scale_log2, softcap;
+};
+// whether some pair of rows [q0, q0 + 64) and keys [k0, k0 + 64) is live
+__device__ __forceinline__ bool tile_live(int q0, int k0, const Attn& a) {
+  const int q1 = min(q0 + kT, a.Sq) - 1, k1 = min(k0 + kT, a.Sk) - 1;
+  bool any = q0 < a.Sq && k0 < a.Sk;
+  if (a.causal) any = any && k0 <= a.q_offset + q1;
+  if (a.window >= 0) any = any && k1 > a.q_offset + q0 - a.window;
+  return any;
+}
+// The live keys of row `row` form the interval [lo, hi) (empty past Sq) ...
+struct Span {
+  int lo, hi;
+};
+__device__ __forceinline__ Span row_keys(int row, const Attn& a) {
+  if (row >= a.Sq) return {1, 0};
+  return {a.window >= 0 ? a.q_offset + row - a.window + 1 : 0,
+          a.causal ? min(a.Sk, a.q_offset + row + 1) : a.Sk};
+}
+// ... and the rows that see key `key` form [lo, hi) (empty past Sk)
+__device__ __forceinline__ Span key_rows(int key, const Attn& a) {
+  if (key >= a.Sk) return {1, 0};
+  return {a.causal ? key - a.q_offset : 0,
+          a.window >= 0 ? min(a.Sq, key - a.q_offset + a.window) : a.Sq};
+}
+__device__ __forceinline__ float keep(float p, int x, Span span) {
+  return x >= span.lo && x < span.hi ? p : 0.f;
+}
+
+// 2^x on the special-function unit alone (exp2f adds a rescale for results
+// below 2^-126, which P can spare: they flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// P of the raw score s (Q K^T before the scale) against lse2 = lse log2 e,
+// and the softcap's chain factor
+template <bool kCap>
+__device__ __forceinline__ float prob(float s, float lse2, const Attn& a, float* chain) {
+  if constexpr (kCap) {
+    // tanh x = 1 - 2 / (e^2x + 1): no branch (tanhf has one), and f32
+    // rounding in absolute terms, which is what the capped score needs
+    const float t = 1.f - __fdividef(2.f, ex2(s * a.scale / a.softcap * (2 * kLog2e)) + 1.f);
+    *chain = 1.f - t * t;
+    return ex2(t * a.softcap * kLog2e - lse2);
+  }
+  *chain = 1.f;
+  return ex2(s * a.scale_log2 - lse2);
+}
+// The elementwise steps have no branch: a branch between a wgmma's issue
+// and its wait makes ptxas serialise the wgmmas.  So every element is
+// masked (two compares and a select) and the softcap is a template
+// parameter of the kernels.
+
+// a dq tile: s (S = Q K^T: rows of spans[h], keys key_a + 8 j + c) <- P chain
+template <bool kCap>
+__device__ __forceinline__ void dq_probs(float (&s)[32], const float (&lse2)[2],
+                                         const Span (&spans)[2], int key_a, const Attn& a) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int h = (e >> 1) & 1;
+    float chain;
+    const float p = keep(prob<kCap>(s[e], lse2[h], a, &chain), key_a + 8 * (e >> 2) + (e & 1),
+                         spans[h]);
+    s[e] = kCap ? p * chain : p;
+  }
+}
+// a dk / dv tile: s (S^T = K Q^T: keys of spans[h], rows row_a + 8 j + c) <-
+// P chain, and pa <- P in bf16 as A fragments; lse2 holds this thread's
+// columns' lse log2 e at lse2[8 j], lse2[8 j + 1]
+template <bool kCap>
+__device__ __forceinline__ void kv_probs(float (&s)[32], uint32_t (&pa)[4][4], const float* lse2,
+                                         const Span (&spans)[2], int row_a, const Attn& a) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 4 * j + 2 * h, row = row_a + 8 * j;
+      float c0, c1;
+      const float p0 = keep(prob<kCap>(s[e], l2.x, a, &c0), row, spans[h]);
+      const float p1 = keep(prob<kCap>(s[e + 1], l2.y, a, &c1), row + 1, spans[h]);
+      pa[j >> 1][2 * (j & 1) + h] = pack2(p0, p1);
+      s[e] = kCap ? p0 * c0 : p0;
+      s[e + 1] = kCap ? p1 * c1 : p1;
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// a position in a ring of ST stages: the stage and its phase parity
+template <int ST>
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++stage == ST) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// a consumer passes a tile with no live pair: waits for it, releases it
+template <int ST>
+__device__ __forceinline__ void skip_tile(uint64_t* full, uint64_t* empty, Ring<ST>& ring,
+                                          int lane) {
+  mbar_wait(&full[ring.stage], ring.phase);
+  release(&empty[ring.stage], lane);
+  ring.next();
+}
+
+// setmaxnreg: the block holds (WG + 1) x 128 threads x its entry registers
+// (the register file over the threads an SM holds, in steps of 8: 168 at
+// WG 2, one block an SM; 128 at WG 1, two), all of which the producer's 40
+// and the consumers' share add up to
+constexpr int kProducerRegs = 40;
+template <int WG> constexpr int kBlocksPerSm = WG == 1 ? 2 : 1;
+template <int WG>
+constexpr int kEntryRegs = 65536 / ((WG + 1) * 128 * kBlocksPerSm<WG>) / 8 * 8;
+template <int WG>
+constexpr int kConsumerRegs = ((WG + 1) * kEntryRegs<WG> - kProducerRegs) / WG / 8 * 8;
+static_assert(kEntryRegs<2> == 168 && kConsumerRegs<2> == 232 && kConsumerRegs<1> == 216,
+              "setmaxnreg's counts");
+
+// ---------------------------------------------------------------------------
+// dq pass
+// ---------------------------------------------------------------------------
+
+template <int WG, int ST>
+struct DqSmem {
+  bf16 item[2][3][WG * kTileElems];  // Q, dO, O of the item's rows, two items
+  bf16 ring[ST][2][kTileElems];      // K, V of one key tile a stage
+  uint64_t full[ST], empty[ST], item_full[2], item_empty[2];
+};
+
+// S = Q K^T and dP = dO V^T of a key tile (K, V) into s, dp, as two groups
+__device__ __forceinline__ void dq_products(float (&s)[32], float (&dp)[32],
+                                            uint64_t q_desc, uint64_t do_desc,
+                                            const bf16 (&kv)[2][kTileElems]) {
+  mma64(s, q_desc, tile_desc(kv[0]));
+  wgmma_commit();
+  mma64(dp, do_desc, tile_desc(kv[1]));
+  wgmma_commit();
+}
+
+// One step of a dq consumer, on tile t of its run of live tiles (its S and
+// dP already issued, into s and dp): first the next tile's S and dP (into
+// sn, dpn), so that the tensor cores hold them while this thread computes
+// tile t's P and dS; then dQ += dS K, left in flight.  `cur` is tile t's
+// stage, `held` the previous tile's, released once the wait completes its
+// dQ product.
+template <bool kNext, bool kCap, int WG, int ST>
+__device__ __forceinline__ void dq_step(DqSmem<WG, ST>& sm, Ring<ST>& ring, int& cur, int& held,
+                                        float (&s)[32], float (&dp)[32], float (&sn)[32],
+                                        float (&dpn)[32], float (&dqa)[32],
+                                        uint64_t q_desc, uint64_t do_desc, int key_a, int lane,
+                                        const float (&lse2)[2], const float (&dl)[2],
+                                        const Span (&spans)[2], const Attn& a) {
+  int nxt = -1;
+  if constexpr (kNext) {
+    mbar_wait(&sm.full[ring.stage], ring.phase);
+    wgmma_fence();
+    dq_products(sn, dpn, q_desc, do_desc, sm.ring[ring.stage]);  // tile t + 1
+    wgmma_commit();
+    nxt = ring.stage;
+    ring.next();
+    wgmma_wait<2>();  // tile t's S and dP and tile t - 1's dQ product are done
+  } else {
+    wgmma_wait<0>();
+  }
+  fence_acc(s);
+  fence_acc(dp);
+  release(&sm.empty[held >= 0 ? held : 0], lane, held >= 0);
+  dq_probs<kCap>(s, lse2, spans, key_a, a);
+  uint32_t dsa[4][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 4 * j + 2 * h;
+      dsa[j >> 1][2 * (j & 1) + h] =
+          pack2(s[e] * (dp[e] - dl[h]), s[e + 1] * (dp[e + 1] - dl[h]));
+    }
+  wgmma_fence();
+  mma64_rs(dqa, dsa, tile_desc(sm.ring[cur][0]));  // dQ += dS K
+  wgmma_commit();
+  held = cur;
+  cur = nxt;
+}
+
+template <int WG, int ST, bool kCap>
+__global__ void __launch_bounds__((WG + 1) * 128, kBlocksPerSm<WG>)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_o,
+                   const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                   float* __restrict__ stat, bf16* __restrict__ dq, const int* __restrict__ plan,
+                   int Sq, int Sk, int Hq, int Hkv, int causal, int window, float softcap,
+                   float scale, int q_offset) {
+  extern __shared__ unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<DqSmem<WG, ST>*>(align1024(smem_raw));
+  const int n_tiles = (Sq + WG * kT - 1) / (WG * kT);  // items per (head, batch)
+  const int nqt = (Sq + kT - 1) / kT;                  // stat tiles per (head, batch)
+  const int G = Hq / Hkv;
+  const int first = plan[blockIdx.x], last = plan[blockIdx.x + 1];
+  const int* items = plan + gridDim.x + 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], WG * 4);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.item_full[b], 1);
+      mbar_init(&sm.item_empty[b], WG * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == WG) {  // producer warpgroup: one thread issues every copy
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == WG * 128) {
+      Ring<ST> ring;
+      for (int n = first; n < last; ++n) {
+        const int it = items[n], qt = it % n_tiles, h = (it / n_tiles) % Hq,
+                  b = it / n_tiles / Hq, hk = h / G, row0 = qt * WG * kT;
+        const int buf = (n - first) & 1;
+        mbar_wait(&sm.item_empty[buf], (((n - first) >> 1) & 1) ^ 1);
+        mbar_expect_tx(&sm.item_full[buf], 3 * WG * kTileBytes);
+        for (int w = 0; w < WG; ++w) {
+          tma_tile(sm.item[buf][0] + w * kTileElems, &tm_q, &sm.item_full[buf], h, row0 + w * kT, b);
+          tma_tile(sm.item[buf][1] + w * kTileElems, &tm_do, &sm.item_full[buf], h, row0 + w * kT, b);
+          tma_tile(sm.item[buf][2] + w * kTileElems, &tm_o, &sm.item_full[buf], h, row0 + w * kT, b);
+        }
+        const Range kr = dq_keys(row0, WG * kT, Sq, Sk, causal, window, q_offset);
+        for (int t = 0; t < kr.n; ++t) {
+          const int stage = ring.stage;
+          mbar_wait(&sm.empty[stage], ring.phase ^ 1);
+          mbar_expect_tx(&sm.full[stage], 2 * kTileBytes);
+          tma_tile(sm.ring[stage][0], &tm_k, &sm.full[stage], hk, kr.start + t * kT, b);
+          tma_tile(sm.ring[stage][1], &tm_v, &sm.full[stage], hk, kr.start + t * kT, b);
+          ring.next();
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: rows [row0 + 64 wg, + 64) of each item
+    regs_inc<kConsumerRegs<WG>>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int gr = lane >> 2, tq = lane & 3;
+    const Attn a = {Sq, Sk, causal, window, q_offset, scale, scale * kLog2e, softcap};
+    Ring<ST> ring;
+    for (int n = first; n < last; ++n) {
+      const int it = items[n], qt = it % n_tiles, h = (it / n_tiles) % Hq,
+                b = it / n_tiles / Hq, row0 = qt * WG * kT, r0 = row0 + wg * kT;
+      const int buf = (n - first) & 1;
+      const Range kr = dq_keys(row0, WG * kT, Sq, Sk, causal, window, q_offset);
+      mbar_wait(&sm.item_full[buf], ((n - first) >> 1) & 1);
+      const bf16* qs = sm.item[buf][0] + wg * kTileElems;
+      const bf16* dos = sm.item[buf][1] + wg * kTileElems;
+      const bf16* os = sm.item[buf][2] + wg * kTileElems;
+
+      // delta = rowsum(dout * out) and lse * log2 e of this thread's rows
+      // 16 warp + gr + 8 i; the 4 threads of a row sum 16 columns each
+      float lse2[2], dl[2];
+      const size_t stat_row = static_cast<size_t>(b) * Hq + h;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = warp * 16 + gr + 8 * i, row = r0 + r;
+        float acc = 0.f;
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2) {
+          const int chunk = (2 * tq + c2) ^ (r & 7);  // the 128-byte swizzle
+          const uint4 ov = *reinterpret_cast<const uint4*>(os + r * 64 + chunk * 8);
+          const uint4 dv = *reinterpret_cast<const uint4*>(dos + r * 64 + chunk * 8);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+            acc += of.x * df.x + of.y * df.y;
+          }
+        }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        dl[i] = acc;
+        lse2[i] = row < Sq ? lse[stat_row * Sq + row] * kLog2e : 0.f;
+        if (tq == 0 && r0 < Sq) {
+          float* st = stat + (stat_row * nqt + r0 / kT) * kStat;
+          st[r] = lse2[i];
+          st[kT + r] = acc;
+        }
+      }
+
+      float dqa[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dqa[e] = 0.f;
+      const uint64_t q_desc = tile_desc(qs), do_desc = tile_desc(dos);
+      // this warpgroup's key tiles with a live pair form a run [lo, hi) (the
+      // keys a range of rows sees are an interval); it only passes the rest
+      int lo = 0, hi = kr.n;
+      while (lo < hi && !tile_live(r0, kr.start + lo * kT, a)) ++lo;
+      while (hi > lo && !tile_live(r0, kr.start + (hi - 1) * kT, a)) --hi;
+      for (int t = 0; t < lo; ++t) skip_tile(sm.full, sm.empty, ring, lane);
+      if (lo < hi) {
+        float s0[32], dp0[32], s1[32], dp1[32];
+        mbar_wait(&sm.full[ring.stage], ring.phase);
+        wgmma_fence();
+        dq_products(s0, dp0, q_desc, do_desc, sm.ring[ring.stage]);
+        int cur = ring.stage, held = -1;
+        ring.next();
+        const Span spans[2] = {row_keys(r0 + warp * 16 + gr, a), row_keys(r0 + warp * 16 + gr + 8, a)};
+        // two steps a turn, so the register sets alternate; the last step,
+        // with no next tile, apart
+#define DQ_STEP(kNext, t, S, DP, SN, DPN)                                                   \
+  dq_step<kNext, kCap>(sm, ring, cur, held, S, DP, SN, DPN, dqa, q_desc, do_desc,          \
+                       kr.start + (t) * kT + 2 * tq, lane, lse2, dl, spans, a)
+        int t = lo;
+        for (; t + 2 < hi; t += 2) {
+          DQ_STEP(true, t, s0, dp0, s1, dp1);
+          DQ_STEP(true, t + 1, s1, dp1, s0, dp0);
+        }
+        if (t + 1 < hi) {
+          DQ_STEP(true, t, s0, dp0, s1, dp1);
+          DQ_STEP(false, t + 1, s1, dp1, s0, dp0);
+        } else {
+          DQ_STEP(false, t, s0, dp0, s1, dp1);
+        }
+#undef DQ_STEP
+        wgmma_wait<0>();
+        release(&sm.empty[held], lane);
+      }
+      fence_acc(dqa);
+      for (int t = hi; t < kr.n; ++t) skip_tile(sm.full, sm.empty, ring, lane);
+      release(&sm.item_empty[buf], lane);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + warp * 16 + gr + 8 * hh;
+        if (row >= Sq) continue;
+        bf16* dst = dq + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * 64 + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(dqa[4 * j + 2 * hh] * scale, dqa[4 * j + 2 * hh + 1] * scale);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk / dv pass
+// ---------------------------------------------------------------------------
+
+template <int WG, int ST>
+struct DkdvSmem {
+  bf16 kv[2][2][WG * kTileElems];  // K, V of the item's keys, two items
+  bf16 ring[ST][2][kTileElems];    // Q, dO of one q tile a stage
+  float stat[ST][kStat];           // its lse * log2 e and delta
+  uint64_t full[ST], empty[ST], kv_full[2], kv_empty[2];
+};
+
+// One step of a dk / dv consumer, on tile t of its run of live tiles (its
+// S^T and dP^T already issued, into s and dp): first the next tile's S^T
+// (into sn), so that the tensor cores hold it while this thread computes
+// tile t's P and dS; then dV += P^T dO and dK += dS^T Q, left in flight,
+// and behind them the next tile's dP^T (into dp, free again).  `cur` is
+// tile t's stage, `held` the previous tile's, released once the wait
+// completes its products.
+template <bool kNext, bool kCap, int WG, int ST>
+__device__ __forceinline__ void kv_step(DkdvSmem<WG, ST>& sm, Ring<ST>& ring, int& cur, int& held,
+                                        float (&s)[32], float (&sn)[32], float (&dp)[32],
+                                        float (&dka)[32], float (&dva)[32], uint64_t k_desc,
+                                        uint64_t v_desc, int row_a, int tq, int lane,
+                                        const Span (&spans)[2], const Attn& a) {
+  int nxt = -1;
+  if constexpr (kNext) {
+    mbar_wait(&sm.full[ring.stage], ring.phase);
+    wgmma_fence();
+    mma64(sn, k_desc, tile_desc(sm.ring[ring.stage][0]));  // S^T = K Q^T, tile t + 1
+    wgmma_commit();
+    nxt = ring.stage;
+    ring.next();
+    wgmma_wait<1>();  // tile t's S^T and dP^T and tile t - 1's dV / dK are done
+  } else {
+    wgmma_wait<0>();
+  }
+  fence_acc(s);
+  fence_acc(dp);
+  release(&sm.empty[held >= 0 ? held : 0], lane, held >= 0);
+  const float* st = sm.stat[cur];
+  uint32_t pa[4][4], dsa[4][4];
+  kv_probs<kCap>(s, pa, st + 2 * tq, spans, row_a, a);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 dl = *reinterpret_cast<const float2*>(st + kT + 8 * j + 2 * tq);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 4 * j + 2 * h;
+      dsa[j >> 1][2 * (j & 1) + h] = pack2(s[e] * (dp[e] - dl.x), s[e + 1] * (dp[e + 1] - dl.y));
+    }
+  }
+  wgmma_fence();
+  mma64_rs(dva, pa, tile_desc(sm.ring[cur][1]));   // dV += P^T dO
+  mma64_rs(dka, dsa, tile_desc(sm.ring[cur][0]));  // dK += dS^T Q
+  wgmma_commit();
+  if constexpr (kNext) {
+    mma64(dp, v_desc, tile_desc(sm.ring[nxt][1]));  // dP^T = V dO^T, tile t + 1
+    wgmma_commit();
+  }
+  held = cur;
+  cur = nxt;
+}
+
+template <int WG, int ST, bool kCap>
+__global__ void __launch_bounds__((WG + 1) * 128, kBlocksPerSm<WG>)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ stat,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ plan,
+                     int Sq, int Sk, int Hq, int Hkv, int causal, int window, float softcap,
+                     float scale, int q_offset) {
+  extern __shared__ unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<DkdvSmem<WG, ST>*>(align1024(smem_raw));
+  const int n_tiles = (Sk + WG * kT - 1) / (WG * kT);  // items per (KV head, batch)
+  const int nqt = (Sq + kT - 1) / kT;
+  const int G = Hq / Hkv;
+  const int first = plan[blockIdx.x], last = plan[blockIdx.x + 1];
+  const int* items = plan + gridDim.x + 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], WG * 4);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.kv_full[b], 1);
+      mbar_init(&sm.kv_empty[b], WG * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == WG) {  // producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == WG * 128) {
+      Ring<ST> ring;
+      for (int n = first; n < last; ++n) {
+        const int it = items[n], kt = it % n_tiles, hk = (it / n_tiles) % Hkv,
+                  b = it / n_tiles / Hkv, key0 = kt * WG * kT;
+        const int buf = (n - first) & 1;
+        mbar_wait(&sm.kv_empty[buf], (((n - first) >> 1) & 1) ^ 1);
+        mbar_expect_tx(&sm.kv_full[buf], 2 * WG * kTileBytes);
+        for (int w = 0; w < WG; ++w) {
+          tma_tile(sm.kv[buf][0] + w * kTileElems, &tm_k, &sm.kv_full[buf], hk, key0 + w * kT, b);
+          tma_tile(sm.kv[buf][1] + w * kTileElems, &tm_v, &sm.kv_full[buf], hk, key0 + w * kT, b);
+        }
+        const Range qr = dkdv_rows(key0, WG * kT, Sq, Sk, causal, window, q_offset);
+        for (int gh = 0; gh < G; ++gh) {
+          const int h = hk * G + gh;
+          const float* st = stat + (static_cast<size_t>(b) * Hq + h) * nqt * kStat;
+          for (int t = 0; t < qr.n; ++t) {
+            const int i0 = qr.start + t * kT, stage = ring.stage;
+            mbar_wait(&sm.empty[stage], ring.phase ^ 1);
+            mbar_expect_tx(&sm.full[stage], 2 * kTileBytes + kStatBytes);
+            tma_tile(sm.ring[stage][0], &tm_q, &sm.full[stage], h, i0, b);
+            tma_tile(sm.ring[stage][1], &tm_do, &sm.full[stage], h, i0, b);
+            bulk_copy(sm.stat[stage], st + (i0 / kT) * kStat, kStatBytes, &sm.full[stage]);
+            ring.next();
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: keys [key0 + 64 wg, + 64) of each item
+    regs_inc<kConsumerRegs<WG>>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int gr = lane >> 2, tq = lane & 3;
+    const Attn a = {Sq, Sk, causal, window, q_offset, scale, scale * kLog2e, softcap};
+    Ring<ST> ring;
+    for (int n = first; n < last; ++n) {
+      const int it = items[n], kt = it % n_tiles, hk = (it / n_tiles) % Hkv,
+                b = it / n_tiles / Hkv, key0 = kt * WG * kT, c0 = key0 + wg * kT;
+      const int buf = (n - first) & 1;
+      const Range qr = dkdv_rows(key0, WG * kT, Sq, Sk, causal, window, q_offset);
+      mbar_wait(&sm.kv_full[buf], ((n - first) >> 1) & 1);
+      const uint64_t k_desc = tile_desc(sm.kv[buf][0] + wg * kTileElems);
+      const uint64_t v_desc = tile_desc(sm.kv[buf][1] + wg * kTileElems);
+      const int key_a = c0 + warp * 16 + gr;  // this thread's keys: key_a, key_a + 8
+      const Span spans[2] = {key_rows(key_a, a), key_rows(key_a + 8, a)};
+
+      float dka[32], dva[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dka[e] = dva[e] = 0.f;
+      // this warpgroup's q tiles with a live pair form a run [lo, hi) (the
+      // rows that see a range of keys are an interval); it only passes the rest
+      int lo = 0, hi = qr.n;
+      while (lo < hi && !tile_live(qr.start + lo * kT, c0, a)) ++lo;
+      while (hi > lo && !tile_live(qr.start + (hi - 1) * kT, c0, a)) --hi;
+      for (int gh = 0; gh < G; ++gh) {
+        for (int t = 0; t < lo; ++t) skip_tile(sm.full, sm.empty, ring, lane);
+        if (lo < hi) {
+          float s0[32], s1[32], dp[32];
+          mbar_wait(&sm.full[ring.stage], ring.phase);
+          wgmma_fence();
+          mma64(s0, k_desc, tile_desc(sm.ring[ring.stage][0]));
+          wgmma_commit();
+          mma64(dp, v_desc, tile_desc(sm.ring[ring.stage][1]));
+          wgmma_commit();
+          int cur = ring.stage, held = -1;
+          ring.next();
+          // two steps a turn, so the register sets alternate; the last step,
+          // with no next tile, apart
+#define KV_STEP(kNext, t, S, SN)                                                              \
+  kv_step<kNext, kCap>(sm, ring, cur, held, S, SN, dp, dka, dva, k_desc, v_desc,             \
+                       qr.start + (t) * kT + 2 * tq, tq, lane, spans, a)
+          int t = lo;
+          for (; t + 2 < hi; t += 2) {
+            KV_STEP(true, t, s0, s1);
+            KV_STEP(true, t + 1, s1, s0);
+          }
+          if (t + 1 < hi) {
+            KV_STEP(true, t, s0, s1);
+            KV_STEP(false, t + 1, s1, s0);
+          } else {
+            KV_STEP(false, t, s0, s1);
+          }
+#undef KV_STEP
+          wgmma_wait<0>();
+          release(&sm.empty[held], lane);
+        }
+        for (int t = hi; t < qr.n; ++t) skip_tile(sm.full, sm.empty, ring, lane);
+      }
+      fence_acc(dka);
+      fence_acc(dva);
+      release(&sm.kv_empty[buf], lane);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int key = key_a + 8 * hh;
+        if (key >= Sk) continue;
+        const size_t off = ((static_cast<size_t>(b) * Sk + key) * Hkv + hk) * 64 + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+              __floats2bfloat162_rn(dka[4 * j + 2 * hh] * scale, dka[4 * j + 2 * hh + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+              __floats2bfloat162_rn(dva[4 * j + 2 * hh], dva[4 * j + 2 * hh + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+constexpr int kDqWG = K1B_DQ_WG, kDkdvWG = K1B_DKDV_WG, kStages = K1B_STAGES;
+static_assert((kDqWG == 1 || kDqWG == 2) && (kDkdvWG == 1 || kDkdvWG == 2), "1 or 2 warpgroups");
+static_assert(kStages >= 3 && kStages <= 6,
+              "3 to 6 ring stages: a consumer holds one while the next loads");
+
+constexpr int kDqSmem = sizeof(DqSmem<kDqWG, kStages>) + 1024;  // + the 1024-byte alignment
+constexpr int kDkdvSmem = sizeof(DkdvSmem<kDkdvWG, kStages>) + 1024;
+#define DQ_KERNEL(cap) flash_bwd_dq_wgmma<kDqWG, kStages, cap>
+#define DKDV_KERNEL(cap) flash_bwd_dkdv_wgmma<kDkdvWG, kStages, cap>
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a driver call, reached through the runtime's
+// driver entry point (no -lcuda at link time)
+cudaError_t encoder(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// a contiguous (B, S, H, 64) bf16 tensor as 64-row boxes of one head, each
+// box 64 rows of 128 bytes, 128-byte swizzled; rows past S read as zeros
+cudaError_t head_map(CUtensorMap* map, const void* base, int B, int S, int H) {
+  EncodeTiled encode;
+  const cudaError_t err = encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {128, static_cast<cuuint64_t>(H) * 128,
+                                 static_cast<cuuint64_t>(S) * H * 128};  // bytes, dims 1-3
+  const cuuint32_t box[4] = {64, 1, kT, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ptxas's registers a thread of Kernel, or -1
+template <auto Kernel>
+int registers() {
+  cudaFuncAttributes attr;
+  return cudaFuncGetAttributes(&attr, Kernel) == cudaSuccess ? attr.numRegs : -1;
+}
+
+// Refuses a kernel whose entry registers are not those setmaxnreg's counts
+// assume (its consumers would wait forever), once per instance; then
+// allows its shared memory
+template <auto Kernel, int kWG>
+cudaError_t ready(int smem) {
+  static bool regs_ok = false;
+  if (!regs_ok) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, Kernel);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs != kEntryRegs<kWG>) return cudaErrorInvalidKernelImage;
+    regs_ok = true;
+  }
+  return allow_smem<Kernel>(smem);
+}
+
+template <bool kCap>
+cudaError_t allow_both() {
+  const cudaError_t err = ready<DQ_KERNEL(kCap), kDqWG>(kDqSmem);
+  return err == cudaSuccess ? ready<DKDV_KERNEL(kCap), kDkdvWG>(kDkdvSmem) : err;
+}
+
+// the dq pass (which writes stat), then the dk / dv pass
+template <bool kCap>
+cudaError_t launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+                   const CUtensorMap& tm_o, const CUtensorMap& tm_do, const void* lse,
+                   void* dq, void* dk, void* dv, void* stat, const void* plan_dq, int blocks_dq,
+                   const void* plan_dkdv, int blocks_dkdv, int Sq, int Sk, int Hq, int Hkv,
+                   int causal, int window, float softcap, float scale, int q_offset,
+                   cudaStream_t st) {
+  cudaError_t err = allow_both<kCap>();
+  if (err != cudaSuccess) return err;
+  DQ_KERNEL(kCap)<<<blocks_dq, (kDqWG + 1) * 128, kDqSmem, st>>>(
+      tm_q, tm_k, tm_v, tm_o, tm_do, static_cast<const float*>(lse), static_cast<float*>(stat),
+      static_cast<bf16*>(dq), static_cast<const int*>(plan_dq), Sq, Sk, Hq, Hkv, causal, window,
+      softcap, scale, q_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  DKDV_KERNEL(kCap)<<<blocks_dkdv, (kDkdvWG + 1) * 128, kDkdvSmem, st>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(stat), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), static_cast<const int*>(plan_dkdv), Sq, Sk, Hq, Hkv, causal,
+      window, softcap, scale, q_offset);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The build's configuration and the blocks of each pass an SM holds (the
+// persistent grids' slots): out[0..4] = dq warpgroups, dk / dv warpgroups,
+// ring stages, dq blocks an SM, dk / dv blocks an SM, out[5..6] = the two
+// passes' dynamic shared memory in bytes, out[7..8] = the entry registers
+// setmaxnreg's counts assume for dq and dk / dv, out[9..12] = the registers
+// ptxas gave the dq, dk / dv, softcap dq and softcap dk / dv kernels (-1 if
+// unknown).  Fails (cudaErrorInvalidKernelImage) if they differ.
+extern "C" int flash_attention_bwd_sm90_config(int* out) {
+  out[7] = kEntryRegs<kDqWG>;
+  out[8] = kEntryRegs<kDkdvWG>;
+  out[9] = registers<DQ_KERNEL(false)>();
+  out[10] = registers<DKDV_KERNEL(false)>();
+  out[11] = registers<DQ_KERNEL(true)>();
+  out[12] = registers<DKDV_KERNEL(true)>();
+  int dq_cap = 0, dkdv_cap = 0;  // the softcap instances, which must hold as many
+  cudaError_t err = allow_both<false>();
+  if (err == cudaSuccess) err = allow_both<true>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], DQ_KERNEL(false),
+                                                        (kDqWG + 1) * 128, kDqSmem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], DKDV_KERNEL(false),
+                                                        (kDkdvWG + 1) * 128, kDkdvSmem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&dq_cap, DQ_KERNEL(true),
+                                                        (kDqWG + 1) * 128, kDqSmem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&dkdv_cap, DKDV_KERNEL(true),
+                                                        (kDkdvWG + 1) * 128, kDkdvSmem);
+  if (err == cudaSuccess && (dq_cap != out[3] || dkdv_cap != out[4]))
+    err = cudaErrorInvalidConfiguration;
+  out[0] = kDqWG;
+  out[1] = kDkdvWG;
+  out[2] = kStages;
+  out[5] = kDqSmem;
+  out[6] = kDkdvSmem;
+  return err;
+}
+
+// q, dout, dq (B, Sq, Hq, 64) and k, v, dk, dv (B, Sk, Hkv, 64) bf16,
+// contiguous, 16-byte aligned; o the forward's output; lse f32 (B, Hq, Sq);
+// stat f32 scratch (B, Hq, ceil(Sq / 64), 128); plan_dq / plan_dkdv int32
+// device arrays of blocks_dq / blocks_dkdv blocks (flash_attention.bwd_plan).
+// window < 0: no sliding window; softcap <= 0: no softcap.  Two kernels on
+// ``stream``, the dq pass (which writes stat) first.
+extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
+                                        const void* o, const void* lse, const void* dout,
+                                        void* dq, void* dk, void* dv, void* stat,
+                                        const void* plan_dq, int blocks_dq,
+                                        const void* plan_dkdv, int blocks_dkdv, int B, int Sq,
+                                        int Sk, int Hq, int Hkv, int causal, int window,
+                                        float softcap, float scale, int q_offset, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv || blocks_dq < 1 || blocks_dkdv < 1)
+    return cudaErrorInvalidValue;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o, tm_do;
+  cudaError_t err = head_map(&tm_q, q, B, Sq, Hq);
+  if (err == cudaSuccess) err = head_map(&tm_k, k, B, Sk, Hkv);
+  if (err == cudaSuccess) err = head_map(&tm_v, v, B, Sk, Hkv);
+  if (err == cudaSuccess) err = head_map(&tm_o, o, B, Sq, Hq);
+  if (err == cudaSuccess) err = head_map(&tm_do, dout, B, Sq, Hq);
+  if (err != cudaSuccess) return err;
+#define LAUNCH_ARGS                                                                            \
+  tm_q, tm_k, tm_v, tm_o, tm_do, lse, dq, dk, dv, stat, plan_dq, blocks_dq, plan_dkdv,        \
+      blocks_dkdv, Sq, Sk, Hq, Hkv, causal, window, softcap, scale, q_offset, st
+  return softcap > 0.f ? launch<true>(LAUNCH_ARGS) : launch<false>(LAUNCH_ARGS);
+#undef LAUNCH_ARGS
+}

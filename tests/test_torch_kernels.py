@@ -30,6 +30,7 @@ from repro_torch.kernels.decode_attention import decode_attention, split_plan  #
 from repro_torch.kernels.decode_attention import instances as decode_instances  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import instance as flash_instance  # noqa: E402
+from repro_torch.kernels import flash_attention as k1  # noqa: E402
 from repro_torch.kernels import mamba_scan as k5  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels import moe_gmm as k4  # noqa: E402
@@ -270,6 +271,107 @@ def test_attention_instances_depend_on_dtype_and_head_dim_only():
                   (torch.float32, 128)):
         assert flash_instance(dt, D) == "flash_fwd_simt"
         assert decode_instances(dt, D)[0] == "decode_split_kernel"
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")),
+    (torch.bfloat16, 16, ("flash_bwd_dq_mma", "flash_bwd_dkdv_mma")),
+    (torch.bfloat16, 32, ("flash_bwd_dq_mma", "flash_bwd_dkdv_mma")),
+    (torch.bfloat16, 8, ("flash_bwd_dq", "flash_bwd_dkdv")),
+    (torch.bfloat16, 128, ("flash_bwd_dq", "flash_bwd_dkdv")),
+    (torch.float32, 64, ("flash_bwd_dq", "flash_bwd_dkdv")),
+    (torch.float32, 16, ("flash_bwd_dq", "flash_bwd_dkdv")),
+])
+def test_bwd_instances_depend_on_dtype_and_head_dim_only(dtype, D, want):
+    """K1b: bf16 D 64 (the training path) runs the wgmma pair, bf16 D 16 /
+    32 the mma.sync pair, f32 and bf16 D 8 / 128 the CUDA-core pair."""
+    assert k1.bwd_instances(dtype, D) == want
+
+
+# (B, Sq, Sk, Hq, Hkv, causal, window, q_offset): causal and not, a window,
+# q_offset with Sq < Sk, ragged S against the 64-tiles, the training shape
+PLAN_CASES = [
+    (2, 256, 256, 15, 5, True, None, 0), (1, 200, 200, 8, 1, False, None, 0),
+    (2, 136, 264, 15, 5, True, 48, 128), (1, 100, 300, 16, 2, True, 37, 200),
+    (1, 8, 4, 2, 2, False, 2, 3), (3, 333, 333, 4, 4, True, None, 0),
+    (4, 2048, 2048, 15, 5, True, None, 0),
+]
+
+
+def _live_tiles(pass_, tile, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, wg):
+    """The 64-tiles of the other side (keys for "dq", rows for "dkdv") that
+    hold a live pair with item ``tile``'s own rows (or keys), by brute force."""
+    rows, keys = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    live = np.ones((Sq, Sk), bool)
+    if causal:
+        live &= keys <= q_offset + rows
+    if window is not None:
+        live &= keys > q_offset + rows - window
+    own = slice(tile * wg * 64, (tile + 1) * wg * 64)
+    seen = live[own].any(0) if pass_ == "dq" else live[:, own].any(1)
+    return {int(i) // 64 for i in np.flatnonzero(seen)}
+
+
+@pytest.mark.parametrize("case", PLAN_CASES[:-1])
+@pytest.mark.parametrize("wg", [1, 2])
+@pytest.mark.parametrize("pass_", ["dq", "dkdv"])
+def test_bwd_walk_covers_every_live_pair(pass_, wg, case):
+    """The tiles a wgmma K1b item walks (``bwd_walk``, the kernels'
+    ``dq_keys`` / ``dkdv_rows`` as (start, n)) start at a multiple of 64
+    and are exactly the tiles with a live pair of its rows (or keys): the
+    live keys of a run of rows (the rows of a run of keys) are an
+    interval, so the walk wastes no tile and misses none."""
+    B, Sq, Sk, Hq, Hkv, causal, window, q_offset = case
+    own_s = Sq if pass_ == "dq" else Sk
+    for tile in range(-(-own_s // (wg * 64))):
+        start, n = k1.bwd_walk(pass_, tile, Sq=Sq, Sk=Sk, wg=wg, causal=causal,
+                               window=window, q_offset=q_offset)
+        need = _live_tiles(pass_, tile, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, wg)
+        assert start % 64 == 0, (tile, start)
+        walked = set(range(start // 64, start // 64 + n))
+        assert walked == need, (tile, start, n, sorted(need))
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+@pytest.mark.parametrize("wg,slots", [(1, 264), (2, 132), (2, 8)])
+@pytest.mark.parametrize("pass_", ["dq", "dkdv"])
+def test_bwd_plan_covers_every_item_once_and_balances(pass_, wg, slots, case):
+    """Every (tile, head, batch) item of a pass lies in exactly one block's
+    list; the persistent plan has min(items, slots) blocks, none of whose
+    loads exceeds the mean by more than the largest item (the bound of
+    placing items longest first onto the least loaded block); one block
+    per item otherwise."""
+    B, Sq, Sk, Hq, Hkv, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    cost = k1.bwd_costs(pass_, B, Sq, Sk, Hq, Hkv, wg=wg, **kw)
+    H, S = (Hq, Sq) if pass_ == "dq" else (Hkv, Sk)
+    assert len(cost) == B * H * -(-S // (wg * 64))
+    for persistent in (True, False):
+        offsets, items = k1.bwd_plan(pass_, B, Sq, Sk, Hq, Hkv, wg=wg, slots=slots,
+                                     persistent=persistent, **kw)
+        assert offsets.dtype == items.dtype == np.int32
+        assert sorted(items.tolist()) == list(range(len(cost)))
+        assert offsets[0] == 0 and offsets[-1] == len(items) and (np.diff(offsets) > 0).all()
+        loads = np.array([cost[items[a:b]].sum() for a, b in zip(offsets[:-1], offsets[1:])])
+        if persistent:
+            assert len(loads) == min(len(cost), slots)
+            assert loads.max() <= loads.mean() + cost.max()
+        else:
+            assert len(loads) == len(cost) and (np.diff(loads) <= 0).all()  # longest first
+
+
+@pytest.mark.parametrize("pass_,wg,margin", [("dq", 2, 0.02), ("dkdv", 2, 0.08),
+                                             ("dq", 1, 0.02), ("dkdv", 1, 0.12)])
+def test_bwd_plan_balances_the_training_shape(pass_, wg, margin):
+    """At smollm-360m's (4, 2048, 15/5) causal on 132 SMs (one block of 2
+    warpgroups, or two of 1, an SM), where the causal items' costs differ
+    more than 10-fold, the fullest block carries at most ``margin`` over the
+    mean."""
+    cost = k1.bwd_costs(pass_, 4, 2048, 2048, 15, 5, wg=wg)
+    offsets, items = k1.bwd_plan(pass_, 4, 2048, 2048, 15, 5, wg=wg, slots=132 * (3 - wg))
+    loads = np.array([cost[items[a:b]].sum() for a, b in zip(offsets[:-1], offsets[1:])])
+    assert cost.max() > 10 * cost.min()
+    assert loads.max() <= (1 + margin) * loads.mean()
 
 
 # ---------------------------------------------------------------------------
