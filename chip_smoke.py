@@ -113,7 +113,8 @@ failure of which exits non-zero:
    in f32 and bf16 and at the training shape (4, 2048, 15/5, 64) in bf16,
    each K1b run twice with bitwise-equal results;
    (c) K3b against ``ref.rmsnorm_bwd_ref`` at (8192, 960) and every served
-   (rows, D), twice, bitwise equal; (d) one f32 train step at full width
+   (rows, D), twice, bitwise equal, and on two streams at once, bitwise
+   equal to one call at a time; (d) one f32 train step at full width
    and depth (batch 2 x 1024), kernels vs plain: the loss within
    F32_LOSS_RTOL and every gradient leaf within F32_GRAD_TOL of its max
    |.|; (e) TRAIN_STEPS bf16 steps at batch 4 x 2048 on ``SyntheticLM``,
@@ -124,10 +125,15 @@ failure of which exits non-zero:
    steps); (f) one
    step under torch.profiler, which must show K1's ``flash_fwd_mma``, K1b's
    wgmma pair (``flash_attention.bwd_instances``) and neither mma.sync K1b
-   kernel, and the K3 / K3b kernels; (g) K1 with its lse, K1b (also in
-   TFLOP/s) and K3b timed with L2 flushed beside their bounds, plain
-   versions and SDPA's / ``F.rms_norm``'s backward, and K3 at the training
-   rows beside ``F.rms_norm``; (h) K2, K4, K5 and K6 refuse an input that requires grad
+   kernel, K3's ``rmsnorm_rows`` and K3b's ``rmsnorm_bwd_fused`` and neither
+   kernel of the previous K3b, and the device ms a step of each of those
+   kernels; (g) K1 with its lse, K1b (also in TFLOP/s) and K3b timed with
+   L2 flushed beside their bounds, plain versions and SDPA's /
+   ``F.rms_norm``'s backward, K3b also beside its previous design
+   (``rmsnorm.previous_bwd``), and K3B_CALLS K3b calls under
+   torch.profiler, which must show its one kernel, at most once a call,
+   and nothing else (no memset); and K3 at the training rows beside
+   ``F.rms_norm``; (h) K2, K4, K5 and K6 refuse an input that requires grad
    (ROADMAP R11); (i) ``python -m repro_torch.launch.train --arch
    smollm-360m --steps 20`` in a child process, its loss falling;
 6. print the script's run time, the per-kernel JSON line (launches from the
@@ -218,6 +224,8 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # kernel (or a gradient that skipped one) moves them by O(1).
 F32_LOSS_RTOL, F32_GRAD_TOL = 1e-4, 1e-3
 CLI_TIMEOUT_S = 300  # phase 5 (i): python -m repro_torch.launch.train on the card
+K3B_CALLS = 10  # phase 5 (g): K3b calls under torch.profiler, one kernel each
+K3B_OVERLAP_ROUNDS = 8  # phase 5 (c): K3b calls on each of two streams at once
 
 
 def closed_form_tol(chunk: int) -> float:
@@ -1868,7 +1876,30 @@ def main() -> None:
             err3b = max(err3b, hold_rel(f"{dn} {shape} dx, dscale", got,
                                         ref.rmsnorm_bwd_ref(x, s_, dy), TOL[dn],
                                         kernel="rmsnorm_bwd"))
-    del x, s_, dy, got
+    # K3b on two streams at once, each held back by a spin until the host
+    # has queued all its launches: each stream's launches take tickets from
+    # counters of their own, so they give the bits of one launch at a time
+    args3b = [(randn(tB * tS, tdm, dtype=torch.bfloat16), randn(tdm) * 0.1,
+               randn(tB * tS, tdm, dtype=torch.bfloat16)) for _ in range(2)]
+    alone = [k3.rmsnorm_bwd(*a) for a in args3b]
+    streams = [torch.cuda.Stream() for _ in args3b]
+    torch.cuda.synchronize()
+    together: list[list] = [[] for _ in args3b]
+    for st in streams:
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(50_000_000)
+    for _ in range(K3B_OVERLAP_ROUNDS):
+        for st, a, outs in zip(streams, args3b, together):
+            with torch.cuda.stream(st):
+                outs.append(k3.rmsnorm_bwd(*a))
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for outs, want in zip(together, alone) for got in outs
+               for u, v in zip(got, want))
+    print(f"  rmsnorm_bwd on two streams at once, {K3B_OVERLAP_ROUNDS} calls each: "
+          f"{'bitwise equal to' if same else 'DIFFERENT from'} one call at a time", flush=True)
+    if not same:
+        fail("rmsnorm_bwd on two streams at once differs from one call at a time")
+    del x, s_, dy, got, args3b, alone, together
 
     # launches of one train step with per-period remat ("nothing"): every
     # period's forward runs again in the backward
@@ -1956,14 +1987,22 @@ def main() -> None:
     # (f) one train step under torch.profiler
     train_profile = profile_step(lambda: train_step(state, batches[0]), top=12)
     print(f"{TRAIN_ARCH} train step profile: {json.dumps(train_profile)}", flush=True)
+    # the port's training kernels: device ms a step and launches, by name
+    step_kernels = {w: [sum(ms for n, ms, _ in train_profile["all_kernels"] if f"::{w}" in n),
+                        sum(c for n, _, c in train_profile["all_kernels"] if f"::{w}" in n)]
+                    for w in ("flash_fwd_mma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma",
+                              "rmsnorm_rows", "rmsnorm_bwd_fused")}
+    print(f"{TRAIN_ARCH} train step, device ms and launches of the port's kernels: "
+          f"{json.dumps(step_kernels)}", flush=True)
     # the bf16 step ran the tensor-core instances of K1 and K1b and the K3 /
-    # K3b kernels, and no CUDA-core instance of K1 or K1b (a session that
-    # saw no kernel at all names none)
+    # K3b kernels, and no CUDA-core instance of K1 or K1b nor the previous
+    # K3b's kernels (a session that saw no kernel at all names none)
     names = train_profile["kernel_names"]
     want_names = [k1.instance(torch.bfloat16, tD), *k1.bwd_instances(torch.bfloat16, tD),
-                  "rmsnorm_rows", "rmsnorm_bwd_rows", "rmsnorm_bwd_dscale"]
+                  "rmsnorm_rows", "rmsnorm_bwd_fused"]
     other_names = ["flash_fwd_simt", *k1.bwd_instances(torch.float32, tD),
-                   *k1.bwd_instances(torch.bfloat16, 32)]  # the mma.sync pair, D 16 / 32 now
+                   *k1.bwd_instances(torch.bfloat16, 32),  # the mma.sync pair, D 16 / 32 now
+                   "rmsnorm_bwd_rows", "rmsnorm_bwd_dscale"]  # the previous K3b
     ran = {w: any(f"::{w}<" in n or f"::{w}(" in n for n in names)
            for w in want_names + other_names}
     print(f"{TRAIN_ARCH} train step attention and norm kernels: {json.dumps(ran)}", flush=True)
@@ -2021,11 +2060,32 @@ def main() -> None:
                 return F.rms_norm(xg, (tdm,), wg, 1e-6)
         return torch.autograd.grad(F.rms_norm(xg, (tdm,), wg, 1e-6), (xg, wg), dy)
 
+    k3b_plan = k3.bwd_plan(tB * tS, tdm, 2, _build.sm_count(0))
     k3b = timed(lambda: k3.rmsnorm_bwd(x, s_, dy), lambda: ref.rmsnorm_bwd_ref(x, s_, dy),
                 None, nbytes(x, s_, dy, x, s_), 0.0, peaks["bfloat16"],
-                f"({tB * tS}, {tdm}) bf16")
+                f"({tB * tS}, {tdm}) bf16 (rmsnorm_bwd_fused<__nv_bfloat16, {k3b_plan.chunks}>, "
+                f"{k3b_plan.grid} blocks, {k3b_plan.lanes} lanes a row)")
     k3b["library_ms"] = time_ms(lambda: rms_norm_lib(True)) - time_ms(lambda: rms_norm_lib(False))
     k3b["library"] = "F.rms_norm forward + backward, less its forward"
+    # the previous design in the same call: a memset, rmsnorm_bwd_rows, rmsnorm_bwd_dscale
+    k3b["previous_ms"] = time_ms(lambda: k3.previous_bwd(x, s_, dy))
+    # each K3b call launches its one kernel and nothing else (no memset)
+    k3b_prof = profile_step(lambda: [k3.rmsnorm_bwd(x, s_, dy) for _ in range(K3B_CALLS)])
+    names = k3b["kernels_a_call"] = k3b_prof["kernel_names"]
+    print(f"  rmsnorm_bwd, {K3B_CALLS} calls' kernels: {json.dumps(names)} "
+          f"({k3b_prof['device_kernels']} launches)", flush=True)
+    # The profiler may drop events, never add them, so this holds no more
+    # than one kernel a call: a memset or any second kernel would show here
+    # by name.  A session that named no kernel passes it; then the count of
+    # launches rests on kernels.LAUNCHES, which (e) holds to exactly 65 a
+    # step, and on (c), which holds every call's outputs.
+    if not names:
+        print("  rmsnorm_bwd: the profiler named no kernel; LAUNCHES and (c) hold the count",
+              flush=True)
+    elif (len(names) != 1 or "::rmsnorm_bwd_fused<" not in names[0]
+          or k3b_prof["device_kernels"] > K3B_CALLS):
+        fail(f"rmsnorm_bwd: {K3B_CALLS} calls ran {names} ({k3b_prof['device_kernels']} "
+             "launches), expected rmsnorm_bwd_fused alone, at most once a call")
     # K3 itself at the training rows: x read and out written once
     k3_train = timed(lambda: k3.rmsnorm(x, s_), lambda: ref.rmsnorm_ref(x, s_),
                      lambda: rms_norm_lib(False), nbytes(x, s_, x), 0.0, peaks["bfloat16"],
@@ -2044,6 +2104,8 @@ def main() -> None:
         print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
               f"{fmt_ms(t['library_ms'])}, bound {t['bound_ms']:.5f} ms ({t['bound_by']}) at "
               f"{t['shape']}", flush=True)
+    print(f"  rmsnorm_bwd previous design (memset + rmsnorm_bwd_rows + rmsnorm_bwd_dscale): "
+          f"{k3b['previous_ms']:.4f} ms at {k3b['shape']}", flush=True)
     print(f"  flash_attention_bwd: {k1b['tflops']:.1f} TFLOP/s on the bound's count (10 D "
           f"flops a causal pair), {k1b['tflops_7_products']:.1f} on the 7 products done; "
           f"SDPA's backward {k1b['library_tflops']:.1f}", flush=True)
@@ -2182,6 +2244,7 @@ def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
         "host_ops": host_ops,
         "device_kernels": sum(e.count for e in rows), "profiler_sessions": session,
         "top_kernels": [(e.key[:90], dev_us(e) / 1e3, e.count) for e in rows[:top]],
+        "all_kernels": [(e.key, dev_us(e) / 1e3, e.count) for e in rows],
         "kernel_names": sorted({e.key for e in rows}),
     }
 

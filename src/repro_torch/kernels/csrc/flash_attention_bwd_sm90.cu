@@ -96,9 +96,6 @@ constexpr int kTileElems = kT * 64;          // a 64 x 64 bf16 tile: 64 rows of 
 constexpr uint32_t kTileBytes = kTileElems * 2;
 constexpr int kStat = 2 * kT;                // stat floats per q tile: lse * log2 e, delta
 constexpr uint32_t kStatBytes = kStat * 4;
-// A barrier wait this long traps: a minute is far beyond any preemption or
-// time slice, so only a fault in the ring's bookkeeping reaches it
-constexpr unsigned long long kHangNs = 60000000000ull;
 
 // ---------------------------------------------------------------------------
 // mbarrier, TMA, wgmma
@@ -122,11 +119,6 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
       : "r"(bar), "r"(parity)
       : "memory");
   return ok != 0;
-}
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
 }
 // wait until the phase of parity `parity` has completed; a wait of kHangNs
 // traps (a CUDA error the caller sees) instead of hanging the card

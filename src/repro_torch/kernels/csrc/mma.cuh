@@ -1,5 +1,6 @@
 // PTX building blocks shared by the port's tensor-core kernels: cp.async
-// (16 bytes, zero-fill), ldmatrix, and mma.sync m16n8k16 bf16 -> f32.
+// (16 bytes, zero-fill), ldmatrix, and mma.sync m16n8k16 bf16 -> f32; and
+// the clock that a kernel's bounded waits read.
 //
 // Fragment maps of mma.sync.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), lane = 4 * gr + tq:
@@ -18,6 +19,16 @@
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A wait this long traps: a minute is far beyond any preemption or time
+// slice, so only a fault in a kernel's bookkeeping reaches it
+constexpr unsigned long long kHangNs = 60000000000ull;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
 
 // 16 bytes global -> shared; ok == false writes zeros and reads nothing

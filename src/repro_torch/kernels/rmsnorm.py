@@ -17,11 +17,22 @@ of x and of the scale into registers before any arithmetic, so one trip to
 device memory serves both.  x is f32 or bf16 and contiguous; the scale f32
 (D,).  Rows off 16 bytes load element by element.
 
-Its backward K3b (:func:`rmsnorm_bwd`, ``rmsnorm_bwd_rows`` and
-``rmsnorm_bwd_dscale`` in the same source) gives dx and dscale: one warp a
-row, the dscale partials summed per block in shared memory and then across
-blocks, without atomics (:func:`bwd_plan`).  ``ops.rmsnorm`` is the
-``torch.autograd.Function`` that runs the two.
+Its backward K3b (:func:`rmsnorm_bwd`, ``rmsnorm_bwd_fused`` in the same
+source) gives dx and dscale in one launch.  Bytes bound it too: x and dy
+read once, dx written once (smollm-360m's (8192, 960) bf16: 47 MB, 0.014
+ms at 3.35 TB/s).  :func:`bwd_plan` gives a persistent grid whose blocks
+take contiguous runs of rows; a row is spread over a power of two of lanes
+that own the same columns of every row, so (1 + scale) is read once and
+the dscale partials stay in registers, and each lane issues its next
+row's loads before this row's arithmetic, so x and dy cross device memory
+once.  Each block writes one row of dscale partials; the last
+``BWD_JOINERS`` blocks to arrive split dscale's columns and sum every row
+in a fixed order: no float atomics, no second kernel, no memset (dscale
+comes from ``torch.empty``).  The arrival tickets come from counters kept
+per stream (:func:`counters`), so launches on two streams may overlap.
+Rows of up to D 8192 (32 elements a lane).  ``ops.rmsnorm`` is the
+``torch.autograd.Function`` that runs K3 and K3b.  :func:`previous_bwd`
+keeps the previous design (``rmsnorm_bwd_v1``) for timing beside it.
 
 A CPU tensor takes the plain versions, :func:`plain` (``ref.rmsnorm_ref``)
 and ``ref.rmsnorm_bwd_ref``; a CUDA tensor launches the kernel or raises.
@@ -108,21 +119,106 @@ def norm_plan(rows: int, D: int, itemsize: int, n_sm: int) -> NormPlan:
     return NormPlan(rows, D, itemsize, lanes, chunks, threads, per_block, -(-rows // per_block))
 
 
-BWD_WARPS = 8              # warps of a K3b block, where their dscale rows fit BWD_SMEM
-BWD_SMEM = 64 << 10        # bytes of shared memory a K3b block's dscale rows take at most
-BWD_BLOCKS_PER_SM = 2      # K3b blocks, at most: each writes one partial row of dscale
+BWD_THREADS = 256        # threads of a K3b block (kBwdThreads)
+BWD_REG_FLOATS = 32      # (1 + scale) values a lane holds, and as many dscale partials, at most
+BWD_JOINERS = 32         # the last blocks to arrive, which sum dscale's columns (kJoiners)
 
 
-def bwd_plan(rows: int, D: int, n_sm: int) -> tuple[int, int]:
-    """(warps a block, blocks) of K3b: each warp keeps an f32 row of D
-    dscale partials in shared memory, so a block takes as many warps (up to
-    ``BWD_WARPS``) as ``BWD_SMEM`` holds rows of D; the grid covers the rows
-    a warp each, up to ``BWD_BLOCKS_PER_SM`` blocks an SM, whose warps then
-    take several rows each."""
-    if rows < 1 or D < 1 or 4 * D > BWD_SMEM:
-        raise ValueError(f"rmsnorm_bwd: no plan for {rows} rows of {D}")
-    warps = min(BWD_WARPS, BWD_SMEM // (4 * D))
-    return warps, min(-(-rows // warps), BWD_BLOCKS_PER_SM * n_sm)
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """K3b's launch: ``grid`` blocks of ``BWD_THREADS``, one an SM, each a
+    contiguous run of rows and one row of f32 dscale partials; a row spread
+    over ``lanes`` lanes, ``chunks`` 16-byte chunks a lane."""
+    rows: int
+    D: int
+    itemsize: int
+    lanes: int
+    chunks: int
+    grid: int
+
+    @property
+    def groups(self) -> int:
+        """Row groups of ``lanes`` lanes a block: each takes every
+        ``groups``-th row of the block's run."""
+        return BWD_THREADS // self.lanes
+
+    @property
+    def per_chunk(self) -> int:
+        return CHUNK_BYTES // self.itemsize
+
+    @property
+    def reg_floats(self) -> int:
+        """(1 + scale) values a lane holds in registers, and as many dscale
+        partials."""
+        return self.chunks * self.per_chunk
+
+    def join_segments(self) -> list[range]:
+        """The runs of the blocks' rows of partials whose sums join, in
+        order, into each column of dscale: the kernel's last ``BWD_JOINERS``
+        blocks split the columns (16 bytes each) between them, and a
+        joiner's threads split the rows into as many runs as its share of
+        columns leaves threads."""
+        n, joiners = self.grid, min(BWD_JOINERS, self.grid)
+        per = -(-(self.D // 4) // joiners)
+        nseg = max(1, min(n, BWD_THREADS // min(per, BWD_THREADS)))
+        seg = -(-n // nseg)
+        return [range(k * seg, min(n, (k + 1) * seg)) for k in range(nseg)]
+
+    def block_rows(self, block: int) -> range:
+        """The contiguous run of rows ``block`` takes."""
+        q, extra = divmod(self.rows, self.grid)
+        start = block * q + min(block, extra)
+        return range(start, start + q + (block < extra))
+
+    def group_rows(self, block: int, group: int) -> range:
+        """The rows a group of ``block`` takes, in the order it takes them."""
+        return self.block_rows(block)[group::self.groups]
+
+    def columns(self, thread: int) -> list[int]:
+        """The elements of every row that ``thread`` of a block owns."""
+        li, e = thread % self.lanes, self.per_chunk
+        return [c * e + j for c in range(li, self.lanes * self.chunks, self.lanes)
+                for j in range(e) if c * e + j < self.D]
+
+
+def bwd_plan(rows: int, D: int, itemsize: int, n_sm: int) -> BwdPlan:
+    """K3b's plan, a pure function of the shapes: a row of C 16-byte chunks
+    gets the power of two of lanes that gives each ``ROW_CHUNKS`` (up to
+    ``BWD_THREADS`` lanes; then more chunks a lane, up to
+    ``BWD_REG_FLOATS`` elements, so D 8192 at most in f32 and bf16); the
+    grid is the blocks the rows fill, one an SM at most."""
+    per = CHUNK_BYTES // itemsize if itemsize in (2, 4) else 0
+    if rows < 1 or D < 1 or not per or D % per:
+        raise ValueError(f"rmsnorm_bwd: no plan for {rows} rows of {D} x {itemsize} bytes")
+    n_chunks = D // per
+    lanes = min(BWD_THREADS, _pow2(-(-n_chunks // ROW_CHUNKS)))
+    chunks = _pow2(-(-n_chunks // lanes))
+    if chunks * per > BWD_REG_FLOATS:
+        raise ValueError(f"rmsnorm_bwd: D={D} is wider than one block holds (8192 at most)")
+    return BwdPlan(rows, D, itemsize, lanes, chunks, min(-(-rows // (BWD_THREADS // lanes)), n_sm))
+
+
+# K3b's ticket counters (blocks arrived, joiners done), one pair a (device,
+# stream): launches on one stream run one after another, so only launches
+# that cannot overlap share a pair
+_COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The two u32 counters that K3b's launches on ``stream`` of ``device``
+    take tickets from: zeroed by the stream's first call, and left at 0 by
+    each launch's last joiner (so a CUDA graph replays with them too)."""
+    key = (device, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
+def previous_bwd_launch(rows: int, D: int, n_sm: int) -> tuple[int, int]:
+    """(warps a block, grid) of the previous K3b's ``rmsnorm_bwd_rows``: a
+    warp's f32 row of D partials each in 64 KB, two blocks an SM."""
+    warps = min(8, (64 << 10) // (4 * D))
+    return warps, min(-(-rows // warps), 2 * n_sm)
 
 
 @functools.cache
@@ -135,8 +231,11 @@ def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr, ctypes._CFuncPtr, ctypes._C
     floor.argtypes = [ctypes.c_void_p]
     floor.restype = ctypes.c_int
     bwd = lib.rmsnorm_bwd
-    bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     bwd.restype = ctypes.c_int
+    v1 = lib.rmsnorm_bwd_v1  # the previous K3b, for previous_bwd
+    v1.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    v1.restype = ctypes.c_int
     return lib, fn, floor, bwd
 
 
@@ -179,7 +278,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
                 eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
     """K3b: x, dy (..., D) of one dtype; scale (D,) f32 -> (dx in x's dtype,
-    dscale (D,) f32), the gradients of :func:`rmsnorm` for output grad dy."""
+    dscale (D,) f32), the gradients of :func:`rmsnorm` for output grad dy.
+    On the card D * itemsize must be a multiple of 16 and D at most 8192
+    (:func:`bwd_plan` raises ValueError beyond)."""
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, scale, dy, eps=eps)
     if x.device.type != "cuda":
@@ -199,15 +300,40 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
         raise ValueError(f"rmsnorm_bwd: rows of {D} x {x.element_size()} bytes are not whole "
                          "16-byte chunks")
     dx = torch.empty_like(x)
-    dscale = torch.zeros(D, dtype=torch.float32, device=x.device)
     rows = x.numel() // D
-    if rows:
-        warps, grid = bwd_plan(rows, D, _build.sm_count(x.device.index))
-        partial = torch.empty((grid, D), dtype=torch.float32, device=x.device)
-        lib, _, _, fn = _entry()
-        err = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                 dscale.data_ptr(), _build.DTYPE_CODES[x.dtype], rows, D, warps, grid, float(eps),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(lib, err, "rmsnorm_bwd")
-        LAUNCHES["rmsnorm_bwd"] += 1
+    if not rows:
+        return dx, torch.zeros(D, dtype=torch.float32, device=x.device)
+    p = bwd_plan(rows, D, x.element_size(), _build.sm_count(x.device.index))
+    dscale = torch.empty(D, dtype=torch.float32, device=x.device)
+    partial = torch.empty((p.grid, D), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    count = counters(x.device, stream)
+    lib, _, _, fn = _entry()
+    err = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+             dscale.data_ptr(), count.data_ptr(), _build.DTYPE_CODES[x.dtype], rows, D, p.lanes,
+             p.chunks, p.grid, float(eps), stream)
+    _build.check(lib, err, "rmsnorm_bwd")
+    LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dscale
+
+
+def previous_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
+                 eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The previous K3b (``rmsnorm_bwd_rows`` + ``rmsnorm_bwd_dscale``, C
+    entry ``rmsnorm_bwd_v1``) on CUDA tensors as :func:`rmsnorm_bwd` takes
+    them, with its memset of dscale: ``chip_smoke.py`` and
+    ``tools/k3b_variants.py`` time it beside the kernel.  The port never
+    calls it, and it counts no launch."""
+    D = x.shape[-1]
+    rows = x.numel() // D
+    warps, grid = previous_bwd_launch(rows, D, _build.sm_count(x.device.index))
+    dx = torch.empty_like(x)
+    dscale = torch.zeros(D, dtype=torch.float32, device=x.device)
+    partial = torch.empty((grid, D), dtype=torch.float32, device=x.device)
+    lib = _entry()[0]
+    err = lib.rmsnorm_bwd_v1(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                             partial.data_ptr(), dscale.data_ptr(), _build.DTYPE_CODES[x.dtype],
+                             rows, D, warps, grid, float(eps),
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "rmsnorm_bwd_v1")
     return dx, dscale

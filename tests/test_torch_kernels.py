@@ -6,6 +6,8 @@ does.  The same inputs, drawn with numpy from a seed, feed both.  The CUDA
 kernels themselves are held against the same plain versions on the card
 by chip_smoke.py.
 """
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1087,6 +1089,101 @@ def test_rmsnorm_bwd_vs_jax_grad(shape, dtype):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
         _rel_close(a, w, tol, name)
     assert got[0].dtype == xt.dtype and got[1].dtype == torch.float32
+
+
+# K3b's (rows, D): smollm-360m's training rows, the served widths at 8 and
+# 512 rows, and ragged row counts against the grid and the row groups
+BWD_SHAPES = ([(8192, 960)] + [(r, d) for d in (16, 512, 896, 2048, 4096, 8192) for r in (8, 512)]
+              + [(r, 960) for r in (1, 7, 133, 8191)])
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("rows,D", BWD_SHAPES)
+def test_rmsnorm_bwd_plan_covers_each_row_and_column_once(rows, D, itemsize):
+    """K3b's plan: every row lies in exactly one group of one block; each
+    block's run is contiguous and the runs differ by at most one row; every
+    column of a row belongs to exactly one lane of its group; a lane holds
+    at most the plan's cap of (1 + scale) values and dscale partials; the
+    grid is at most one block an SM; the joiners' threads split the blocks'
+    rows of partials into runs that cover each once."""
+    p = k3.bwd_plan(rows, D, itemsize, n_sm=132)
+    assert p.lanes & (p.lanes - 1) == 0 and p.lanes * p.groups == k3.BWD_THREADS
+    assert p.reg_floats <= k3.BWD_REG_FLOATS and p.chunks in (1, 2, 4, 8)
+    assert p.grid <= 132
+    segments = p.join_segments()  # the rows of partials, as the joiners' threads split them
+    assert [i for run in segments for i in run] == list(range(p.grid))
+    per = -(-(D // 4) // min(k3.BWD_JOINERS, p.grid))  # a joiner's 16-byte columns
+    assert len(segments) * min(per, k3.BWD_THREADS) <= k3.BWD_THREADS
+    runs = [p.block_rows(b) for b in range(p.grid)]
+    assert [r for run in runs for r in run] == list(range(rows))
+    assert max(map(len, runs)) - min(map(len, runs)) <= 1
+    seen = np.zeros(rows, np.int64)
+    for b in range(p.grid):
+        for g in range(p.groups):
+            seen[list(p.group_rows(b, g))] += 1
+    assert (seen == 1).all()
+    owned = np.zeros(D, np.int64)
+    for t in range(p.lanes):
+        owned[p.columns(t)] += 1
+    assert (owned == 1).all()
+    assert all(p.columns(t) == p.columns(t % p.lanes) for t in range(k3.BWD_THREADS))
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("rows,D", [(8192, 960), (8191, 2048), (133, 960), (7, 8192),
+                                    (512, 16)])
+def test_rmsnorm_bwd_dscale_in_the_kernels_order(rows, D, itemsize):
+    """dscale summed in the order K3b sums it on the card, as its plan
+    assigns the work: each group's rows in order (a lane's register
+    partials), then the block's groups in order, then the blocks' rows in
+    runs of consecutive rows, in order, then the runs' sums in order.  In
+    f64 it equals the plain sum over rows to rounding (so the partition
+    covers each row once); in f64 and in f32 it is within f32 rounding of
+    ref.rmsnorm_bwd_ref."""
+    rng = np.random.default_rng(65)
+    xt, dyt = (torch.from_numpy(rng.standard_normal((rows, D)).astype(np.float32))
+               .to(torch.bfloat16 if itemsize == 2 else torch.float32) for _ in range(2))
+    st = torch.from_numpy((rng.standard_normal(D) * 0.1).astype(np.float32))
+    want = ref.rmsnorm_bwd_ref(xt, st, dyt)[1].numpy()
+    p = k3.bwd_plan(rows, D, itemsize, n_sm=132)
+    for dt, tol in ((np.float64, 1e-6), (np.float32, 1e-5)):
+        x, dy = xt.double().numpy(), dyt.double().numpy()
+        r = 1.0 / np.sqrt((x * x).mean(axis=1, keepdims=True) + 1e-6)
+        contrib = (dy * x * r).astype(dt)
+        blocks = []
+        for b in range(p.grid):
+            acc = np.zeros(D, dt)
+            for g in range(p.groups):
+                lane_sum = np.zeros(D, dt)
+                for row in p.group_rows(b, g):
+                    lane_sum = lane_sum + contrib[row]
+                acc = lane_sum if g == 0 else acc + lane_sum
+            blocks.append(acc)
+        segments = [functools.reduce(np.add, [blocks[i] for i in run], np.zeros(D, dt))
+                    for run in p.join_segments()]
+        got = functools.reduce(np.add, segments)
+        if dt == np.float64:
+            np.testing.assert_allclose(got, contrib.sum(axis=0), rtol=0, atol=1e-9)
+        assert float(np.abs(got - want).max()) <= tol * float(np.abs(want).max())
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_rmsnorm_bwd_plan_refuses_rows_wider_than_8192(itemsize):
+    """K3b holds a lane's 32 elements in registers, 256 lanes a row: D 8192
+    is the widest row it takes (jamba's d_model), D 16384 raises."""
+    assert k3.bwd_plan(8, 8192, itemsize, n_sm=132).reg_floats == k3.BWD_REG_FLOATS
+    with pytest.raises(ValueError, match="8192 at most"):
+        k3.bwd_plan(8, 16384, itemsize, n_sm=132)
+
+
+def test_rmsnorm_bwd_counters_one_pair_a_stream():
+    """K3b's ticket counters: two zeros a (device, stream), the same tensor
+    for every call on that stream and another for any other stream, so two
+    launches that may overlap never take tickets from one counter."""
+    dev = torch.device("cpu")
+    a, again, b = (k3.counters(dev, s) for s in (101, 101, 102))
+    assert a is again and a is not b and a.data_ptr() != b.data_ptr()
+    assert a.dtype == torch.int32 and a.tolist() == [0, 0] == b.tolist()
 
 
 def _meta(*shape, grad=False, dtype=torch.float32):
