@@ -127,15 +127,37 @@ failure of which exits non-zero:
    wgmma pair (``flash_attention.bwd_instances``) and neither mma.sync K1b
    kernel, K3's ``rmsnorm_rows`` and K3b's ``rmsnorm_bwd_fused`` and neither
    kernel of the previous K3b, and the device ms a step of each of those
-   kernels; (g) K1 with its lse, K1b (also in TFLOP/s) and K3b timed with
-   L2 flushed beside their bounds, plain versions and SDPA's /
-   ``F.rms_norm``'s backward, K3b also beside its previous design
+   kernels; (e') the same 20 steps through ``training/compiled.py``'s
+   ``CompiledTrainStep`` (the step captured as a CUDA graph) from a fresh
+   state of the same seed: one capture, TRAIN_STEPS - 1 replays (the
+   capturing call's own replay counted, as serving counts them), each
+   step's exact launches, the loss falling by more than 0.1, and the loss
+   sequence beside (e)'s with their max |difference|; and one f32 step at
+   2 x 1024 as a replay against an eager step from equal states, the loss
+   and every param and moment leaf within GRAPH_TRAIN_F32_TOL of its max
+   |.|; (f') one replayed step under torch.profiler beside (f)'s eager one
+   (wall / busy / idle, host ops, kernels, median step, tokens/s, peak
+   memory): at most COMPILED_TICK_HOST_OPS host ops; (j) the compiled bf16
+   step under ``runtime/supervisor.py``'s ``Supervisor`` for 20 steps, a
+   checkpoint every SUP_CKPT_EVERY, a node failure injected before step
+   SUP_FAIL_AT, in a temporary directory removed at the end: one restart,
+   each step's last loss equal bit for bit to (e')'s, still one capture,
+   every leaf's data_ptr unchanged, the restored step-SUP_CKPT_EVERY
+   checkpoint equal bit for bit to the live state at that step, as a new
+   tree and copied into the live tensors (``restore_into``, the restart's
+   path: its time and the device memory it adds), its manifest listing
+   each leaf under its live dtype (the bf16 params as bfloat16), and the
+   blocking snapshot, write and restore times; (g) K1
+   with its lse, K1b (also in TFLOP/s) and K3b timed with L2 flushed
+   beside their bounds, plain versions and SDPA's / ``F.rms_norm``'s
+   backward, K3b also beside its previous design
    (``rmsnorm.previous_bwd``), and K3B_CALLS K3b calls under
    torch.profiler, which must show its one kernel, at most once a call,
    and nothing else (no memset); and K3 at the training rows beside
    ``F.rms_norm``; (h) K2, K4, K5 and K6 refuse an input that requires grad
    (ROADMAP R11); (i) ``python -m repro_torch.launch.train --arch
-   smollm-360m --steps 20`` in a child process, its loss falling;
+   smollm-360m --steps 20 --ckpt-dir <tmp> --fail-at 7`` in a child
+   process: one restart, one capture, its loss falling;
 6. print the script's run time, the per-kernel JSON line (launches from the
    four compiled serving runs; K1b's and K3b's from phase 5 (e)), the card
    line, and last the ``{"ok": true, "device": ...}`` line.
@@ -151,8 +173,10 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -223,6 +247,14 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # itself and each gradient leaf within 1e-3 of its max |.|, where a wrong
 # kernel (or a gradient that skipped one) moves them by O(1).
 F32_LOSS_RTOL, F32_GRAD_TOL = 1e-4, 1e-3
+# A replayed f32 train step runs the eager step's kernels on the same inputs
+# in the same order (PR 20's f32 serving replays matched eager exactly): its
+# loss and every updated param and moment leaf within 1e-6 of its max |.|.
+GRAPH_TRAIN_F32_TOL = 1e-6
+# phase 5 (j): the supervised compiled run, a checkpoint every 8 steps and a
+# node failure injected before step 11 (the restart restores step 8)
+SUP_CKPT_EVERY, SUP_FAIL_AT = 8, 11
+CLI_FAIL_AT = 7  # phase 5 (i): --fail-at of the driver's run (restores step 0)
 CLI_TIMEOUT_S = 300  # phase 5 (i): python -m repro_torch.launch.train on the card
 K3B_CALLS = 10  # phase 5 (g): K3b calls under torch.profiler, one kernel each
 K3B_OVERLAP_ROUNDS = 8  # phase 5 (c): K3b calls on each of two streams at once
@@ -1816,9 +1848,12 @@ def main() -> None:
     # -- 5. training: smollm-360m through K1 (with its lse), K1b, K3, K3b -----
     gc.collect()
     torch.cuda.empty_cache()
+    from repro_torch.checkpoint import AsyncCheckpointer, restore, restore_into
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.runtime.supervisor import FailureInjector, Supervisor, SupervisorConfig
     from repro_torch.training import optim
     from repro_torch.training import step as step_mod
+    from repro_torch.training.compiled import CompiledTrainStep
 
     tcfg = get_config(TRAIN_ARCH)
     tB, tS, tL = TRAIN_BATCH, TRAIN_SEQ, tcfg.n_layers
@@ -1984,14 +2019,17 @@ def main() -> None:
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0] - 0.1:
         fail(f"{TRAIN_ARCH}: the loss did not fall by more than 0.1 in {TRAIN_STEPS} steps")
 
+    def port_kernels(profile: dict) -> dict:
+        """Device ms a step and launches of the port's training kernels."""
+        return {w: [sum(ms for n, ms, _ in profile["all_kernels"] if f"::{w}" in n),
+                    sum(c for n, _, c in profile["all_kernels"] if f"::{w}" in n)]
+                for w in ("flash_fwd_mma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma",
+                          "rmsnorm_rows", "rmsnorm_bwd_fused")}
+
     # (f) one train step under torch.profiler
     train_profile = profile_step(lambda: train_step(state, batches[0]), top=12)
     print(f"{TRAIN_ARCH} train step profile: {json.dumps(train_profile)}", flush=True)
-    # the port's training kernels: device ms a step and launches, by name
-    step_kernels = {w: [sum(ms for n, ms, _ in train_profile["all_kernels"] if f"::{w}" in n),
-                        sum(c for n, _, c in train_profile["all_kernels"] if f"::{w}" in n)]
-                    for w in ("flash_fwd_mma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma",
-                              "rmsnorm_rows", "rmsnorm_bwd_fused")}
+    step_kernels = port_kernels(train_profile)
     print(f"{TRAIN_ARCH} train step, device ms and launches of the port's kernels: "
           f"{json.dumps(step_kernels)}", flush=True)
     # the bf16 step ran the tensor-core instances of K1 and K1b and the K3 /
@@ -2009,7 +2047,208 @@ def main() -> None:
     if names and (not all(ran[w] for w in want_names) or any(ran[w] for w in other_names)):
         fail(f"{TRAIN_ARCH} train step ran {ran}, expected {want_names} and none of "
              f"{other_names}")
-    del state, train_step, batches, m
+    del state, train_step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e') the same TRAIN_STEPS bf16 steps through the compiled step (the
+    # step captured as a CUDA graph), from a fresh state of the same seed:
+    # the first step eager, the second captured, the rest replays, each
+    # step's launches exact (a replay adds what its capture counted)
+    torch.cuda.reset_peak_memory_stats()
+    cstate = step_mod.init_train_state(tcfg, tcfg_train, SEED, dev)
+    cstep = CompiledTrainStep(tcfg, tcfg_train, cstate)
+    closses, cstep_ms = [], []
+    for bt in batches:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = cstep(cstate, bt)
+        closses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        cstep_ms.append(1e3 * (time.perf_counter() - t0))
+        got = launch_counts()
+        if got != want_step:
+            fail(f"{TRAIN_ARCH} compiled train step {len(closses)}: launches {got}, expected "
+                 f"{want_step}")
+    cmed = float(np.median(cstep_ms))
+    compiled_rec = {"steps": TRAIN_STEPS, "counts": cstep.counts(), "losses": closses,
+                    "first_loss": closses[0], "last_loss": closses[-1],
+                    "max_abs_loss_diff_vs_eager": max(abs(a - b) for a, b in zip(closses, losses)),
+                    "step_ms": cstep_ms, "median_step_ms": cmed,
+                    "tokens_per_s": tB * tS / (cmed / 1e3),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{TRAIN_ARCH} compiled train: {json.dumps(compiled_rec)}", flush=True)
+    want_counts = {"calls": TRAIN_STEPS, "captures": 1, "replays": TRAIN_STEPS - 1}
+    if compiled_rec["counts"] != want_counts:
+        fail(f"{TRAIN_ARCH} compiled train step counts {compiled_rec['counts']}, expected "
+             f"{want_counts}")
+    if not all(np.isfinite(closses)) or not closses[-1] < closses[0] - 0.1:
+        fail(f"{TRAIN_ARCH}: the compiled run's loss did not fall by more than 0.1")
+
+    # (f') one replayed step under torch.profiler, beside (f)'s eager step
+    compiled_profile = profile_step(lambda: cstep(cstate, batches[0]), top=12)
+    print(f"{TRAIN_ARCH} compiled train step profile (a replay): "
+          f"{json.dumps(compiled_profile)}", flush=True)
+    print(f"{TRAIN_ARCH} compiled train step, device ms and launches of the port's kernels: "
+          f"{json.dumps(port_kernels(compiled_profile))}", flush=True)
+    train_vs = {
+        mode: {"wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+               "device_idle_share": prof["device_idle_share"], "host_ops": prof["host_ops"],
+               "device_kernels": prof["device_kernels"], "median_step_ms": rec["median_step_ms"],
+               "tokens_per_s": rec["tokens_per_s"], "peak_mem_gb": rec["peak_mem_gb"]}
+        for mode, prof, rec in (("eager", train_profile, train_rec),
+                                ("compiled", compiled_profile, compiled_rec))}
+    print(f"{TRAIN_ARCH} train step eager vs compiled, {smi}: {json.dumps(train_vs)}", flush=True)
+    if compiled_profile["host_ops"] > COMPILED_TICK_HOST_OPS:
+        fail(f"{TRAIN_ARCH}: a replayed train step dispatched {compiled_profile['host_ops']} "
+             f"host ops (at most {COMPILED_TICK_HOST_OPS})")
+    del cstate, cstep, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e') f32 at (d)'s 2 x 1024: one replay against one eager step from
+    # equal states (the compiled state made equal after its eager call and
+    # its capture)
+    b32 = [{k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(DataConfig(
+        tcfg.vocab_size, F32_GATE_SEQ, F32_GATE_BATCH, seed=SEED)).batch(i).items()}
+        for i in range(2)]
+    s_graph = step_mod.init_train_state(cfg32, tcfg_train, SEED, dev)
+    graph32 = CompiledTrainStep(cfg32, tcfg_train, s_graph)
+    for _ in range(2):
+        graph32(s_graph, b32[0])
+    s_eager = step_mod.init_train_state(cfg32, tcfg_train, SEED, dev)
+    with torch.no_grad():
+        for a, b_ in zip(_leaves(s_graph), _leaves(s_eager)):
+            a.copy_(b_)
+    loss_graph = float(graph32(s_graph, b32[1])[1]["loss"])
+    loss_eager = float(step_mod.make_train_step(cfg32, tcfg_train)(s_eager, b32[1])[1]["loss"])
+    worst32 = max((float((a - b_).abs().max()) / max(float(b_.abs().max()), 1e-30), n)
+                  for (n, a), b_ in zip(_named_leaves(_map(torch.Tensor.detach, s_graph)),
+                                        _leaves(_map(torch.Tensor.detach, s_eager)))
+                  if a.is_floating_point())
+    graph_train_f32 = {"loss_graph": loss_graph, "loss_eager": loss_eager,
+                       "loss_rel_diff": abs(loss_graph - loss_eager) / abs(loss_eager),
+                       "worst_leaf_rel_diff": worst32[0], "worst_leaf": worst32[1],
+                       "steps_equal": int(s_graph["opt"]["step"]) == int(s_eager["opt"]["step"]),
+                       "counts": graph32.counts(), "batch": F32_GATE_BATCH, "seq": F32_GATE_SEQ}
+    print(f"{TRAIN_ARCH} f32 train step, a CUDA graph replay vs eager from equal states: "
+          f"{json.dumps(graph_train_f32)} (tol {GRAPH_TRAIN_F32_TOL} on loss_rel_diff and "
+          "worst_leaf_rel_diff)", flush=True)
+    if (graph_train_f32["loss_rel_diff"] > GRAPH_TRAIN_F32_TOL
+            or worst32[0] > GRAPH_TRAIN_F32_TOL or not graph_train_f32["steps_equal"]
+            or graph32.counts() != {"calls": 3, "captures": 1, "replays": 2}):
+        fail(f"{TRAIN_ARCH}: the replayed f32 train step disagrees with the eager step")
+    del s_graph, s_eager, graph32, b32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (j) the supervised run: the compiled bf16 step under Supervisor for
+    # TRAIN_STEPS steps, a checkpoint every SUP_CKPT_EVERY, a node failure
+    # injected before step SUP_FAIL_AT; the restart copies the newest
+    # checkpoint into the live tensors and the graph replays on
+    sup_dir = Path(tempfile.mkdtemp(prefix="repro_torch_ckpt_"))
+    try:
+        jstate = step_mod.init_train_state(tcfg, tcfg_train, SEED, dev)
+        jstep = CompiledTrainStep(tcfg, tcfg_train, jstate)
+        ptrs = [t.data_ptr() for t in _leaves(jstate)]
+        order, at_ckpt = [], []
+
+        def batch_fn(i: int) -> dict:
+            order.append(i)
+            if i == SUP_CKPT_EVERY and not at_ckpt:  # the live state at the checkpoint
+                at_ckpt.extend(t.detach().clone() for t in _leaves(jstate))
+            return batches[i]
+
+        sup_log = EventLog()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = Supervisor(SupervisorConfig(ckpt_dir=str(sup_dir), ckpt_every=SUP_CKPT_EVERY,
+                                          max_steps=TRAIN_STEPS), jstep, batch_fn, jstate,
+                         log=sup_log, failures=FailureInjector((SUP_FAIL_AT,))).run()
+        sup_wall = time.perf_counter() - t0
+        last_loss = dict(zip(order, (mm["loss"] for mm in out["metrics"])))
+        sup_losses = [last_loss[i] for i in range(TRAIN_STEPS)]
+        calls = TRAIN_STEPS + SUP_FAIL_AT - SUP_CKPT_EVERY
+        sup_launches = launch_counts()
+        t0 = time.perf_counter()
+        restored = restore(str(sup_dir), SUP_CKPT_EVERY, jstate)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        manifest = json.loads((sup_dir / f"step_{SUP_CKPT_EVERY:08d}" / "manifest.json")
+                              .read_text())
+        # every leaf under its live dtype: the bf16 params as "bfloat16" (the
+        # norm scales are f32), the moments f32, the step counter int32
+        listed = {leaf["key"]: leaf["dtype"] for leaf in manifest["leaves"]}
+        live = {n[1:]: str(t.dtype).removeprefix("torch.") for n, t in _named_leaves(jstate)}
+        bf16_params = sum(k.startswith("params/") and d == "bfloat16" for k, d in listed.items())
+        restored_equal = all(same_bits(a, b_) for a, b_ in zip(_leaves(restored), at_ckpt))
+        del restored
+        ptrs_unchanged = ptrs == [t.data_ptr() for t in _leaves(jstate)]
+        step_counter = int(jstate["opt"]["step"])
+        # the restart's own path: the checkpoint copied from the host into the
+        # live tensors, with no second copy of the state on the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        restore_into(str(sup_dir), SUP_CKPT_EVERY, jstate)
+        torch.cuda.synchronize()
+        restore_into_s = time.perf_counter() - t0
+        restore_into_extra_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        restored_into_equal = all(same_bits(a, b_) for a, b_ in zip(_leaves(jstate), at_ckpt))
+        ptrs_unchanged = ptrs_unchanged and ptrs == [t.data_ptr() for t in _leaves(jstate)]
+        del at_ckpt
+        for d in sup_dir.iterdir():
+            shutil.rmtree(d)
+        # the checkpointer alone: the blocking snapshot, then the write
+        ck = AsyncCheckpointer(str(sup_dir), keep=1)
+        t0 = time.perf_counter()
+        ck.save(TRAIN_STEPS, jstate)
+        snapshot_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ck.wait()
+        write_s = time.perf_counter() - t0
+        ckpt_gb = sum(f.stat().st_size for f in sup_dir.rglob("*") if f.is_file()) / 1e9
+        supervised = {
+            "steps": out["steps"], "restarts": out["restarts"], "stragglers": out["stragglers"],
+            "metrics": len(out["metrics"]), "step_order": order, "losses": sup_losses,
+            "losses_equal_compiled_run": sup_losses == closses, "counts": jstep.counts(),
+            "launches": sup_launches, "data_ptrs_unchanged": ptrs_unchanged,
+            "step_counter": step_counter, "restored_step_equal": restored_equal,
+            "restored_into_equal": restored_into_equal,
+            "manifest_dtypes_live": listed == live, "manifest_bf16_params": bf16_params,
+            "manifest_leaves": len(listed), "wall_s": sup_wall,
+            "checkpoint_spans_s": sup_log.durations("checkpoint"),
+            "restart_span_s": sup_log.durations("restart"),
+            "snapshot_ms": snapshot_ms, "write_s": write_s, "restore_s": restore_s,
+            "restore_into_s": restore_into_s, "restore_into_extra_gb": restore_into_extra_gb,
+            "checkpoint_gb": ckpt_gb, "trace": out["trace"]}
+    finally:
+        shutil.rmtree(sup_dir, ignore_errors=True)
+    print(f"{TRAIN_ARCH} supervised compiled run, {smi}: {json.dumps(supervised)}", flush=True)
+    want_calls = {"calls": calls, "captures": 1, "replays": calls - 1}
+    sup_failures = [what for what, ok in (
+        ("restarts != 1", supervised["restarts"] == 1),
+        (f"steps != {TRAIN_STEPS}", supervised["steps"] == TRAIN_STEPS),
+        ("a step's last loss differs from the uninterrupted compiled run's",
+         supervised["losses_equal_compiled_run"]),
+        (f"counts {supervised['counts']} != {want_calls}", supervised["counts"] == want_calls),
+        ("launches are not the calls' exact launches",
+         sup_launches == {k: v * calls for k, v in want_step.items()}),
+        ("a leaf's data_ptr moved", supervised["data_ptrs_unchanged"]),
+        (f"step counter {supervised['step_counter']} != {TRAIN_STEPS}",
+         supervised["step_counter"] == TRAIN_STEPS),
+        (f"the step-{SUP_CKPT_EVERY} checkpoint differs from the live state there",
+         restored_equal),
+        (f"the step-{SUP_CKPT_EVERY} checkpoint copied into the live tensors differs from "
+         "the live state there", restored_into_equal),
+        ("the manifest's dtypes are not the live leaves'", listed == live and bf16_params > 0))
+        if not ok]
+    if sup_failures:
+        fail(f"{TRAIN_ARCH} supervised run: " + "; ".join(sup_failures))
+    del jstate, jstep, batches
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2136,18 +2375,27 @@ def main() -> None:
     print("  R11 guard: decode_attention, moe_gmm, mamba_scan and rwkv6_scan refuse an input "
           "that requires grad: ok", flush=True)
 
-    # (i) the training driver, as a user runs it, on the card
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
-                           "--steps", "20"], cwd=ROOT, capture_output=True, text=True,
-                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
-                          timeout=CLI_TIMEOUT_S)
+    # (i) the training driver, as a user runs it, on the card, with a node
+    # failure injected before step CLI_FAIL_AT (it restarts from step 0)
+    cli_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    cli_args = ["--arch", TRAIN_ARCH, "--steps", "20", "--ckpt-dir", cli_dir, "--fail-at",
+                str(CLI_FAIL_AT)]
+    try:
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *cli_args],
+                              cwd=ROOT, capture_output=True, text=True,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                              timeout=CLI_TIMEOUT_S)
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
     if proc.returncode != 0:
         fail(f"repro_torch.launch.train exited {proc.returncode}: {proc.stderr[-2000:]}")
     cli = json.loads(proc.stdout.strip().splitlines()[-1])
-    print(f"repro_torch.launch.train --arch {TRAIN_ARCH} --steps 20: {json.dumps(cli)}",
-          flush=True)
+    print(f"repro_torch.launch.train {' '.join(cli_args)}: {json.dumps(cli)}", flush=True)
     if not cli["last_loss"] < cli["first_loss"]:
         fail("repro_torch.launch.train: the loss did not fall")
+    if cli["restarts"] != 1 or cli["compiled"]["captures"] != 1:
+        fail(f"repro_torch.launch.train: restarts {cli['restarts']}, compiled "
+             f"{cli['compiled']}, expected 1 restart and 1 capture")
 
     records["flash_attention"]["with_lse"] = k1_lse
     records["flash_attention"]["train_launches"] = train_launches["flash_attention"]
@@ -2166,7 +2414,9 @@ def main() -> None:
         "launches": train_launches["rmsnorm_bwd"], **k3b,
     }
     training = {"f32_gate": f32_gate, "train": train_rec, "profile": train_profile,
-                "cli": cli}
+                "compiled": compiled_rec, "compiled_profile": compiled_profile,
+                "eager_vs_compiled": train_vs, "graph_f32": graph_train_f32,
+                "supervised": supervised, "cli": cli}
 
     # -- 6. report ----------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2306,6 +2556,18 @@ def _named_leaves(tree, prefix=""):
             yield from _named_leaves(v, f"{prefix}/{k}")
     else:
         yield prefix, tree
+
+
+def same_bits(a, b) -> bool:
+    """``a`` and ``b`` hold the same bits (the same dtype, shape and words)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        words = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(words), b.view(words))
+    return torch.equal(a, b)
 
 
 def _leaves(tree):

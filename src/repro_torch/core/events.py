@@ -1,9 +1,11 @@
 """Lifecycle event tracing: a trimmed copy of ``repro/core/events.py``.
 
-Holds what the serving engine uses: request / prefill / decode-tick
-spawn-exit brackets with span ids and parent links, and the durations that
-pair them.  Ring-buffer bounding, cross-process span contexts and JSON export
-stay in the JAX package until the trace layer is ported (ROADMAP M11).
+Holds what the serving engine and the training supervisor use: request /
+prefill / decode-tick / step / checkpoint / restart spawn-exit brackets with
+span ids and parent links, the durations that pair them, and the ring's
+bound with its count of evicted events (``maxlen``, ``dropped``).
+Cross-process span contexts and JSON export stay in the JAX package until
+the trace layer is ported (ROADMAP M11).
 """
 from __future__ import annotations
 
@@ -59,11 +61,25 @@ class Event:
 
 class EventLog:
     """Thread-safe append-only event log; ``maxlen`` bounds it as a ring that
-    keeps the newest events."""
+    keeps the newest events, and ``dropped`` counts the ones it evicted."""
 
     def __init__(self, maxlen: int | None = None) -> None:
         self._events: deque[Event] = deque(maxlen=maxlen)
         self._lock = threading.Lock()
+        self._dropped = 0
+
+    @property
+    def maxlen(self) -> int | None:
+        return self._events.maxlen
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            return self._dropped
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)
 
     def record(
         self,
@@ -78,6 +94,8 @@ class EventLog:
             parent = current_span()
         ev = Event(time.monotonic(), kind, name, payload, span, parent)
         with self._lock:
+            if self._events.maxlen is not None and len(self._events) == self._events.maxlen:
+                self._dropped += 1
             self._events.append(ev)
 
     @contextmanager
@@ -109,6 +127,7 @@ class EventLog:
     def clear(self) -> None:
         with self._lock:
             self._events.clear()
+            self._dropped = 0
 
     def durations(self, name: str) -> list[float]:
         """Pair spawn/exit events of ``name`` by span id into durations, in

@@ -1,17 +1,32 @@
-"""Training driver: a plain step loop over synthetic data.
+"""Training driver: the train step under the supervisor, over synthetic data.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --steps 20
-  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced --device cpu \
+      --fail-at 2 --ckpt-dir "$(mktemp -d)"
 
 Counterpart of ``repro/launch/train.py``.  Weights are random, drawn from
 ``--seed`` on the device; batch ``i`` is ``SyntheticLM`` batch ``i`` (the
 same arrays as the JAX driver's for the same seed).  The schedule is the
 JAX driver's: warmup over max(10, steps // 10) steps, cosine decay over
-``--steps``.  Prints one JSON line with ``arch``, ``steps``,
-``first_loss``, ``last_loss``, ``tokens_per_s`` and ``wall_s`` (the JAX
-driver's fields), plus ``device``, ``step_ms`` (the median step) and
-``kernels``, the launch count of each Hopper kernel in the run (all 0 on
-the CPU, where the plain versions run).
+``--steps``.  Every step runs under ``runtime/supervisor.py``'s
+``Supervisor``: a checkpoint of step 0 and every ``--ckpt-every`` steps in
+``--ckpt-dir``, and ``--fail-at`` injects node failures before the listed
+steps, after which it restarts from the newest checkpoint and replays.
+Without ``--ckpt-dir`` the checkpoints go to a fresh directory under the
+temporary directory (``$TMPDIR``), removed when the run ends.  A given
+directory is kept; if it already holds checkpoints, no step-0 checkpoint
+is written and a failure restores the newest one there, which may be an
+earlier run's: give a fresh one.  On
+the card the step is captured as a CUDA graph (``training/compiled.py``):
+the first step runs eagerly, the second is captured, every later one
+(replays after a restart too) is a replay.  On the CPU it runs eagerly.
+
+Prints one JSON line with ``arch``, ``steps``, ``restarts``,
+``stragglers``, ``first_loss``, ``last_loss``, ``tokens_per_s`` and
+``wall_s`` (the JAX driver's fields), plus ``device``, ``step_ms`` (the
+median step), ``kernels``, the launch count of each Hopper kernel in the
+run (all 0 on the CPU, where the plain versions run), and ``compiled``, the
+compiled step's ``calls`` / ``captures`` / ``replays``.
 
 On the card attention and RMSNorm differentiate through their kernels
 (K1 + K1b, K3 + K3b).  An arch whose path reaches the grouped matmul, the
@@ -19,24 +34,28 @@ Mamba scan or the RWKV6 scan (K4, K5, K6) has no backward kernel there yet:
 the driver stops with the ROADMAP item that brings it (K4b, K5b, K6b).
 
 Not here yet: ``--mesh`` (ROADMAP M13), ``--dispatch`` (M8), ``--tune`` /
-``--fleet`` (M12), the trace and metrics flags (M11), the supervisor with
-its restarts and ``--ckpt-*`` / ``--fail-at`` (M9c).
+``--fleet`` (M12), the trace and metrics flags (M11).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
+import tempfile
 import time
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
+from repro_torch.core.events import EventLog
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels import launch_counts, reset_launches
+from repro_torch.runtime.supervisor import FailureInjector, Supervisor, SupervisorConfig
 from repro_torch.training import optim
-from repro_torch.training.step import TrainConfig, init_train_state, make_train_step
+from repro_torch.training.compiled import CompiledTrainStep
+from repro_torch.training.step import TrainConfig, init_train_state
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -48,6 +67,10 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (default: a fresh temporary one, removed at the end)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--fail-at", default="", help="comma list of steps to inject failures")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch versions")
@@ -63,34 +86,44 @@ def main(argv: list[str] | None = None) -> dict:
         microbatches=args.microbatches,
     )
     state = init_train_state(cfg, tcfg, args.seed, device)
-    step = make_train_step(cfg, tcfg)
+    step = CompiledTrainStep(cfg, tcfg, state)
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch, seed=args.seed))
 
-    reset_launches()
-    losses, step_ms = [], []
-    t0 = time.time()
-    for i in range(args.steps):
-        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(i).items()}
-        ts = time.perf_counter()
+    def batch_fn(i: int) -> dict:
+        return {k: torch.from_numpy(v).to(device) for k, v in data.batch(i).items()}
+
+    ckpt_ctx = contextlib.nullcontext(args.ckpt_dir) if args.ckpt_dir else \
+        tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_")
+    with ckpt_ctx as ckpt_dir:
+        sup = Supervisor(
+            SupervisorConfig(ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every,
+                             max_steps=args.steps),
+            step, batch_fn, state, log=EventLog(maxlen=1 << 16),
+            failures=FailureInjector(tuple(int(s) for s in args.fail_at.split(",") if s)),
+        )
+        reset_launches()
+        t0 = time.time()
         try:
-            state, metrics = step(state, batch)
+            out = sup.run()
         except RuntimeError as e:
             if "ROADMAP" not in str(e):
                 raise
             raise SystemExit(f"{cfg.name} cannot train on {device} yet: {e}") from e
-        losses.append(float(metrics["loss"]))  # waits for the step
-        step_ms.append(1e3 * (time.perf_counter() - ts))
-    wall = time.time() - t0
+        wall = time.time() - t0
+    losses = [m["loss"] for m in out["metrics"]]
     rec = {
         "arch": cfg.name,
-        "steps": args.steps,
+        "steps": out["steps"],
+        "restarts": out["restarts"],
+        "stragglers": out["stragglers"],
         "first_loss": losses[0],
         "last_loss": losses[-1],
-        "tokens_per_s": round(args.steps * args.batch * args.seq / wall, 1),
+        "tokens_per_s": round(out["steps"] * args.batch * args.seq / wall, 1),
         "wall_s": round(wall, 2),
-        "step_ms": round(statistics.median(step_ms), 2),
+        "step_ms": round(1e3 * statistics.median(sup.durations), 2),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else str(device),
         "kernels": launch_counts(),
+        "compiled": step.counts(),
     }
     print(json.dumps(rec), flush=True)
     return rec

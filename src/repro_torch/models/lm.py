@@ -22,6 +22,9 @@ Without caches (training), each period runs under
 ``jax.checkpoint`` around its scan body: ``nothing`` keeps only the
 period's inputs and recomputes the rest in the backward, ``dots`` keeps the
 matmul outputs too (selective checkpointing), ``everything`` is no remat.
+The checkpoints stash no RNG state (``preserve_rng_state=False``): the
+forward draws no random numbers, and reading the card's RNG state is
+refused inside a CUDA graph's capture (``training/compiled.py``).
 
 The vlm/audio frontends raise ``NotImplementedError`` (ROADMAP item M10).
 """
@@ -226,7 +229,8 @@ def _remat(fn, policy: str):
         raise ValueError(f"remat_policy {policy!r} not in (nothing, dots, everything)")
     context_fn = (functools.partial(ckpt.create_selective_checkpoint_contexts, _keep_dots)
                   if policy == "dots" else ckpt.noop_context_fn)
-    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=context_fn)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=context_fn,
+                             preserve_rng_state=False)
 
 
 def forward(
@@ -329,7 +333,7 @@ def loss_fn(
     nll_sum = z_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, T, chunk):
         nll, zl = ckpt.checkpoint(chunk_loss, h[c0:c0 + chunk], y[c0:c0 + chunk],
-                                  use_reentrant=False)
+                                  use_reentrant=False, preserve_rng_state=False)
         nll_sum, z_sum = nll_sum + nll, z_sum + zl
     ce, z = nll_sum / T, z_sum / T
     loss = ce + z + aux

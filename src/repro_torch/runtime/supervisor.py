@@ -1,0 +1,169 @@
+"""Training supervisor: checkpoint / restart, failure injection, stragglers
+(counterpart of ``repro/runtime/supervisor.py``).
+
+* **Failure detection + restart.**  A step that raises :class:`NodeFailure`
+  (injected by :class:`FailureInjector`) rolls back to the last checkpoint
+  and replays.  The data is indexed by the step (``batch_fn(step)``), so
+  the replay is bit for bit the run without the failure.
+* **Restore in place.**  The port's steps write params, moments and the step
+  counter in place, and a compiled step (``training/compiled.py``) reads and
+  writes them at the addresses its CUDA graph captured.  So a restore copies
+  the checkpoint into the live tensors of the state; a state rebound to new
+  tensors would leave the graph training the old ones.  For the same reason
+  step 0 is checkpointed before the first step, as the reference does
+  before its first donating step.
+* **Straggler detection.**  A step slower than ``straggler_factor`` x the
+  median of the last ``straggler_window`` steps (after 5) is recorded as a
+  ``straggler`` event under its step's span and counted.
+* **Lifecycle tracing.**  step / checkpoint / restart spawn-exit brackets
+  go into the :class:`~repro_torch.core.events.EventLog`.
+
+The reference's ``dispatcher`` / ``step_variants`` (ROADMAP M8), ``stream``
+(M11) and ``resize`` (M13) come with those items.
+"""
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import time
+from typing import Any, Callable, Optional
+
+from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore_into
+from repro_torch.core.events import GLOBAL_LOG, EventLog
+
+Tree = Any
+
+
+class NodeFailure(RuntimeError):
+    """Simulated (or surfaced) loss of a worker during a step."""
+
+
+@dataclasses.dataclass
+class FailureInjector:
+    """Deterministic failure schedule: fail just before the listed steps,
+    once each."""
+
+    fail_at_steps: tuple[int, ...] = ()
+    _already: set = dataclasses.field(default_factory=set)
+
+    def maybe_fail(self, step: int) -> None:
+        if step in self.fail_at_steps and step not in self._already:
+            self._already.add(step)
+            raise NodeFailure(f"injected node failure at step {step}")
+
+
+@dataclasses.dataclass
+class SupervisorConfig:
+    ckpt_dir: str
+    ckpt_every: int = 50
+    max_steps: int = 200
+    straggler_factor: float = 3.0  # deadline = factor x rolling median
+    straggler_window: int = 20
+    max_restarts: int = 10
+
+
+class Supervisor:
+    """Runs ``train_step`` under fault tolerance.
+
+    ``train_step(state, batch) -> (state, metrics)`` updates ``state`` in
+    place (the eager step of ``training/step.py`` or the compiled one of
+    ``training/compiled.py``), with metrics 0-dim tensors; ``batch_fn(step)
+    -> batch`` must be indexed by the step alone (resumable).
+    """
+
+    def __init__(
+        self,
+        cfg: SupervisorConfig,
+        train_step: Callable,
+        batch_fn: Callable[[int], Any],
+        init_state: Tree,
+        *,
+        log: Optional[EventLog] = None,
+        failures: Optional[FailureInjector] = None,
+    ) -> None:
+        self.cfg = cfg
+        self.train_step = train_step
+        self.batch_fn = batch_fn
+        self.state = init_state
+        self.log = GLOBAL_LOG if log is None else log
+        self.failures = failures or FailureInjector()
+        self.ckpt = AsyncCheckpointer(cfg.ckpt_dir)
+        self.step = 0
+        self.restarts = 0
+        self.stragglers = 0
+        self.durations: list[float] = []  # seconds of each step run, replays too
+
+    # -- fault handling ------------------------------------------------------
+
+    def _restore_latest(self) -> None:
+        self.ckpt.wait()  # a write in flight lands first: the newest one saved is restored
+        last = latest_step(self.cfg.ckpt_dir)
+        with self.log.lifecycle("restart", {"from_step": last}):
+            if last is None:
+                self.step = 0  # restart from scratch
+                return
+            restore_into(self.cfg.ckpt_dir, last, self.state)
+            self.step = last
+
+    # -- main loop -----------------------------------------------------------
+
+    def _deadline(self) -> Optional[float]:
+        if len(self.durations) < 5:
+            return None
+        window = self.durations[-self.cfg.straggler_window:]
+        return self.cfg.straggler_factor * statistics.median(window)
+
+    def run(self) -> dict[str, Any]:
+        metrics_hist = []
+        if latest_step(self.cfg.ckpt_dir) is None:
+            # step 0 before the first (in-place) step: a restart from scratch
+            # needs the state as it was
+            with self.log.lifecycle("checkpoint", 0):
+                self.ckpt.save(0, self.state)
+        while self.step < self.cfg.max_steps:
+            try:
+                with self.log.lifecycle("step", self.step) as step_span:
+                    self.failures.maybe_fail(self.step)
+                    t0 = time.monotonic()
+                    batch = self.batch_fn(self.step)
+                    self.state, metrics = self.train_step(self.state, batch)
+                    # the host copy waits for the step (block_until_ready +
+                    # device_get); a compiled step's metrics live in its
+                    # graph's pool only until the next replay
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    dt = time.monotonic() - t0
+                deadline = self._deadline()
+                if deadline is not None and dt > deadline:
+                    self.stragglers += 1
+                    # recorded after the step closed, but caused by it
+                    self.log.record("straggler", "step", {"step": self.step, "s": dt},
+                                    parent=step_span)
+                self.durations.append(dt)
+                metrics_hist.append(metrics)
+                self.step += 1
+                if self.step % self.cfg.ckpt_every == 0:
+                    with self.log.lifecycle("checkpoint", self.step, parent=step_span):
+                        self.ckpt.save(self.step, self.state)
+            except NodeFailure:
+                self.restarts += 1
+                if self.restarts > self.cfg.max_restarts:
+                    raise
+                self._restore_latest()
+        self.ckpt.wait()
+        with self.log.lifecycle("checkpoint", self.step):
+            self.ckpt.save(self.step, self.state)
+            self.ckpt.wait()
+        return {
+            "steps": self.step,
+            "restarts": self.restarts,
+            "stragglers": self.stragglers,
+            "metrics": metrics_hist,
+            # a bounded log on a long run drops its oldest events: the count
+            # keeps the loss visible in the driver's JSON
+            "trace": {
+                "events": len(self.log),
+                "dropped": self.log.dropped,
+                "capacity": self.log.maxlen,
+                **(self.log.drop_counters() if hasattr(self.log, "drop_counters") else {}),
+            },
+        }

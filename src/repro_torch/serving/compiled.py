@@ -1,5 +1,6 @@
-"""Compiled serving surfaces: one step at one set of shapes, run on the card
-as the replay of a captured CUDA graph.
+"""Compiled steps: one step at one set of shapes, run on the card as the
+replay of a captured CUDA graph.  The serving engine compiles its prefill
+and decode step here, and ``training/compiled.py`` the train step.
 
 Counterpart of the ``jax.jit`` calls of ``repro/serving/engine.py``: the JAX
 engine compiles its prefill once per prompt shape and its decode step once,
@@ -42,10 +43,10 @@ from repro_torch.kernels import add_launches, uncounted
 
 
 class Graphs:
-    """What one engine's compiled steps share on the card: one memory pool
-    (``torch.cuda.graph_pool_handle()``) and one side stream, on which each
-    step's eager first call and its capture run.  On a CPU device both are
-    None and its steps run eagerly."""
+    """What one engine's (or one train step's) compiled steps share on the
+    card: one memory pool (``torch.cuda.graph_pool_handle()``) and one side
+    stream, on which each step's eager first call and its capture run.  On
+    a CPU device both are None and its steps run eagerly."""
 
     def __init__(self, device: torch.device) -> None:
         self.device = device

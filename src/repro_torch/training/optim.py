@@ -6,9 +6,12 @@ mask, moment storage and clip are not the reference's: here every update
 runs in f32 on the fly, the moments are stored in ``moment_dtype``
 (``bfloat16`` halves their memory), a leaf with fewer than 2 dims (norm
 scales, biases) takes no weight decay, and the gradients are scaled by
-min(1, grad_clip / global norm) first.  The step counter is a Python int,
-so the schedule and the bias corrections are host numbers and the update
-needs no device-to-host copy.
+min(1, grad_clip / global norm) first.  The step counter is a 0-dim int32
+tensor on the params' device, incremented in place, as the JAX state holds
+it; the schedule and the bias corrections are computed from it on the
+device in f32, as the JAX package rounds them.  So the update needs no
+device-to-host copy, and a CUDA graph that captured it counts the steps
+and moves the learning rate on every replay.
 
 Where the JAX package returns new arrays, :func:`adamw_update` writes the
 params and moments in place (the port may, to save the memory of a second
@@ -39,15 +42,19 @@ class AdamWConfig:
     min_lr_ratio: float = 0.1
 
 
-def schedule(opt: AdamWConfig, step: int) -> float:
-    """Linear warmup -> cosine decay to min_lr_ratio x peak."""
-    step = float(step)
-    if step < opt.warmup_steps:
-        return opt.peak_lr * step / max(1.0, opt.warmup_steps)
+def schedule(opt: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup -> cosine decay to min_lr_ratio x peak, a 0-dim f32
+    tensor from the (int) step tensor, in the JAX package's f32 operations.
+    The cosine is taken in f64 and rounded to f32: torch's f32 cosine on
+    the CPU is one ulp off the correctly rounded value that XLA's gives at
+    some of the schedule's points."""
+    step = step.float()
+    warm = step / max(1.0, opt.warmup_steps)
     frac = (step - opt.warmup_steps) / max(1.0, opt.total_steps - opt.warmup_steps)
-    frac = min(max(frac, 0.0), 1.0)
-    cos = opt.min_lr_ratio + (1 - opt.min_lr_ratio) * 0.5 * (1 + math.cos(math.pi * frac))
-    return opt.peak_lr * cos
+    frac = frac.clamp(0.0, 1.0)
+    cos = opt.min_lr_ratio + (1 - opt.min_lr_ratio) * 0.5 * (
+        1 + torch.cos((math.pi * frac).double()).float())
+    return opt.peak_lr * torch.where(step < opt.warmup_steps, warm, cos)
 
 
 def _map(fn, *trees: Tree) -> Tree:
@@ -66,7 +73,9 @@ def leaves(tree: Tree) -> list[torch.Tensor]:
 def init_opt_state(params: Tree, opt: AdamWConfig) -> dict:
     dt = getattr(torch, opt.moment_dtype)
     zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
-    return {"mu": _map(zeros, params), "nu": _map(zeros, params), "step": 0}
+    device = leaves(params)[0].device
+    return {"mu": _map(zeros, params), "nu": _map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
@@ -78,14 +87,16 @@ def global_norm(tree: Tree) -> torch.Tensor:
 def adamw_update(
     params: Tree, grads: Tree, state: dict, opt: AdamWConfig
 ) -> tuple[Tree, dict, dict[str, Any]]:
-    """One AdamW step, in place; returns (params, state, metrics) with the
-    metrics ``grad_norm`` (a 0-dim f32 tensor, before the clip) and ``lr``."""
-    step = state["step"] + 1
+    """One AdamW step, in place (the step counter too); returns (params,
+    state, metrics) with the metrics ``grad_norm`` (before the clip) and
+    ``lr``, 0-dim f32 tensors."""
+    step = state["step"]
+    step.add_(1)
     gnorm = global_norm(grads)
     clip = torch.clamp(opt.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(opt, step)
     b1, b2 = opt.b1, opt.b2
-    bc1, bc2 = 1 - b1**step, 1 - b2**step
+    bc1, bc2 = 1 - b1 ** step.float(), 1 - b2 ** step.float()
 
     def upd(p, g, mu, nu):
         g = g.float() * clip
@@ -99,5 +110,4 @@ def adamw_update(
         nu.copy_(nu32)
 
     _map(upd, params, grads, state["mu"], state["nu"])
-    state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

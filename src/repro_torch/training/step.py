@@ -53,8 +53,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch: {"tokens": (B, S) int, "labels": (B, S) int} tensors on the
-    params' device.  metrics: loss, ce, z_loss, aux, tokens (0-dim f32
-    tensors), grad_norm (0-dim f32 tensor) and lr (float); with several
+    params' device.  metrics: loss, ce, z_loss, aux, tokens, grad_norm and
+    lr, each a 0-dim f32 tensor on that device; with several
     microbatches ce is the mean loss and z_loss and aux are 0, as in the JAX
     step.
     """

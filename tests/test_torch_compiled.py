@@ -1,4 +1,4 @@
-"""The port's compiled serving step (``serving/compiled.py``) on the CPU.
+"""The port's compiled steps (``serving/compiled.py``) on the CPU.
 
 On the card the engine replays CUDA graphs; a graph freezes every value the
 host computed while it was captured, reads and writes the addresses it saw,
@@ -8,7 +8,7 @@ parts of that which the CPU can show:
 1. a capture-safety trace: the aten ops of ``decode_step`` and ``prefill``,
    with their non-tensor arguments and their tensors' shapes and dtypes,
    do not depend on the token and position values, and none forces a
-   device-to-host sync;
+   device-to-host sync; nor do the train step's, at other step counts;
 2. every cache leaf of ``Engine.caches`` keeps its storage across decode
    ticks and prefills' copies into their slots;
 3. launch accounting: a capture adds no launches, N replays add N times
@@ -37,6 +37,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import compiled  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.training.step import TrainConfig, init_train_state, make_train_step  # noqa: E402
 
 ARCHS = ["qwen2-0.5b", "deepseek-moe-16b", "rwkv6-7b", "jamba-1.5-large"]
 # ops that read tensor data on the host: each forces a device-to-host sync
@@ -113,6 +114,32 @@ def test_decode_step_trace_is_capture_safe(arch):
     assert traces[0], "nothing was traced"
     assert _sync_ops(traces[0]) == [] and _sync_ops(traces[1]) == []
     _assert_same_trace(*traces)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_trace_is_capture_safe(microbatches):
+    """Train steps at other step counts (warmup steps 1, 2 and 7) on other
+    tokens dispatch the same ops with the same non-tensor arguments (the
+    schedule and the bias corrections come from the step tensor on the
+    device, not from host numbers a graph would freeze), and none syncs;
+    with 2 microbatches too (the accumulation loop a graph captures
+    unrolled)."""
+    cfg = reduced(get_config("smollm-360m"))
+    tcfg = TrainConfig(microbatches=microbatches)
+    state = init_train_state(cfg, tcfg, 0, "cpu")
+    step = make_train_step(cfg, tcfg)
+    rng = np.random.default_rng(5)
+    traces = []
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 17)))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        traces.append(_trace(lambda: step(state, batch)))
+        if len(traces) == 2:
+            state["opt"]["step"].add_(4)
+    assert int(state["opt"]["step"]) == 7
+    assert all(_sync_ops(t) == [] for t in traces)
+    _assert_same_trace(traces[0], traces[1])
+    _assert_same_trace(traces[0], traces[2])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -79,14 +79,22 @@ def _assert_leaves_close(jtree, ttree, rel):
 # ---------------------------------------------------------------------------
 
 
-def test_schedule_matches_jax():
-    opt = optim.AdamWConfig(peak_lr=1.0, warmup_steps=10, total_steps=110, min_lr_ratio=0.1)
-    jopt = jax_optim.AdamWConfig(peak_lr=1.0, warmup_steps=10, total_steps=110, min_lr_ratio=0.1)
-    for s in (0, 1, 5, 10, 11, 60, 109, 110, 200):
-        np.testing.assert_allclose(optim.schedule(opt, s),
-                                   float(jax_optim.schedule(jopt, jnp.int32(s))), rtol=1e-6,
-                                   err_msg=f"step {s}")
-    assert optim.schedule(opt, 0) == 0.0 and abs(optim.schedule(opt, 200) - 0.1) < 1e-12
+@pytest.mark.parametrize("warmup,total", [(10, 110), (10, 25)])
+def test_schedule_matches_jax(warmup, total):
+    """The schedule from the step tensor, bit for bit JAX's f32 values at
+    steps 0-30 (warmup, peak, cosine and, with 25 total steps, past the
+    end), and at the first config's later points."""
+    opt = optim.AdamWConfig(peak_lr=1.0, warmup_steps=warmup, total_steps=total,
+                            min_lr_ratio=0.1)
+    jopt = jax_optim.AdamWConfig(peak_lr=1.0, warmup_steps=warmup, total_steps=total,
+                                 min_lr_ratio=0.1)
+    for s in [*range(31), 60, 109, 110, 200]:
+        got = optim.schedule(opt, torch.tensor(s, dtype=torch.int32))
+        want = np.asarray(jax_optim.schedule(jopt, jnp.int32(s)))
+        assert got.dtype == torch.float32 and got.shape == ()
+        assert got.numpy().tobytes() == want.tobytes(), f"step {s}: {float(got)} vs {want}"
+    assert float(optim.schedule(opt, torch.tensor(0))) == 0.0
+    assert abs(float(optim.schedule(opt, torch.tensor(200))) - 0.1) < 1e-7
 
 
 @pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
@@ -113,8 +121,9 @@ def test_adamw_update_matches_jax(moment_dtype, param_dtype):
         tp, tstate, tm = optim.adamw_update(tp, {k: torch.from_numpy(v) for k, v in g.items()},
                                             tstate, opt)
         np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-6)
-        np.testing.assert_allclose(tm["lr"], float(jm["lr"]), rtol=1e-6)
-        assert tstate["step"] == int(jstate["step"]) == i + 1
+        assert tm["lr"].numpy().tobytes() == np.asarray(jm["lr"]).tobytes()
+        assert tstate["step"].dtype == torch.int32 and tstate["step"].shape == ()
+        assert int(tstate["step"]) == int(jstate["step"]) == i + 1
         # one f32 update rounded to the param dtype; bf16 may land one ulp apart
         tol = 1e-5 if param_dtype == "float32" and moment_dtype == "float32" else 1e-2
         for k in shapes:
@@ -249,7 +258,7 @@ def test_train_step_with_microbatches_matches_jax():
         state, {k: torch.from_numpy(v) for k, v in batch.items()})
     for k in ("loss", "ce", "z_loss", "aux", "tokens", "grad_norm"):
         np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, atol=1e-9, err_msg=k)
-    assert state["opt"]["step"] == int(jstate["opt"]["step"]) == 1
+    assert int(state["opt"]["step"]) == int(jstate["opt"]["step"]) == 1
     # the first step moves each weight by ~lr (Adam's normalised update), so
     # the params agree to well under it
     _assert_leaves_close(jstate["params"], state["params"], 1e-5)
@@ -312,12 +321,15 @@ def test_attention_and_rmsnorm_train_through_their_functions(monkeypatch):
     assert calls.count("RMSNorm") == 2 * cfg.n_layers + 1
 
 
-def test_train_driver_on_the_cpu(capsys):
+def test_train_driver_on_the_cpu(tmp_path, capsys):
     rec = train_cli.main(["--arch", "smollm-360m", "--reduced", "--device", "cpu",
-                          "--steps", "3", "--batch", "2", "--seq", "16"])
+                          "--steps", "3", "--batch", "2", "--seq", "16",
+                          "--ckpt-dir", str(tmp_path)])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line == rec
     assert line["arch"] == "smollm-360m-smoke" and line["steps"] == 3
     assert np.isfinite(line["first_loss"]) and np.isfinite(line["last_loss"])
     assert line["device"] == "cpu" and not any(line["kernels"].values())
-    assert set(line) >= {"first_loss", "last_loss", "tokens_per_s", "wall_s"}
+    assert set(line) >= {"first_loss", "last_loss", "tokens_per_s", "wall_s", "restarts",
+                         "stragglers", "compiled"}
+    assert line["restarts"] == 0 and line["compiled"]["captures"] == 0
