@@ -13,9 +13,12 @@ failure of which exits non-zero:
    sources, none of whose instances may spill, nor K5's take more than 128
    registers, nor the wgmma K1b's differ from the entry count its
    setmaxnreg exchange assumes; the wgmma K1b's shared memory, blocks an
-   SM and any wgmma serialisation ptxas reports);
+   SM and any wgmma serialisation ptxas reports; K1 and K2 per instance,
+   and for their four D-256 instances, none of which may spill, the
+   registers, spilled bytes, shared memory and blocks an SM the card
+   reports);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   CPU tests' shapes and at both served models' shapes (qwen2-0.5b: head
+   CPU tests' shapes and at the served models' shapes (qwen2-0.5b: head
    dim 64, d 896; deepseek-moe-16b: head dim 128, d 2048, the grouped
    matmul at its prefill and decode capacities; rwkv6-7b: the WKV scan at
    its prefill shape, at batch 8, with strong and weak decays and a ragged
@@ -38,7 +41,10 @@ failure of which exits non-zero:
    boundary (element-wise loads), and the served shape with L2 flushed
    before each run; K5 also at T = 50 (past its step group and stage), DI
    ragged against its channel tile, T of one ring stage at batch 8, and the
-   served shape with L2 flushed before each run; every K3, K4, K5 and K6
+   served shape with L2 flushed before each run; K1 and K2 at head dim 256
+   (the CPU tests' D-256 cases, gemma3-4b's prefill with and without its
+   window of 1024 and its decode at 2048 slots and on wrapped 1024-slot
+   rings) and at gemma2-27b's shapes with softcap 50; every K3, K4, K5 and K6
    check runs twice into NaN-filled memory and the two results must be the
    same bytes), within 2e-2 (bf16) or 1e-4 (f32); time kernel, plain
    version and one PyTorch library call where there is one (a yardstick
@@ -101,6 +107,18 @@ failure of which exits non-zero:
    with the bf16 model freed, (b) the same at depth 2 in f32 (weights drawn
    in f32 from the same seed) within F32_LOGIT_TOL, with the routing's
    top-k agreement;
+4e. free it, and serve full-width, full-depth gemma3-4b (head dim 256;
+   2048-slot caches, 16 requests of 1536 prompt tokens, longer than its
+   window of 1024, so K1 masks by window and the local layers' rings wrap;
+   32 new tokens) the same way, with exact launch counts and K1 and K2 at
+   D 256 by kernel name; then the first request's prefill + 8 teacher-
+   forced decode steps at full depth in f32, kernels vs plain within
+   F32_LOGIT_TOL and as graph replays within GRAPH_F32_TOL (bf16 reported);
+4f. free it, and serve full-width, full-depth gemma2-27b (54.45 GB; the
+   standard set, 32 new tokens; softcaps 50 and 30) the same way; the first
+   request through the kernels and the plain versions in bf16 at full
+   depth, reported; and, with the bf16 model freed, the f32 gate at 4
+   layers (weights drawn in f32 from the same seed);
 5. free it, and train smollm-360m (the training path: ``lm.loss_fn``,
    ``training.step``, AdamW) through K1 with its log-sum-exp, the flash
    backward K1b, K3 and its backward K3b: (a) K1's lse against
@@ -155,11 +173,12 @@ failure of which exits non-zero:
    torch.profiler, which must show its one kernel, at most once a call,
    and nothing else (no memset); and K3 at the training rows beside
    ``F.rms_norm``; (h) K2, K4, K5 and K6 refuse an input that requires grad
-   (ROADMAP R11); (i) ``python -m repro_torch.launch.train --arch
+   (ROADMAP R11), and K1b one at head dim 256 (K1b-D256) before any
+   launch; (i) ``python -m repro_torch.launch.train --arch
    smollm-360m --steps 20 --ckpt-dir <tmp> --fail-at 7`` in a child
    process: one restart, one capture, its loss falling;
 6. print the script's run time, the per-kernel JSON line (launches from the
-   four compiled serving runs; K1b's and K3b's from phase 5 (e)), the card
+   six compiled serving runs; K1b's and K3b's from phase 5 (e)), the card
    line, and last the ``{"ok": true, "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
@@ -219,6 +238,17 @@ JAMBA_GATE_LAYERS = 2  # gate (b): mamba/dense + mamba/moe in f32, 48.7 GB
 # nothing.  A = -exp(A_log) stays negative, so every decay stays in (0, 1).
 MAMBA_FLAT_NOISE = {"A_log": 0.5, "D": 0.5, "conv_b": 0.1, "dt_norm": 0.3, "b_norm": 0.3,
                     "c_norm": 0.3}
+GEMMA3_ARCH = "gemma3-4b"
+# prompts longer than the 1024-token window: K1 masks by window in every
+# local layer's prefill, and each local layer's 1024-slot ring holds the
+# prompt's last 1024 positions and wraps in decode (K2 at D 256 on a ring)
+GEMMA3_SERVE = dict(max_batch=8, max_seq=2048, requests=16, prompt_len=1536, max_new=32)
+GEMMA2_ARCH = "gemma2-27b"
+# 46 layers, 54.45 GB in bf16: one card holds it at full depth.  Its window
+# of 4096 never masks at these lengths (gemma3 carries the window); its
+# softcaps (50 on attention, 30 on the final logits) act in every layer
+GEMMA2_SERVE = dict(max_batch=8, max_seq=1024, requests=16, prompt_len=512, max_new=32)
+GEMMA2_GATE_LAYERS = 4  # the f32 gate: 2 periods of (swa, ga) at full width, 13.8 GB
 SFU_EXP_PER_CLOCK = 16  # ex2 results per clock per SM on Hopper (sm_90)
 # A replayed decode tick dispatches two copies into its static buffers and
 # one graph launch; an eager one dispatches 1852-4098 ops on these models.
@@ -373,6 +403,29 @@ def main() -> None:
             print(f"    ptxas: {line.strip()[:200]}", flush=True)
     if any(regs > 128 for _, regs, _ in ptxas["mamba_scan"]):
         fail("an instance of mamba_scan takes more than 128 registers (4 blocks an SM)")
+    # K1 and K2 per instance, and what the card made of their four D-256
+    # instances (gemma3-4b's head dim; the split pass at gemma3's served
+    # ranges): registers, spilled bytes, static and dynamic shared memory,
+    # blocks an SM.  None of the four may spill.
+    d256 = {}
+    for name in ("flash_attention", "decode_attention"):
+        for fn_name, regs, spill in ptxas[name]:
+            print(f"    {fn_name[:72]}: {regs} registers, {spill} bytes spilled", flush=True)
+            if "Li256E" in fn_name:  # a template instance at D 256
+                d256[fn_name] = {"ptxas_registers": regs, "ptxas_spill_bytes": spill}
+    g3 = get_config(GEMMA3_ARCH)
+    g3_chunk = k2.split_plan(GEMMA3_SERVE["max_batch"], g3.n_kv_heads, GEMMA3_SERVE["max_seq"],
+                             n_sm)[1]
+    d256_info = {"flash_fwd_mma<256>": k1.instance_info(torch.bfloat16, 256),
+                 "flash_fwd_simt<float, 256>": k1.instance_info(torch.float32, 256),
+                 "decode_split_mma<256>": k2.instance_info(torch.bfloat16, 256, g3_chunk),
+                 "decode_split_kernel<float, 256>": k2.instance_info(torch.float32, 256, g3_chunk)}
+    for name, info in d256_info.items():
+        print(f"  {name}: {json.dumps(info)}", flush=True)
+    if (len(d256) != 4 or any(v["ptxas_spill_bytes"] for v in d256.values())
+            or any(v["spilled_bytes"] for v in d256_info.values())):
+        fail(f"the D-256 instances of K1 and K2: ptxas {d256}, the card {d256_info}: four "
+             "instances without spills expected")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -632,7 +685,8 @@ def main() -> None:
 
     # K3: every served shape, 8 decode rows and 512 prefill rows of each
     # model's norm widths (qwen2 d 896, deepseek d 2048, rwkv6-7b d 4096,
-    # jamba d 8192 and its Mamba norms' dt_rank 512 and d_state 16), an odd
+    # jamba d 8192 and its Mamba norms' dt_rank 512 and d_state 16, gemma2
+    # d 4608; gemma3's d 2560 at 8 and 1536 rows), an odd
     # shape, a D off 16 bytes and a view off a 16-byte boundary (both
     # element-wise), in f32 and bf16; every check runs twice into NaN-filled
     # memory (norm_twice).  Timed in bf16 at every served shape, beside the
@@ -645,6 +699,9 @@ def main() -> None:
     norm_widths = {ARCH: (dm,), MOE_ARCH: (get_config(MOE_ARCH).d_model,),
                    RWKV_ARCH: (get_config(RWKV_ARCH).d_model,), JAMBA_ARCH: (jfull.d_model, jR, jN)}
     served_norms = [(r, d) for ds in norm_widths.values() for d in ds for r in (B, S)]
+    # the gemmas' rows: gemma3-4b's d 2560 at its 1536-token prefill, gemma2-27b's d 4608
+    served_norms += [(B, g3.d_model), (GEMMA3_SERVE["prompt_len"], g3.d_model),
+                     (B, get_config(GEMMA2_ARCH).d_model), (S, get_config(GEMMA2_ARCH).d_model)]
 
     def norm_twice(x, s):
         """K3 twice on the same inputs, each time into the block the caching
@@ -1148,6 +1205,114 @@ def main() -> None:
             f"({jm.n_experts},{C_},{jdm})@({jm.n_experts},{jdm},{jm.d_expert}) bf16 ({phase})")
     del x, w
     torch.cuda.empty_cache()
+
+    # K1 and K2 at head dim 256 (gemma3-4b) and at gemma2-27b's shapes, in
+    # f32 and bf16: the CPU tests' D-256 cases (GQA 2, a window that starts
+    # inside a tile, a softcap, the queries as the last 40 of 100 keys with
+    # both; a wrapped 40-slot ring with window 8 and a softcap), then each
+    # model's served shapes: gemma3's prefill (1, 1536, 8/4, 256) with its
+    # local layers' window of 1024 and without it (its global layers),
+    # gemma2's (1, 512, 32/16, 128) with softcap 50 (its window of 4096
+    # never masks at 512); gemma3's decode tick at a global layer's 2048
+    # slots, at a local layer's wrapped 1024-slot ring with window 1024 and
+    # with window 1000 (starting inside a tile), gemma2's at 1024 slots with
+    # softcap 50.  The decode rows stand where the serve sets' ticks stand
+    # (prompt_len + 16 + row), so every row has a live slot (R9).  Each
+    # served shape is timed in bf16 with L2 flushed, beside its bound, the
+    # plain version and SDPA (which has no softcap: at gemma2's shapes it
+    # is timed without one, as sdpa_without_softcap_ms).  Drawn from a fork of the
+    # generator, so later phases draw what they did before.
+    g2 = get_config(GEMMA2_ARCH)
+    gen_state = gen.get_state()
+    g3S, g2S = GEMMA3_SERVE["prompt_len"], GEMMA2_SERVE["prompt_len"]
+    k1_gemma = [("D-256 GQA", 1, 64, 64, 4, 2, 256, None, None, 0),
+                ("D-256 window", 1, 64, 64, 4, 2, 256, 24, None, 0),
+                ("D-256 softcap", 1, 64, 64, 4, 2, 256, None, 50.0, 0),
+                ("D-256 q_offset", 1, 40, 100, 4, 2, 256, 37, 30.0, 60),
+                (f"{GEMMA3_ARCH} local", 1, g3S, g3S, g3.n_heads, g3.n_kv_heads, g3.head_dim,
+                 g3.sliding_window, None, 0),
+                (f"{GEMMA3_ARCH} global", 1, g3S, g3S, g3.n_heads, g3.n_kv_heads, g3.head_dim,
+                 None, None, 0),
+                (GEMMA2_ARCH, 1, g2S, g2S, g2.n_heads, g2.n_kv_heads, g2.head_dim, None,
+                 g2.attn_logit_softcap, 0)]
+    k2_gemma = [("D-256 ring window", 2, 40, 4, 2, 256, 8, 30.0, [57, 70], True),
+                (f"{GEMMA3_ARCH} global", GEMMA3_SERVE["max_batch"], GEMMA3_SERVE["max_seq"],
+                 g3.n_heads, g3.n_kv_heads, g3.head_dim, None, None, None, False),
+                (f"{GEMMA3_ARCH} local", GEMMA3_SERVE["max_batch"], g3.sliding_window,
+                 g3.n_heads, g3.n_kv_heads, g3.head_dim, g3.sliding_window, None, None, True),
+                (f"{GEMMA3_ARCH} local window 1000", GEMMA3_SERVE["max_batch"], g3.sliding_window,
+                 g3.n_heads, g3.n_kv_heads, g3.head_dim, 1000, None, None, True),
+                (GEMMA2_ARCH, GEMMA2_SERVE["max_batch"], GEMMA2_SERVE["max_seq"], g2.n_heads,
+                 g2.n_kv_heads, g2.head_dim, None, g2.attn_logit_softcap, None, False)]
+    gemma_times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        for label, B_, Sq_, Sk_, Hq_, Hkv_, D_, w, cap, qo in k1_gemma:
+            qe, ke, ve = (randn(B_, n, h, D_, dtype=dt)
+                          for n, h in ((Sq_, Hq_), (Sk_, Hkv_), (Sk_, Hkv_)))
+            kw = dict(window=w, softcap=cap, q_offset=qo)
+            err1 = max(err1, hold("flash_attention", f"{dn} {label} {B_}x{Sq_}x{Sk_}x{Hq_}/{Hkv_}"
+                                  f"x{D_} w={w} cap={cap} q_offset={qo}",
+                                  k1.flash_attention(qe, ke, ve, **kw),
+                                  ref.mha_ref(qe, ke, ve, **kw), dn))
+            if dt != torch.bfloat16 or label.startswith("D-256"):
+                continue
+            qi, ki = torch.arange(Sq_, device=dev)[:, None] + qo, torch.arange(Sk_, device=dev)
+            mask = (ki <= qi) & ((ki > qi - w) if w else True)
+            pairs_ = int(mask.sum()) * B_
+            shape = (f"B={B_} S={Sq_} Hq={Hq_} Hkv={Hkv_} D={D_} bf16 causal w={w} cap={cap} "
+                     f"({k1.instance(dt, D_)})")
+            gemma_times[f"flash_attention {label}"] = timed(
+                lambda: k1.flash_attention(qe, ke, ve, **kw), lambda: ref.mha_ref(qe, ke, ve, **kw),
+                (lambda qs=qe.transpose(1, 2).contiguous(), ks_=ke.transpose(1, 2).contiguous(),
+                 vs_=ve.transpose(1, 2).contiguous(), m_=mask if w else None: (
+                     F.scaled_dot_product_attention(qs, ks_, vs_, attn_mask=m_, enable_gqa=True)
+                     if w else F.scaled_dot_product_attention(qs, ks_, vs_, is_causal=True,
+                                                              enable_gqa=True))),
+                nbytes(qe, ke, ve, qe), 4 * D_ * Hq_ * pairs_, peaks["bfloat16"], shape)
+            if cap:  # no PyTorch call applies a softcap: SDPA without it, a yardstick only
+                t = gemma_times[f"flash_attention {label}"]
+                t["sdpa_without_softcap_ms"], t["library_ms"] = t["library_ms"], None
+        for label, B_, S_, Hq_, Hkv_, D_, w, cap, curs, ring in k2_gemma:
+            if curs is None:  # a serve set's tick: prompt_len + 16 + row
+                curs = [(g3S if D_ == 256 else g2S) + 16 + i for i in range(B_)]
+            qe, kce, vce = randn(B_, Hq_, D_, dtype=dt), randn(B_, S_, Hkv_, D_, dtype=dt), \
+                randn(B_, S_, Hkv_, D_, dtype=dt)
+            pose = (ring_pos(B_, S_, curs) if ring else
+                    torch.arange(S_, dtype=torch.int32, device=dev)[None].repeat(B_, 1))
+            cure = torch.tensor(curs, dtype=torch.int32, device=dev)
+            kw = dict(window=w, softcap=cap)
+            got = k2.decode_attention(qe, kce, vce, pose, cure, **kw)
+            n_split, chunk = k2.split_plan(B_, Hkv_, S_, n_sm_card)
+            case = f"{dn} {label} {B_}x{S_}x{Hq_}/{Hkv_}x{D_} w={w} cap={cap}"
+            err2 = max(err2, hold("decode_attention", case, got,
+                                  ref.decode_attention_ref(qe, kce, vce, pose, cure, **kw), dn))
+            err2 = max(err2, hold("decode_attention", f"{case} vs split ref {n_split}x{chunk}",
+                                  got, ref.decode_attention_split_ref(
+                                      qe, kce, vce, pose, cure, n_split=n_split, chunk=chunk,
+                                      **kw), dn))
+            if dt != torch.bfloat16 or label.startswith("D-256") or w == 1000:
+                continue
+            live_ = (pose >= 0) & (pose <= cure[:, None])
+            if w:
+                live_ &= pose > cure[:, None] - w
+            n_live_ = int(live_.sum())
+            gemma_times[f"decode_attention {label}"] = timed(
+                lambda: k2.decode_attention(qe, kce, vce, pose, cure, **kw),
+                lambda: ref.decode_attention_ref(qe, kce, vce, pose, cure, **kw),
+                (lambda qs=qe[:, :, None], ks_=kce.transpose(1, 2).contiguous(),
+                 vs_=vce.transpose(1, 2).contiguous(), m_=live_[:, None, None, :]:
+                 F.scaled_dot_product_attention(qs, ks_, vs_, attn_mask=m_, enable_gqa=True)),
+                2 * n_live_ * Hkv_ * D_ * kce.element_size() + nbytes(qe, qe, pose, cure),
+                4 * D_ * Hq_ * n_live_, peaks["bfloat16"],
+                f"B={B_} S={S_} Hq={Hq_} Hkv={Hkv_} D={D_} bf16 w={w} cap={cap}, {n_live_} live "
+                f"slots ({' + '.join(k2.instances(dt, D_))}, split {(n_split, chunk)})")
+            if cap:
+                t = gemma_times[f"decode_attention {label}"]
+                t["sdpa_without_softcap_ms"], t["library_ms"] = t["library_ms"], None
+    del qe, ke, ve, kce, vce, pose, cure, got
+    gen.set_state(gen_state)
+    torch.cuda.empty_cache()
     for name in ("flash_attention", "decode_attention"):
         records[name]["max_abs_err"] = {"flash_attention": err1, "decode_attention": err2}[name]
         records[name][MOE_ARCH] = moe_shape_times[name]
@@ -1155,6 +1320,11 @@ def main() -> None:
     for name in ("flash_attention", "decode_attention", "moe_gmm"):
         records[name][JAMBA_ARCH] = {k: v for k, v in jamba_shape_times.items()
                                      if k.split()[0] == name}
+    for name in ("flash_attention", "decode_attention"):
+        records[name]["gemma"] = {k.split(" ", 1)[1]: v for k, v in gemma_times.items()
+                                  if k.split()[0] == name}
+        records[name]["d256_instances"] = {k: v for k, v in d256_info.items()
+                                           if k.startswith(name.split("_")[0])}
     for r in records.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.5f} ms "
@@ -1164,6 +1334,7 @@ def main() -> None:
                ("moe_gmm WMMA instance at a ragged F", k4_times["wmma ragged"]),
                ("rwkv6_scan at batch 8", k6_times[8]), ("mamba_scan at batch 8", k5_times[8])]
     others += [(f"{name} at {JAMBA_ARCH}'s shape", t) for name, t in jamba_shape_times.items()]
+    others += [(f"{name} at the served shape", t) for name, t in gemma_times.items()]
     for name, t in others:
         print(f"  {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library {fmt_ms(t['library_ms'])}, bound "
@@ -1407,58 +1578,30 @@ def main() -> None:
                 fail(f"{c.name}: the {name} ran {found}, expected gmm_mma only")
 
     def check_attention_kernels(c, steps: dict, label: str = "") -> None:
-        """The served bf16 prefill ran K1's tensor-core instance and not the
-        SIMT one; the decode tick ran both passes of K2's instance."""
-        dt = getattr(torch, c.activation_dtype)
+        """The served bf16 prefill ran K1's tensor-core instance at the
+        model's head dim (by name: ``flash_fwd_mma<D>``) and not the SIMT
+        one; the decode tick ran both passes of K2's instance
+        (``decode_split_mma<D>`` and the combine)."""
+        dt, D = getattr(torch, c.activation_dtype), c.head_dim
+
+        def named(kernel: str):  # the kernel, and at head dim D if it is a tensor-core one
+            return re.compile(rf"{kernel}<\s*(\(int\))?{D}\s*>" if kernel.endswith("_mma")
+                              else kernel)
+
         names = steps["prefill"]["kernel_names"]
-        want, other = k1.instance(dt, c.head_dim), "flash_fwd_simt"
-        seen = {"prefill": [n[:60] for n in names if "flash_fwd" in n],
-                "decode_tick": [n[:60] for n in steps["decode_tick"]["kernel_names"]
+        want, other = k1.instance(dt, D), "flash_fwd_simt"
+        seen = {"prefill": [n[:80] for n in names if "flash_fwd" in n],
+                "decode_tick": [n[:80] for n in steps["decode_tick"]["kernel_names"]
                                 if "decode_" in n]}
         print(f"{c.name}{label} attention kernels: {json.dumps(seen)}", flush=True)
-        if not any(want in n for n in names) or (want != other and any(other in n for n in names)):
-            fail(f"{c.name}: the prefill ran {seen['prefill']}, expected {want} only")
-        for part in k2.instances(dt, c.head_dim):
-            if not any(part in n for n in seen["decode_tick"]):
-                fail(f"{c.name}: the decode tick ran {seen['decode_tick']}, missing {part}")
+        if not any(named(want).search(n) for n in names) or (
+                want != other and any(other in n for n in names)):
+            fail(f"{c.name}: the prefill ran {seen['prefill']}, expected {want} at D {D} only")
+        for part in k2.instances(dt, D):
+            if not any(named(part).search(n) for n in steps["decode_tick"]["kernel_names"]):
+                fail(f"{c.name}: the decode tick ran {seen['decode_tick']}, missing {part} "
+                     f"at D {D}")
 
-    # -- 4. serve full-width qwen2-0.5b through the port's Engine ----------
-    params, _ = init_model(cfg)
-    eng, prompts, outs, serve, eager_outs, eager_serve = serve_both(cfg, params, SERVE)
-    counts, n_ticks = serve["kernels"], serve["decode_ticks"]
-    n_layers = cfg.n_layers
-    if counts["flash_attention"] != n_layers * SERVE["requests"]:
-        fail(f"flash_attention launched {counts['flash_attention']} times, "
-             f"expected {n_layers} x {SERVE['requests']}")
-    if counts["decode_attention"] != n_layers * n_ticks:
-        fail(f"decode_attention launched {counts['decode_attention']} times, "
-             f"expected {n_layers} x {n_ticks} ticks")
-    forwards = SERVE["requests"] + n_ticks  # 2 norms per layer + the final one
-    if counts["rmsnorm"] != (2 * n_layers + 1) * forwards:
-        fail(f"rmsnorm launched {counts['rmsnorm']} times, expected "
-             f"{2 * n_layers + 1} x {forwards} forwards")
-    if any(counts[name] for name in NO_BACKWARD):
-        fail(f"serving launched a backward kernel: {counts}")
-    compiled_vs_eager = {ARCH: check_compiled(cfg, SERVE, serve, outs, eager_serve, eager_outs)}
-    for name in records:
-        records[name]["launches"] = counts[name]
-    norm_launches = add_norm_launches({}, cfg, SERVE, n_ticks)
-
-    breakdown = step_breakdown(cfg, eng, SERVE, prompts[0])
-    for name, b in breakdown.items():
-        print(f"{name}: {json.dumps(b)}", flush=True)
-
-    # on the card the f32 logits come from a bf16 x bf16 -> f32 product
-    h = randn(SERVE["max_batch"], cfg.d_model, dtype=torch.bfloat16)
-    table = eng.params["embed"]["table"]
-    hold("unembed (plain op)", "bf16 x bf16 -> f32 logits", nn_core.unembed({"table": table}, h),
-         h.float() @ table.float().t(), "float32")
-
-    # the first request through the kernels and through the plain versions,
-    # with the served weights in f32 and in bf16
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
-    params32 = _map(lambda t: t.float(), eng.params)
-    req0 = outs[0]
     def teacher_forced(p, c, impl, prompt, outs, max_seq, steps=8):
         """Logits (steps + 1, 1, V) of a prefill of ``prompt`` and ``steps``
         decode steps fed the served tokens ``outs``."""
@@ -1495,55 +1638,129 @@ def main() -> None:
             out.append(dec(tok, at).clone())
         return torch.stack(out), {"prefill": pre.counts(), "decode": dec.counts()}
 
-    logits = {}
-    for label, impl, c, p in (("kernel_f32", "kernel", cfg32, params32),
-                              ("plain_f32", "plain", cfg32, params32),
-                              ("kernel", "kernel", cfg, eng.params),
-                              ("plain", "plain", cfg, eng.params)):
-        logits[label] = teacher_forced(p, c, impl, prompts[0], req0, SERVE["max_seq"])
-    # graph replays against eager steps, in f32 at full depth
-    graph_f32, graph_counts = teacher_forced_graphs(params32, cfg32, prompts[0], req0,
-                                                    SERVE["max_seq"])
-    graph_gate = {"graph_vs_eager_f32": float((graph_f32 - logits["kernel_f32"]).abs().max()),
-                  "steps": graph_f32.shape[0], "graphs": graph_counts}
-    print(f"serving logits, f32, prefill + 8 teacher-forced decode steps as CUDA graph replays "
-          f"vs eager: {json.dumps(graph_gate)} (tol {GRAPH_F32_TOL})", flush=True)
-    if graph_counts != {"prefill": {"calls": 2, "captures": 1, "replays": 1},
-                        "decode": {"calls": 9, "captures": 1, "replays": 8}}:
-        fail(f"the f32 graph comparison ran {graph_counts}, expected every step replayed")
-    if not bool(torch.isfinite(graph_f32).all()) or \
-            graph_gate["graph_vs_eager_f32"] > GRAPH_F32_TOL:
-        fail("f32 logits from CUDA graph replays disagree with the eager steps")
-    del params32, p, graph_f32  # the loop's last p is the served weights
-    k32, f32, kl, pl = (logits[n] for n in ("kernel_f32", "plain_f32", "kernel", "plain"))
-    for name, lg in logits.items():
-        if lg.shape != (9, 1, cfg.vocab_size) or lg.dtype != torch.float32:
-            fail(f"{name} logits {tuple(lg.shape)} {lg.dtype}")
-        if not bool(torch.isfinite(lg).all()):
-            fail(f"non-finite {name} logits")
-    agree = {
-        "kernel_vs_plain_f32": float((k32 - f32).abs().max()),
-        "kernel_vs_plain_bf16": float((kl - pl).abs().max()),
-        "kernel_bf16_vs_f32": float((kl - f32).abs().max()),
-        "plain_bf16_vs_f32": float((pl - f32).abs().max()),
-        "max_abs_logit": float(f32.abs().max()),
-        "argmax_kernel_eq_plain_f32": int((k32.argmax(-1) == f32.argmax(-1)).sum()),
-        "argmax_kernel_bf16_eq_f32": int((kl.argmax(-1) == f32.argmax(-1)).sum()),
-        "argmax_plain_bf16_eq_f32": int((pl.argmax(-1) == f32.argmax(-1)).sum()),
-        "steps": kl.shape[0],
-    }
-    print(f"serving logits (prefill + 8 teacher-forced decode steps): {json.dumps(agree)} "
-          f"(tol {F32_LOGIT_TOL} on kernel_vs_plain_f32)", flush=True)
-    if agree["kernel_vs_plain_f32"] > F32_LOGIT_TOL:
-        fail("serving logits through the kernels disagree with the plain versions (f32)")
-    if agree["kernel_bf16_vs_f32"] > 2 * agree["plain_bf16_vs_f32"] + 0.02:
-        fail("bf16 serving logits through the kernels are further from the f32 path than "
-             "the plain bf16 path's rounding explains")
-    if int(torch.argmax(kl[0, 0])) != req0[0]:
-        fail("the engine's first token is not the argmax of its prefill logits")
+    def dense_counts(c, spec: dict, n_ticks: int) -> dict:
+        """The launches of a dense attention model's serve set: K1 a layer
+        and prefill, K2 a layer and tick, K3 for norm1 and norm2 (and the
+        two post-block norms) of every layer and the final norm a forward."""
+        norms = (4 if c.post_block_norms else 2) * c.n_layers + 1
+        return {"flash_attention": c.n_layers * spec["requests"],
+                "decode_attention": c.n_layers * n_ticks,
+                "rmsnorm": norms * (spec["requests"] + n_ticks), "moe_gmm": 0, "rwkv6_scan": 0,
+                "mamba_scan": 0, **NO_BACKWARD}
+
+    def serve_gemma(c, p, spec: dict) -> tuple:
+        """A gemma's serve set, eager then compiled, with the exact launch
+        counts, equal tokens and the replay counts, added to the records,
+        and its step breakdown (K1 and K2 at the model's head dim by name).
+        Returns (engine, prompts, tokens, serve record, compiled vs eager,
+        breakdown)."""
+        eng, prompts, outs, rec, eager_outs, eager_rec = serve_both(c, p, spec)
+        want = dense_counts(c, spec, rec["decode_ticks"])
+        if rec["kernels"] != want:
+            fail(f"{c.name}: launch counts {rec['kernels']}, expected {want} "
+                 f"({spec['requests']} prefills, {rec['decode_ticks']} ticks)")
+        vs_eager = check_compiled(c, spec, rec, outs, eager_rec, eager_outs)
+        for name in records:
+            records[name]["launches"] += rec["kernels"][name]
+        add_norm_launches(norm_launches, c, spec, rec["decode_ticks"])
+        steps = step_breakdown(c, eng, spec, prompts[0])
+        for name, b in steps.items():
+            print(f"{c.name} {name}: {json.dumps(b)}", flush=True)
+        return eng, prompts, outs, rec, vs_eager, steps
+
+    def logit_gate(c32, p32, prompt: list, outs: list, max_seq: int,
+                   bf16: tuple | None = None) -> dict:
+        """The prefill of ``prompt`` + 8 decode steps teacher-forced with the
+        served tokens ``outs``, in f32 through the kernels and through the
+        plain versions (within F32_LOGIT_TOL) and through the kernels as
+        CUDA graph replays (within GRAPH_F32_TOL of the eager steps); with
+        ``bf16`` = (config, params), the same through the kernels and the
+        plain versions in bf16: the kernels' path may land no further from
+        the f32 path than twice the plain bf16 path does (+0.02), and the
+        engine's first token must be the argmax of the bf16 prefill."""
+        runs = {"kernel_f32": teacher_forced(p32, c32, "kernel", prompt, outs, max_seq),
+                "plain_f32": teacher_forced(p32, c32, "plain", prompt, outs, max_seq)}
+        graph_f32, graph_counts = teacher_forced_graphs(p32, c32, prompt, outs, max_seq)
+        if bf16 is not None:
+            for label, impl in (("kernel", "kernel"), ("plain", "plain")):
+                runs[label] = teacher_forced(bf16[1], bf16[0], impl, prompt, outs, max_seq)
+        for name, lg in [*runs.items(), ("graph_f32", graph_f32)]:
+            if (lg.shape != (9, 1, c32.vocab_size) or lg.dtype != torch.float32
+                    or not bool(torch.isfinite(lg).all())):
+                fail(f"{c32.name} {name} logits {tuple(lg.shape)} not finite or misshapen")
+        k32, f32 = runs["kernel_f32"], runs["plain_f32"]
+        gate = {"kernel_vs_plain_f32": float((k32 - f32).abs().max()),
+                "graph_vs_eager_f32": float((graph_f32 - k32).abs().max()),
+                "max_abs_logit": float(f32.abs().max()),
+                "argmax_kernel_eq_plain_f32": int((k32.argmax(-1) == f32.argmax(-1)).sum()),
+                "steps": 9, "layers": c32.n_layers, "graphs": graph_counts,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if bf16 is not None:
+            kl, pl = runs["kernel"], runs["plain"]
+            gate.update({"kernel_vs_plain_bf16": float((kl - pl).abs().max()),
+                         "kernel_bf16_vs_f32": float((kl - f32).abs().max()),
+                         "plain_bf16_vs_f32": float((pl - f32).abs().max()),
+                         "argmax_kernel_bf16_eq_f32": int((kl.argmax(-1) == f32.argmax(-1)).sum()),
+                         "argmax_plain_bf16_eq_f32": int((pl.argmax(-1) == f32.argmax(-1)).sum()),
+                         "first_token_is_prefill_argmax": int(torch.argmax(kl[0, 0])) == outs[0]})
+        print(f"{c32.name} logits, full width, {c32.n_layers} layers, prefill + 8 teacher-forced "
+              f"decode steps, kernels vs plain: {json.dumps(gate)} (tol {F32_LOGIT_TOL} on "
+              f"kernel_vs_plain_f32, {GRAPH_F32_TOL} on graph_vs_eager_f32)", flush=True)
+        if graph_counts != {"prefill": {"calls": 2, "captures": 1, "replays": 1},
+                            "decode": {"calls": 9, "captures": 1, "replays": 8}}:
+            fail(f"{c32.name}: the f32 graph comparison ran {graph_counts}, expected every "
+                 "step replayed")
+        if gate["kernel_vs_plain_f32"] > F32_LOGIT_TOL:
+            fail(f"{c32.name}: f32 logits through the kernels disagree with the plain versions")
+        if gate["graph_vs_eager_f32"] > GRAPH_F32_TOL:
+            fail(f"{c32.name}: f32 logits from CUDA graph replays disagree with the eager steps")
+        if bf16 is not None and gate["kernel_bf16_vs_f32"] > 2 * gate["plain_bf16_vs_f32"] + 0.02:
+            fail(f"{c32.name}: bf16 logits through the kernels are further from the f32 path "
+                 "than the plain bf16 path's rounding explains")
+        if bf16 is not None and not gate["first_token_is_prefill_argmax"]:
+            fail(f"{c32.name}: the engine's first token is not the argmax of its prefill logits")
+        return gate
+
+    # -- 4. serve full-width qwen2-0.5b through the port's Engine ----------
+    params, _ = init_model(cfg)
+    eng, prompts, outs, serve, eager_outs, eager_serve = serve_both(cfg, params, SERVE)
+    counts, n_ticks = serve["kernels"], serve["decode_ticks"]
+    n_layers = cfg.n_layers
+    if counts["flash_attention"] != n_layers * SERVE["requests"]:
+        fail(f"flash_attention launched {counts['flash_attention']} times, "
+             f"expected {n_layers} x {SERVE['requests']}")
+    if counts["decode_attention"] != n_layers * n_ticks:
+        fail(f"decode_attention launched {counts['decode_attention']} times, "
+             f"expected {n_layers} x {n_ticks} ticks")
+    forwards = SERVE["requests"] + n_ticks  # 2 norms per layer + the final one
+    if counts["rmsnorm"] != (2 * n_layers + 1) * forwards:
+        fail(f"rmsnorm launched {counts['rmsnorm']} times, expected "
+             f"{2 * n_layers + 1} x {forwards} forwards")
+    if any(counts[name] for name in NO_BACKWARD):
+        fail(f"serving launched a backward kernel: {counts}")
+    compiled_vs_eager = {ARCH: check_compiled(cfg, SERVE, serve, outs, eager_serve, eager_outs)}
+    for name in records:
+        records[name]["launches"] = counts[name]
+    norm_launches = add_norm_launches({}, cfg, SERVE, n_ticks)
+
+    breakdown = step_breakdown(cfg, eng, SERVE, prompts[0])
+    for name, b in breakdown.items():
+        print(f"{name}: {json.dumps(b)}", flush=True)
+
+    # on the card the f32 logits come from a bf16 x bf16 -> f32 product
+    h = randn(SERVE["max_batch"], cfg.d_model, dtype=torch.bfloat16)
+    table = eng.params["embed"]["table"]
+    hold("unembed (plain op)", "bf16 x bf16 -> f32 logits", nn_core.unembed({"table": table}, h),
+         h.float() @ table.float().t(), "float32")
+
+    # the first request through the kernels and through the plain versions,
+    # with the served weights in f32 and in bf16
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
+    agree = logit_gate(cfg32, _map(lambda t: t.float(), eng.params), prompts[0], outs[0],
+                       SERVE["max_seq"], bf16=(cfg, eng.params))
 
     # -- 4b. serve full-width, full-depth deepseek-moe-16b --------------------
-    del eng, params, table, logits, k32, f32, kl, pl
+    del eng, params, table
     gc.collect()
     torch.cuda.empty_cache()
     mparams, moe_init = init_model(mcfg)
@@ -1767,11 +1984,6 @@ def main() -> None:
     for name in records:
         records[name]["launches"] += jcounts[name]
     add_norm_launches(norm_launches, jcfg, JAMBA_SERVE, n_ticks)
-    records["rmsnorm"]["launches_by_shape"] = {str(k): n for k, n in norm_launches.items()}
-    print(f"rmsnorm launches by (rows, D), all four serving runs: "
-          f"{json.dumps(records['rmsnorm']['launches_by_shape'])}", flush=True)
-    if sum(norm_launches.values()) != records["rmsnorm"]["launches"]:
-        fail("rmsnorm launches by shape do not add up to its launch count")
     jamba_breakdown = step_breakdown(jcfg, jeng, JAMBA_SERVE, jprompts[0])
     for name, b in jamba_breakdown.items():
         print(f"{JAMBA_ARCH} {name}: {json.dumps(b)}", flush=True)
@@ -1844,6 +2056,78 @@ def main() -> None:
             "tokens picked other experts)")
     if gate_failures:
         fail(f"{JAMBA_ARCH}: " + "; ".join(gate_failures))
+
+    # -- 4e. serve full-width, full-depth gemma3-4b: K1 and K2 at head dim 256 --
+    # 34 layers (5 periods of swa x 5 + ga, and 4 swa layers unscanned), bf16
+    # 7.8 GB.  Prompts of 1536 tokens against the 1024-token window: K1 masks
+    # by window in the 29 local layers' prefill, whose 1024-slot rings then
+    # wrap in decode; the 5 global layers' caches hold 2048 slots.  The f32
+    # gate runs at full depth (the served weights cast, 15.5 GB beside the
+    # bf16 ones).
+    gc.collect()
+    torch.cuda.empty_cache()
+    g3params, g3_init = init_model(g3)
+    g3eng, g3prompts, g3outs, g3_serve, g3_vs_eager, g3_breakdown = serve_gemma(
+        g3, g3params, GEMMA3_SERVE)
+    compiled_vs_eager[GEMMA3_ARCH] = g3_vs_eager
+    g3eng.caches = None
+    del g3eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g3cfg32 = dataclasses.replace(g3, param_dtype="float32", activation_dtype="float32")
+    g3_gate = logit_gate(g3cfg32, _map(lambda t: t.float(), g3params), g3prompts[0], g3outs[0],
+                         GEMMA3_SERVE["max_seq"], bf16=(g3, g3params))
+    del g3params
+
+    # -- 4f. serve full-width, full-depth gemma2-27b: softcaps at D 128 --------
+    # 46 layers, 54.45 GB in bf16, the standard set (1024-slot caches, 16
+    # prompts of 512 tokens): the attention softcap of 50 in K1 and K2 in
+    # every layer and the final softcap of 30; the window of 4096 never
+    # masks at these lengths.  Then, reported only, the first request
+    # through the kernels and the plain versions in bf16 at full depth; and,
+    # with the bf16 model freed, the f32 gate at full width and 4 layers
+    # (weights drawn in f32 from the same seed).
+    gc.collect()
+    torch.cuda.empty_cache()
+    g2params, g2_init = init_model(g2)
+    g2eng, g2prompts, g2outs, g2_serve, g2_vs_eager, g2_breakdown = serve_gemma(
+        g2, g2params, GEMMA2_SERVE)
+    compiled_vs_eager[GEMMA2_ARCH] = g2_vs_eager
+    g2eng.caches = None
+    del g2eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    g2req = (g2prompts[0], g2outs[0], GEMMA2_SERVE["max_seq"])
+    g2_bf16 = {impl: teacher_forced(g2params, g2, impl, *g2req) for impl in ("kernel", "plain")}
+    for name, lg in g2_bf16.items():
+        if lg.shape != (9, 1, g2.vocab_size) or not bool(torch.isfinite(lg).all()):
+            fail(f"{GEMMA2_ARCH} bf16 {name} logits {tuple(lg.shape)} not finite or misshapen")
+    if int(torch.argmax(g2_bf16["kernel"][0, 0])) != g2outs[0][0]:
+        fail(f"{GEMMA2_ARCH}: the engine's first token is not the argmax of its prefill logits")
+    g2_gate_bf16 = {"kernel_vs_plain_bf16": float((g2_bf16["kernel"] - g2_bf16["plain"]).abs().max()),
+                    "max_abs_logit": float(g2_bf16["plain"].abs().max()),
+                    "argmax_equal_steps": int((g2_bf16["kernel"].argmax(-1)
+                                               == g2_bf16["plain"].argmax(-1)).sum()),
+                    "steps": 9, "layers": g2.n_layers,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{GEMMA2_ARCH} bf16, full width and depth, kernels vs plain (reported, no bound): "
+          f"{json.dumps(g2_gate_bf16)}", flush=True)
+    del g2params, g2_bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    g2cfg4 = dataclasses.replace(g2, param_dtype="float32", activation_dtype="float32",
+                                 n_layers=GEMMA2_GATE_LAYERS)
+    g2params4, g2_init4 = init_model(g2cfg4)
+    torch.cuda.reset_peak_memory_stats()
+    g2_gate = logit_gate(g2cfg4, g2params4, *g2req)
+    del g2params4
+
+    records["rmsnorm"]["launches_by_shape"] = {str(k): n for k, n in norm_launches.items()}
+    print(f"rmsnorm launches by (rows, D), all six serving runs: "
+          f"{json.dumps(records['rmsnorm']['launches_by_shape'])}", flush=True)
+    if sum(norm_launches.values()) != records["rmsnorm"]["launches"]:
+        fail("rmsnorm launches by shape do not add up to its launch count")
 
     # -- 5. training: smollm-360m through K1 (with its lse), K1b, K3, K3b -----
     gc.collect()
@@ -2374,6 +2658,22 @@ def main() -> None:
                                                 randn(2, 16), randn(1, 2, 16, 16)))
     print("  R11 guard: decode_attention, moe_gmm, mamba_scan and rwkv6_scan refuse an input "
           "that requires grad: ok", flush=True)
+    # K1b has no D-256 instance: the wrapper refuses before any launch,
+    # naming its ROADMAP item
+    q, k, v = (randn(1, 64, h, 256, dtype=torch.bfloat16) for h in (8, 4, 4))
+    out, lse = k1.flash_attention(q, k, v, return_lse=True)
+    before = launch_counts()["flash_attention_bwd"]
+    try:
+        k1.flash_attention_bwd(q, k, v, out, lse, out)
+    except NotImplementedError as e:
+        if "K1b-D256" not in str(e) or launch_counts()["flash_attention_bwd"] != before:
+            fail(f"flash_attention_bwd at D 256: raised {e!r} after "
+                 f"{launch_counts()['flash_attention_bwd'] - before} launches")
+    else:
+        fail("flash_attention_bwd at D 256 ran, with no backward instance there")
+    print("  flash_attention_bwd at D 256 refuses before any launch, naming K1b-D256: ok",
+          flush=True)
+    del q, k, v, out, lse
 
     # (i) the training driver, as a user runs it, on the card, with a node
     # failure injected before step CLI_FAIL_AT (it restarts from step 0)
@@ -2421,7 +2721,7 @@ def main() -> None:
     # -- 6. report ----------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
-            "serving_logits": agree, "graph_f32": graph_gate, "breakdown": breakdown,
+            "serving_logits": agree, "breakdown": breakdown,
             "compiled_vs_eager": compiled_vs_eager, TRAIN_ARCH: training,
             MOE_ARCH: {"init": moe_init, "serve": moe_serve, "breakdown": moe_breakdown,
                        "gate_a_max_abs_err": gate_a, "gate_b_f32": gate_b,
@@ -2432,6 +2732,11 @@ def main() -> None:
                          "breakdown": jamba_breakdown, "gate_a": gate_a_mamba,
                          "gate_b_f32": gate_b_jamba, "gate_b_init": jamba_init2,
                          "gate_c_bf16": gate_c_jamba},
+            GEMMA3_ARCH: {"init": g3_init, "serve": g3_serve, "breakdown": g3_breakdown,
+                          "logits": g3_gate},
+            GEMMA2_ARCH: {"init": g2_init, "serve": g2_serve, "breakdown": g2_breakdown,
+                          "bf16_full_depth": g2_gate_bf16, "gate_f32": g2_gate,
+                          "gate_f32_init": g2_init4},
             "seconds": time.time() - t_start}
     print(f"chip_smoke: {full['seconds']:.1f} s", flush=True)
     if args.record is not None:
@@ -2501,12 +2806,13 @@ def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
 
 def add_norm_launches(into: dict, c, spec: dict, n_ticks: int) -> dict:
     """Adds a serving run's RMSNorm launches by (rows, D) to ``into``: norm1
-    and norm2 of every layer and the final norm at d_model, and a Mamba
+    and norm2 of every layer (and norm1_post and norm2_post with post-block
+    norms) and the final norm at d_model, and a Mamba
     layer's dt / B / C norms at dt_rank and d_state, for each of the
     requests' prefills (prompt_len rows) and each decode tick (max_batch
     rows)."""
     n_mamba = sum(c.layer_spec(i).mixer == "mamba" for i in range(c.n_layers))
-    widths = {c.d_model: 2 * c.n_layers + 1}
+    widths = {c.d_model: (4 if c.post_block_norms else 2) * c.n_layers + 1}
     if n_mamba:
         from repro_torch.nn import mamba as mamba_mod
 

@@ -1,9 +1,11 @@
 """Architecture registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-The port knows the ``ga`` architectures with dense or MoE FFNs, the RWKV6
-architecture and the hybrid Mamba/attention architecture (jamba).  The
-other architectures of ``repro.configs`` raise ``NotImplementedError``
-naming the ROADMAP item that brings their layers.
+The port knows the ``ga`` / ``swa`` architectures with dense or MoE FFNs
+(gemma2-27b and gemma3-4b with their softcaps, post-block norms, scaled
+embeddings and head dim 256), the RWKV6 architecture and the hybrid
+Mamba/attention architecture (jamba).  The other architectures of
+``repro.configs`` raise ``NotImplementedError`` naming the ROADMAP item
+that brings their layers.
 """
 from __future__ import annotations
 
@@ -19,14 +21,14 @@ _ARCH_MODULES = {
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "jamba-1.5-large": "repro_torch.configs.jamba_1_5_large",
+    "gemma2-27b": "repro_torch.configs.gemma2_27b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
 }
 
 # Archs of the JAX package that the port does not run yet, and why.
 _NOT_PORTED = {
-    "gemma3-4b": "M10 (sliding-window pattern, post-block norms, frontends)",
-    "gemma2-27b": "M10 (softcaps and sliding-window pattern)",
-    "chameleon-34b": "M10 (QK-norm and the vlm frontend stub)",
-    "musicgen-large": "M10 (audio frontend stub)",
+    "chameleon-34b": "M10 (QK-norm in attention and the vlm_stub frontend)",
+    "musicgen-large": "M10 (the audio_stub frontend)",
 }
 
 

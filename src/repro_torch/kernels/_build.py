@@ -134,6 +134,24 @@ def sm_count(index: int) -> int:
     return n
 
 
+# what common.cuh's kernel_info reports of a kernel instance
+INFO_KEYS = ("registers", "spilled_bytes", "static_smem", "dynamic_smem", "blocks_per_sm")
+
+
+def instance_info(lib: ctypes.CDLL, entry: str, *args: int, device: int = 0) -> dict[str, int]:
+    """What the card made of one kernel instance, from the C entry point
+    ``entry(*args, out)`` that fills common.cuh's kernel_info on CUDA device
+    ``device``: registers and spilled bytes a thread, static and dynamic
+    shared memory a block, and the blocks an SM holds."""
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    with torch.cuda.device(device):
+        check(lib, fn(*args, out), entry)
+    return dict(zip(INFO_KEYS, out))
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:

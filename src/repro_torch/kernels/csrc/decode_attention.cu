@@ -36,26 +36,29 @@
 // and bytes in flight, and few enough instructions per byte that the SMs
 // keep up.  Two split passes, chosen by dtype and head dim only:
 //
-// * decode_split_mma (bf16, D 16..128): the G rows, padded to 16, are one
+// * decode_split_mma (bf16, D 16..256): the G rows, padded to 16, are one
 //   mma.sync A operand; the 4 warps of a block take the range's 16-slot
 //   tiles in turn, each with its own ring and m / l / acc, and merge at the
 //   end.  On the CUDA cores the same pass is compute-bound at jamba-1.5-
 //   large's G = 8, D = 128: per slot and row it costs 4 FMAs and 5 shuffles
-//   per lane against 8 bytes read.
+//   per lane against 8 bytes read.  At D 256 the accumulator is 128
+//   registers a thread, so Q's fragments are read from shared memory at
+//   each k-step (one step ahead of their mmas) instead of held; the rings
+//   take 198 KB, one block an SM.
 // * decode_split_kernel (f32 at every D, bf16 at D 8): f32 math on the CUDA
 //   cores, exact to f32 rounding for the f32 end-to-end gates.  Every
-//   thread works in both steps: in the score step TPS = D / 4 lanes share
-//   a slot (4 dims each) and meet by xor-shuffle, for all G rows at once; in
-//   the P V step a thread owns 4 dims of one row, and when G * D / 4 leaves
-//   threads over (G = 1) the slots of the tile are dealt out among them and
-//   summed at the end of the range.
+//   thread works in both steps: in the score step TPS lanes share a slot
+//   (EPT = 4 dims each up to D 128, 8 at D 256, so TPS = D / EPT <= 32) and
+//   meet by xor-shuffle, for all G rows at once; in the P V step a thread
+//   owns EPT dims of one row, and when G * TPS leaves threads over (G = 1)
+//   the slots of the tile are dealt out among them and summed at the end of
+//   the range.  A thread's dims are runs of 4 at 4 * (part + TPS * c), so
+//   the lanes of a slot read neighbouring 16-byte words.
 //
 // Layout: q (B, Hq, D), k / v cache (B, S, Hkv, D), pos_ids (B, S) int32,
 // cur_pos (B,) int32, out (B, Hq, D), all contiguous; partials acc
 // (B, Hkv, n_split, G, D), m and l (B, Hkv, n_split, G), f32, from the
-// wrapper.  Head dims 8..128, G up to 16.
-#include <type_traits>
-
+// wrapper.  Head dims 8..256, G up to 16.
 #include "mma.cuh"
 
 namespace {
@@ -65,7 +68,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;   // cache slots per tile: one per lane in the softmax step
 constexpr int kStages = 3;  // tiles in the shared-memory ring
 constexpr int kMaxG = 16;   // query rows per KV head
-constexpr int kEpt = 4;     // dims per thread in both steps
+constexpr int kEpt = 4;     // dims per thread of the combine
 
 // 4 consecutive elements of shared memory as f32
 __device__ __forceinline__ void ld4(const float* p, float (&x)[4]) {
@@ -89,21 +92,37 @@ __device__ __forceinline__ bool slot_live(int p, int cur, int window) {
 
 template <typename T, int D>
 struct Split {
+  static constexpr int kEpt = D <= 128 ? 4 : D / 32;  // dims per thread in both steps
   static constexpr int kTps = D / kEpt;               // lanes per slot in the score step
   static constexpr int kSlotsPerStep = kThreads / kTps;
   static constexpr int kTileElems = kTile * D;
   static constexpr int kChunks = kTileElems * static_cast<int>(sizeof(T)) / 16;  // per K or V tile
-  // (row, 4 dims) items of the P V step a thread may own: G * kTps / kThreads, rounded up
+  // (row, kEpt dims) items of the P V step a thread may own: G * kTps / kThreads, rounded up
   static constexpr int kMaxItems = (kMaxG * kTps + kThreads - 1) / kThreads;
   // shared memory: the K / V ring, the scores, m / l / corr, the P V step's
-  // cross-phase sums (G * kTps * n_phase <= kThreads items of 4), then one
-  // flag per tile of the range
+  // cross-phase sums (G * kTps * n_phase <= kThreads items of kEpt), then
+  // one flag per tile of the range
   static constexpr int kRingBytes = 2 * kStages * kTileElems * static_cast<int>(sizeof(T));
   static constexpr int kFixedBytes =
       kRingBytes + (kMaxG * kTile + 3 * kMaxG + kThreads * kEpt) * 4;
-  static_assert(kTps >= 2 && kTps <= 32 && 32 % kTps == 0, "head_dim must be 8..128, a power of 2");
+  static_assert(kTps >= 2 && kTps <= 32 && 32 % kTps == 0 && kEpt % 4 == 0,
+                "head_dim must be 8..256, a power of 2");
   static_assert(D * sizeof(T) % 16 == 0, "a slot's row must split into 16-byte chunks");
+  // the dim of a thread's i-th element, for its slot part (lane of the slot) p
+  static __device__ __forceinline__ int dim(int p, int i) { return 4 * (p + kTps * (i / 4)) + i % 4; }
 };
+
+// kEpt elements of shared memory at the dims of slot part p, as f32
+template <typename P, typename T>
+__device__ __forceinline__ void ld_part(const T* row, int p, float (&x)[P::kEpt]) {
+#pragma unroll
+  for (int c = 0; c < P::kEpt / 4; ++c) {
+    float y[4];
+    ld4(row + P::dim(p, 4 * c), y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[4 * c + e] = y[e];
+  }
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -114,6 +133,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     float scale, int n_chunk) {
   using P = Split<T, D>;
   constexpr int TPS = P::kTps;
+  constexpr int EPT = P::kEpt;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);                 // [kStages][kTile][D]
   T* vs = ks + kStages * P::kTileElems;                   // [kStages][kTile][D]
@@ -121,8 +141,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* m_s = ps + kMaxG * kTile;
   float* l_s = m_s + kMaxG;
   float* corr_s = l_s + kMaxG;
-  float* red = corr_s + kMaxG;                            // [kThreads][kEpt]
-  unsigned char* live_tile = reinterpret_cast<unsigned char*>(red + kThreads * kEpt);
+  float* red = corr_s + kMaxG;                            // [kThreads][EPT]
+  unsigned char* live_tile = reinterpret_cast<unsigned char*>(red + kThreads * EPT);
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int n_split = gridDim.x;
@@ -149,27 +169,28 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     l_s[tid] = 0.f;
   }
 
-  // score step: slot group sg, dims part*4 .. +3 of every row's q (scaled)
+  // score step: slot group sg, the dims of slot part `part` of every row's
+  // q (scaled)
   const int part = tid % TPS, sg = tid / TPS;
-  float qv[kMaxG][kEpt];
+  float qv[kMaxG][EPT];
 #pragma unroll
   for (int g = 0; g < kMaxG; ++g)
     if (g < G) {
-      const T* qp = q + (static_cast<size_t>(b) * Hq + hk * G + g) * D + part * kEpt;
+      const T* qp = q + (static_cast<size_t>(b) * Hq + hk * G + g) * D;
 #pragma unroll
-      for (int e = 0; e < kEpt; ++e) qv[g][e] = to_f32(qp[e]) * scale;
+      for (int e = 0; e < EPT; ++e) qv[g][e] = to_f32(qp[P::dim(part, e)]) * scale;
     }
 
-  // P V step: items (row, 4 dims); with fewer items than threads, n_phase
-  // threads share an item and take every n_phase-th slot of a tile
+  // P V step: items (row, slot part); with fewer items than threads,
+  // n_phase threads share an item and take every n_phase-th slot of a tile
   const int n_items = G * TPS;
   int n_phase = 1;
   while (2 * n_phase * n_items <= kThreads) n_phase *= 2;
-  float acc[P::kMaxItems][kEpt];
+  float acc[P::kMaxItems][EPT];
 #pragma unroll
   for (int r = 0; r < P::kMaxItems; ++r)
 #pragma unroll
-    for (int e = 0; e < kEpt; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < EPT; ++e) acc[r][e] = 0.f;
 
   __syncthreads();  // live_tile, m_s, l_s
 
@@ -217,8 +238,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
     // scores: TPS lanes per slot, all G rows at once
     for (int j = sg; j < kTile; j += P::kSlotsPerStep) {
-      float kx[kEpt];
-      ld4(kt + j * D + part * kEpt, kx);
+      float kx[EPT];
+      ld_part<P>(kt + j * D, part, kx);
       const int s = s0 + j;
       const bool live = s < s_end && slot_live(pos[s], cur, window);
 #pragma unroll
@@ -226,7 +247,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         if (g >= G) break;
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < kEpt; ++e) dot += qv[g][e] * kx[e];
+        for (int e = 0; e < EPT; ++e) dot += qv[g][e] * kx[e];
 #pragma unroll
         for (int off = TPS / 2; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
         if (part == 0) {
@@ -265,16 +286,16 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       const int idx = tid + r * kThreads;
       if (idx < n_items * n_phase) {
         const int item = idx % n_items, phase = idx / n_items;
-        const int g = item / TPS, d0 = (item % TPS) * kEpt;
+        const int g = item / TPS, pt = item % TPS;
         const float c = corr_s[g];
 #pragma unroll
-        for (int e = 0; e < kEpt; ++e) acc[r][e] *= c;
+        for (int e = 0; e < EPT; ++e) acc[r][e] *= c;
         for (int j = phase; j < kTile; j += n_phase) {
           const float p = ps[g * kTile + j];
-          float vx[kEpt];
-          ld4(vt + j * D + d0, vx);
+          float vx[EPT];
+          ld_part<P>(vt + j * D, pt, vx);
 #pragma unroll
-          for (int e = 0; e < kEpt; ++e) acc[r][e] += p * vx[e];
+          for (int e = 0; e < EPT; ++e) acc[r][e] += p * vx[e];
         }
       }
     }
@@ -288,27 +309,27 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     __syncthreads();
     if (tid < n_items * n_phase)
 #pragma unroll
-      for (int e = 0; e < kEpt; ++e) red[tid * kEpt + e] = acc[0][e];
+      for (int e = 0; e < EPT; ++e) red[tid * EPT + e] = acc[0][e];
     __syncthreads();
     if (tid < n_items) {
-      float sum[kEpt] = {0.f, 0.f, 0.f, 0.f};
+      float sum[EPT] = {};
       for (int ph = 0; ph < n_phase; ++ph)
 #pragma unroll
-        for (int e = 0; e < kEpt; ++e) sum[e] += red[(ph * n_items + tid) * kEpt + e];
-      const int g = tid / TPS, d0 = (tid % TPS) * kEpt;
-      float* out = acc_out + (row0 * G + g) * D + d0;
+        for (int e = 0; e < EPT; ++e) sum[e] += red[(ph * n_items + tid) * EPT + e];
+      const int g = tid / TPS, pt = tid % TPS;
+      float* out = acc_out + (row0 * G + g) * D;
 #pragma unroll
-      for (int e = 0; e < kEpt; ++e) out[e] = sum[e];
+      for (int e = 0; e < EPT; ++e) out[P::dim(pt, e)] = sum[e];
     }
   } else {
 #pragma unroll
     for (int r = 0; r < P::kMaxItems; ++r) {
       const int item = tid + r * kThreads;
       if (item < n_items) {
-        const int g = item / TPS, d0 = (item % TPS) * kEpt;
-        float* out = acc_out + (row0 * G + g) * D + d0;
+        const int g = item / TPS, pt = item % TPS;
+        float* out = acc_out + (row0 * G + g) * D;
 #pragma unroll
-        for (int e = 0; e < kEpt; ++e) out[e] = acc[r][e];
+        for (int e = 0; e < EPT; ++e) out[P::dim(pt, e)] = acc[r][e];
       }
     }
   }
@@ -323,7 +344,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // ---------------------------------------------------------------------------
 //
 // Same range, mask and partials as decode_split_kernel.  The G query rows,
-// padded to the mma's 16, are one A operand for every tile; the 4 warps of
+// padded to the mma's 16, are one A operand for every tile (held in
+// registers up to D 128, read from shared memory at each k-step at D 256,
+// where the accumulator takes 128 registers a thread); the 4 warps of
 // a block take the range's 16-slot tiles in turn (warp w: tiles w, w + 4,
 // ...), each with its own 3-stage cp.async ring and its own m / l / acc in
 // registers, and merge at the end in warp order.  S = Q K^T and acc += P V
@@ -335,6 +358,7 @@ constexpr int kMmaStages = 3;  // tiles in each warp's ring
 
 template <int D>
 struct SplitMma {
+  static constexpr bool kQInRegs = D <= 128;  // Q's fragments held for the whole range
   static constexpr int kRS = D + 8;  // bf16 per shared row: ldmatrix phases hit 8 bank groups
   static constexpr int kTileElems = kMmaTile * kRS;
   static constexpr int kQBytes = 16 * kRS * 2;
@@ -355,7 +379,7 @@ decode_split_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   constexpr int RS = P::kRS;
   constexpr int KC = D / 16;  // k-steps of S = Q K^T
   constexpr int ND = D / 8;   // n-tiles of acc
-  static_assert(D % 16 == 0 && D <= 128, "head_dim must be a multiple of the mma depth 16");
+  static_assert(D % 16 == 0 && D <= 256, "head_dim must be a multiple of the mma depth 16");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [16][RS]
   unsigned char* body = smem_raw + P::kQBytes;
@@ -393,10 +417,13 @@ decode_split_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
   __syncthreads();
 
-  uint32_t qf[KC][4];
+  // ldmatrix address of Q's fragment of k-step kc: q_addr + 32 kc bytes
+  const uint32_t q_addr = smem_addr(qs + (lane & 15) * RS + (lane >> 4) * 8);
+  uint32_t qf[P::kQInRegs ? KC : 1][4];
+  if constexpr (P::kQInRegs) {
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc)
-    ldmatrix_x4(qf[kc], smem_addr(qs + (lane & 15) * RS + kc * 16 + (lane >> 4) * 8));
+    for (int kc = 0; kc < KC; ++kc) ldmatrix_x4(qf[kc], q_addr + kc * 32);
+  }
   const bool capped = softcap > 0.f;
   const float s_mul = capped ? scale / softcap : scale * kLog2e;
   const float cap_mul = softcap * kLog2e;
@@ -454,15 +481,28 @@ decode_split_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     const unsigned bits = tile_bits(t);
 
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};  // 16 rows x 16 slots
-    pipelined<KC>(
-        [&](int kc, uint32_t (&r)[4]) {
-          ldmatrix_x4(r, smem_addr(kt + ((lane & 7) + ((lane >> 4) << 3)) * RS + kc * 16 +
-                                   ((lane >> 3) & 1) * 8));
-        },
-        [&](int kc, const uint32_t (&r)[4]) {
-          mma_bf16(s[0], qf[kc], r[0], r[1]);
-          mma_bf16(s[1], qf[kc], r[2], r[3]);
-        });
+    auto k_frag = [&](uint32_t (&r)[4], int kc) {  // the tile's K fragment of k-step kc
+      ldmatrix_x4(r, smem_addr(kt + ((lane & 7) + ((lane >> 4) << 3)) * RS + kc * 16 +
+                               ((lane >> 3) & 1) * 8));
+    };
+    if constexpr (P::kQInRegs) {
+      pipelined<KC>(
+          [&](int kc, uint32_t (&r)[4]) { k_frag(r, kc); },
+          [&](int kc, const uint32_t (&r)[4]) {
+            mma_bf16(s[0], qf[kc], r[0], r[1]);
+            mma_bf16(s[1], qf[kc], r[2], r[3]);
+          });
+    } else {
+      pipelined<KC, 8>(  // Q's fragment, then K's
+          [&](int kc, uint32_t (&r)[8]) {
+            ldmatrix_x4(frag4(r, 0), q_addr + kc * 32);
+            k_frag(frag4(r, 4), kc);
+          },
+          [&](int, const uint32_t (&r)[8]) {
+            mma_bf16(s[0], frag4(r, 0), r[4], r[5]);
+            mma_bf16(s[1], frag4(r, 0), r[6], r[7]);
+          });
+    }
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
     for (int n = 0; n < 2; ++n)
@@ -620,13 +660,17 @@ decode_combine_kernel(const float* __restrict__ acc, const float* __restrict__ m
   }
 }
 
+// a split kernel's shared memory beside its fixed part: a live flag per
+// 32-slot tile (or a bit per slot) of an n_chunk range, in 16-byte words
+inline int live_flag_bytes(int n_chunk) { return ((n_chunk + 127) / 128) * 16; }
+
 // pass 1 (the split kernel of the instance), then pass 2
 template <auto split_kernel, typename T>
 cudaError_t launch_passes(int fixed_smem, const T* q, const T* k, const T* v,
                           const int* pos, const int* cur, T* o, float* partials, int B, int S,
                           int Hq, int Hkv, int D, int window, float softcap, float scale,
                           int n_split, int n_chunk, cudaStream_t stream) {
-  const int smem = fixed_smem + ((n_chunk + 127) / 128) * 16;  // + a live flag / bits per tile
+  const int smem = fixed_smem + live_flag_bytes(n_chunk);
   cudaError_t err = allow_smem<split_kernel>(smem);
   if (err != cudaSuccess) return err;
   const size_t rows = static_cast<size_t>(B) * Hq * n_split;
@@ -645,7 +689,7 @@ cudaError_t launch_passes(int fixed_smem, const T* q, const T* k, const T* v,
   return cudaGetLastError();
 }
 
-// bf16 at D 16..128 splits on the tensor cores; f32, and bf16 at D 8, on the CUDA cores
+// bf16 at D 16..256 splits on the tensor cores; f32, and bf16 at D 8, on the CUDA cores
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
                    const void* cur, void* o, float* partials, int B, int S, int Hq, int Hkv,
@@ -657,7 +701,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
   const int* pt = static_cast<const int*>(pos);
   const int* ct = static_cast<const int*>(cur);
   T* ot = static_cast<T*>(o);
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && D >= 16) {
+  if constexpr (kOnTensorCores<T, D>) {
     return launch_passes<decode_split_mma<D>>(SplitMma<D>::kFixedBytes, qt, kt, vt, pt, ct, ot,
                          partials, B, S, Hq, Hkv, D, window, softcap, scale, n_split, n_chunk,
                          stream);
@@ -666,23 +710,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
                          ot, partials, B, S, Hq, Hkv, D, window, softcap, scale, n_split, n_chunk,
                          stream);
   }
-}
-
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const void* pos,
-                     const void* cur, void* o, float* partials, int B, int S, int Hq, int Hkv,
-                     int window, float softcap, float scale, int n_split, int n_chunk,
-                     cudaStream_t st) {
-#define DA_ARGS q, k, v, pos, cur, o, partials, B, S, Hq, Hkv, window, softcap, scale, n_split, n_chunk, st
-  switch (D) {
-    case 8: return launch<T, 8>(DA_ARGS);
-    case 16: return launch<T, 16>(DA_ARGS);
-    case 32: return launch<T, 32>(DA_ARGS);
-    case 64: return launch<T, 64>(DA_ARGS);
-    case 128: return launch<T, 128>(DA_ARGS);
-    default: return cudaErrorInvalidValue;
-  }
-#undef DA_ARGS
 }
 
 }  // namespace
@@ -701,9 +728,25 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
       static_cast<long long>(n_split) * n_chunk < S || (n_split - 1) * n_chunk >= S)
     return cudaErrorInvalidValue;
   float* part = static_cast<float*>(partials);
-  switch (dtype) {
-    case kF32: return launch_d<float>(D, q, k, v, pos_ids, cur_pos, o, part, B, S, Hq, Hkv, window, softcap, scale, n_split, n_chunk, st);
-    case kBF16: return launch_d<__nv_bfloat16>(D, q, k, v, pos_ids, cur_pos, o, part, B, S, Hq, Hkv, window, softcap, scale, n_split, n_chunk, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_instance(dtype, D, [&](auto tag, auto d) {
+    return launch<typename decltype(tag)::type, decltype(d)::value>(
+        q, k, v, pos_ids, cur_pos, o, part, B, S, Hq, Hkv, window, softcap, scale, n_split,
+        n_chunk, st);
+  });
+}
+
+// What the card made of the split pass that dtype and D run (common.cuh's
+// kernel_info: registers, spilled bytes, static and dynamic shared memory,
+// blocks an SM), at ranges of n_chunk slots.
+extern "C" int decode_attention_fwd_info(int dtype, int D, int n_chunk, int* out) {
+  return with_instance(dtype, D, [&](auto tag, auto d) {
+    using T = typename decltype(tag)::type;
+    constexpr int kD = decltype(d)::value;
+    const int smem = live_flag_bytes(n_chunk);
+    if constexpr (kOnTensorCores<T, kD>)
+      return kernel_info<decode_split_mma<kD>>(kThreads, SplitMma<kD>::kFixedBytes + smem, out);
+    else
+      return kernel_info<decode_split_kernel<T, kD>>(kThreads, Split<T, kD>::kFixedBytes + smem,
+                                                      out);
+  });
 }

@@ -10,16 +10,18 @@
 // Layout: q (B, Sq, Hq, D), k / v (B, Sk, Hkv, D), out (B, Sq, Hq, D), all
 // contiguous.  Query head h reads KV head h / (Hq / Hkv).
 //
-// What bounds it: at the serving shapes (S = 512, D = 64 or 128) a launch
+// What bounds it: at the serving shapes of D 64 and 128 (S = 512) a launch
 // is 0.2-4.3 GFLOP against 0.5-19 MB of traffic, so the card's bound is
 // memory, but only the tensor cores reach it: the f32 CUDA cores' 67
-// TFLOP/s alone would take 0.064 ms for jamba-1.5-large's 4.3 GFLOP.
+// TFLOP/s alone would take 0.064 ms for jamba-1.5-large's 4.3 GFLOP.  At
+// gemma3-4b's D 256 (S = 1536, window 1024) a launch is ~8.6 GFLOP against
+// 19 MB: the tensor cores' rate bounds it.
 //
 // Two instances, chosen by dtype and head dim only:
 //
-// * flash_fwd_mma (bf16, D 16 / 32 / 64 / 128): FlashAttention-2 on the
+// * flash_fwd_mma (bf16, D 16 / 32 / 64 / 128 / 256): FlashAttention-2 on the
 //   tensor cores.  A block is 4 warps and 64 q rows; each warp owns 16 rows
-//   and keeps their Q fragment in registers.  S = Q K^T and O += P V are
+//   and keeps their Q fragment in registers up to D 128.  S = Q K^T and O += P V are
 //   mma.sync m16n8k16 (bf16 in, f32 accumulate), K read by ldmatrix and V by
 //   ldmatrix.trans.  The scale (folded with log2 e for exp2f), the softcap
 //   and the mask are applied to the f32 S fragment per element, from each
@@ -34,12 +36,19 @@
 //   16-byte cp.async in a 2-stage ring: tile j + 1 loads while tile j
 //   computes.  Shared memory is dynamic (87 KB at D = 128).  The q tiles
 //   are launched last-first, so the causal triangle's long tiles start
-//   first and do not form a tail.
+//   first and do not form a tail.  At D 256 O's f32 accumulator alone is
+//   128 registers a thread, so the instance changes two things and keeps
+//   the rest: K / V tiles of 32 keys (S's 16 x 32 tile is 16 registers,
+//   P's fragments 8), and Q's fragments are not held: each k-step of
+//   S = Q K^T reads its Q fragment from the shared Q tile by ldmatrix,
+//   with the K fragments of the step, one step ahead of their mmas.  That
+//   keeps a thread inside 255 registers without spilling, and shared
+//   memory at 99 KB, so two blocks share an SM.
 // * flash_fwd_simt (f32 at every head dim, and bf16 at D = 8): the products
 //   on the f32 CUDA cores, exact to f32 rounding, which the f32 end-to-end
-//   gates hold to 1e-3 on logits.  TPR = 4 threads per q row up to D = 64
-//   and 8 at D = 128 (32 rows a block); K / V tiles converted to f32 in
-//   static shared memory.
+//   gates hold to 1e-3 on logits.  TPR = 4 threads per q row up to D = 64,
+//   D / 16 above (8 at D 128, 16 at D 256); K / V tiles converted to f32
+//   in static shared memory.
 //
 // Both write each row's log-sum-exp when the caller passes an lse buffer
 // (training): lse = m + log(max(l, 1e-30)) over the scaled, softcapped
@@ -62,25 +71,32 @@ namespace {
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kBM = 16 * kMmaWarps;  // q rows per block
-constexpr int kBN = 64;              // keys per K / V tile
+// keys per K / V tile: 64, and 32 at D 256, where O's accumulator takes
+// half of a thread's registers
+template <int D> constexpr int kBN = D <= 128 ? 64 : 32;
+// Q's fragments stay in registers for the whole KV loop up to D 128; at D
+// 256 (64 registers) each k-step reads its own from shared memory
+template <int D> constexpr bool kQInRegs = D <= 128;
 
 // bf16 elements per shared-memory row: +8 (16 bytes) so the 8 rows one
 // ldmatrix phase reads start in 8 distinct 4-bank groups
 template <int D> constexpr int kRowStride = D + 8;
-template <int D> constexpr int kTileElems = kBN * kRowStride<D>;  // == kBM rows too
+template <int D> constexpr int kQElems = kBM * kRowStride<D>;
+template <int D> constexpr int kTileElems = kBN<D> * kRowStride<D>;  // a K or V tile
 // K / V tiles in the ring
 template <int D> constexpr int kStages = 2;
 // Q, then K and V in kStages stages each
-template <int D> constexpr int kMmaSmemBytes = (1 + 2 * kStages<D>) * kTileElems<D> * 2;
-
-// rows [row0, row0 + n_valid) of a (rows, ld) bf16 matrix -> a 64-row
-// shared tile; rows past n_valid are zero-filled
 template <int D>
+constexpr int kMmaSmemBytes = (kQElems<D> + 2 * kStages<D> * kTileElems<D>) * 2;
+
+// rows [row0, row0 + n_valid) of a (rows, ld) bf16 matrix -> a Rows-row
+// shared tile; rows past n_valid are zero-filled
+template <int D, int Rows>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int ld,
                                           int row0, int n_valid, int tid) {
   constexpr int kPerRow = D / 8;  // 16-byte chunks per row
 #pragma unroll
-  for (int i = tid; i < kBN * kPerRow; i += kMmaThreads) {
+  for (int i = tid; i < Rows * kPerRow; i += kMmaThreads) {
     const int r = i / kPerRow, c = i % kPerRow;
     const bool ok = r < n_valid;
     const __nv_bfloat16* p = src + static_cast<size_t>(row0 + (ok ? r : 0)) * ld + c * 8;
@@ -94,16 +110,17 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
               float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal, int window,
               float softcap, float scale, int q_offset) {
-  static_assert(D % 16 == 0 && D <= 128, "head_dim must be a multiple of the mma depth 16");
+  static_assert(D % 16 == 0 && D <= 256, "head_dim must be a multiple of the mma depth 16");
   constexpr int RS = kRowStride<D>;
+  constexpr int BN = kBN<D>;
   constexpr int KC = D / 16;  // k-steps of S = Q K^T
   constexpr int ND = D / 8;   // n-tiles of O
-  constexpr int NT = kBN / 8; // n-tiles of S
+  constexpr int NT = BN / 8;  // n-tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   constexpr int NS = kStages<D>;
-  __nv_bfloat16* ks = qs + kTileElems<D>;       // [NS][kBN][RS]
-  __nv_bfloat16* vs = ks + NS * kTileElems<D>;  // [NS][kBN][RS]
+  __nv_bfloat16* ks = qs + kQElems<D>;          // [NS][BN][RS]
+  __nv_bfloat16* vs = ks + NS * kTileElems<D>;  // [NS][BN][RS]
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;  // longest (last) q tiles first
@@ -121,15 +138,15 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int last_row = row0 + n_rows - 1;
   const int k_hi = causal ? min(Sk, q_offset + last_row + 1) : Sk;
   const int k_lo = window >= 0 ? max(0, q_offset + row0 - window + 1) : 0;
-  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBN - 1) / kBN : 0;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
 
   auto load_kv = [&](int it) {  // K / V tile it into stage it % NS
-    const int k0 = k_lo + it * kBN;
-    const int n = min(kBN, k_hi - k0);
-    load_tile<D>(ks + (it % NS) * kTileElems<D>, kg, ldkv, k0, n, tid);
-    load_tile<D>(vs + (it % NS) * kTileElems<D>, vg, ldkv, k0, n, tid);
+    const int k0 = k_lo + it * BN;
+    const int n = min(BN, k_hi - k0);
+    load_tile<D, BN>(ks + (it % NS) * kTileElems<D>, kg, ldkv, k0, n, tid);
+    load_tile<D, BN>(vs + (it % NS) * kTileElems<D>, vg, ldkv, k0, n, tid);
   };
-  load_tile<D>(qs, qg, ldq, row0, n_rows, tid);
+  load_tile<D, kBM>(qs, qg, ldq, row0, n_rows, tid);
   cp_async_commit();
 #pragma unroll
   for (int it = 0; it < NS - 1; ++it) {
@@ -139,10 +156,14 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   cp_async_wait<NS - 1>();  // Q has landed
   __syncthreads();
 
-  uint32_t qf[KC][4];  // this warp's 16 Q rows as mma A fragments
+  // this warp's 16 Q rows as mma A fragments: ldmatrix addresses of the
+  // k-step kc at q_addr + 32 kc bytes
+  const uint32_t q_addr = smem_addr(qs + (warp * 16 + (lane & 15)) * RS + (lane >> 4) * 8);
+  uint32_t qf[kQInRegs<D> ? KC : 1][4];
+  if constexpr (kQInRegs<D>) {
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc)
-    ldmatrix_x4(qf[kc], smem_addr(qs + (warp * 16 + (lane & 15)) * RS + kc * 16 + (lane >> 4) * 8));
+    for (int kc = 0; kc < KC; ++kc) ldmatrix_x4(qf[kc], q_addr + kc * 32);
+  }
 
   // S in the log2 domain: s * scale * log2 e, or cap * log2 e * tanh(s * scale / cap)
   const bool capped = softcap > 0.f;
@@ -158,7 +179,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_lo + it * kBN;
+    const int k0 = k_lo + it * BN;
     cp_async_wait<NS - 2>();  // tile it has landed (this thread's copies)
     __syncthreads();          // ... and every thread's; all are done with tile it - 1
     if (it + NS - 1 < n_tiles) load_kv(it + NS - 1);  // into tile it - 1's stage
@@ -166,26 +187,47 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     const __nv_bfloat16* kt = ks + (it % NS) * kTileElems<D>;
     const __nv_bfloat16* vt = vs + (it % NS) * kTileElems<D>;
 
-    // S = Q K^T: 16 rows x 64 keys per warp; step i reads the K fragment of
-    // dims (i / 4) * 16 and keys (i % 4) * 16, fetched kFetch steps ahead
+    // S = Q K^T: 16 rows x BN keys per warp
     float s[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    pipelined<KC * NT / 2>(
-        [&](int i, uint32_t (&r)[4]) {
-          const int kc = i / (NT / 2), np = i % (NT / 2);
-          ldmatrix_x4(r, smem_addr(kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
-                                   kc * 16 + ((lane >> 3) & 1) * 8));
-        },
-        [&](int i, const uint32_t (&r)[4]) {
-          const int kc = i / (NT / 2), np = i % (NT / 2);
-          mma_bf16(s[2 * np], qf[kc], r[0], r[1]);
-          mma_bf16(s[2 * np + 1], qf[kc], r[2], r[3]);
-        });
+    // the K fragment of dims kc * 16 and keys np * 16 .. + 15
+    auto k_frag = [&](uint32_t (&r)[4], int kc, int np) {
+      ldmatrix_x4(r, smem_addr(kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                               kc * 16 + ((lane >> 3) & 1) * 8));
+    };
+    if constexpr (kQInRegs<D>) {
+      // step i reads the K fragment of k-step i / (NT / 2), key pair
+      // i % (NT / 2), fetched kFetch - 1 steps ahead
+      pipelined<KC * NT / 2>(
+          [&](int i, uint32_t (&r)[4]) { k_frag(r, i / (NT / 2), i % (NT / 2)); },
+          [&](int i, const uint32_t (&r)[4]) {
+            const int kc = i / (NT / 2), np = i % (NT / 2);
+            mma_bf16(s[2 * np], qf[kc], r[0], r[1]);
+            mma_bf16(s[2 * np + 1], qf[kc], r[2], r[3]);
+          });
+    } else {
+      // step kc reads Q's fragment and the K fragments of every key pair,
+      // one step ahead
+      constexpr int R = 4 + 4 * (NT / 2);
+      pipelined<KC, R, 2>(
+          [&](int kc, uint32_t (&r)[R]) {
+            ldmatrix_x4(frag4(r, 0), q_addr + kc * 32);
+#pragma unroll
+            for (int np = 0; np < NT / 2; ++np) k_frag(frag4(r, 4 + 4 * np), kc, np);
+          },
+          [&](int, const uint32_t (&r)[R]) {
+#pragma unroll
+            for (int np = 0; np < NT / 2; ++np) {
+              mma_bf16(s[2 * np], frag4(r, 0), r[4 + 4 * np], r[5 + 4 * np]);
+              mma_bf16(s[2 * np + 1], frag4(r, 0), r[6 + 4 * np], r[7 + 4 * np]);
+            }
+          });
+    }
 
     // scale, softcap, and the mask where the tile is not wholly visible
-    const bool full = k0 + kBN <= k_hi &&
-                      (!causal || k0 + kBN - 1 <= q_offset + row0) &&
+    const bool full = k0 + BN <= k_hi &&
+                      (!causal || k0 + BN - 1 <= q_offset + row0) &&
                       (window < 0 || k0 > q_offset + last_row - window);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -301,14 +343,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, flo
 // of a K/V row in shared memory and a warp reads TPR vectors at once (no
 // bank conflicts; the rows of a warp share them by broadcast).  The row's
 // q.k partial sums meet by xor-shuffles.  The K/V tile is 64 keys up to
-// D = 64 and 32 keys at D = 128, so the two f32 tiles stay at 32 KB of
-// static shared memory.
+// D = 64 and 4096 / D keys above (32 at D 128, 16 at D 256), so the two
+// f32 tiles stay at 32 KB of static shared memory.
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 16;                 // keys scored per online-softmax update
 
-// threads per q row, and so q rows per block
-template <int D> constexpr int kTpr = D <= 64 ? 4 : 8;
+// threads per q row (16 dims a thread above D 64), and so q rows per block
+template <int D> constexpr int kTpr = D <= 64 ? 4 : D / 16;
 template <int D> constexpr int kRows = kThreads / kTpr<D>;
 
 template <int VW>
@@ -333,7 +375,7 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   constexpr int DP = D / TPR;               // dims per thread
   constexpr int VW = DP >= 4 ? 4 : DP;      // vector width of a shared-memory read
   constexpr int NV = DP / VW;               // vectors per thread
-  constexpr int BK = D <= 64 ? 64 : 32;     // keys per K/V tile: <= 32 KB of smem
+  constexpr int BK = D <= 64 ? 64 : 4096 / D;  // keys per K/V tile: <= 32 KB of smem
   static_assert(D % (TPR * VW) == 0, "head_dim must split over the row's threads");
   static_assert(BK % kChunk == 0, "tile must hold whole chunks");
   __shared__ __align__(16) float ks[BK][D];
@@ -470,25 +512,24 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int Hkv, int D, int causal, int window, float softcap,
                                    float scale, int q_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) {
-    switch (D) {
-      case 8: return launch_simt<__nv_bfloat16, 8>(FA_ARGS);
-      case 16: return launch_mma<16>(FA_ARGS);
-      case 32: return launch_mma<32>(FA_ARGS);
-      case 64: return launch_mma<64>(FA_ARGS);
-      case 128: return launch_mma<128>(FA_ARGS);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (dtype == kF32) {
-    switch (D) {
-      case 8: return launch_simt<float, 8>(FA_ARGS);
-      case 16: return launch_simt<float, 16>(FA_ARGS);
-      case 32: return launch_simt<float, 32>(FA_ARGS);
-      case 64: return launch_simt<float, 64>(FA_ARGS);
-      case 128: return launch_simt<float, 128>(FA_ARGS);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  return cudaErrorInvalidValue;
+  return with_instance(dtype, D, [&](auto tag, auto d) {
+    using T = typename decltype(tag)::type;
+    constexpr int kD = decltype(d)::value;
+    if constexpr (kOnTensorCores<T, kD>) return launch_mma<kD>(FA_ARGS);
+    else return launch_simt<T, kD>(FA_ARGS);
+  });
+}
+
+// What the card made of the instance that dtype and D run (common.cuh's
+// kernel_info: registers, spilled bytes, static and dynamic shared memory,
+// blocks an SM).
+extern "C" int flash_attention_fwd_info(int dtype, int D, int* out) {
+  return with_instance(dtype, D, [&](auto tag, auto d) {
+    using T = typename decltype(tag)::type;
+    constexpr int kD = decltype(d)::value;
+    if constexpr (kOnTensorCores<T, kD>)
+      return kernel_info<flash_fwd_mma<kD>>(kMmaThreads, kMmaSmemBytes<kD>, out);
+    else
+      return kernel_info<flash_fwd_simt<T, kD>>(kThreads, 0, out);
+  });
 }

@@ -76,20 +76,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi, float* sum) {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Runs use(i, frag) for i < N, where frag = the fragment load(i, frag)
-// fetched kFetch - 1 steps earlier: an ldmatrix's result is not consumed by
+// Runs use(i, frag) for i < N, where frag = the R registers load(i, frag)
+// fetched Fetch - 1 steps earlier: an ldmatrix's result is not consumed by
 // the mma that follows it in program order, so its latency hides behind
 // the mmas in between.  Fully unrolled, so the ring indices are constants.
 constexpr int kFetch = 4;
 
-template <int N, typename Load, typename Use>
+template <int N, int R = 4, int Fetch = kFetch, typename Load, typename Use>
 __device__ __forceinline__ void pipelined(Load load, Use use) {
-  uint32_t ring[kFetch][4];
+  uint32_t ring[Fetch][R];
 #pragma unroll
-  for (int i = 0; i < kFetch - 1 && i < N; ++i) load(i, ring[i]);
+  for (int i = 0; i < Fetch - 1 && i < N; ++i) load(i, ring[i]);
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    if (i + kFetch - 1 < N) load(i + kFetch - 1, ring[(i + kFetch - 1) % kFetch]);
-    use(i, ring[i % kFetch]);
+    if (i + Fetch - 1 < N) load(i + Fetch - 1, ring[(i + Fetch - 1) % Fetch]);
+    use(i, ring[i % Fetch]);
   }
+}
+
+// The 4 registers of ``r`` from ``i`` on, as one mma / ldmatrix fragment
+template <int R>
+__device__ __forceinline__ uint32_t (&frag4(uint32_t (&r)[R], int i))[4] {
+  return *reinterpret_cast<uint32_t(*)[4]>(r + i);
+}
+template <int R>
+__device__ __forceinline__ const uint32_t (&frag4(const uint32_t (&r)[R], int i))[4] {
+  return *reinterpret_cast<const uint32_t(*)[4]>(r + i);
 }

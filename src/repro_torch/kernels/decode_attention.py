@@ -16,8 +16,10 @@ in flight.  One call launches two kernels (counted once):
    rings, skips tiles without a live slot, and writes f32 partials
    (acc, m, l) to scratch from ``torch.empty``.  bf16 at D >= 16 runs
    ``decode_split_mma`` (the G rows padded to 16 as one ``mma.sync``
-   operand, P rounded to bf16); f32, and bf16 at D 8, run
-   ``decode_split_kernel`` on the CUDA cores (:func:`instances`);
+   operand, P rounded to bf16; at D 256 Q's fragments are read from shared
+   memory at each k-step, beside the 128 registers of the accumulator);
+   f32, and bf16 at D 8, run ``decode_split_kernel`` on the CUDA cores (4
+   dims a lane up to D 128, 8 at D 256) (:func:`instances`);
 2. ``decode_combine_kernel``: merges the partials per query row in a fixed
    order (``ref.decode_attention_split_ref`` is the same arithmetic).
 
@@ -38,7 +40,7 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.ref import decode_attention_ref as plain
 
-HEAD_DIMS = (8, 16, 32, 64, 128)  # the instances csrc/decode_attention.cu builds
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the instances csrc/decode_attention.cu builds
 MAX_GROUP = 16  # query heads per KV head (kMaxG in the source)
 TILE = 32  # cache slots per tile (kTile in the source); a split is whole tiles
 WAVES = 2  # blocks to aim for, in multiples of the SM count
@@ -73,6 +75,13 @@ def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
     ]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def instance_info(dtype: torch.dtype, head_dim: int, chunk: int, device: int = 0) -> dict[str, int]:
+    """What the card made of the split pass that ``dtype`` and ``head_dim``
+    run, at ranges of ``chunk`` slots (``_build.instance_info``)."""
+    return _build.instance_info(_entry()[0], "decode_attention_fwd_info",
+                                _build.DTYPE_CODES[dtype], head_dim, chunk, device=device)
 
 
 def decode_attention(

@@ -9,10 +9,12 @@ What bounds it on the card: at the serving shapes the bytes (q, k, v in and
 out once) set the card's bound, and only the tensor cores come near it.  The
 instance depends on dtype and head dim alone (:func:`instance`):
 
-* bf16 at D 16 / 32 / 64 / 128 runs ``flash_fwd_mma``, FlashAttention-2 on
-  the tensor cores (``mma.sync`` m16n8k16, 64 q rows a block, bf16 K / V
-  tiles of 64 keys in a 2-stage ``cp.async`` ring, the online softmax in
-  registers, P rounded to bf16 for P·V);
+* bf16 at D 16 / 32 / 64 / 128 / 256 runs ``flash_fwd_mma``,
+  FlashAttention-2 on the tensor cores (``mma.sync`` m16n8k16, 64 q rows a
+  block, bf16 K / V tiles of 64 keys in a 2-stage ``cp.async`` ring, the
+  online softmax in registers, P rounded to bf16 for P·V; at D 256, where
+  O's accumulator is half of a thread's registers, tiles of 32 keys and
+  Q's fragments read from shared memory at each k-step);
 * f32, and bf16 at D 8, run ``flash_fwd_simt``, the products on the f32
   CUDA cores, exact to f32 rounding (the f32 end-to-end gates run it).
 
@@ -24,7 +26,9 @@ Sq)), which the backward needs.  The backward, K1b
 (:func:`flash_attention_bwd`), replaces ``repro/kernels/flash_vjp.py``'s
 ``_bwd_rule``: two passes, no atomics (dq and delta per q tile; dk and dv
 per KV head and key tile, summed over its G query heads in the block).
-Three instances, by dtype and head dim only (:func:`bwd_instances`):
+Three instances, by dtype and head dim only (:func:`bwd_instances`), up to
+D 128; a D-256 backward raises before any launch (ROADMAP Queue 2,
+K1b-D256):
 
 * bf16 at D 64, the training path's shape: ``flash_bwd_dq_wgmma`` +
   ``flash_bwd_dkdv_wgmma`` (``csrc/flash_attention_bwd_sm90.cu``), designed
@@ -60,8 +64,9 @@ from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_lse_ref
 from repro_torch.kernels.ref import mha_ref as plain
 
-HEAD_DIMS = (8, 16, 32, 64, 128)  # the instances csrc/flash_attention.cu builds
-MMA_HEAD_DIMS = (16, 32, 64, 128)  # bf16 head dims on the tensor cores (multiples of 16)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the instances csrc/flash_attention.cu builds
+MMA_HEAD_DIMS = (16, 32, 64, 128, 256)  # bf16 head dims on the tensor cores (multiples of 16)
+BWD_HEAD_DIMS = (8, 16, 32, 64, 128)  # the instances of the backward sources
 # bf16 head dims of K1b on mma.sync: at 128 its fragments and accumulators
 # would take more than a thread's 255 registers; D 64 takes the wgmma instance
 BWD_MMA_HEAD_DIMS = (16, 32)
@@ -78,7 +83,14 @@ def instance(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def bwd_instances(dtype: torch.dtype, head_dim: int) -> tuple[str, str]:
-    """The two kernels a K1b call runs: a function of dtype and head dim only."""
+    """The two kernels a K1b call runs: a function of dtype and head dim
+    only.  A head dim without a backward instance (256) raises, naming the
+    ROADMAP item that brings it."""
+    if head_dim not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: no backward kernel at head dim {head_dim} (instances at "
+            f"{BWD_HEAD_DIMS}; ROADMAP Queue 2, K1b-D256: K1b in bf16 at D 128 and 256, for "
+            "training the gemmas)")
     if dtype == torch.bfloat16 and head_dim == BWD_SM90_HEAD_DIM:
         return "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"
     if dtype == torch.bfloat16 and head_dim in BWD_MMA_HEAD_DIMS:
@@ -158,6 +170,13 @@ def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
     ]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def instance_info(dtype: torch.dtype, head_dim: int, device: int = 0) -> dict[str, int]:
+    """What the card made of the instance that ``dtype`` and ``head_dim``
+    run (``_build.instance_info``)."""
+    return _build.instance_info(_entry()[0], "flash_attention_fwd_info",
+                                _build.DTYPE_CODES[dtype], head_dim, device=device)
 
 
 @functools.cache
@@ -342,6 +361,7 @@ def flash_attention_bwd(
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale, q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    instances = bwd_instances(q.dtype, q.shape[-1])  # raises where there is none
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
     _check("flash_attention_bwd", q, k, v, window, out=out, dout=dout)
@@ -353,7 +373,7 @@ def flash_attention_bwd(
                          f"got {lse.dtype} {tuple(lse.shape)}")
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if bwd_instances(q.dtype, D)[0] == "flash_bwd_dq_wgmma":
+    if instances[0] == "flash_bwd_dq_wgmma":
         lib, fn = _sm90_entry()
         sm90_bwd(lib, fn, q, k, v, out, lse, dout, dq, dk, dv, causal=causal, window=window,
                  softcap=softcap, scale=scale, q_offset=q_offset)

@@ -26,7 +26,8 @@ The checkpoints stash no RNG state (``preserve_rng_state=False``): the
 forward draws no random numbers, and reading the card's RNG state is
 refused inside a CUDA graph's capture (``training/compiled.py``).
 
-The vlm/audio frontends raise ``NotImplementedError`` (ROADMAP item M10).
+The ``vlm_stub`` frontend (chameleon-34b) and the ``audio_stub`` frontend
+(musicgen-large) raise ``NotImplementedError`` (ROADMAP item M10).
 """
 from __future__ import annotations
 

@@ -15,8 +15,12 @@ dict.
 
 ``pad_heads_to`` and ``activation_constraints`` are GSPMD sharding knobs of
 the JAX package and change nothing on one card; ``decode_split_kv`` only
-acts on a sequence-sharded cache, which one card does not have.  QK-norm
-and the fused-VJP path arrive with ROADMAP items M10 and K1b.
+acts on a sequence-sharded cache, which one card does not have.  Every
+head dim of the ported archs runs on the card, gemma3-4b's 256 included
+(K1 and K2 have D-256 instances), with gemma2's softcap and the sliding
+window of both gemmas; QK-norm (chameleon-34b) is ROADMAP item M10.  The
+backward of attention is always the flash backward (K1b), which has no
+D-256 instance yet (ROADMAP Queue 2, K1b-D256).
 """
 from __future__ import annotations
 

@@ -82,6 +82,13 @@ def _close(jax_out, torch_out, **tol):
         (1, 200, 200, 8, 1, 128, None, None),
         (1, 72, 200, 8, 1, 128, None, None),
         (1, 96, 96, 8, 1, 128, 40, 30.0),
+        # head dim 256 (gemma3-4b): GQA 2, a window that starts inside a
+        # tile, a softcap, and the queries as the last 40 of 100 keys with a
+        # window and a softcap
+        (1, 64, 64, 4, 2, 256, None, None),
+        (1, 64, 64, 4, 2, 256, 24, None),
+        (1, 64, 64, 4, 2, 256, None, 50.0),
+        (1, 40, 100, 4, 2, 256, 37, 30.0),
     ],
 )
 def test_flash_attention_vs_pallas(B, Sq, Sk, Hq, Hkv, D, window, softcap, dtype):
@@ -127,6 +134,33 @@ def test_decode_attention_vs_pallas(window, softcap, dtype):
     cur = np.array([S - 1, 17], np.int32)
     want = jax_decode(jq, jk, jv, jnp.asarray(pos), jnp.asarray(cur), window=window,
                       softcap=softcap, block_s=16, interpret=True)
+    got = decode_attention(tq, tk, tv, torch.from_numpy(pos), torch.from_numpy(cur),
+                           window=window, softcap=softcap)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(want, got, **tols(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["full", "ring window", "softcap"])
+def test_decode_attention_d256_vs_pallas(case, dtype):
+    """Head dim 256 (gemma3-4b) against the Pallas kernel: a full cache at
+    two fill levels, a 24-slot ring that has wrapped (cur 30 and 57) with a
+    window of 16, and gemma2's softcap of 50; tests/test_kernels.py's
+    tolerances."""
+    B, Hq, Hkv, D, S = 2, 4, 2, 256, 24
+    rng = np.random.default_rng(50)
+    (jq, tq), (jk, tk), (jv, tv) = _decode_inputs(rng, B, Hq, Hkv, D, S, dtype)
+    window, softcap = {"full": (None, None), "ring window": (16, None),
+                       "softcap": (None, 50.0)}[case]
+    if case == "ring window":
+        cur = np.array([30, 57], np.int32)
+        base = cur[:, None] - S + 1  # slot s holds the position p = s (mod S) in (cur - S, cur]
+        pos = (base + (np.arange(S)[None] - base) % S).astype(np.int32)
+    else:
+        cur = np.array([S - 1, 9], np.int32)
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S)).copy()
+    want = jax_decode(jq, jk, jv, jnp.asarray(pos), jnp.asarray(cur), window=window,
+                      softcap=softcap, block_s=8, interpret=True)
     got = decode_attention(tq, tk, tv, torch.from_numpy(pos), torch.from_numpy(cur),
                            window=window, softcap=softcap)
     assert got.dtype == tq.dtype and got.shape == tq.shape
@@ -264,13 +298,27 @@ def test_split_plan_fills_the_card_at_the_served_shapes(B, Hkv):
     assert B * Hkv * n_split >= 2 * 132
 
 
+# the gemmas' served decode: gemma3-4b's global layers (2048 slots) and its
+# local layers' 1024-slot rings, 4 KV heads of 256; gemma2-27b's 1024-slot
+# caches, 16 KV heads of 128
+@pytest.mark.parametrize("B,Hkv,S,want", [(8, 4, 2048, (10, 224)), (8, 4, 1024, (11, 96)),
+                                          (8, 16, 1024, (4, 320))])
+def test_split_plan_at_the_gemma_shapes(B, Hkv, S, want):
+    """A valid n_split / chunk (the kernel's contract) with two waves of
+    blocks on 132 SMs."""
+    n_split, chunk = split_plan(B, Hkv, S, 132)
+    assert (n_split, chunk) == want
+    assert chunk % SPLIT_TILE == 0 and (n_split - 1) * chunk < S <= n_split * chunk
+    assert B * Hkv * n_split >= 2 * 132
+
+
 def test_attention_instances_depend_on_dtype_and_head_dim_only():
-    for D in (16, 32, 64, 128):
+    for D in (16, 32, 64, 128, 256):
         assert flash_instance(torch.bfloat16, D) == "flash_fwd_mma"
         assert decode_instances(torch.bfloat16, D) == ("decode_split_mma",
                                                        "decode_combine_kernel")
     for dt, D in ((torch.bfloat16, 8), (torch.float32, 8), (torch.float32, 64),
-                  (torch.float32, 128)):
+                  (torch.float32, 128), (torch.float32, 256)):
         assert flash_instance(dt, D) == "flash_fwd_simt"
         assert decode_instances(dt, D)[0] == "decode_split_kernel"
 
@@ -288,6 +336,36 @@ def test_bwd_instances_depend_on_dtype_and_head_dim_only(dtype, D, want):
     """K1b: bf16 D 64 (the training path) runs the wgmma pair, bf16 D 16 /
     32 the mma.sync pair, f32 and bf16 D 8 / 128 the CUDA-core pair."""
     assert k1.bwd_instances(dtype, D) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_refuses_head_dim_256_before_any_launch(dtype, monkeypatch):
+    """K1b has no D-256 instance: off the CPU the wrapper raises before it
+    loads a library or launches, naming the ROADMAP item (meta tensors
+    stand in for the card; a library load fails the test).  D 128 passes
+    that check and stops at the device check; on the CPU D 256 runs the
+    plain version."""
+    def no_launch():
+        raise AssertionError("a K1b library was loaded")
+
+    monkeypatch.setattr(k1, "_bwd_entry", no_launch)
+    monkeypatch.setattr(k1, "_sm90_entry", no_launch)
+    before = launch_counts()
+
+    def bwd(D, device):
+        q, k, v = (torch.zeros((1, 8, h, D), dtype=dtype, device=device) for h in (4, 2, 2))
+        lse = torch.zeros((1, 4, 8), dtype=torch.float32, device=device)
+        return flash_attention_bwd(q, k, v, torch.zeros_like(q), lse, torch.zeros_like(q))
+
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, K1b-D256"):
+        bwd(256, "meta")
+    with pytest.raises(NotImplementedError, match="head dim 256"):
+        k1.bwd_instances(dtype, 256)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        bwd(128, "meta")
+    dq, dk, dv = bwd(256, "cpu")
+    assert dq.shape == (1, 8, 4, 256) and dk.shape == dv.shape == (1, 8, 2, 256)
+    assert launch_counts() == before
 
 
 # (B, Sq, Sk, Hq, Hkv, causal, window, q_offset): causal and not, a window,
@@ -397,6 +475,9 @@ def test_rmsnorm_vs_pallas(shape, dtype):
 # deepseek's, rwkv6-7b's and jamba's d_model and jamba's Mamba norms (dt_rank
 # 512, d_state 16), and a D off 16 bytes
 NORM_SHAPES = [(r, d) for d in (896, 2048, 4096, 8192, 512, 16) for r in (8, 512)] + [(4, 100)]
+# the gemmas' row widths: gemma3-4b's d 2560 (8 decode rows, 1536 prefill
+# rows) and gemma2-27b's d 4608 (8 and 512)
+NORM_SHAPES += [(8, 2560), (1536, 2560), (8, 4608), (512, 4608)]
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
@@ -421,7 +502,8 @@ def test_norm_plan_covers_each_element_once(rows, D, itemsize):
 @pytest.mark.parametrize("rows,D,lanes,chunks", [
     (8, 16, 2, 1), (512, 16, 2, 1), (8, 512, 32, 2), (512, 512, 32, 2), (8, 896, 64, 2),
     (512, 896, 32, 4), (8, 2048, 128, 2), (512, 2048, 64, 4), (8, 4096, 256, 2),
-    (512, 4096, 128, 4), (8, 8192, 256, 4), (512, 8192, 256, 4)])
+    (512, 4096, 128, 4), (8, 8192, 256, 4), (512, 8192, 256, 4),
+    (8, 2560, 256, 2), (1536, 2560, 128, 4), (8, 4608, 256, 4), (512, 4608, 256, 4)])
 def test_norm_plan_lanes_at_the_served_widths(rows, D, lanes, chunks):
     """In bf16, D 16 packs 16 rows a warp (2 lanes of 16 bytes a row); a
     prefill row of up to 128 chunks takes one warp (shuffles only), a wider

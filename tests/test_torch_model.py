@@ -33,7 +33,7 @@ from repro_torch.nn import mamba  # noqa: E402
 from repro_torch.nn import rwkv  # noqa: E402
 
 ARCHS = ["qwen2-0.5b", "smollm-360m", "deepseek-moe-16b", "dbrx-132b", "rwkv6-7b",
-         "jamba-1.5-large"]
+         "jamba-1.5-large", "gemma2-27b", "gemma3-4b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -87,7 +87,7 @@ def test_config_copies_match_jax(arch):
                     dataclasses.asdict(getattr(ref, sub)), sub
 
 
-@pytest.mark.parametrize("arch", ["gemma2-27b", "gemma3-4b", "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["chameleon-34b", "musicgen-large"])
 def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP item M10"):
         get_config(arch)
@@ -322,6 +322,36 @@ def test_decode_matches_full_forward(arch):
                                         torch.full((B,), t, dtype=torch.int32), caches)
         got.append(logits)
     torch.testing.assert_close(torch.stack(got, 1), full[:, half:], atol=2e-5, rtol=2e-5)
+
+
+def test_gemma3_tail_and_wrapped_ring_match_jax():
+    """Reduced gemma3-4b at 10 layers, one period of (swa x 5, ga) and a tail
+    of 4 swa layers as at full depth (5 periods + 4): the tree (``tail6`` ..
+    ``tail9`` unscanned, the post-block norms, one tied table), then a
+    20-token prompt, longer than the window of 16, so each local layer's
+    16-slot ring keeps the prompt's last 16 positions, and six decode steps
+    that wrap it again; logits and caches against the JAX model in f32
+    (TOL)."""
+    jcfg, cfg, jp, p = _both("gemma3-4b", n_layers=10)
+    assert (cfg.n_periods, [n for n, _ in lm._unscanned_layers(cfg)]) == \
+        (1, ["tail6", "tail7", "tail8", "tail9"])
+    assert "lm_head" not in p and {"norm1_post", "norm2_post"} <= set(p["tail9"])
+    _tree_close(jax.tree.map(np.asarray, jp), p)
+    B, S, max_seq = 2, 20, 32
+    toks = np.random.default_rng(23).integers(0, cfg.vocab_size, (B, S + 6))
+    jl, jc = jax_lm.prefill(jp, jcfg, jnp.asarray(toks[:, :S], jnp.int32), max_seq=max_seq)
+    tl, tc = lm.prefill(p, cfg, _t(toks[:, :S]), max_seq=max_seq)
+    ring = tc["tail9"]["mixer"]["pos_ids"]
+    assert ring.shape == (B, cfg.sliding_window) and int(ring.min()) == S - cfg.sliding_window
+    _close(jl, tl)
+    _tree_close(jc, tc)
+    for t in range(S, S + 6):
+        cur = np.full((B,), t, np.int32)
+        jl, jc = jax_lm.decode_step(jp, jcfg, jnp.asarray(toks[:, t], jnp.int32),
+                                    jnp.asarray(cur), jc)
+        tl, tc = lm.decode_step(p, cfg, _t(toks[:, t]), _t(cur), tc)
+        _close(jl, tl)
+    _tree_close(jc, tc)
 
 
 # ---------------------------------------------------------------------------

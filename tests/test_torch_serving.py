@@ -69,7 +69,8 @@ def test_engine_matches_jax_engine(arch):
     assert eng.run_to_completion() == jeng.run_to_completion()
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b", "rwkv6-7b", "jamba-1.5-large"])
+@pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b", "rwkv6-7b", "jamba-1.5-large",
+                                  "gemma2-27b", "gemma3-4b"])
 def test_engine_matches_jax_direct_decode(arch):
     """Each request's tokens equal the JAX model's own prefill + greedy
     decode loop for that request alone."""
@@ -91,6 +92,58 @@ def test_engine_matches_jax_direct_decode(arch):
                                     jnp.asarray([cur], jnp.int32), caches)
             toks.append(int(jnp.argmax(logits[0])))
         assert res[rid] == toks
+
+
+def _gemma_perturbed(tree, seed):
+    """A copy of a JAX gemma param tree (numpy leaves) whose attention
+    leaves are 6x and whose post-block norm scales are 3 + N(0, 1): at init
+    a random gemma copies its last token (the scaled, tied embedding
+    dominates the logits), so its greedy tokens would not depend on
+    attention at all."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t, path):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, f"{path}/{k}")
+            elif "_post" in path and k == "scale":
+                out[k] = (v + 3.0 + rng.standard_normal(v.shape)).astype(v.dtype)
+            else:
+                out[k] = (v * 6.0).astype(v.dtype) if "/mixer" in path else v
+        return out
+
+    return walk(jax.tree.map(np.asarray, tree), "")
+
+
+def test_gemma3_wrapped_ring_engine_matches_jax_direct_decode():
+    """Reduced gemma3-4b (window 16) served with 20-token prompts, longer
+    than the window, and 8 new tokens: each local layer's 16-slot ring holds
+    the prompt's last 16 positions after prefill and wraps in decode.  Each
+    request's tokens equal the JAX model's own prefill + greedy decode loop
+    for that request alone, and the tokens do depend on the context."""
+    jcfg = jax_reduced(jax_get_config("gemma3-4b"))
+    cfg = reduced(get_config("gemma3-4b"))
+    noisy = _gemma_perturbed(jax_lm.init_params(jcfg, jax.random.PRNGKey(0)), 24)
+    jp, p = jax.tree.map(jnp.asarray, noisy), params_from_jax(noisy, cfg, device="cpu")
+    eng = Engine(cfg, p, ServeConfig(max_batch=2, max_seq=64), log=EventLog())
+    prompts = _prompts(cfg.vocab_size, n=3, length=20)
+    assert len(prompts[0]) > cfg.sliding_window
+    rids = [eng.submit(pr, max_new=8) for pr in prompts]
+    res = eng.run_to_completion()
+    ring = eng.caches["blocks"]["pos0"]["mixer"]["pos_ids"]
+    assert ring.shape[-1] == cfg.sliding_window
+    prefill = jax.jit(lambda p, t: jax_lm.prefill(p, jcfg, t, max_seq=64))
+    decode = jax.jit(lambda p, t, c, ch: jax_lm.decode_step(p, jcfg, t, c, ch))
+    for rid, prompt in zip(rids, prompts):
+        logits, caches = prefill(jp, jnp.asarray([prompt], jnp.int32))
+        toks = [int(jnp.argmax(logits[0]))]
+        for cur in range(len(prompt), len(prompt) + 7):
+            logits, caches = decode(jp, jnp.asarray([toks[-1]], jnp.int32),
+                                    jnp.asarray([cur], jnp.int32), caches)
+            toks.append(int(jnp.argmax(logits[0])))
+        assert res[rid] == toks
+    assert any(len(set(res[r])) > 1 for r in rids)
 
 
 def test_prefill_lands_in_its_own_slot():

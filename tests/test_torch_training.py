@@ -38,7 +38,7 @@ from repro_torch.training import step as step_mod  # noqa: E402
 
 # the archs of tests/test_arch_smoke.py::test_train_step that the port has
 ARCHS = ["smollm-360m", "qwen2-0.5b", "deepseek-moe-16b", "dbrx-132b", "rwkv6-7b",
-         "jamba-1.5-large"]
+         "jamba-1.5-large", "gemma2-27b", "gemma3-4b"]
 # f32 on both sides; XLA:CPU and torch sum the matmuls, the scans and the
 # backward in different orders, so a leaf's gradient is held relative to
 # its largest entry (up to 4e-7 seen), and the loss to 1e-5 of itself
