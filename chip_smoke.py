@@ -177,7 +177,36 @@ failure of which exits non-zero:
    launch; (i) ``python -m repro_torch.launch.train --arch
    smollm-360m --steps 20 --ckpt-dir <tmp> --fail-at 7`` in a child
    process: one restart, one capture, its loss falling;
-6. print the script's run time, the per-kernel JSON line (launches from the
+6. the paper's measurement layer (``core/``): (a) Table I, the hyperfine
+   protocol (TABLE1_MICRO warm-up and measured calls) on the microbench
+   (``configs/microbench.py``), baseline / usdt (tape-mode tracepoints) /
+   uprobes (``inject_probes`` in callback mode) eagerly and baseline /
+   usdt as CUDA graph replays (the uprobes arm's capture must be
+   refused), then the three arms on full-width, full-depth qwen2-0.5b's
+   loss forward at TABLE1_MODEL_TOKENS; (b) Fig. 2, their user / system
+   CPU seconds; (c) qwen2-0.5b's compiled prefill and decode tick with
+   tracing off and with the tape, the eager step off and in callback mode:
+   logits bit-equal across the arms, the tape's logits point equal to the
+   mean of the step's logits, callback mode refused inside a capture, the
+   disabled step's launches, dispatched ops (``sdfg.extract``) and kernels
+   (profile, where it saw the card) equal to the step's with ``tp.point``
+   replaced by a bare no-op, the tape's cost on the replays,
+   and device time by named scope; (d) smollm-360m's compiled train step
+   with its tape: train.loss, lm.loss and train.grad_norm equal to the
+   step's metrics at every call; (e) uprobes attached to
+   ``ops.attention``, ``ops.decode_attention`` and ``ops.rmsnorm`` over an
+   eager prefill and tick: one ``:ret`` a launch, each the first element
+   of that call's output; (f) ``sdfg.extract`` / ``roofline.analyze_step``
+   of the prefill, the tick and the train step by region and component,
+   and each measured compiled step's model-FLOP share (``model_flops`` /
+   (seconds x 989e12)) and roofline share (bound / seconds), none over
+   SHARE_MAX; (g) R13: 12 requests over the prompt lengths R13_LENGTHS,
+   each twice in a row, through the eager engine, the compiled engine with
+   its prefill graphs capped at R13_CAP and without the cap: every
+   request's tokens equal, the cap's evictions, and the reserved memory
+   after each length, which must not grow past its value at the cap with
+   the cap and must grow past it without (the control);
+7. print the script's run time, the per-kernel JSON line (launches from the
    six compiled serving runs; K1b's and K3b's from phase 5 (e)), the card
    line, and last the ``{"ok": true, "device": ...}`` line.
 
@@ -187,6 +216,7 @@ run, the profiles) there as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -288,6 +318,22 @@ CLI_FAIL_AT = 7  # phase 5 (i): --fail-at of the driver's run (restores step 0)
 CLI_TIMEOUT_S = 300  # phase 5 (i): python -m repro_torch.launch.train on the card
 K3B_CALLS = 10  # phase 5 (g): K3b calls under torch.profiler, one kernel each
 K3B_OVERLAP_ROUNDS = 8  # phase 5 (c): K3b calls on each of two streams at once
+# a named scope of the model (core/scopes.py), as torch.profiler names its range
+SCOPE_NAME = re.compile(r"^(embed|final_norm|(head|tail)\d+|pos\d+_[a-z]+_[a-z_]+|mixer_[a-z]+"
+                        r"|ffn_[a-z_]+)$")
+# phase 6: the paper's measurement layer on the card
+TABLE1_MICRO = (100, 1000)  # (a) warm-up and measured calls a microbench arm (hyperfine)
+TABLE1_ROUNDS = 2  # (a) every arm timed twice, in turn: drift between arms shows
+TABLE1_MODEL = (10, 60)  # (a) the same for a model arm
+TABLE1_MODEL_TOKENS = (8, 128)  # (a) the model arms' loss forward: full-width, full-depth qwen2
+TAPE_STEP_RUNS = {"prefill": (10, 100), "decode_tick": (20, 300)}  # (c) a compiled step's arms
+TAPE_TRAIN_REPLAYS = 6  # (d) replays of the compiled train step with its tape
+# (g) R13: prompt lengths in the order served, each twice in a row (so each
+# is captured), the longest first so that the eager calls' and captures'
+# largest activations come before the cap is reached; and the cap
+R13_LENGTHS = (512, 64, 384, 128, 256, 192)
+R13_CAP = 4
+SHARE_MAX = 1.05  # (f) no model-FLOP or roofline share of a measured step may read over this
 
 
 def closed_form_tol(chunk: int) -> float:
@@ -360,6 +406,15 @@ def main() -> None:
     peaks["exp_per_s"] = SFU_EXP_PER_CLOCK * n_sm * max_sm_mhz * 1e6
     print(f"{n_sm} SMs, max SM clock {max_sm_mhz:.0f} MHz: {peaks['exp_per_s']:.4g} "
           "exponentials/s on the SFUs", flush=True)
+    from repro_torch.hw.specs import default_chip
+
+    spec = default_chip()
+    props = torch.cuda.get_device_properties(0)
+    print(f"the card against hw/specs.py's {spec.name} (data sheet): memory "
+          f"{props.total_memory / 1e9:.2f} GB against {spec.hbm_bytes / 1e9:.0f} GB, SMs {n_sm} "
+          f"against {spec.sm_count}, max SM clock {max_sm_mhz:.0f} MHz, bf16 / f32 peaks "
+          f"{spec.peak_flops_bf16:.3g} / {spec.peak_flops_f32:.3g} FLOP/s, HBM "
+          f"{spec.hbm_bw:.3g} B/s", flush=True)
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.time()
@@ -1469,7 +1524,8 @@ def main() -> None:
                  f"{eager_rec['kernels']}")
         want = {"decode": {"calls": ticks, "captures": 1, "replays": ticks - 1},
                 "prefill": {spec["prompt_len"]: {"calls": n_req, "captures": 1,
-                                                 "replays": n_req - 1}}}
+                                                 "replays": n_req - 1}},
+                "prefill_evictions": 0}
         if rec["graphs"] != want:
             fail(f"{c.name}: compiled steps {rec['graphs']}, expected {want}")
         same = sum(a == b for a, b in zip(outs, eager_outs))
@@ -2718,7 +2774,12 @@ def main() -> None:
                 "eager_vs_compiled": train_vs, "graph_f32": graph_train_f32,
                 "supervised": supervised, "cli": cli}
 
-    # -- 6. report ----------------------------------------------------------
+    # -- 6. the paper's measurement layer ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    measurement = measurement_phase(dev, smi)
+
+    # -- 7. report ----------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
             "serving_logits": agree, "breakdown": breakdown,
@@ -2737,7 +2798,7 @@ def main() -> None:
             GEMMA2_ARCH: {"init": g2_init, "serve": g2_serve, "breakdown": g2_breakdown,
                           "bf16_full_depth": g2_gate_bf16, "gate_f32": g2_gate,
                           "gate_f32_init": g2_init4},
-            "seconds": time.time() - t_start}
+            "measurement": measurement, "seconds": time.time() - t_start}
     print(f"chip_smoke: {full['seconds']:.1f} s", flush=True)
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
@@ -2750,6 +2811,422 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+def measurement_phase(dev, smi: str) -> dict:
+    """Phase 6: the paper's measurement layer on the card (see the module
+    docstring); returns its record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, microbench
+    from repro_torch.core import overhead, roofline, sdfg, uprobes
+    from repro_torch.core import tracepoints as tp
+    from repro_torch.core.events import EventLog
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.hw.specs import default_chip
+    from repro_torch.kernels import launch_counts, ops, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.serving.compiled import Graphs
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.training import optim
+    from repro_torch.training import step as step_mod
+    from repro_torch.training.compiled import CompiledTrainStep
+
+    chip = default_chip()
+    rec: dict = {}
+    cfg = get_config(ARCH)
+
+    # -- (a) Table I: baseline / usdt / uprobes on the microbench (eager, and
+    # baseline and usdt as CUDA graph replays), then on qwen2's loss forward
+    print(f"6 (a) Table I, hyperfine protocol, {smi}:", flush=True)
+    micro = overhead.bench_microbench(*TABLE1_MICRO, device=dev, rounds=TABLE1_ROUNDS)
+    eager_rows = [r for r in micro if "_graph" not in r.label]
+    graph_rows = [r for r in micro if "_graph" in r.label]
+    print(f"microbench (Newton sqrt of 1..{microbench.N_VALUES} x {microbench.N_REPEAT}, "
+          f"{microbench.NEWTON_ITERS} iterations), eager:\n{overhead.table(eager_rows)}", flush=True)
+    print(f"microbench as CUDA graph replays:\n"
+          f"{overhead.table(graph_rows, baseline='baseline_graph')}", flush=True)
+    x = microbench.make_inputs(dev)
+    probed = uprobes.inject_probes(microbench.approx_sqrt_workload,
+                                   uprobes.by_primitive("clamp_min"), log=EventLog())
+    probed_step = Graphs(dev).step(probed)
+    probed_step(x)  # eager: allowed
+    try:
+        probed_step(x)  # the capture
+    except RuntimeError as e:
+        refusal = str(e)
+    else:
+        fail("the uprobes arm of the microbench was captured into a CUDA graph")
+    if "CUDA graph capture" not in refusal:
+        fail(f"the uprobes arm's capture raised {refusal!r}, not the capture refusal")
+    print(f"microbench uprobes arm as a CUDA graph: refused ({refusal})", flush=True)
+    params = lm.init_params(cfg, SEED, device=dev)
+    mB, mS = TABLE1_MODEL_TOKENS
+    model = overhead.bench_model_step(cfg, params, batch=mB, seq=mS, warmup=TABLE1_MODEL[0],
+                                      runs=TABLE1_MODEL[1], device=dev, rounds=TABLE1_ROUNDS)
+    print(f"{ARCH} loss forward, full width and depth, tokens ({mB}, {mS}):\n"
+          f"{overhead.table(model)}", flush=True)
+    rec["table1"] = {"microbench": [r.row() for r in micro],
+                     "microbench_uprobes_graph": refusal, "model": [r.row() for r in model],
+                     "overhead_vs_baseline": {
+                         "microbench": _overheads(eager_rows),
+                         "microbench_graph": _overheads(graph_rows, "baseline_graph"),
+                         "model": _overheads(model)}}
+    print("table I overhead vs baseline: "
+          f"{json.dumps(rec['table1']['overhead_vs_baseline'])}", flush=True)
+
+    # -- (b) Fig. 2: the user / system split of (a)
+    print(f"6 (b) Fig 2, user / system CPU seconds over the measured calls, {smi}:\n"
+          f"microbench:\n{overhead.fig2_table(micro)}\n{ARCH} loss forward:\n"
+          f"{overhead.fig2_table(model)}", flush=True)
+    # the arms' own mean times are in (a); each round's arms against that
+    # round's baseline are in its overhead_vs_baseline
+    rec["fig2"] = {"microbench": overhead.breakdown_fig2(micro),
+                   "model": overhead.breakdown_fig2(model)}
+
+    # -- (c) tracepoints on the served step: the compiled prefill and decode
+    # tick with tracing disabled and with the tape, the eager step disabled
+    # and in callback mode; the tick runs against the caches of a batch-8
+    # prefill of 512 tokens, at position 520
+    print("6 (c) tracepoints on qwen2-0.5b's compiled prefill and decode tick:", flush=True)
+    rng = np.random.default_rng(SEED)
+    B, P, MS = SERVE["max_batch"], SERVE["prompt_len"], SERVE["max_seq"]
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, P)))
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, B))
+    pos = torch.full((B,), P + 8, dtype=torch.int32)
+    with torch.no_grad():
+        caches = lm.prefill(params, cfg, torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, P))).to(dev), max_seq=MS)[1]
+    fns = {"prefill": lambda t: lm.prefill(params, cfg, t, max_seq=MS)[0],
+           "decode_tick": lambda t, p: lm.decode_step(params, cfg, t, p, caches)[0]}
+    inputs = {"prefill": (prompt,), "decode_tick": (tok, pos)}
+    point_name = {"prefill": "lm.prefill_logits", "decode_tick": "lm.decode_logits"}
+    graphs = Graphs(dev)
+    traced, times, kernels_vs_noop = {}, {}, {}
+    reset_launches()
+    for name, fn in fns.items():
+        dev_in = [t.to(dev) for t in inputs[name]]
+        plain = graphs.step(fn)
+        taped = graphs.step(tp.collect(fn))
+        for _ in range(3):  # eager, captured + replayed, replayed
+            lg_off = plain(*inputs[name]).clone()
+        with tp.enable("tape"):
+            for _ in range(2):  # the eager call and the capture see the points
+                taped(*inputs[name])
+        lg_tape, tape = taped(*inputs[name])  # a replay, outside enable()
+        lg_tape = lg_tape.clone()
+        tape = {k: (float(v), n) for k, (v, n) in tape.items()}
+        with torch.no_grad():
+            lg_eager = fn(*dev_in)
+            log = EventLog()
+            with tp.enable("callback", log=log):
+                lg_cb = fn(*dev_in)
+        events = [(e.name, e.payload) for e in log.events("probe")]
+        want_mean = float(torch.mean(lg_tape, dtype=torch.float32))
+        # callback mode inside a capture: refused, naming it
+        cb_step = graphs.step(fn)
+        with tp.enable("callback", log=EventLog()):
+            cb_step(*inputs[name])  # the eager call: allowed
+            try:
+                cb_step(*inputs[name])
+            except RuntimeError as e:
+                cb_refusal = str(e)
+            else:
+                cb_refusal = None
+        del cb_step
+        torch.cuda.synchronize()
+        # the disabled step against the same step with tp.point replaced by a
+        # bare no-op: its launches of the port's kernels, the aten ops it
+        # dispatched with their shapes (so the cuBLAS and at::native kernels
+        # behind them; sdfg.extract, which sees no profiler), and the kernels
+        # the profiler names, where both sessions saw the card
+        def launches_of(call) -> dict:
+            before = launch_counts()
+            call()
+            return {k: v - before[k] for k, v in launch_counts().items()}
+
+        def ops_of(call) -> list:
+            return [(n.primitive, n.kernel, n.flops, n.bytes) for n in sdfg.extract(call).nodes]
+
+        with torch.no_grad():
+            off_prof = profile_step(lambda: fn(*dev_in))
+            off_launches = launches_of(lambda: fn(*dev_in))
+            off_ops = ops_of(lambda: fn(*dev_in))
+            real_point = tp.point
+            tp.point = lambda *a, **k: None
+            try:
+                noop_prof = profile_step(lambda: fn(*dev_in))
+                noop_launches = launches_of(lambda: fn(*dev_in))
+                noop_ops = ops_of(lambda: fn(*dev_in))
+            finally:
+                tp.point = real_point
+        off_k = {k: n for k, _, n in off_prof["all_kernels"]}
+        noop_k = {k: n for k, _, n in noop_prof["all_kernels"]}
+        profiled = bool(off_k and noop_k)
+        kernels_vs_noop[name] = {
+            "kernels_compared": profiled, "kernels_equal": off_k == noop_k if profiled else None,
+            "kernels": sum(off_k.values()), "ops_equal": off_ops == noop_ops,
+            "ops": len(off_ops), "launches_equal": off_launches == noop_launches,
+            "launches": off_launches}
+        if not profiled:
+            print(f"{ARCH} {name}: a profile named no kernel (disabled {len(off_k)}, no-op "
+                  f"{len(noop_k)} names), so the kernel names were not compared; the "
+                  "dispatched ops and LAUNCHES were", flush=True)
+        # the tape's cost on the compiled step
+        warm, runs = TAPE_STEP_RUNS[name]
+        arms = overhead.run_arms([("baseline", lambda s=plain: s(*inputs[name])),
+                                  ("usdt", lambda s=taped: s(*inputs[name]))],
+                                 warmup=warm, runs=runs, rounds=TABLE1_ROUNDS)
+        times[name] = arms
+        print(f"{ARCH} compiled {name}, replays with tracing off (baseline) and with the "
+              f"tape (usdt), {smi}:\n{overhead.table(arms)}", flush=True)
+        traced[name] = {
+            "logits_bit_equal": {"tape_vs_off": torch.equal(lg_tape, lg_off),
+                                 "eager_vs_off": torch.equal(lg_eager, lg_off),
+                                 "callback_vs_off": torch.equal(lg_cb, lg_off)},
+            "tape": tape, "tape_point_equals_mean_of_logits":
+                tape[point_name[name]][0] == want_mean,
+            "callback_events": [n for n, _ in events],
+            "callback_logits_event_equal": torch.equal(
+                dict(events)[point_name[name]], lg_cb.cpu()),
+            "callback_in_capture_refused": cb_refusal,
+            "disabled_vs_noop_point": kernels_vs_noop[name],
+            "by_scope_ms": off_prof["by_scope"], "profile_wall_ms": off_prof["wall_ms"],
+            "device_busy_ms": off_prof["device_busy_ms"],
+            "compiled_ms": {a.label: a.row() for a in arms},
+            "tape_overhead": _overheads(arms)}
+        print(f"{ARCH} {name} tracepoints: {json.dumps(traced[name])}", flush=True)
+        t = traced[name]
+        if not all(t["logits_bit_equal"].values()):
+            fail(f"{ARCH} {name}: logits differ across the tracing arms: {t['logits_bit_equal']}")
+        if not t["tape_point_equals_mean_of_logits"] or set(tape) != {
+                "lm.embed_out", "lm.stack_out", point_name[name]}:
+            fail(f"{ARCH} {name}: the tape {tape} does not hold the step's own logits' mean "
+                 f"{want_mean}")
+        if t["callback_events"] != ["lm.embed_out", "lm.stack_out", point_name[name]] or \
+                not t["callback_logits_event_equal"]:
+            fail(f"{ARCH} {name}: callback events {t['callback_events']}")
+        if cb_refusal is None or "CUDA graph capture" not in cb_refusal:
+            fail(f"{ARCH} {name}: callback mode inside a capture was not refused ({cb_refusal})")
+        kv = kernels_vs_noop[name]
+        if not (kv["launches_equal"] and kv["ops_equal"] and kv["kernels_equal"] is not False):
+            fail(f"{ARCH} {name}: with tracing disabled the step ran other kernels than with "
+                 f"the points removed: {kernels_vs_noop[name]}")
+        if not off_prof["by_scope"]:
+            fail(f"{ARCH} {name}: the profile names no scope")
+        del plain, taped
+    launches_c = launch_counts()
+    print(f"6 (c) launches of the instrumented qwen2 steps: {json.dumps(launches_c)}", flush=True)
+    for k in ("flash_attention", "decode_attention", "rmsnorm"):
+        if launches_c[k] == 0:
+            fail(f"6 (c): the instrumented serving path launched no {k}")
+    rec["tracepoints"] = traced
+
+    # -- (d) the compiled train step with its tape
+    print("6 (d) smollm-360m's compiled train step with its tape:", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = get_config(TRAIN_ARCH)
+    tcfg_train = step_mod.TrainConfig(opt=optim.AdamWConfig(
+        peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(tcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)).batch(0).items()}
+    state = step_mod.init_train_state(tcfg, tcfg_train, SEED, dev)
+    cstep = CompiledTrainStep(tcfg, tcfg_train, state)
+    reset_launches()
+    train_tape, replay_ms = [], []
+    for i in range(2 + TAPE_TRAIN_REPLAYS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i < 2:  # the eager call and the capture see the points
+            with tp.enable("tape"):
+                _, m = cstep(state, batch)
+        else:
+            _, m = cstep(state, batch)
+        torch.cuda.synchronize()
+        if i >= 2:
+            replay_ms.append(1e3 * (time.perf_counter() - t0))
+        tape = cstep.tape
+        train_tape.append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                           **{k: v.item() for k, (v, _) in tape.items()}})
+    launches_d = launch_counts()
+    train_rec = {"calls": train_tape, "counts": cstep.counts(), "replay_ms": replay_ms,
+                 "median_replay_ms": float(np.median(replay_ms)), "launches": launches_d}
+    print(f"{TRAIN_ARCH} compiled train step with tape, {smi}: {json.dumps(train_rec)}",
+          flush=True)
+    if any(c["train.loss"] != c["loss"] or c["lm.loss"] != c["loss"]
+           or c["train.grad_norm"] != c["grad_norm"] for c in train_tape):
+        fail(f"{TRAIN_ARCH}: the compiled step's tape differs from its metrics")
+    if cstep.counts()["captures"] != 1:
+        fail(f"{TRAIN_ARCH}: the compiled step with its tape ran {cstep.counts()}")
+    for k in ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"):
+        if launches_d[k] == 0:
+            fail(f"6 (d): the compiled train step launched no {k}")
+    rec["train_tape"] = train_rec
+
+    # -- (e) uprobes on the kernels' ops entries over one eager prefill and tick
+    print("6 (e) uprobes attached to ops.attention, ops.decode_attention, ops.rmsnorm:",
+          flush=True)
+    names = {"attention": "flash_attention", "decode_attention": "decode_attention",
+             "rmsnorm": "rmsnorm"}
+    originals = {n: getattr(ops, n) for n in names}
+    firsts: dict[str, list] = {n: [] for n in names}
+
+    def recording(n):
+        def call(*a, **k):
+            out = originals[n](*a, **k)
+            firsts[n].append(out.reshape(-1)[0].float().item())
+            return out
+        return call
+
+    log = EventLog()
+    reset_launches()
+    try:
+        for n in names:
+            setattr(ops, n, recording(n))
+        with uprobes.ProbeRegistry(log) as reg, torch.no_grad():
+            for n in names:
+                reg.attach(ops, n)
+            _, c1 = lm.prefill(params, cfg, prompt.to(dev), max_seq=MS)
+            lm.decode_step(params, cfg, tok[:1].to(dev), torch.full((1,), P, dtype=torch.int32,
+                                                                    device=dev), c1)
+    finally:
+        for n, f in originals.items():
+            setattr(ops, n, f)
+    launches_e = launch_counts()
+    rets = {n: [e.payload for e in log.events("probe")
+                if e.name == f"repro_torch.kernels.ops.{n}:ret"] for n in names}
+    probes = {n: {"ret_events": len(rets[n]), "launches": launches_e[k],
+                  "ret_equal_first_element": rets[n] == firsts[n]} for n, k in names.items()}
+    print(f"uprobes: {json.dumps(probes)}", flush=True)
+    for n, p in probes.items():
+        if p["ret_events"] != p["launches"] or not p["launches"] or \
+                not p["ret_equal_first_element"]:
+            fail(f"uprobes on ops.{n}: {p}")
+    rec["uprobes"] = probes
+    del c1
+
+    # -- (f) roofline and SDFG of qwen2's prefill and tick and smollm's step;
+    # model-FLOP and roofline shares of the measured compiled steps
+    print(f"6 (f) roofline and SDFG on {chip.name} ({smi}):", flush=True)
+    train_fn = step_mod.make_train_step(tcfg, tcfg_train)
+    measured = {**{n: min(r.median_ms for r in times[n] if r.label.startswith("baseline"))
+                   for n in ("prefill", "decode_tick")},
+                "train_step": train_rec["median_replay_ms"]}
+    shapes = {"prefill": roofline.ShapeConfig("prefill", P, 1, "prefill"),
+              "decode_tick": roofline.ShapeConfig("decode", P + 9, B, "decode"),
+              "train_step": roofline.ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")}
+    runs = {"prefill": lambda: fns["prefill"](prompt.to(dev)),
+            "decode_tick": lambda: fns["decode_tick"](tok.to(dev), pos.to(dev)),
+            "train_step": lambda: train_fn(state, batch)}
+    analyses = {}
+    for name, fn in runs.items():
+        with torch.no_grad() if name != "train_step" else contextlib.nullcontext():
+            a = roofline.analyze_step(fn, chip=chip)
+        g = a.pop("sdfg")
+        c, p_ = (tcfg, state["params"]) if name == "train_step" else (cfg, params)
+        mf = roofline.model_flops(c, shapes[name], p_)
+        t_s = measured[name] / 1e3
+        regions = sorted(g.regions().values(), key=lambda r: -(r.flops + r.bytes))
+        a.update({
+            "measured_compiled_ms": measured[name], "model_flops": mf,
+            "model_flop_share": mf / (t_s * chip.peak_flops_bf16),
+            "roofline_share": a["step_time_bound_s"] / t_s,
+            "regions": [{"name": r.name, "flops": r.flops, "bytes": r.bytes, "nodes": r.nodes,
+                         "match": r.match(chip)} for r in regions[:12]],
+            "n_regions": len(regions),
+            "kernel_nodes_by_name": _count(n.primitive for n in g.nodes if n.kernel)})
+        analyses[name] = a
+        print(f"{name}: {json.dumps(a)}", flush=True)
+        if a["model_flop_share"] > SHARE_MAX or a["roofline_share"] > SHARE_MAX:
+            fail(f"6 (f) {name}: model-FLOP share {a['model_flop_share']:.3f}, roofline share "
+                 f"{a['roofline_share']:.3f}: over {SHARE_MAX}")
+        if not a["kernel_nodes"]:
+            fail(f"6 (f) {name}: the SDFG holds no kernel launch")
+        del g
+    rec["roofline"] = analyses
+    del cstep, state, batch, train_fn, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (g) R13: 12 requests over 6 prompt lengths, each twice in a row, with
+    # the cap at R13_CAP, against the eager engine; then the same with no cap
+    # (every length kept), for contrast.  All 12 prefills come before the
+    # first decode tick (12 slots), so the memory read after each is theirs.
+    print(f"6 (g) R13: {ARCH}, prompt lengths {R13_LENGTHS} twice each, cap {R13_CAP}:",
+          flush=True)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in R13_LENGTHS for _ in (0, 1)]
+    r13: dict = {}
+    for label, compiled, cap in (("eager", False, R13_CAP), ("capped", True, R13_CAP),
+                                 ("uncapped", True, len(R13_LENGTHS))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = Engine(cfg, params, ServeConfig(max_batch=len(prompts), max_seq=MS, seed=SEED),
+                     compiled=compiled, max_prefill_graphs=cap)
+        base = torch.cuda.memory_reserved()
+        after: list = []
+        inner = eng.prefill
+
+        def prefill(tokens, _inner=inner, _after=after):
+            out = _inner(tokens)
+            _after.append((tokens.shape[1], (torch.cuda.memory_reserved() - base) / 2**20))
+            return out
+
+        eng.prefill = prefill
+        rids = [eng.submit(pr, max_new=8) for pr in prompts]
+        res = eng.run_to_completion()
+        toks_out = [res[r] for r in rids]
+        # the memory after each length's second call (its capture)
+        per_length = [mb for i, (n, mb) in enumerate(after) if i % 2 == 1]
+        r13[label] = {"tokens": toks_out, "reserved_mib_after_each_prefill": after,
+                      "reserved_mib_after_each_length": per_length,
+                      "graphs": eng.compiled_counts()}
+        del eng, inner, prefill
+    same = sum(a == b for a, b in zip(r13["capped"]["tokens"], r13["eager"]["tokens"]))
+    same_u = sum(a == b for a, b in zip(r13["uncapped"]["tokens"], r13["eager"]["tokens"]))
+    cap_mb = r13["capped"]["reserved_mib_after_each_length"]
+    unc_mb = r13["uncapped"]["reserved_mib_after_each_length"]
+    summary = {"requests": len(prompts), "equal_tokens_capped": same,
+               "equal_tokens_uncapped": same_u,
+               "capped_reserved_mib_after_each_length": cap_mb,
+               "uncapped_reserved_mib_after_each_length": unc_mb,
+               "capped_growth_after_cap_mib": max(cap_mb[R13_CAP:]) - cap_mb[R13_CAP - 1],
+               "uncapped_growth_after_cap_mib": max(unc_mb[R13_CAP:]) - unc_mb[R13_CAP - 1],
+               "capped_graphs": r13["capped"]["graphs"],
+               "uncapped_kept": list(r13["uncapped"]["graphs"]["prefill"])}
+    print(f"R13, {smi}: {json.dumps(summary)}", flush=True)
+    kept = list(r13["capped"]["graphs"]["prefill"])
+    evicted = r13["capped"]["graphs"]["prefill_evictions"]
+    if same != len(prompts) or same_u != len(prompts):
+        fail(f"R13: the compiled engines' tokens differ from the eager engine's ({summary})")
+    if kept != list(R13_LENGTHS[-R13_CAP:]) or evicted != len(R13_LENGTHS) - R13_CAP:
+        fail(f"R13: kept {kept}, evicted {evicted}")
+    if summary["capped_growth_after_cap_mib"] > 0:
+        fail(f"R13: reserved memory grew after the cap was reached: {cap_mb}")
+    if summary["uncapped_growth_after_cap_mib"] <= 0:
+        fail(f"R13: without the cap reserved memory did not grow after the {R13_CAP}th length "
+             f"either ({unc_mb}), so the capped reading cannot tell eviction from no growth")
+    rec["r13"] = {**summary, "runs": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                                      for k, v in r13.items()}}
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _overheads(rows, baseline: str = "baseline") -> dict:
+    """Each row's mean-time overhead against its own round's baseline row
+    (labels ``x`` in the first round, ``x#2`` in the second, ...)."""
+    base = {r.label.partition("#")[2]: r for r in rows if r.label.partition("#")[0] == baseline}
+    return {r.label: r.overhead_vs(base[r.label.partition("#")[2]]) for r in rows}
+
+
+def _count(items) -> dict:
+    out: dict = {}
+    for it in items:
+        out[it] = out.get(it, 0) + 1
+    return out
 
 
 def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
@@ -2781,10 +3258,19 @@ def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        # the model's named scopes (core/scopes.py): each a record_function
+        # range on the host, whose device time is that of the kernels
+        # launched inside it; their ranges on the device are no kernels
+        by_scope: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CPU and SCOPE_NAME.match(e.name):
+                row = by_scope.setdefault(e.name, [0.0, 0])
+                row[0] += e.device_time_total / 1e3
+                row[1] += 1
         # kernel rows only: an aten op's row repeats the device time of its kernels
         rows = sorted((e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA), key=dev_us,
-                      reverse=True)
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.key not in by_scope), key=dev_us, reverse=True)
         if rows:
             break
     # PyTorch ops the host dispatched (outermost aten calls only)
@@ -2801,6 +3287,10 @@ def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
         "top_kernels": [(e.key[:90], dev_us(e) / 1e3, e.count) for e in rows[:top]],
         "all_kernels": [(e.key, dev_us(e) / 1e3, e.count) for e in rows],
         "kernel_names": sorted({e.key for e in rows}),
+        # device ms and ranges of each named scope, inclusive of the scopes
+        # inside it (empty for a graph replay, which runs no Python)
+        "by_scope": {k: (v[0], v[1]) for k, v in sorted(by_scope.items(),
+                                                        key=lambda kv: -kv[1][0])},
     }
 
 

@@ -90,6 +90,9 @@ class ModelConfig:
     moment_dtype: str = "float32"
     remat_policy: str = "nothing"
     loss_chunk: int = 1024
+    # profiling (the paper's technique): static tracepoints in the step when
+    # enabled; see core/tracepoints.py (carried, as in the JAX package)
+    tracepoints: bool = False
     # Carried so that a JAX config carries over, with no effect on one card:
     # the backward of attention on the card is always the flash backward
     # (K1b), which is what fused_attention_vjp selects in the JAX package;

@@ -99,13 +99,18 @@ def build(names: Iterable[str] = SOURCES) -> dict[str, Path]:
     return out
 
 
-def refuse_in_capture(what: str) -> None:
-    """Raise if the current CUDA stream is capturing a graph: the host work
-    ``what`` (a build, a library load, a device query) must come first in an
-    eager call at the same shapes, never inside a capture."""
+# the end of a kernel's refusal inside a capture: its host work (a build, a
+# library load, a device query) comes first in an eager call
+EAGER_FIRST = ("first happened inside a CUDA graph capture; call the kernel once eagerly "
+               "at the same shapes before capturing it")
+
+
+def refuse_in_capture(message: str) -> None:
+    """Raise ``message`` if the current CUDA stream is capturing a graph: the
+    caller is about to do host work (a build, a device query, a read to the
+    host) that a capture cannot hold."""
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(f"{what} first happened inside a CUDA graph capture; call the "
-                           "kernel once eagerly at the same shapes before capturing it")
+        raise RuntimeError(message)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -113,7 +118,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            refuse_in_capture(f"building and loading csrc/{name}.cu")
+            refuse_in_capture(f"building and loading csrc/{name}.cu {EAGER_FIRST}")
             lib = ctypes.CDLL(str(build([name])[name]))
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -129,7 +134,7 @@ def sm_count(index: int) -> int:
     size their grids by it), queried once per device."""
     n = _SM_COUNTS.get(index)
     if n is None:
-        refuse_in_capture(f"the SM count query of device {index}")
+        refuse_in_capture(f"the SM count query of device {index} {EAGER_FIRST}")
         n = _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
     return n
 

@@ -222,7 +222,7 @@ def sm90_config(lib: ctypes.CDLL, device: int) -> dict[str, int]:
     register count than setmaxnreg's exchange assumes: it would hang."""
     cfg = _SM90_CONFIGS.get((id(lib), device))
     if cfg is None:
-        _build.refuse_in_capture("the wgmma K1b configuration query")
+        _build.refuse_in_capture(f"the wgmma K1b configuration query {_build.EAGER_FIRST}")
         out = (ctypes.c_int * len(SM90_CONFIG_KEYS))()
         with torch.cuda.device(device):
             err = lib.flash_attention_bwd_sm90_config(out)
@@ -245,7 +245,7 @@ def _device_plan(pass_: str, dims: tuple[int, ...], wg: int, slots: int, causal:
     key = (pass_, dims, wg, slots, causal, window, q_offset, persistent, str(device))
     got = _PLANS.get(key)
     if got is None:
-        _build.refuse_in_capture("building a wgmma K1b plan")
+        _build.refuse_in_capture(f"building a wgmma K1b plan {_build.EAGER_FIRST}")
         offsets, items = bwd_plan(pass_, *dims, wg=wg, slots=slots, causal=causal,
                                   window=window, q_offset=q_offset, persistent=persistent)
         plan = torch.from_numpy(np.concatenate([offsets, items])).to(device)

@@ -28,6 +28,7 @@ from typing import Any, Iterator, Mapping, Optional
 
 import torch
 
+from repro_torch.core import sdfg as _sdfg
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _fa_kernel
@@ -135,6 +136,38 @@ def tuned_scope(
 
 
 # ---------------------------------------------------------------------------
+# The SDFG record (core/sdfg.py): a kernel launches through ctypes, outside
+# the dispatcher, so each entry below notes its launches to the running
+# ``sdfg.extract``, behind one check of ``_sdfg.ACTIVE``.  The counts are
+# those of the bounds in PERF.md §6: each input read once, each output
+# written once.  A CPU tensor takes the plain version, whose aten ops the
+# record sees one by one, so only launches on the card are noted.
+# ---------------------------------------------------------------------------
+
+
+def _note(name: str, ins, outs, flops: float, product: bool = True) -> None:
+    if outs[0].is_cuda:
+        _sdfg.ACTIVE.kernel(name, ins, outs, flops, product=product)
+
+
+def _pairs(Sq: int, Sk: int, causal: bool, window: Optional[int], q_offset: int) -> int:
+    """(query, key) pairs attention visits for one (batch, head)."""
+    total = 0
+    for i in range(Sq):
+        pos = q_offset + i
+        hi = min(pos, Sk - 1) if causal else Sk - 1
+        lo = max(0, pos - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def _attention_flops(q, k, kw, per_pair: int) -> float:
+    B, Sq, Hq, D = q.shape
+    return per_pair * D * B * Hq * _pairs(Sq, k.shape[1], kw["causal"], kw["window"],
+                                          kw["q_offset"])
+
+
+# ---------------------------------------------------------------------------
 # Ops
 # ---------------------------------------------------------------------------
 
@@ -153,6 +186,8 @@ class Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, softcap, q_offset):
         kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
         out, lse = _fa_kernel(q, k, v, return_lse=True, **kw)
+        if _sdfg.ACTIVE is not None:
+            _note("flash_attention", (q, k, v), (out, lse), _attention_flops(q, k, kw, 4))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out
@@ -160,7 +195,11 @@ class Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _fa_bwd_kernel(q, k, v, out, lse, dout.contiguous(), **ctx.kw)
+        dout = dout.contiguous()
+        dq, dk, dv = _fa_bwd_kernel(q, k, v, out, lse, dout, **ctx.kw)
+        if _sdfg.ACTIVE is not None:
+            _note("flash_attention_bwd", (q, k, v, out, lse, dout), (dq, dk, dv),
+                  _attention_flops(q, k, ctx.kw, 10))
         return dq, dk, dv, None, None, None, None
 
 
@@ -172,12 +211,18 @@ class RMSNorm(torch.autograd.Function):
     def forward(ctx, x, scale, eps):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        return _rmsnorm_kernel(x, scale, eps=eps)
+        out = _rmsnorm_kernel(x, scale, eps=eps)
+        if _sdfg.ACTIVE is not None:
+            _note("rmsnorm", (x, scale), (out,), 4 * x.numel(), product=False)
+        return out
 
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, dscale = _rmsnorm_bwd_kernel(x, scale, dy.contiguous(), eps=ctx.eps)
+        dy = dy.contiguous()
+        dx, dscale = _rmsnorm_bwd_kernel(x, scale, dy, eps=ctx.eps)
+        if _sdfg.ACTIVE is not None:
+            _note("rmsnorm_bwd", (x, scale, dy), (dx, dscale), 8 * x.numel(), product=False)
         return dx, dscale, None
 
 
@@ -198,8 +243,11 @@ def attention(
                             q_offset=q_offset)
     if _wants_grad(q, k, v):
         return Attention.apply(q, k, v, causal, window, softcap, q_offset)
-    return _fa_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
-                      q_offset=q_offset)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    out = _fa_kernel(q, k, v, **kw)
+    if _sdfg.ACTIVE is not None:
+        _note("flash_attention", (q, k, v), (out,), _attention_flops(q, k, kw, 4))
+    return out
 
 
 def decode_attention(
@@ -217,8 +265,13 @@ def decode_attention(
     if _resolve(impl, q) == "plain":
         return _ref.decode_attention_ref(q, k_cache, v_cache, pos_ids, cur_pos,
                                          window=window, softcap=softcap)
-    return _decode_kernel(q, k_cache, v_cache, pos_ids, cur_pos, window=window,
-                          softcap=softcap)
+    out = _decode_kernel(q, k_cache, v_cache, pos_ids, cur_pos, window=window,
+                         softcap=softcap)
+    if _sdfg.ACTIVE is not None:  # every slot: which are live is on the card
+        B, Hq, D = q.shape
+        _note("decode_attention", (q, k_cache, v_cache, pos_ids, cur_pos), (out,),
+              4 * D * B * Hq * k_cache.shape[1])
+    return out
 
 
 def rmsnorm(
@@ -229,7 +282,10 @@ def rmsnorm(
         return _ref.rmsnorm_ref(x, scale, eps=eps)
     if _wants_grad(x, scale):
         return RMSNorm.apply(x, scale, eps)
-    return _rmsnorm_kernel(x, scale, eps=eps)
+    out = _rmsnorm_kernel(x, scale, eps=eps)
+    if _sdfg.ACTIVE is not None:
+        _note("rmsnorm", (x, scale), (out,), 4 * x.numel(), product=False)
+    return out
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None,
@@ -237,7 +293,15 @@ def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None,
     """Grouped expert matmul (E, C, D) @ (E, D, F) -> (E, C, F), f32 accumulation."""
     if _resolve(impl, x) == "plain":
         return _ref.gmm_ref(x, w, epilogue=epilogue)
-    return _gmm_kernel(x, w, epilogue=epilogue)
+    return _gmm(x, w, epilogue)
+
+
+def _gmm(x: torch.Tensor, w: torch.Tensor, epilogue: Optional[str] = None) -> torch.Tensor:
+    out = _gmm_kernel(x, w, epilogue=epilogue)
+    if _sdfg.ACTIVE is not None:
+        E, C, D = x.shape
+        _note("moe_gmm", (x, w), (out,), 2 * E * C * D * w.shape[-1])
+    return out
 
 
 def moe_ffn(
@@ -259,8 +323,8 @@ def moe_ffn(
     """
     if _resolve(impl, x) == "plain":
         return _ref.moe_ffn_ref(x, w1, w3, w2, act=act)
-    h = _gmm_kernel(x, w1, epilogue=act) * _gmm_kernel(x, w3)
-    return _gmm_kernel(h, w2)
+    h = _gmm(x, w1, act) * _gmm(x, w3)
+    return _gmm(h, w2)
 
 
 def rwkv6_scan(
@@ -287,7 +351,12 @@ def rwkv6_scan(
         raise ValueError(f"T={T} must be a multiple of chunk={min(chunk, T)}")
     if _resolve(impl, r) == "plain":
         return _ref.rwkv6_scan_chunked(r, k, v, w, u, state, chunk=chunk)
-    return _rwkv6_kernel(r, k, v, w, u, state, chunk=chunk)
+    out = _rwkv6_kernel(r, k, v, w, u, state, chunk=chunk)
+    if _sdfg.ACTIVE is not None:  # a step: kv outer product, state update, r . state
+        B, T, H, K = r.shape
+        _note("rwkv6_scan", (r, k, v, w, u, state), out, 4 * B * T * H * K * v.shape[-1],
+              product=False)
+    return out
 
 
 def rwkv6_step(
@@ -329,7 +398,12 @@ def mamba_scan(
         raise ValueError(f"T={T} must be a multiple of chunk={min(chunk, T)}")
     if _resolve(impl, x) == "plain":
         return _ref.mamba_scan_chunked(x, dt, A, Bm, C, D, state, chunk=chunk)
-    return _mamba_kernel(x, dt, A, Bm, C, D, state, chunk=chunk)
+    out = _mamba_kernel(x, dt, A, Bm, C, D, state, chunk=chunk)
+    if _sdfg.ACTIVE is not None:  # a step: decay, input, state update, C . state
+        B, T, DI = x.shape
+        _note("mamba_scan", (x, dt, A, Bm, C, D, state), out, 6 * B * T * DI * A.shape[1],
+              product=False)
+    return out
 
 
 def mamba_step(

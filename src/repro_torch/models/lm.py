@@ -26,6 +26,14 @@ The checkpoints stash no RNG state (``preserve_rng_state=False``): the
 forward draws no random numbers, and reading the card's RNG state is
 refused inside a CUDA graph's capture (``training/compiled.py``).
 
+Named scopes (``core/scopes.py``) sit where the JAX model has its
+``jax.named_scope``s: ``embed``, ``head{i}`` / ``tail{i}``,
+``pos{i}_{mixer}_{ffn}``, ``mixer_{mixer}``, ``ffn_{ffn}`` and
+``final_norm``.  Static tracepoints (``core/tracepoints.py``) fire at the
+JAX sites: ``lm.embed_out``, ``lm.stack_out``, ``lm.loss``,
+``lm.prefill_logits`` and ``lm.decode_logits``.  Disabled, neither
+dispatches an op.
+
 The ``vlm_stub`` frontend (chameleon-34b) and the ``audio_stub`` frontend
 (musicgen-large) raise ``NotImplementedError`` (ROADMAP item M10).
 """
@@ -39,6 +47,8 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.core import tracepoints as tp
+from repro_torch.core.scopes import scope
 from repro_torch.nn import attention as attn
 from repro_torch.nn import core as nn
 from repro_torch.nn import ffn as ffn_mod
@@ -110,7 +120,10 @@ def init_params(
     ``cuda`` without a card raises."""
     device = resolve_device(device)
     if isinstance(generator, int):
-        generator = torch.Generator(device=device).manual_seed(generator)
+        # the meta device (shapes only, e.g. core/roofline.py) draws nothing:
+        # a CPU generator stands in
+        gen_device = "cpu" if device.type == "meta" else device
+        generator = torch.Generator(device=gen_device).manual_seed(generator)
     return build_params(cfg, nn.ParamFactory(generator, torch_dtype(cfg.param_dtype), device))
 
 
@@ -187,25 +200,27 @@ def _block_apply(
     moe_aux = None
     h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
     mixer_cache = cache.get("mixer") if cache else None
-    if spec.mixer == "rwkv":
-        h, _ = rwkv_mod.time_mix_apply(p["mixer"], h, cfg, mode=mode, cache=mixer_cache)
-    elif spec.mixer == "mamba":
-        h, _ = mamba_mod.mamba_apply(p["mixer"], h, cfg, mode=mode, cache=mixer_cache)
-    else:
-        h, _ = attn.attention_apply(p["mixer"], h, cfg, spec.mixer, positions, mode=mode,
-                                    cache=mixer_cache)
+    with scope(f"mixer_{spec.mixer}"):
+        if spec.mixer == "rwkv":
+            h, _ = rwkv_mod.time_mix_apply(p["mixer"], h, cfg, mode=mode, cache=mixer_cache)
+        elif spec.mixer == "mamba":
+            h, _ = mamba_mod.mamba_apply(p["mixer"], h, cfg, mode=mode, cache=mixer_cache)
+        else:
+            h, _ = attn.attention_apply(p["mixer"], h, cfg, spec.mixer, positions, mode=mode,
+                                        cache=mixer_cache)
     if "norm1_post" in p:
         h = nn.rmsnorm(p["norm1_post"], h, cfg.norm_eps)
     x = x + h
     if spec.ffn != "none":
         h = nn.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        if spec.ffn == "moe":
-            h, moe_aux = ffn_mod.moe_apply(p["ffn"], h, cfg)
-        elif spec.ffn == "rwkv_ffn":
-            h, _ = rwkv_mod.channel_mix_apply(p["ffn"], h, cfg,
-                                              cache=cache.get("ffn") if cache else None)
-        else:
-            h = ffn_mod.ffn_apply(p["ffn"], h, cfg)
+        with scope(f"ffn_{spec.ffn}"):
+            if spec.ffn == "moe":
+                h, moe_aux = ffn_mod.moe_apply(p["ffn"], h, cfg)
+            elif spec.ffn == "rwkv_ffn":
+                h, _ = rwkv_mod.channel_mix_apply(p["ffn"], h, cfg,
+                                                  cache=cache.get("ffn") if cache else None)
+            else:
+                h = ffn_mod.ffn_apply(p["ffn"], h, cfg)
         if "norm2_post" in p:
             h = nn.rmsnorm(p["norm2_post"], h, cfg.norm_eps)
         x = x + h
@@ -254,14 +269,17 @@ def forward(
     device = tokens.device
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
-    x = nn.embed(params["embed"], tokens, scale_by_dim=cfg.scale_embedding)
-    x = x.to(torch_dtype(cfg.activation_dtype))
+    with scope("embed"):
+        x = nn.embed(params["embed"], tokens, scale_by_dim=cfg.scale_embedding)
+        x = x.to(torch_dtype(cfg.activation_dtype))
+    tp.point("lm.embed_out", x)
     # the MoE aux losses are summed only when asked for: serving runs no
     # extra kernel for them
     aux = torch.zeros((), dtype=torch.float32, device=device) if return_aux else None
 
-    def block(p: dict, spec: LayerSpec, x, aux, cache: Optional[dict]):
-        x, moe_aux = _block_apply(p, x, cfg, spec, positions, mode=mode, cache=cache)
+    def block(name: str, p: dict, spec: LayerSpec, x, aux, cache: Optional[dict]):
+        with scope(name):
+            x, moe_aux = _block_apply(p, x, cfg, spec, positions, mode=mode, cache=cache)
         if aux is not None and moe_aux is not None:
             aux = aux + moe_aux["moe_load_balance"] + moe_aux["moe_z_loss"]
         return x, aux
@@ -269,7 +287,7 @@ def forward(
     unscanned = _unscanned_layers(cfg)
     for name, spec in unscanned:
         if name.startswith("head"):
-            x, aux = block(params[name], spec, x, aux, caches[name] if caches else None)
+            x, aux = block(name, params[name], spec, x, aux, caches[name] if caches else None)
     if cfg.n_periods > 0:
         n, pattern = cfg.n_periods, list(enumerate(cfg.layer_pattern))
         p_views = {pos: _periods(params["blocks"][f"pos{pos}"], n) for pos, _ in pattern}
@@ -278,7 +296,8 @@ def forward(
 
         def period(i: int, x, aux):
             for pos, spec in pattern:
-                x, aux = block(p_views[pos][i], spec, x, aux, c_views[pos][i])
+                x, aux = block(f"pos{pos}_{spec.mixer}_{spec.ffn}", p_views[pos][i], spec, x,
+                               aux, c_views[pos][i])
             return x, aux
 
         if caches is None:  # a cache written in place must not be written twice
@@ -287,9 +306,11 @@ def forward(
             x, aux = period(i, x, aux)
     for name, spec in unscanned:
         if name.startswith("tail"):
-            x, aux = block(params[name], spec, x, aux, caches[name] if caches else None)
+            x, aux = block(name, params[name], spec, x, aux, caches[name] if caches else None)
 
-    x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    tp.point("lm.stack_out", x)
+    with scope("final_norm"):
+        x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return (x, aux, caches) if return_aux else (x, caches)
 
 
@@ -338,6 +359,7 @@ def loss_fn(
         nll_sum, z_sum = nll_sum + nll, z_sum + zl
     ce, z = nll_sum / T, z_sum / T
     loss = ce + z + aux
+    tp.point("lm.loss", loss)
     return loss, {"ce": ce, "z_loss": z, "aux": aux,
                   "tokens": torch.full((), float(T), device=hidden.device)}
 
@@ -354,7 +376,9 @@ def prefill(
     B, S = tokens.shape
     caches = init_caches(cfg, B, max_seq or S, tokens.device)
     hidden, caches = forward(params, cfg, tokens, mode="full", caches=caches)
-    return _logits(params, cfg, hidden[:, -1]), caches
+    logits = _logits(params, cfg, hidden[:, -1])
+    tp.point("lm.prefill_logits", logits)
+    return logits, caches
 
 
 def decode_step(
@@ -371,4 +395,6 @@ def decode_step(
     positions = cur_pos[:, None].to(torch.int32)
     hidden, caches = forward(params, cfg, tokens[:, None], positions, mode="decode",
                              caches=caches)
-    return _logits(params, cfg, hidden[:, -1]), caches
+    logits = _logits(params, cfg, hidden[:, -1])
+    tp.point("lm.decode_logits", logits)
+    return logits, caches

@@ -23,7 +23,13 @@ positions and the prompt's tokens are written into static buffers before a
 replay; the decode graph reads and writes ``caches`` in place (the
 counterpart of ``donate_argnums``); a prefill replay's caches live in the
 graphs' memory pool and are copied into the request's slot before the next
-replay.  Sampling stays outside the graphs.  On a CPU device the same
+replay.  Sampling stays outside the graphs.  Each kept prefill graph holds
+its outputs (logits and a batch-1 cache set at ``max_seq``) in the pool,
+so the engine keeps at most ``max_prefill_graphs`` of them: a new prompt
+length past the cap frees the least recently used length's graph with its
+static buffers and outputs, and that length starts over (eager, capture,
+replays) if it comes back.  Prompt lengths are not bucketed or padded:
+that would change positions, and with them the tokens.  On a CPU device the same
 static buffers feed eager calls.  ``compiled=False`` calls ``lm.prefill``
 and ``lm.decode_step`` directly, the counterpart of ``jax.disable_jit``,
 so that a check on the card can hold the two paths against each other.
@@ -38,6 +44,7 @@ import dataclasses
 import itertools
 import threading
 import time
+from collections import OrderedDict
 from typing import Any, Optional
 
 import numpy as np
@@ -89,7 +96,10 @@ class Engine:
         *,
         log: Optional[EventLog] = None,
         compiled: bool = True,
+        max_prefill_graphs: int = 4,
     ) -> None:
+        if max_prefill_graphs < 1:
+            raise ValueError(f"max_prefill_graphs must be >= 1, got {max_prefill_graphs}")
         self.cfg = cfg
         self.params = params
         self.scfg = scfg
@@ -106,7 +116,10 @@ class Engine:
             self._decode = self._graphs.step(
                 lambda t, pos: lm.decode_step(params, cfg, t, pos, caches)[0])
             self._prefill_fn = lambda t: lm.prefill(params, cfg, t, max_seq=S)
-            self._prefills: dict[int, CompiledStep] = {}
+            # prompt length -> its step, least recently used first
+            self._prefills: OrderedDict[int, CompiledStep] = OrderedDict()
+            self.max_prefill_graphs = max_prefill_graphs
+            self._evictions = 0
         self.cur_pos = np.zeros(B, np.int32)  # next position per slot
         self.active: list[Optional[Request]] = [None] * B
         self.queue: list[Request] = []
@@ -197,9 +210,16 @@ class Engine:
         if not self.compiled:
             return lm.prefill(self.params, self.cfg, tokens.to(self.device),
                               max_seq=self.scfg.max_seq)
-        step = self._prefills.get(tokens.shape[1])
+        n = tokens.shape[1]
+        step = self._prefills.get(n)
         if step is None:
-            step = self._prefills[tokens.shape[1]] = self._graphs.step(self._prefill_fn)
+            if len(self._prefills) == self.max_prefill_graphs:
+                # its graph, static buffers and outputs go back to the pool
+                self._prefills.popitem(last=False)
+                self._evictions += 1
+            step = self._prefills[n] = self._graphs.step(self._prefill_fn)
+        else:
+            self._prefills.move_to_end(n)
         return step(tokens)
 
     def decode(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -213,12 +233,14 @@ class Engine:
         return self._decode(tokens, positions)
 
     def compiled_counts(self) -> dict:
-        """Calls, captures and replays of the decode step and of each prompt
-        length's prefill (empty when the engine is not compiled)."""
+        """Calls, captures and replays of the decode step and of each kept
+        prompt length's prefill (least recently used first), and how many
+        prefill steps were evicted (empty when the engine is not compiled)."""
         if not self.compiled:
             return {}
         return {"decode": self._decode.counts(),
-                "prefill": {n: step.counts() for n, step in self._prefills.items()}}
+                "prefill": {n: step.counts() for n, step in self._prefills.items()},
+                "prefill_evictions": self._evictions}
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         if self.scfg.temperature <= 0.0:

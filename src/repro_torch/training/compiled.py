@@ -19,7 +19,11 @@ schedule and the bias corrections come from the step counter on the device
 (``training/optim.py``), so each replay trains the next step.
 
 A replay returns metrics (0-dim tensors) that live in the graph's pool and
-are overwritten by the next replay: read them before calling again.  On a
+are overwritten by the next replay: read them before calling again.  So
+does the step's tracepoint tape (``core/tracepoints.py``), kept as
+``.tape`` after each call: ``{"train.loss": ..., "train.grad_norm": ...,
+"lm.loss": ..., "lm.embed_out": ..., "lm.stack_out": ...}`` when tape mode
+was enabled around the eager call and the capture, empty otherwise.  On a
 CPU device there is no graph: every call runs the step eagerly through the
 static buffers.  A capture or replay that fails raises; nothing runs
 eagerly in its place.
@@ -31,6 +35,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import tracepoints as tp
 from repro_torch.serving.compiled import Graphs
 from repro_torch.training.optim import leaves
 from repro_torch.training.step import TrainConfig, make_train_step
@@ -43,14 +48,15 @@ class CompiledTrainStep:
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, state: dict) -> None:
         self._leaves = leaves(state)
-        step = make_train_step(cfg, tcfg)
+        step = tp.collect(make_train_step(cfg, tcfg))
 
-        def fn(tokens: torch.Tensor, labels: torch.Tensor) -> dict[str, torch.Tensor]:
-            _, metrics = step(state, {"tokens": tokens, "labels": labels})
-            return metrics
+        def fn(tokens: torch.Tensor, labels: torch.Tensor) -> tuple[dict, dict]:
+            (_, metrics), tape = step(state, {"tokens": tokens, "labels": labels})
+            return metrics, tape
 
         self.graphs = Graphs(self._leaves[0].device)
         self.compiled = self.graphs.step(fn)
+        self.tape: dict = {}
 
     def counts(self) -> dict[str, int]:
         """``calls``, ``captures`` and ``replays`` so far."""
@@ -61,5 +67,6 @@ class CompiledTrainStep:
         if len(now) != len(self._leaves) or any(a is not b for a, b in zip(now, self._leaves)):
             raise ValueError("compiled train step called with a state whose tensors are not "
                              "the ones it was built for (restore into them in place)")
-        return state, self.compiled(batch["tokens"], batch["labels"])
+        metrics, self.tape = self.compiled(batch["tokens"], batch["labels"])
+        return state, metrics
 

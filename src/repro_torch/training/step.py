@@ -8,7 +8,8 @@ the param leaves (which ``init_train_state`` creates with
 added into explicit buffers of ``grad_accum_dtype``, as the JAX step's scan
 carry accumulates them, and not into ``.grad``, which would accumulate in
 the bf16 param dtype.  The update (``optim.adamw_update``) then writes the
-params and moments in place.
+params and moments in place, and the static tracepoints ``train.loss`` and
+``train.grad_norm`` fire (``core/tracepoints.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import tracepoints as tp
 from repro_torch.models import lm
 from repro_torch.training import optim
 
@@ -89,6 +91,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
                        "tokens": torch.full((), float(tokens.numel()), device=tokens.device)}
 
         _, new_opt, opt_metrics = optim.adamw_update(params, grads, state["opt"], opt_cfg)
+        tp.point("train.loss", loss)
+        tp.point("train.grad_norm", opt_metrics["grad_norm"])
         metrics = {k: v.detach() for k, v in metrics.items()}
         return {"params": params, "opt": new_opt}, {"loss": loss.detach(), **metrics,
                                                     **opt_metrics}

@@ -35,6 +35,33 @@ def test_port_imports_no_jax_no_repro_and_no_triton():
     assert n_modules >= 15
 
 
+# the paper's measurement layer (ROADMAP M11): each imports alone, without
+# JAX or the JAX package, and never triton
+MEASUREMENT_MODULES = ["repro_torch.hw.specs", "repro_torch.core.scopes",
+                       "repro_torch.core.tracepoints", "repro_torch.configs.microbench",
+                       "repro_torch.core.uprobes", "repro_torch.core.overhead",
+                       "repro_torch.core.roofline", "repro_torch.core.sdfg"]
+
+_IMPORT_ONE = r"""
+import importlib, sys
+sys.modules["triton"] = None
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro") and sys.modules[m] is not None)
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("module", MEASUREMENT_MODULES)
+def test_measurement_module_imports_no_jax_no_repro(module):
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    source = (REPO / "src" / (module.replace(".", "/") + ".py")).read_text()
+    assert "import jax" not in source and "from repro." not in source
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     """No card here: chip_smoke.py exits non-zero and prints no result line,
