@@ -44,7 +44,11 @@ failure of which exits non-zero:
    served shape with L2 flushed before each run; K1 and K2 at head dim 256
    (the CPU tests' D-256 cases, gemma3-4b's prefill with and without its
    window of 1024 and its decode at 2048 slots and on wrapped 1024-slot
-   rings) and at gemma2-27b's shapes with softcap 50; every K3, K4, K5 and K6
+   rings) and at gemma2-27b's shapes with softcap 50; K1 and K2 at
+   musicgen-large's head dim 64 with one query head per KV head and at
+   dbrx-132b's head dim 128 with six, K4 at dbrx's 16 experts of 6144 x
+   10752 at its prefill and decode capacities, K3 at chameleon-34b's
+   QK-norm rows of head dim 128 and at dbrx's d 6144; every K3, K4, K5 and K6
    check runs twice into NaN-filled memory and the two results must be the
    same bytes), within 2e-2 (bf16) or 1e-4 (f32); time kernel, plain
    version and one PyTorch library call where there is one (a yardstick
@@ -119,6 +123,19 @@ failure of which exits non-zero:
    request through the kernels and the plain versions in bf16 at full
    depth, reported; and, with the bf16 model freed, the f32 gate at 4
    layers (weights drawn in f32 from the same seed);
+4g-4i. free it, and serve ROADMAP M10's three sets the same way (the
+   standard set, 32 new tokens), each with its launches read from the
+   config (chameleon's QK-norm: 4 L + 1 K3 launches a forward): full-width,
+   full-depth musicgen-large (6.5 GB; head dim 64, G 1), chameleon-34b
+   (68.7 GB; QK-norm), and dbrx-132b at full width cut to its first
+   DBRX_LAYERS layers (54.6 GB; K4 at its shape, K1 / K2 at G 6) with
+   deepseek's gate (a) on its first MoE layer; the first request through
+   the kernels and the plain versions in bf16 at the served depth,
+   reported; and, with the bf16 model freed, the f32 gate at full width and
+   M10_GATE_LAYERS layers (weights drawn in f32 from the same seed) within
+   F32_LOGIT_TOL, for musicgen-large and chameleon-34b with seeded frontend
+   embeddings (the served engines run text only), which must move every
+   step's f32 logits by more than FRONTEND_MIN_DIFF;
 5. free it, and train smollm-360m (the training path: ``lm.loss_fn``,
    ``training.step``, AdamW) through K1 with its log-sum-exp, the flash
    backward K1b, K3 and its backward K3b: (a) K1's lse against
@@ -207,7 +224,7 @@ failure of which exits non-zero:
    after each length, which must not grow past its value at the cap with
    the cap and must grow past it without (the control);
 7. print the script's run time, the per-kernel JSON line (launches from the
-   six compiled serving runs; K1b's and K3b's from phase 5 (e)), the card
+   nine compiled serving runs; K1b's and K3b's from phase 5 (e)), the card
    line, and last the ``{"ok": true, "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
@@ -279,6 +296,22 @@ GEMMA2_ARCH = "gemma2-27b"
 # softcaps (50 on attention, 30 on the final logits) act in every layer
 GEMMA2_SERVE = dict(max_batch=8, max_seq=1024, requests=16, prompt_len=512, max_new=32)
 GEMMA2_GATE_LAYERS = 4  # the f32 gate: 2 periods of (swa, ga) at full width, 13.8 GB
+# ROADMAP M10's three sets, each the standard set.  musicgen-large (48
+# layers, 6.5 GB in bf16; MHA at head dim 64, the audio frontend stub) and
+# chameleon-34b (48 layers, 68.7 GB; QK-norm, the vlm frontend stub) at
+# full depth; dbrx-132b (40 layers, 263 GB) at full width cut to its first
+# DBRX_LAYERS layers, 54.6 GB
+MUSICGEN_ARCH, CHAMELEON_ARCH, DBRX_ARCH = "musicgen-large", "chameleon-34b", "dbrx-132b"
+DBRX_LAYERS = 8
+M10_SERVE = dict(max_batch=8, max_seq=1024, requests=16, prompt_len=512, max_new=32)
+# each set's f32 gate at full width: its first layers, drawn in f32 from the
+# same seed once the bf16 model is freed (chameleon's 4 are 15.6 GB in f32)
+M10_GATE_LAYERS = {MUSICGEN_ARCH: 4, CHAMELEON_ARCH: 4, DBRX_ARCH: 2}
+# the frontend's share of the f32 gate: with seeded embeddings each of the 9
+# steps' logits must lie further than this from the same step's without
+# them (the projection's std 0.02 x sqrt(d) output dwarfs the token
+# embeddings' d**-0.5, so the logits move by O(1) where they are used)
+FRONTEND_MIN_DIFF = 0.1
 SFU_EXP_PER_CLOCK = 16  # ex2 results per clock per SM on Hopper (sm_90)
 # A replayed decode tick dispatches two copies into its static buffers and
 # one graph launch; an eager one dispatches 1852-4098 ops on these models.
@@ -757,6 +790,15 @@ def main() -> None:
     # the gemmas' rows: gemma3-4b's d 2560 at its 1536-token prefill, gemma2-27b's d 4608
     served_norms += [(B, g3.d_model), (GEMMA3_SERVE["prompt_len"], g3.d_model),
                      (B, get_config(GEMMA2_ARCH).d_model), (S, get_config(GEMMA2_ARCH).d_model)]
+    # the M10 sets' new rows (musicgen-large's d 2048 and chameleon-34b's d
+    # 8192 are deepseek's and jamba's widths, above): chameleon's QK-norm
+    # over rows of head_dim 128, n_heads / n_kv_heads rows a token at the
+    # 512-token prefill and the 8-row tick, and dbrx-132b's d 6144.  Held
+    # with the rest and timed after them from a fork of the generator, so
+    # every later phase draws what it did before they existed.
+    ch, db = get_config(CHAMELEON_ARCH), get_config(DBRX_ARCH)
+    m10_norms = [(t * h, ch.head_dim) for t in (S, B) for h in (ch.n_heads, ch.n_kv_heads)]
+    m10_norms += [(B, db.d_model), (S, db.d_model)]
 
     def norm_twice(x, s):
         """K3 twice on the same inputs, each time into the block the caching
@@ -781,7 +823,7 @@ def main() -> None:
     gen_state = gen.get_state()
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).removeprefix("torch.")
-        for shape in (*served_norms, (3, 5, 96), (4, 100), "view"):
+        for shape in (*served_norms, *m10_norms, (3, 5, 96), (4, 100), "view"):
             if shape == "view":  # qwen2's decode rows, 2 (bf16) or 4 (f32) bytes past the start
                 buf = randn(B * dm + 1, dtype=dt)
                 x, shape = buf[1:].view(B, dm), f"({B}, {dm}) at +{buf.element_size()} bytes"
@@ -795,22 +837,27 @@ def main() -> None:
     floor_ms = time_ms(lambda: k3.launch_floor(dev))
     print(f"  launch floor (an empty kernel of one block, through the same route): "
           f"{floor_ms:.4f} ms", flush=True)
-    times3 = {}
-    for shape in served_norms:
+
+    def time_norm(shape) -> dict:
         x = randn(*shape, dtype=torch.bfloat16)
         s = randn(shape[-1]) * 0.1
-        times3[shape] = timed(
+        t = timed(
             lambda: k3.rmsnorm(x, s), lambda: ref.rmsnorm_ref(x, s),
             lambda w=(1.0 + s).to(torch.bfloat16), n=shape[-1]: F.rms_norm(
                 x, (n,), weight=w, eps=1e-6),
             nbytes(x, x, s), 4 * x.numel(), peaks["float32"], f"{shape} bf16 {norm_case(x)}")
-        t = times3[shape]
         # the same bytes moved with no arithmetic: one PyTorch copy of x
         t["copy_ms"] = time_ms(lambda y=torch.empty_like(x): y.copy_(x))
         print(f"  rmsnorm {shape} bf16: kernel {t['ms']:.4f} ms ({t['ms'] - floor_ms:.4f} above "
               f"the floor), F.rms_norm {t['library_ms']:.4f}, copy {t['copy_ms']:.4f}, plain "
               f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.6f} ({t['bound_by']}) "
               f"{norm_case(x)}", flush=True)
+        return t
+
+    times3 = {shape: time_norm(shape) for shape in served_norms}
+    gen_state = gen.get_state()
+    times3.update({shape: time_norm(shape) for shape in m10_norms})
+    gen.set_state(gen_state)
     records["rmsnorm"] = {
         "name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:27", "max_abs_err": err3,
@@ -1368,6 +1415,90 @@ def main() -> None:
     del qe, ke, ve, kce, vce, pose, cure, got
     gen.set_state(gen_state)
     torch.cuda.empty_cache()
+
+    # K1 and K2 at the M10 sets' new shapes, in f32 and bf16: musicgen-large's
+    # head dim 64 with one query head per KV head (G 1) and dbrx-132b's head
+    # dim 128 with 6 (G 6) (chameleon-34b's 64 / 8 x 128 are jamba's, above):
+    # the 512-token prefill, and the tick at 1024 slots where the serve sets'
+    # ticks stand (prompt_len + 16 + row live slots), also against the
+    # split-KV plain version at the kernel's own split.  Then K4 at dbrx's
+    # grouped matmuls, 16 experts of 6144 x 10752 at the prefill and decode
+    # capacities (w1 with silu, and w2 back), twice into NaN-filled memory,
+    # on gmm_mma in bf16.  Each timed in bf16 with L2 flushed beside its
+    # bound, the plain version and SDPA (with a bool mask at the tick) or
+    # torch.bmm (the w1 / w3 product).  Drawn from a fork of the generator,
+    # so later phases draw what they did before.
+    mg = get_config(MUSICGEN_ARCH)
+    gen_state = gen.get_state()
+    m10_times: dict[str, dict] = {MUSICGEN_ARCH: {}, DBRX_ARCH: {}}
+    mS_, mB_, mSc_ = M10_SERVE["prompt_len"], M10_SERVE["max_batch"], M10_SERVE["max_seq"]
+    for arch_, c_ in ((MUSICGEN_ARCH, mg), (DBRX_ARCH, db)):
+        Hq_, Hkv_, D_ = c_.n_heads, c_.n_kv_heads, c_.head_dim
+        curs = [mS_ + 16 + i for i in range(mB_)]
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).removeprefix("torch.")
+            q, k, v = (randn(1, mS_, h, D_, dtype=dt) for h in (Hq_, Hkv_, Hkv_))
+            err1 = max(err1, hold("flash_attention", f"{dn} {arch_} 1x{mS_}x{Hq_}/{Hkv_}x{D_}",
+                                  k1.flash_attention(q, k, v), ref.mha_ref(q, k, v), dn))
+            qd, kc, vc = randn(mB_, Hq_, D_, dtype=dt), randn(mB_, mSc_, Hkv_, D_, dtype=dt), \
+                randn(mB_, mSc_, Hkv_, D_, dtype=dt)
+            pos = torch.arange(mSc_, dtype=torch.int32, device=dev)[None].repeat(mB_, 1)
+            cur = torch.tensor(curs, dtype=torch.int32, device=dev)
+            got = k2.decode_attention(qd, kc, vc, pos, cur)
+            n_split, chunk = k2.split_plan(mB_, Hkv_, mSc_, n_sm_card)
+            case = f"{dn} {arch_} {mB_}x{mSc_}x{Hq_}/{Hkv_}x{D_}"
+            err2 = max(err2, hold("decode_attention", case, got,
+                                  ref.decode_attention_ref(qd, kc, vc, pos, cur), dn))
+            err2 = max(err2, hold("decode_attention", f"{case} vs split ref {n_split}x{chunk}",
+                                  got, ref.decode_attention_split_ref(
+                                      qd, kc, vc, pos, cur, n_split=n_split, chunk=chunk), dn))
+        live_ = (pos >= 0) & (pos <= cur[:, None])  # bf16, the last dtype above
+        n_live_ = int(live_.sum())
+        m10_times[arch_]["flash_attention"] = timed(
+            lambda: k1.flash_attention(q, k, v), lambda: ref.mha_ref(q, k, v),
+            (lambda qs=q.transpose(1, 2).contiguous(), ks_=k.transpose(1, 2).contiguous(),
+             vs_=v.transpose(1, 2).contiguous(): F.scaled_dot_product_attention(
+                 qs, ks_, vs_, is_causal=True, enable_gqa=True)),
+            nbytes(q, k, v, q), 4 * D_ * Hq_ * (mS_ * (mS_ + 1) // 2), peaks["bfloat16"],
+            f"B=1 S={mS_} Hq={Hq_} Hkv={Hkv_} D={D_} bf16 causal ({k1.instance(dt, D_)})")
+        m10_times[arch_]["decode_attention"] = timed(
+            lambda: k2.decode_attention(qd, kc, vc, pos, cur),
+            lambda: ref.decode_attention_ref(qd, kc, vc, pos, cur),
+            (lambda qs=qd[:, :, None], ks_=kc.transpose(1, 2).contiguous(),
+             vs_=vc.transpose(1, 2).contiguous(), m_=live_[:, None, None, :]:
+             F.scaled_dot_product_attention(qs, ks_, vs_, attn_mask=m_, enable_gqa=True)),
+            2 * n_live_ * Hkv_ * D_ * kc.element_size() + nbytes(qd, qd, pos, cur),
+            4 * D_ * Hq_ * n_live_, peaks["bfloat16"],
+            f"B={mB_} S={mSc_} Hq={Hq_} Hkv={Hkv_} D={D_} bf16, {n_live_} live slots "
+            f"({' + '.join(k2.instances(dt, D_))}, split {k2.split_plan(mB_, Hkv_, mSc_, n_sm_card)})")
+        del q, k, v, qd, kc, vc, got
+    dbm = db.moe
+    dcaps = {"prefill": ffn_mod._capacity(mS_, dbm), "decode": ffn_mod._capacity(mB_, dbm)}
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        for D_, F_, epi in ((db.d_model, dbm.d_expert, "silu"), (dbm.d_expert, db.d_model, None)):
+            w = (randn(dbm.n_experts, D_, F_) * 0.02).to(dt)
+            for phase, C_ in dcaps.items():
+                x = randn(dbm.n_experts, C_, D_, dtype=dt)
+                err4 = max(err4, hold("moe_gmm", f"{dn} {DBRX_ARCH} {phase} ({dbm.n_experts},{C_},"
+                                      f"{D_})@({dbm.n_experts},{D_},{F_}) epilogue={epi} "
+                                      f"[{gmm_instance(x, w)}]", gmm_twice(x, w, epi),
+                                      ref.gmm_ref(x, w, epilogue=epi), dn))
+                if dt == torch.bfloat16 and gmm_instance(x, w) != "gmm_mma":
+                    fail(f"moe_gmm {DBRX_ARCH} {phase} took {gmm_instance(x, w)}, not gmm_mma")
+            del x, w
+    w = (randn(dbm.n_experts, db.d_model, dbm.d_expert) * 0.02).to(torch.bfloat16)
+    for phase, C_ in dcaps.items():  # the w1 / w3 product, bf16, no epilogue
+        x = randn(dbm.n_experts, C_, db.d_model, dtype=torch.bfloat16)
+        m10_times[DBRX_ARCH][f"moe_gmm {phase}"] = timed(
+            lambda: k4.gmm(x, w), lambda: ref.gmm_ref(x, w), lambda: torch.bmm(x, w),
+            nbytes(x, w) + dbm.n_experts * C_ * dbm.d_expert * 2,
+            2 * dbm.n_experts * C_ * db.d_model * dbm.d_expert, peaks["bfloat16"],
+            f"({dbm.n_experts},{C_},{db.d_model})@({dbm.n_experts},{db.d_model},{dbm.d_expert}) "
+            f"bf16 ({phase}, {gmm_instance(x, w)})")
+    del x, w
+    gen.set_state(gen_state)
+    torch.cuda.empty_cache()
     for name in ("flash_attention", "decode_attention"):
         records[name]["max_abs_err"] = {"flash_attention": err1, "decode_attention": err2}[name]
         records[name][MOE_ARCH] = moe_shape_times[name]
@@ -1375,6 +1506,9 @@ def main() -> None:
     for name in ("flash_attention", "decode_attention", "moe_gmm"):
         records[name][JAMBA_ARCH] = {k: v for k, v in jamba_shape_times.items()
                                      if k.split()[0] == name}
+        for arch_, times_ in m10_times.items():
+            if any(k.split()[0] == name for k in times_):
+                records[name][arch_] = {k: v for k, v in times_.items() if k.split()[0] == name}
     for name in ("flash_attention", "decode_attention"):
         records[name]["gemma"] = {k.split(" ", 1)[1]: v for k, v in gemma_times.items()
                                   if k.split()[0] == name}
@@ -1390,6 +1524,8 @@ def main() -> None:
                ("rwkv6_scan at batch 8", k6_times[8]), ("mamba_scan at batch 8", k5_times[8])]
     others += [(f"{name} at {JAMBA_ARCH}'s shape", t) for name, t in jamba_shape_times.items()]
     others += [(f"{name} at the served shape", t) for name, t in gemma_times.items()]
+    others += [(f"{name} at {arch_}'s shape", t) for arch_, times_ in m10_times.items()
+               for name, t in times_.items()]
     for name, t in others:
         print(f"  {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library {fmt_ms(t['library_ms'])}, bound "
@@ -1658,56 +1794,74 @@ def main() -> None:
                 fail(f"{c.name}: the decode tick ran {seen['decode_tick']}, missing {part} "
                      f"at D {D}")
 
-    def teacher_forced(p, c, impl, prompt, outs, max_seq, steps=8):
+    def fe_parts(fe, n_prompt: int, steps: int = 8) -> tuple:
+        """Frontend embeddings (1, n_prompt + steps, d) or None, split into
+        the prefill's (1, n_prompt, d) and each decode step's (1, 1, d), as
+        extra arguments (none without embeddings)."""
+        if fe is None:
+            return (), [()] * steps
+        return (fe[:, :n_prompt],), [(fe[:, n_prompt + i:n_prompt + i + 1],) for i in range(steps)]
+
+    def teacher_forced(p, c, impl, prompt, outs, max_seq, steps=8, fe=None):
         """Logits (steps + 1, 1, V) of a prefill of ``prompt`` and ``steps``
-        decode steps fed the served tokens ``outs``."""
+        decode steps fed the served tokens ``outs`` (and with ``fe``, each
+        position's frontend embedding)."""
+        fp, fd = fe_parts(fe, len(prompt), steps)
         with ops.impl_scope(impl):
-            lg, caches = lm.prefill(p, c, torch.tensor([prompt], device=dev), max_seq=max_seq)
+            lg, caches = lm.prefill(p, c, torch.tensor([prompt], device=dev), *fp,
+                                    max_seq=max_seq)
             out = [lg]
             for i in range(steps):
                 lg, caches = lm.decode_step(
                     p, c, torch.tensor([outs[i]], device=dev),
-                    torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev), caches)
+                    torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev), caches, *fd[i])
                 out.append(lg)
         return torch.stack(out)
 
-    def teacher_forced_graphs(p, c, prompt, outs, max_seq, steps=8):
+    def teacher_forced_graphs(p, c, prompt, outs, max_seq, steps=8, fe=None):
         """The same as replays of CUDA graphs (``serving/compiled.py``, the
         engine's steps): the prefill's second call (captured, then replayed)
         and ``steps`` decode steps, each one a replay (the decode step's
-        eager first call advances a copy of the caches).  Returns the logits
-        and the steps' calls, captures and replays."""
+        eager first call advances a copy of the caches); frontend
+        embeddings, if any, are graph inputs beside the tokens.  Returns the
+        logits and the steps' calls, captures and replays."""
+        fp, fd = fe_parts(fe, len(prompt), steps)
         graphs = Graphs(dev)
         row = torch.tensor([prompt])
-        pre = graphs.step(lambda t: lm.prefill(p, c, t, max_seq=max_seq))
-        pre(row)
-        lg, pool_caches = pre(row)
+        pre = graphs.step(lambda t, *f: lm.prefill(p, c, t, *f, max_seq=max_seq))
+        pre(row, *fp)
+        lg, pool_caches = pre(row, *fp)
         caches = _map(torch.clone, pool_caches)  # out of the pool, as the engine's slot copy
         out = [lg.clone()]
         state = {"caches": _map(torch.clone, caches)}
-        dec = graphs.step(lambda t, pos: lm.decode_step(p, c, t, pos, state["caches"])[0])
+        dec = graphs.step(lambda t, pos, *f: lm.decode_step(p, c, t, pos, state["caches"], *f)[0])
         for i in range(steps):
             tok, at = torch.tensor([outs[i]]), torch.tensor([len(prompt) + i], dtype=torch.int32)
             if i == 0:
-                dec(tok, at)  # eager, on the copy
+                dec(tok, at, *fd[i])  # eager, on the copy
                 state["caches"] = caches
-            out.append(dec(tok, at).clone())
+            out.append(dec(tok, at, *fd[i]).clone())
         return torch.stack(out), {"prefill": pre.counts(), "decode": dec.counts()}
 
     def dense_counts(c, spec: dict, n_ticks: int) -> dict:
-        """The launches of a dense attention model's serve set: K1 a layer
-        and prefill, K2 a layer and tick, K3 for norm1 and norm2 (and the
-        two post-block norms) of every layer and the final norm a forward."""
-        norms = (4 if c.post_block_norms else 2) * c.n_layers + 1
+        """The launches of an attention model's serve set, read from the
+        config: K1 a layer and prefill, K2 a layer and tick, K3
+        ``norms_per_forward(c)`` a forward (norm1 and norm2, the post-block
+        norms, QK-norm's two, the final norm), K4 three a MoE layer and
+        forward (w1 with its activation, w3, w2)."""
+        forwards = spec["requests"] + n_ticks
+        n_moe = sum(c.layer_spec(i).ffn == "moe" for i in range(c.n_layers))
         return {"flash_attention": c.n_layers * spec["requests"],
                 "decode_attention": c.n_layers * n_ticks,
-                "rmsnorm": norms * (spec["requests"] + n_ticks), "moe_gmm": 0, "rwkv6_scan": 0,
-                "mamba_scan": 0, **NO_BACKWARD}
+                "rmsnorm": norms_per_forward(c) * forwards, "moe_gmm": 3 * n_moe * forwards,
+                "rwkv6_scan": 0, "mamba_scan": 0, **NO_BACKWARD}
 
-    def serve_gemma(c, p, spec: dict) -> tuple:
-        """A gemma's serve set, eager then compiled, with the exact launch
-        counts, equal tokens and the replay counts, added to the records,
-        and its step breakdown (K1 and K2 at the model's head dim by name).
+    def serve_set(c, p, spec: dict) -> tuple:
+        """An attention model's serve set (the gemmas, the M10 sets), eager
+        then compiled, with the exact launch counts (``dense_counts``),
+        equal tokens and the replay counts, added to the records, and its
+        step breakdown (K1 and K2 at the model's head dim by name, K4's
+        instance for an MoE model).
         Returns (engine, prompts, tokens, serve record, compiled vs eager,
         breakdown)."""
         eng, prompts, outs, rec, eager_outs, eager_rec = serve_both(c, p, spec)
@@ -1725,7 +1879,7 @@ def main() -> None:
         return eng, prompts, outs, rec, vs_eager, steps
 
     def logit_gate(c32, p32, prompt: list, outs: list, max_seq: int,
-                   bf16: tuple | None = None) -> dict:
+                   bf16: tuple | None = None, fe=None) -> dict:
         """The prefill of ``prompt`` + 8 decode steps teacher-forced with the
         served tokens ``outs``, in f32 through the kernels and through the
         plain versions (within F32_LOGIT_TOL) and through the kernels as
@@ -1733,10 +1887,16 @@ def main() -> None:
         ``bf16`` = (config, params), the same through the kernels and the
         plain versions in bf16: the kernels' path may land no further from
         the f32 path than twice the plain bf16 path does (+0.02), and the
-        engine's first token must be the argmax of the bf16 prefill."""
-        runs = {"kernel_f32": teacher_forced(p32, c32, "kernel", prompt, outs, max_seq),
-                "plain_f32": teacher_forced(p32, c32, "plain", prompt, outs, max_seq)}
-        graph_f32, graph_counts = teacher_forced_graphs(p32, c32, prompt, outs, max_seq)
+        engine's first token must be the argmax of the bf16 prefill.  With
+        frontend embeddings ``fe`` (1, len(prompt) + 8, d), every f32 run
+        takes them, and the kernels' run without them must lie further than
+        FRONTEND_MIN_DIFF from it at every step."""
+        runs = {"kernel_f32": teacher_forced(p32, c32, "kernel", prompt, outs, max_seq, fe=fe),
+                "plain_f32": teacher_forced(p32, c32, "plain", prompt, outs, max_seq, fe=fe)}
+        if fe is not None:
+            runs["kernel_f32_without_frontend"] = teacher_forced(p32, c32, "kernel", prompt, outs,
+                                                                 max_seq)
+        graph_f32, graph_counts = teacher_forced_graphs(p32, c32, prompt, outs, max_seq, fe=fe)
         if bf16 is not None:
             for label, impl in (("kernel", "kernel"), ("plain", "plain")):
                 runs[label] = teacher_forced(bf16[1], bf16[0], impl, prompt, outs, max_seq)
@@ -1751,6 +1911,10 @@ def main() -> None:
                 "argmax_kernel_eq_plain_f32": int((k32.argmax(-1) == f32.argmax(-1)).sum()),
                 "steps": 9, "layers": c32.n_layers, "graphs": graph_counts,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if fe is not None:
+            # the smallest, over the 9 steps, of a step's max |difference|
+            gate["frontend_min_step_diff"] = float(
+                (k32 - runs["kernel_f32_without_frontend"]).abs().amax(dim=(1, 2)).min())
         if bf16 is not None:
             kl, pl = runs["kernel"], runs["plain"]
             gate.update({"kernel_vs_plain_bf16": float((kl - pl).abs().max()),
@@ -1760,8 +1924,12 @@ def main() -> None:
                          "argmax_plain_bf16_eq_f32": int((pl.argmax(-1) == f32.argmax(-1)).sum()),
                          "first_token_is_prefill_argmax": int(torch.argmax(kl[0, 0])) == outs[0]})
         print(f"{c32.name} logits, full width, {c32.n_layers} layers, prefill + 8 teacher-forced "
-              f"decode steps, kernels vs plain: {json.dumps(gate)} (tol {F32_LOGIT_TOL} on "
-              f"kernel_vs_plain_f32, {GRAPH_F32_TOL} on graph_vs_eager_f32)", flush=True)
+              f"decode steps{' with frontend embeddings' if fe is not None else ''}, kernels vs "
+              f"plain: {json.dumps(gate)} (tol {F32_LOGIT_TOL} on kernel_vs_plain_f32, "
+              f"{GRAPH_F32_TOL} on graph_vs_eager_f32)", flush=True)
+        if fe is not None and not gate["frontend_min_step_diff"] > FRONTEND_MIN_DIFF:
+            fail(f"{c32.name}: the frontend embeddings moved a step's f32 logits by only "
+                 f"{gate['frontend_min_step_diff']:.3e} (<= {FRONTEND_MIN_DIFF}): not used")
         if graph_counts != {"prefill": {"calls": 2, "captures": 1, "replays": 1},
                             "decode": {"calls": 9, "captures": 1, "replays": 8}}:
             fail(f"{c32.name}: the f32 graph comparison ran {graph_counts}, expected every "
@@ -1789,9 +1957,9 @@ def main() -> None:
         fail(f"decode_attention launched {counts['decode_attention']} times, "
              f"expected {n_layers} x {n_ticks} ticks")
     forwards = SERVE["requests"] + n_ticks  # 2 norms per layer + the final one
-    if counts["rmsnorm"] != (2 * n_layers + 1) * forwards:
+    if counts["rmsnorm"] != norms_per_forward(cfg) * forwards:
         fail(f"rmsnorm launched {counts['rmsnorm']} times, expected "
-             f"{2 * n_layers + 1} x {forwards} forwards")
+             f"{norms_per_forward(cfg)} x {forwards} forwards")
     if any(counts[name] for name in NO_BACKWARD):
         fail(f"serving launched a backward kernel: {counts}")
     compiled_vs_eager = {ARCH: check_compiled(cfg, SERVE, serve, outs, eager_serve, eager_outs)}
@@ -1829,8 +1997,8 @@ def main() -> None:
     want_counts = {"moe_gmm": 3 * n_moe * forwards,  # w1 (+ silu), w3, w2 per MoE layer
                    "flash_attention": n_layers * MOE_SERVE["requests"],
                    "decode_attention": n_layers * n_ticks,
-                   "rmsnorm": (2 * n_layers + 1) * forwards, "rwkv6_scan": 0, "mamba_scan": 0,
-                   **NO_BACKWARD}
+                   "rmsnorm": norms_per_forward(mcfg) * forwards, "rwkv6_scan": 0,
+                   "mamba_scan": 0, **NO_BACKWARD}
     if mcounts != want_counts:
         fail(f"{MOE_ARCH}: launch counts {mcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
@@ -1851,34 +2019,46 @@ def main() -> None:
     # the same by construction and the comparison holds K4 in context.
     # Gates (a) and (b) both run before either fails the run, so a fault
     # shows in both.
-    gate_failures = []
+    def moe_layer_gate(c, layer: dict, token_shapes) -> tuple[dict, list]:
+        """One served MoE layer's params ``layer`` through the kernels and
+        through the plain versions at each (batch, tokens) of
+        ``token_shapes``, in bf16 and in f32 (the same weights cast), each
+        output held relative to its max |y|, with 3 K4 launches and equal
+        aux losses each.  Returns the errors and the failures, for the
+        caller to fail on after its other gates."""
+        gate, failures = {}, []
+        c32 = dataclasses.replace(c, param_dtype="float32", activation_dtype="float32")
+        for dt, c_, p_ in ((torch.bfloat16, c, layer),
+                           (torch.float32, c32, _map(lambda t: t.float(), layer))):
+            dn = str(dt).removeprefix("torch.")
+            for shape in token_shapes:
+                x = randn(*shape, c.d_model, dtype=dt)
+                before = launch_counts()["moe_gmm"]
+                with ops.impl_scope("kernel"):
+                    yk, aux_k = ffn_mod.moe_apply(p_, x, c_)
+                n_k4 = launch_counts()["moe_gmm"] - before
+                with ops.impl_scope("plain"):
+                    yp, aux_p = ffn_mod.moe_apply(p_, x, c_)
+                # held relative to the layer's output scale (max |y| ~ 0.1
+                # here, far under the kernels' unit-scale tolerances)
+                scale = yp.float().abs().max().clamp(min=1e-30)
+                case = f"{dn} x {tuple(x.shape)}, diff / max|y| (max|y| {float(scale):.3e})"
+                gate[case] = hold(f"{c.name} MoE layer (gate a)", case, yk.float() / scale,
+                                  yp.float() / scale, dn, fatal=False)
+                if not checks[-1]["ok"]:
+                    failures.append(f"gate (a) {case}: max_abs_err {gate[case]:.3e}")
+                if n_k4 != 3 or launch_counts()["moe_gmm"] != before + 3:
+                    fail(f"{c.name} gate (a) {case}: {n_k4} moe_gmm launches through the "
+                         "kernels, expected 3")
+                if any(float(aux_k[n]) != float(aux_p[n]) for n in aux_k):
+                    fail(f"{c.name} gate (a) {case}: the routing's aux losses differ between "
+                         "the two runs")
+        return gate, failures
+
     layer = _map(lambda t: t[0], mparams["blocks"]["pos0"]["ffn"])
     mcfg32 = dataclasses.replace(mcfg, param_dtype="float32", activation_dtype="float32")
-    gate_a = {}
-    for dt, c, p_ in ((torch.bfloat16, mcfg, layer),
-                      (torch.float32, mcfg32, _map(lambda t: t.float(), layer))):
-        dn = str(dt).removeprefix("torch.")
-        for shape in ((1, mS), (mB, 1)):
-            x = randn(*shape, dm2, dtype=dt)
-            before = launch_counts()["moe_gmm"]
-            with ops.impl_scope("kernel"):
-                yk, aux_k = ffn_mod.moe_apply(p_, x, c)
-            n_k4 = launch_counts()["moe_gmm"] - before
-            with ops.impl_scope("plain"):
-                yp, aux_p = ffn_mod.moe_apply(p_, x, c)
-            # held relative to the layer's output scale (max |y| ~ 0.1 here,
-            # far under the kernels' unit-scale tolerances)
-            scale = yp.float().abs().max().clamp(min=1e-30)
-            case = f"{dn} x {tuple(x.shape)}, diff / max|y| (max|y| {float(scale):.3e})"
-            gate_a[case] = hold(f"{MOE_ARCH} MoE layer (gate a)", case, yk.float() / scale,
-                                yp.float() / scale, dn, fatal=False)
-            if not checks[-1]["ok"]:
-                gate_failures.append(f"gate (a) {case}: max_abs_err {gate_a[case]:.3e}")
-            if n_k4 != 3 or launch_counts()["moe_gmm"] != before + 3:
-                fail(f"gate (a) {case}: {n_k4} moe_gmm launches through the kernels, expected 3")
-            if any(float(aux_k[n]) != float(aux_p[n]) for n in aux_k):
-                fail(f"gate (a) {case}: the routing's aux losses differ between the two runs")
-    del layer, p_, x, yk, yp
+    gate_a, gate_failures = moe_layer_gate(mcfg, layer, ((1, mS), (mB, 1)))
+    del layer
 
     # gates (b) and (c): the first request's prefill + 8 teacher-forced
     # decode steps through the kernels and through the plain versions, with
@@ -1956,7 +2136,7 @@ def main() -> None:
     rcounts, n_ticks = rwkv_serve["kernels"], rwkv_serve["decode_ticks"]
     forwards = RWKV_SERVE["requests"] + n_ticks
     want_counts = {"rwkv6_scan": rcfg.n_layers * RWKV_SERVE["requests"],  # one per layer, prefill
-                   "rmsnorm": (2 * rcfg.n_layers + 1) * forwards,
+                   "rmsnorm": norms_per_forward(rcfg) * forwards,
                    "flash_attention": 0, "decode_attention": 0, "moe_gmm": 0, "mamba_scan": 0,
                    **NO_BACKWARD}
     if rcounts != want_counts:
@@ -2030,7 +2210,7 @@ def main() -> None:
                    "moe_gmm": 3 * n_moe * forwards,
                    # norm1 and norm2 of every layer, dt / B / C norms of every
                    # Mamba layer, the final norm
-                   "rmsnorm": (2 * jcfg.n_layers + 3 * n_mamba + 1) * forwards,
+                   "rmsnorm": norms_per_forward(jcfg) * forwards,
                    "rwkv6_scan": 0, **NO_BACKWARD}
     if jcounts != want_counts:
         fail(f"{JAMBA_ARCH}: launch counts {jcounts}, expected {want_counts} "
@@ -2123,7 +2303,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     g3params, g3_init = init_model(g3)
-    g3eng, g3prompts, g3outs, g3_serve, g3_vs_eager, g3_breakdown = serve_gemma(
+    g3eng, g3prompts, g3outs, g3_serve, g3_vs_eager, g3_breakdown = serve_set(
         g3, g3params, GEMMA3_SERVE)
     compiled_vs_eager[GEMMA3_ARCH] = g3_vs_eager
     g3eng.caches = None
@@ -2147,7 +2327,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     g2params, g2_init = init_model(g2)
-    g2eng, g2prompts, g2outs, g2_serve, g2_vs_eager, g2_breakdown = serve_gemma(
+    g2eng, g2prompts, g2outs, g2_serve, g2_vs_eager, g2_breakdown = serve_set(
         g2, g2params, GEMMA2_SERVE)
     compiled_vs_eager[GEMMA2_ARCH] = g2_vs_eager
     g2eng.caches = None
@@ -2179,8 +2359,100 @@ def main() -> None:
     g2_gate = logit_gate(g2cfg4, g2params4, *g2req)
     del g2params4
 
+    # -- 4g-4i. ROADMAP M10: musicgen-large, chameleon-34b, dbrx-132b -------
+    # Each the standard set (8 slots, 1024-slot caches, 16 prompts of 512
+    # tokens, 32 new tokens) through serve_set: eager then compiled, the
+    # launches read from the config (chameleon's QK-norm: 4L + 1 K3 a
+    # forward), the step breakdown.  dbrx-132b also gets deepseek's gate (a)
+    # on its first MoE layer.  Then the first request through the kernels and
+    # the plain versions in bf16 at the served depth, reported (with the
+    # routing's top-k agreement for dbrx); and, with the bf16 model freed,
+    # the f32 gate at full width and M10_GATE_LAYERS layers (weights drawn in
+    # f32 from the same seed), for the two frontend archs with seeded
+    # frontend embeddings (the only run of the frontend on the card), which
+    # must move every step's logits.  The random draws come from a fork of
+    # the generator, so later phases draw what they did before.
+    gen_state = gen.get_state()
+    fe_gen = torch.Generator(device=dev).manual_seed(SEED)
+    m10 = {}
+    for arch_, c_ in ((MUSICGEN_ARCH, mg), (CHAMELEON_ARCH, ch),
+                      (DBRX_ARCH, dataclasses.replace(db, n_layers=DBRX_LAYERS))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        p_, init_ = init_model(c_)
+        eng_, prompts_, outs_, serve_, vs_eager_, breakdown_ = serve_set(c_, p_, M10_SERVE)
+        compiled_vs_eager[arch_] = vs_eager_
+        eng_.caches = None
+        del eng_
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec_ = {"layers": c_.n_layers, "init": init_, "serve": serve_, "breakdown": breakdown_}
+        gate_failures = []
+        if c_.moe is not None:
+            layer = _map(lambda t: t[0], p_["blocks"]["pos0"]["ffn"])
+            rec_["gate_a"], gate_failures = moe_layer_gate(c_, layer, ((1, mS_), (mB_, 1)))
+            del layer
+        req = (prompts_[0], outs_[0], M10_SERVE["max_seq"])
+        torch.cuda.reset_peak_memory_stats()
+        if c_.moe is not None:
+            run_k = moe_run(p_, c_, "kernel", *req)
+            bf16_ = compare(run_k, moe_run(p_, c_, "plain", *req), c_.n_layers, c_)
+            first = run_k[0]
+            del run_k
+        else:
+            first, plain_ = (teacher_forced(p_, c_, impl, *req) for impl in ("kernel", "plain"))
+            for name, lg in (("kernel", first), ("plain", plain_)):
+                if lg.shape != (9, 1, c_.vocab_size) or not bool(torch.isfinite(lg).all()):
+                    fail(f"{arch_} bf16 {name} logits {tuple(lg.shape)} not finite or misshapen")
+            bf16_ = {"max_abs_diff": float((first - plain_).abs().max()),
+                     "max_abs_logit": float(plain_.abs().max()),
+                     "argmax_equal_steps": int((first.argmax(-1) == plain_.argmax(-1)).sum()),
+                     "steps": 9, "layers": c_.n_layers}
+            del plain_
+        bf16_["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"{arch_} bf16, full width, {c_.n_layers} layers, prefill + 8 teacher-forced "
+              f"decode steps, kernels vs plain (reported, no bound): {json.dumps(bf16_)}",
+              flush=True)
+        if int(torch.argmax(first[0, 0])) != outs_[0][0]:
+            fail(f"{arch_}: the engine's first token is not the argmax of its prefill logits")
+        rec_["bf16"] = bf16_
+        del p_, first
+        picks.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        c32 = dataclasses.replace(c_, param_dtype="float32", activation_dtype="float32",
+                                  n_layers=M10_GATE_LAYERS[arch_])
+        p32, rec_["gate_f32_init"] = init_model(c32)
+        torch.cuda.reset_peak_memory_stats()
+        if c_.moe is not None:
+            gate_ = compare(moe_run(p32, c32, "kernel", *req), moe_run(p32, c32, "plain", *req),
+                            c32.n_layers, c32)
+            gate_["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            picks.clear()
+            print(f"{arch_} f32 gate (b), full width, {c32.n_layers} layers, prefill + 8 "
+                  f"teacher-forced decode steps, kernels vs plain: {json.dumps(gate_)} "
+                  f"(tol {F32_LOGIT_TOL} on max_abs_diff)", flush=True)
+            if gate_["max_abs_diff"] > F32_LOGIT_TOL:
+                gate_failures.append(
+                    f"gate (b): f32 logits through the kernels disagree with the plain versions "
+                    f"({gate_['topk_flipped_tokens']} of {gate_['routed_tokens']} routed tokens "
+                    "picked other experts)")
+        else:
+            fe = None
+            if c_.frontend != "text":
+                fe = torch.randn((1, M10_SERVE["prompt_len"] + 8, c_.d_model), generator=fe_gen,
+                                 device=dev)
+            gate_ = logit_gate(c32, p32, *req, fe=fe)
+            del fe
+        del p32
+        if gate_failures:
+            fail(f"{arch_}: " + "; ".join(gate_failures))
+        rec_["gate_f32"] = gate_
+        m10[arch_] = rec_
+    gen.set_state(gen_state)
+
     records["rmsnorm"]["launches_by_shape"] = {str(k): n for k, n in norm_launches.items()}
-    print(f"rmsnorm launches by (rows, D), all six serving runs: "
+    print(f"rmsnorm launches by (rows, D), all nine serving runs: "
           f"{json.dumps(records['rmsnorm']['launches_by_shape'])}", flush=True)
     if sum(norm_launches.values()) != records["rmsnorm"]["launches"]:
         fail("rmsnorm launches by shape do not add up to its launch count")
@@ -2798,6 +3070,7 @@ def main() -> None:
             GEMMA2_ARCH: {"init": g2_init, "serve": g2_serve, "breakdown": g2_breakdown,
                           "bf16_full_depth": g2_gate_bf16, "gate_f32": g2_gate,
                           "gate_f32_init": g2_init4},
+            **m10,
             "measurement": measurement, "seconds": time.time() - t_start}
     print(f"chip_smoke: {full['seconds']:.1f} s", flush=True)
     if args.record is not None:
@@ -3294,24 +3567,42 @@ def profile_step(fn, reps: int = 3, top: int = 8) -> dict:
     }
 
 
-def add_norm_launches(into: dict, c, spec: dict, n_ticks: int) -> dict:
-    """Adds a serving run's RMSNorm launches by (rows, D) to ``into``: norm1
-    and norm2 of every layer (and norm1_post and norm2_post with post-block
-    norms) and the final norm at d_model, and a Mamba
-    layer's dt / B / C norms at dt_rank and d_state, for each of the
-    requests' prefills (prompt_len rows) and each decode tick (max_batch
-    rows)."""
-    n_mamba = sum(c.layer_spec(i).mixer == "mamba" for i in range(c.n_layers))
-    widths = {c.d_model: (4 if c.post_block_norms else 2) * c.n_layers + 1}
+def norm_launches_per_forward(c) -> list[tuple[int, int, int]]:
+    """The RMSNorm launches of one forward, read from the config, as (rows
+    per token, D, launches): norm1 and norm2 of every layer with an FFN
+    (norm1 alone without one), norm1_post and norm2_post with post-block
+    norms, and the final norm at d_model; QK-norm's q_norm (n_heads rows a
+    token) and k_norm (n_kv_heads rows a token) at head_dim in every
+    attention layer; a Mamba layer's dt / B / C norms at dt_rank and
+    d_state."""
+    specs = [c.layer_spec(i) for i in range(c.n_layers)]
+    per_layer = sum(1 + (sp.ffn != "none") for sp in specs) * (2 if c.post_block_norms else 1)
+    out = [(1, c.d_model, per_layer + 1)]
+    n_attn = sum(sp.mixer in ("ga", "swa") for sp in specs)
+    if c.qk_norm and n_attn:
+        out += [(c.n_heads, c.head_dim, n_attn), (c.n_kv_heads, c.head_dim, n_attn)]
+    n_mamba = sum(sp.mixer == "mamba" for sp in specs)
     if n_mamba:
         from repro_torch.nn import mamba as mamba_mod
 
         _, N, _, R = mamba_mod._dims(c)
-        widths[R] = widths.get(R, 0) + n_mamba
-        widths[N] = widths.get(N, 0) + 2 * n_mamba
-    for rows, n in ((spec["prompt_len"], spec["requests"]), (spec["max_batch"], n_ticks)):
-        for d, per in widths.items():
-            into[(rows, d)] = into.get((rows, d), 0) + per * n
+        out += [(1, R, n_mamba), (1, N, 2 * n_mamba)]
+    return out
+
+
+def norms_per_forward(c) -> int:
+    """K3 launches of one forward of ``c`` (``norm_launches_per_forward``)."""
+    return sum(n for *_, n in norm_launches_per_forward(c))
+
+
+def add_norm_launches(into: dict, c, spec: dict, n_ticks: int) -> dict:
+    """Adds a serving run's RMSNorm launches by (rows, D) to ``into``: each
+    of ``norm_launches_per_forward(c)`` for each of the requests' prefills
+    (prompt_len tokens) and each decode tick (max_batch tokens)."""
+    for tokens, n in ((spec["prompt_len"], spec["requests"]), (spec["max_batch"], n_ticks)):
+        for mult, d, per in norm_launches_per_forward(c):
+            key = (tokens * mult, d)
+            into[key] = into.get(key, 0) + per * n
     return into
 
 

@@ -1,11 +1,11 @@
 """Architecture registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-The port knows the ``ga`` / ``swa`` architectures with dense or MoE FFNs
-(gemma2-27b and gemma3-4b with their softcaps, post-block norms, scaled
-embeddings and head dim 256), the RWKV6 architecture and the hybrid
-Mamba/attention architecture (jamba).  The other architectures of
-``repro.configs`` raise ``NotImplementedError`` naming the ROADMAP item
-that brings their layers.
+The port knows every architecture of ``repro.configs``: the ``ga`` /
+``swa`` architectures with dense or MoE FFNs (gemma2-27b and gemma3-4b
+with their softcaps, post-block norms, scaled embeddings and head dim 256;
+chameleon-34b with QK-norm and musicgen-large, each with its frontend
+stub), the RWKV6 architecture and the hybrid Mamba/attention architecture
+(jamba).
 """
 from __future__ import annotations
 
@@ -23,12 +23,8 @@ _ARCH_MODULES = {
     "jamba-1.5-large": "repro_torch.configs.jamba_1_5_large",
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
-}
-
-# Archs of the JAX package that the port does not run yet, and why.
-_NOT_PORTED = {
-    "chameleon-34b": "M10 (QK-norm in attention and the vlm_stub frontend)",
-    "musicgen-large": "M10 (the audio_stub frontend)",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
 }
 
 
@@ -37,10 +33,6 @@ def list_archs() -> list[str]:
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet: ROADMAP item {_NOT_PORTED[arch]}"
-        )
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG

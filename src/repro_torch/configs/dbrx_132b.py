@@ -2,7 +2,8 @@
 
 [hf:databricks/dbrx-base; unverified] — 40L d_model=6144 48H (GQA kv=8)
 d_ff=10752 (per expert) vocab=100352.  264 GB in bf16: more than one H100
-holds, so the port runs it at reduced size only.
+holds, so the card serves it at full width cut to its first 8 layers
+(54.6 GB; ``chip_smoke.py``).
 """
 from repro_torch.configs.base import LayerSpec, ModelConfig, MoEConfig
 

@@ -34,8 +34,12 @@ JAX sites: ``lm.embed_out``, ``lm.stack_out``, ``lm.loss``,
 ``lm.prefill_logits`` and ``lm.decode_logits``.  Disabled, neither
 dispatches an op.
 
-The ``vlm_stub`` frontend (chameleon-34b) and the ``audio_stub`` frontend
-(musicgen-large) raise ``NotImplementedError`` (ROADMAP item M10).
+The ``vlm_stub`` (chameleon-34b) and ``audio_stub`` (musicgen-large)
+frontends take precomputed (B, S, d_model) embeddings, ``frontend_embed``,
+through ``forward``, ``loss_fn``, ``prefill`` and ``decode_step``: projected
+(``nn/frontend.py``) and added to the token embeddings under ``embed``.
+Without them these archs run on tokens alone, as the serving engine runs
+every arch (the JAX engine passes no embeddings either).
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ from repro_torch.core.scopes import scope
 from repro_torch.nn import attention as attn
 from repro_torch.nn import core as nn
 from repro_torch.nn import ffn as ffn_mod
+from repro_torch.nn import frontend as frontend_mod
 from repro_torch.nn import mamba as mamba_mod
 from repro_torch.nn import rwkv as rwkv_mod
 
@@ -61,11 +66,9 @@ def torch_dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if cfg.frontend != "text":
-        raise NotImplementedError(f"frontend {cfg.frontend!r} is ROADMAP item M10")
+def _check_supported(spec: LayerSpec) -> None:
     if spec.ffn not in ("dense", "moe", "rwkv_ffn", "none"):
-        raise NotImplementedError(f"ffn {spec.ffn!r} is ROADMAP item M10")
+        raise ValueError(spec.ffn)
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +77,7 @@ def _check_supported(cfg: ModelConfig, spec: LayerSpec) -> None:
 
 
 def _block_init(pf: nn.ParamFactory, cfg: ModelConfig, spec: LayerSpec) -> dict:
-    _check_supported(cfg, spec)
+    _check_supported(spec)
     p: dict = {"norm1": nn.rmsnorm_init(pf, cfg.d_model)}
     init = {"rwkv": rwkv_mod.time_mix_init, "mamba": mamba_mod.mamba_init}
     p["mixer"] = init.get(spec.mixer, attn.attention_init)(pf, cfg)
@@ -99,6 +102,8 @@ def _unscanned_layers(cfg: ModelConfig) -> list[tuple[str, LayerSpec]]:
 
 def build_params(cfg: ModelConfig, pf: nn.ParamFactory) -> dict:
     p: dict = {"embed": nn.embedding_init(pf, cfg.vocab_size, cfg.d_model)}
+    if cfg.frontend != "text":
+        p["frontend"] = frontend_mod.frontend_init(pf, cfg)
     for name, spec in _unscanned_layers(cfg):
         p[name] = _block_init(pf, cfg, spec)
     if cfg.n_periods > 0:
@@ -136,7 +141,7 @@ def _block_cache(cfg, spec, batch, max_seq, dtype, device) -> dict:
     """A block's decode state: the KV cache of an attention mixer, the conv
     window and f32 SSM state of a Mamba mixer, or the shift vectors and f32
     WKV state of an RWKV block."""
-    _check_supported(cfg, spec)
+    _check_supported(spec)
     if spec.mixer == "rwkv":
         c = {"mixer": rwkv_mod.init_time_cache(cfg, batch, dtype, device)}
     elif spec.mixer == "mamba":
@@ -254,6 +259,7 @@ def forward(
     cfg: ModelConfig,
     tokens: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
+    frontend_embed: Optional[torch.Tensor] = None,
     *,
     mode: str = "full",
     caches: Optional[dict] = None,
@@ -261,6 +267,8 @@ def forward(
 ):
     """tokens: (B, S) -> (hidden (B, S, D), caches), or with ``return_aux``
     (hidden, aux, caches), aux the f32 sum of the MoE layers' aux losses.
+    ``frontend_embed`` (B, S, D), for an arch with a frontend, is projected
+    and added to the token embeddings.
 
     ``caches`` are filled (prefill) or advanced (decode) in place and
     returned; ``None`` when none were given.
@@ -272,6 +280,8 @@ def forward(
     with scope("embed"):
         x = nn.embed(params["embed"], tokens, scale_by_dim=cfg.scale_embedding)
         x = x.to(torch_dtype(cfg.activation_dtype))
+        if cfg.frontend != "text" and frontend_embed is not None:
+            x = x + frontend_mod.frontend_apply(params["frontend"], frontend_embed.to(x.dtype))
     tp.point("lm.embed_out", x)
     # the MoE aux losses are summed only when asked for: serving runs no
     # extra kernel for them
@@ -325,7 +335,8 @@ def _logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tenso
 
 
 def loss_fn(
-    params: dict, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor
+    params: dict, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor,
+    frontend_embed: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token cross-entropy over all positions -> (loss, {ce, z_loss,
     aux, tokens}), loss = ce + z_loss + aux, all f32.
@@ -336,7 +347,7 @@ def loss_fn(
     a chunk's (chunk, V) f32 logits live only while it is computed, as
     ``jax.checkpoint`` keeps them in the JAX loss.
     """
-    hidden, aux, _ = forward(params, cfg, tokens, return_aux=True)
+    hidden, aux, _ = forward(params, cfg, tokens, frontend_embed=frontend_embed, return_aux=True)
     B, S, D = hidden.shape
     T = B * S
     chunk = min(cfg.loss_chunk, T)
@@ -370,12 +381,18 @@ def loss_fn(
 
 
 def prefill(
-    params: dict, cfg: ModelConfig, tokens: torch.Tensor, *, max_seq: Optional[int] = None
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    frontend_embed: Optional[torch.Tensor] = None,
+    *,
+    max_seq: Optional[int] = None,
 ) -> tuple[torch.Tensor, dict]:
     """Process the prompt; returns (last-position logits (B, V) f32, caches)."""
     B, S = tokens.shape
     caches = init_caches(cfg, B, max_seq or S, tokens.device)
-    hidden, caches = forward(params, cfg, tokens, mode="full", caches=caches)
+    hidden, caches = forward(params, cfg, tokens, frontend_embed=frontend_embed, mode="full",
+                             caches=caches)
     logits = _logits(params, cfg, hidden[:, -1])
     tp.point("lm.prefill_logits", logits)
     return logits, caches
@@ -387,14 +404,16 @@ def decode_step(
     tokens: torch.Tensor,
     cur_pos: torch.Tensor,
     caches: dict,
+    frontend_embed: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, dict]:
-    """tokens: (B,) new token ids; cur_pos: (B,) absolute positions.
+    """tokens: (B,) new token ids; cur_pos: (B,) absolute positions;
+    frontend_embed: (B, 1, D) or None.
 
     Returns (logits (B, V) f32, caches), the caches advanced in place.
     """
     positions = cur_pos[:, None].to(torch.int32)
-    hidden, caches = forward(params, cfg, tokens[:, None], positions, mode="decode",
-                             caches=caches)
+    hidden, caches = forward(params, cfg, tokens[:, None], positions, frontend_embed,
+                             mode="decode", caches=caches)
     logits = _logits(params, cfg, hidden[:, -1])
     tp.point("lm.decode_logits", logits)
     return logits, caches

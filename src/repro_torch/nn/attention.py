@@ -1,4 +1,4 @@
-"""GQA attention block: global / sliding-window, softcap, QKV bias.
+"""GQA attention block: global / sliding-window, softcap, QK-norm, QKV bias.
 
 Counterpart of ``repro/nn/attention.py``, with two modes:
 
@@ -18,9 +18,11 @@ the JAX package and change nothing on one card; ``decode_split_kv`` only
 acts on a sequence-sharded cache, which one card does not have.  Every
 head dim of the ported archs runs on the card, gemma3-4b's 256 included
 (K1 and K2 have D-256 instances), with gemma2's softcap and the sliding
-window of both gemmas; QK-norm (chameleon-34b) is ROADMAP item M10.  The
-backward of attention is always the flash backward (K1b), which has no
-D-256 instance yet (ROADMAP Queue 2, K1b-D256).
+window of both gemmas.  QK-norm (chameleon-34b) normalises each query and
+key head over its head_dim after the projections and before RoPE, through
+the RMSNorm kernel (K3) over rows of head_dim.  The backward of attention
+is always the flash backward (K1b), which has no D-256 instance yet
+(ROADMAP Queue 2, K1b-D256).
 """
 from __future__ import annotations
 
@@ -37,12 +39,16 @@ Cache = dict[str, torch.Tensor]
 
 def attention_init(pf: nn.ParamFactory, cfg: ModelConfig) -> dict:
     D, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    p = {
         "q": nn.linear_init(pf, (D,), (Hq, hd), bias=cfg.qkv_bias),
         "k": nn.linear_init(pf, (D,), (Hkv, hd), bias=cfg.qkv_bias),
         "v": nn.linear_init(pf, (D,), (Hkv, hd), bias=cfg.qkv_bias),
         "o": nn.linear_init(pf, (Hq, hd), (D,), scale=0.02 / max(1, 2 * cfg.n_layers) ** 0.5),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = nn.rmsnorm_init(pf, hd)
+        p["k_norm"] = nn.rmsnorm_init(pf, hd)
+    return p
 
 
 def _window(cfg: ModelConfig, mixer: str) -> Optional[int]:
@@ -74,13 +80,16 @@ def attention_apply(
     cache: Optional[Cache] = None,
 ) -> tuple[torch.Tensor, Optional[Cache]]:
     """x: (B, S, D) for full; (B, 1, D) for decode.  positions: (B, S) / (B, 1)."""
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm (chameleon) is ROADMAP item M10")
     B, S, _ = x.shape
     window = _window(cfg, mixer)
     q = nn.linear(p["q"], x)  # (B, S, Hq, hd)
     k = nn.linear(p["k"], x)  # (B, S, Hkv, hd)
     v = nn.linear(p["v"], x)
+    if cfg.qk_norm:
+        # K3 over rows of hd: the projections' outputs are contiguous, so
+        # (B, S, H, hd) is B x S x H rows as it stands, with no copy
+        q = nn.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = nn.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q = nn.apply_rope(q, positions, cfg.rope_theta)
     k = nn.apply_rope(k, positions, cfg.rope_theta)
 

@@ -11,7 +11,8 @@ the backward and the AdamW update; with several microbatches the
 accumulation loop unrolled) and replays it, and every later call replays.
 
 The graph's inputs are ``tokens`` and ``labels``, copied into static
-buffers.  The params, the moments and the step counter are read and
+buffers; a batch with frontend embeddings (chameleon-34b, musicgen-large)
+is refused, not run without them.  The params, the moments and the step counter are read and
 written in place at the addresses the capture saw, the counterpart of the
 donated state: the step refuses a state whose leaves are not the ones it
 captured (a restore copies into them, ``runtime/supervisor.py``).  The
@@ -67,6 +68,10 @@ class CompiledTrainStep:
         if len(now) != len(self._leaves) or any(a is not b for a, b in zip(now, self._leaves)):
             raise ValueError("compiled train step called with a state whose tensors are not "
                              "the ones it was built for (restore into them in place)")
+        if batch.get("frontend_embed") is not None:
+            raise NotImplementedError(
+                "the compiled train step takes tokens and labels only; frontend embeddings "
+                "as a static input are a ROADMAP Queue 1 item (frontend-arch training)")
         metrics, self.tape = self.compiled(batch["tokens"], batch["labels"])
         return state, metrics
 

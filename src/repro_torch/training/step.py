@@ -55,7 +55,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch: {"tokens": (B, S) int, "labels": (B, S) int} tensors on the
-    params' device.  metrics: loss, ce, z_loss, aux, tokens, grad_norm and
+    params' device, and for an arch with a frontend optionally
+    "frontend_embed" (B, S, d_model), split with the tokens over the
+    microbatches.  metrics: loss, ce, z_loss, aux, tokens, grad_norm and
     lr, each a 0-dim f32 tensor on that device; with several
     microbatches ce is the mean loss and z_loss and aux are 0, as in the JAX
     step.
@@ -68,8 +70,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         params = state["params"]
         leaves = optim.leaves(params)
         tokens, labels = batch["tokens"], batch["labels"]
+        fe = batch.get("frontend_embed")
         if n_micro == 1:
-            loss, metrics = lm.loss_fn(params, cfg, tokens, labels)
+            loss, metrics = lm.loss_fn(params, cfg, tokens, labels, fe)
             grads = _rebuild(params, iter(_grad(loss, leaves)))
         else:
             B = tokens.shape[0]
@@ -80,7 +83,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
             loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for i in range(n_micro):
                 sl = slice(i * mb, (i + 1) * mb)
-                loss_i, _ = lm.loss_fn(params, cfg, tokens[sl], labels[sl])
+                loss_i, _ = lm.loss_fn(params, cfg, tokens[sl], labels[sl],
+                                       None if fe is None else fe[sl])
                 for a, g in zip(acc, _grad(loss_i, leaves)):
                     a.add_(g.to(acc_dtype))
                 loss_sum = loss_sum + loss_i.detach()

@@ -40,7 +40,7 @@ from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.training.step import TrainConfig, init_train_state, make_train_step  # noqa: E402
 
 ARCHS = ["qwen2-0.5b", "deepseek-moe-16b", "rwkv6-7b", "jamba-1.5-large", "gemma2-27b",
-         "gemma3-4b"]
+         "gemma3-4b", "chameleon-34b", "musicgen-large"]
 # ops that read tensor data on the host: each forces a device-to-host sync
 # on the card, which a CUDA graph's capture refuses
 SYNC_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.masked_select", "aten.unique",

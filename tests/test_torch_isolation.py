@@ -62,6 +62,18 @@ def test_measurement_module_imports_no_jax_no_repro(module):
     assert "import jax" not in source and "from repro." not in source
 
 
+# the frontend stub imports alone, without repro/nn/frontend.py (which
+# imports JAX through repro.nn.core): the port keeps its own copy
+@pytest.mark.parametrize("module", ["repro_torch.nn.frontend", "repro_torch.nn.attention"])
+def test_model_module_imports_no_jax_no_repro(module):
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    source = (REPO / "src" / (module.replace(".", "/") + ".py")).read_text()
+    assert "import jax" not in source and "from repro." not in source
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     """No card here: chip_smoke.py exits non-zero and prints no result line,

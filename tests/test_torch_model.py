@@ -21,19 +21,24 @@ from repro.models import lm as jax_lm  # noqa: E402
 from repro.nn import attention as jax_attn  # noqa: E402
 from repro.nn import core as jax_nn  # noqa: E402
 from repro.nn import ffn as jax_ffn  # noqa: E402
+from repro.nn import frontend as jax_frontend  # noqa: E402
 from repro.nn import mamba as jax_mamba  # noqa: E402
 from repro.nn import rwkv as jax_rwkv  # noqa: E402
+from repro_torch.configs import base as configs_base  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.nn import attention as attn  # noqa: E402
 from repro_torch.nn import core as nn  # noqa: E402
 from repro_torch.nn import ffn  # noqa: E402
+from repro_torch.nn import frontend  # noqa: E402
 from repro_torch.nn import mamba  # noqa: E402
 from repro_torch.nn import rwkv  # noqa: E402
 
 ARCHS = ["qwen2-0.5b", "smollm-360m", "deepseek-moe-16b", "dbrx-132b", "rwkv6-7b",
-         "jamba-1.5-large", "gemma2-27b", "gemma3-4b"]
+         "jamba-1.5-large", "gemma2-27b", "gemma3-4b", "chameleon-34b", "musicgen-large"]
+# the archs with a frontend stub (precomputed embeddings added to the tokens')
+FRONTEND_ARCHS = ["chameleon-34b", "musicgen-large"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -85,12 +90,6 @@ def test_config_copies_match_jax(arch):
             if getattr(port, sub) is not None:
                 assert dataclasses.asdict(getattr(port, sub)) == \
                     dataclasses.asdict(getattr(ref, sub)), sub
-
-
-@pytest.mark.parametrize("arch", ["chameleon-34b", "musicgen-large"])
-def test_unported_archs_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item M10"):
-        get_config(arch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -413,9 +412,25 @@ def test_moe_capacity_and_group_size_copies():
 
 
 def test_unported_layers_raise():
+    """A text arch given a frontend stub builds the JAX tree, ``frontend/proj``
+    included (every layer kind of the JAX package is ported now), and an
+    unknown FFN kind raises as the JAX model's does."""
     cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")), frontend="vlm_stub")
-    with pytest.raises(NotImplementedError, match="M10"):
-        lm.init_params(cfg, 0, device="cpu")
+    jcfg = dataclasses.replace(jax_reduced(jax_get_config("qwen2-0.5b")), frontend="vlm_stub")
+    jshapes = jax.eval_shape(lambda k: jax_lm.init_params(jcfg, k), jax.random.PRNGKey(0))
+    p = lm.init_params(cfg, 0, device="cpu")
+    assert jax.tree.map(lambda a: a.shape, jshapes) == _map_shapes(p)
+    assert tuple(p["frontend"]["proj"]["w"].shape) == (cfg.d_model, cfg.d_model)
+    assert "b" not in p["frontend"]["proj"]
+    bad = dataclasses.replace(cfg, layer_pattern=(configs_base.LayerSpec("ga", "glu"),))
+    with pytest.raises(ValueError, match="glu"):
+        lm.init_params(bad, 0, device="cpu")
+
+
+def _map_shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _map_shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -760,3 +775,200 @@ def test_mamba_prefill_chunk_contract(S):
         jl, _ = jax_lm.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32), max_seq=S)
         tl, _ = lm.prefill(p, cfg, _t(toks), max_seq=S)
         _close(jl, tl)
+
+
+# ---------------------------------------------------------------------------
+# the frontend stubs and QK-norm (chameleon-34b, musicgen-large)
+# ---------------------------------------------------------------------------
+
+
+def _perturb_scales(tree, seed):
+    """A copy of a JAX param tree (numpy leaves) whose RMSNorm scales are
+    N(0, 0.5): at init they are zeros, so a norm that dropped its scale, or
+    took another norm's, would match."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else
+                (rng.standard_normal(v.shape) * 0.5).astype(v.dtype) if k == "scale" else v
+                for k, v in t.items()}
+
+    return walk(jax.tree.map(np.asarray, tree))
+
+
+def _both_perturbed(arch, seed=0, **changes):
+    jcfg, cfg, jp, _ = _both(arch, **changes)
+    np_p = _perturb_scales(jp, seed)
+    return jcfg, cfg, jax.tree.map(jnp.asarray, np_p), params_from_jax(np_p, cfg, device="cpu")
+
+
+def test_frontend_apply_matches_jax():
+    """The stub alone: a (d, d) projection without bias, std 0.02."""
+    jcfg, cfg, _, _ = _both("musicgen-large")
+    jp = jax_frontend.frontend_init(jax_nn.ValueFactory(jax.random.PRNGKey(3), jnp.float32), jcfg)
+    p = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    emb = np.random.default_rng(40).standard_normal((2, 5, cfg.d_model)).astype(np.float32)
+    _close(jax_frontend.frontend_apply(jp, jnp.asarray(emb)), frontend.frontend_apply(p, _t(emb)))
+    own = frontend.frontend_init(nn.ParamFactory(torch.Generator().manual_seed(0), torch.float32,
+                                                 torch.device("cpu")), cfg)
+    assert set(own) == {"proj"} and set(own["proj"]) == {"w"}
+    assert tuple(own["proj"]["w"].shape) == (cfg.d_model, cfg.d_model)
+    assert abs(float(own["proj"]["w"].std()) - 0.02) < 0.002
+
+
+@pytest.mark.parametrize("mixer,S,window", [("ga", 10, 16), ("swa", 10, 4)])
+def test_qk_norm_attention_apply_full_and_decode(mixer, S, window):
+    """QK-norm alone: chameleon's attention block (q_norm and k_norm over
+    head_dim, after the projections, before RoPE) with its scales
+    perturbed, prefill then three decode steps, against the JAX block."""
+    jcfg, cfg, _, _ = _both("chameleon-34b", sliding_window=window)
+    assert cfg.qk_norm
+    jp = jax_attn.attention_init(jax_nn.ValueFactory(jax.random.PRNGKey(2), jnp.float32), jcfg)
+    np_p = _perturb_scales(jp, 41)
+    jp, p = jax.tree.map(jnp.asarray, np_p), params_from_jax(np_p, cfg, device="cpu")
+    assert tuple(p["q_norm"]["scale"].shape) == (cfg.head_dim,) == tuple(p["k_norm"]["scale"].shape)
+    rng = np.random.default_rng(42)
+    B, max_seq = 2, 16
+    x = rng.standard_normal((B, S, cfg.d_model), np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S)).copy()
+    jc = jax_attn.init_cache(jcfg, mixer, B, max_seq, jnp.float32)
+    tc = attn.init_cache(cfg, mixer, B, max_seq, torch.float32, torch.device("cpu"))
+    jo, jc = jax_attn.attention_apply(jp, jnp.asarray(x), jcfg, mixer, jnp.asarray(pos),
+                                      mode="full", cache=jc)
+    to, tc = attn.attention_apply(p, _t(x), cfg, mixer, _t(pos), mode="full", cache=tc)
+    _close(jo, to)
+    _tree_close(jc, tc)
+    # the norms act: without them the block's output moves
+    plain = dataclasses.replace(cfg, qk_norm=False)
+    bare, _ = attn.attention_apply(p, _t(x), plain, mixer, _t(pos), mode="full")
+    assert float((bare - to).abs().max()) > 1e-2
+    for t in range(S, S + 3):
+        xt = rng.standard_normal((B, 1, cfg.d_model), np.float32)
+        pt = np.full((B, 1), t, np.int32)
+        jo, jc = jax_attn.attention_apply(jp, jnp.asarray(xt), jcfg, mixer, jnp.asarray(pt),
+                                          mode="decode", cache=jc)
+        to, tc = attn.attention_apply(p, _t(xt), cfg, mixer, _t(pt), mode="decode", cache=tc)
+        _close(jo, to)
+        _tree_close(jc, tc)
+
+
+def test_qk_norm_sends_rows_of_head_dim_to_the_norm(monkeypatch):
+    """The RMSNorm op gets q and k as contiguous (..., head_dim) tensors:
+    on the card K3 reads them as rows of head_dim."""
+    _, cfg, _, p = _both("chameleon-34b")
+    seen = []
+    real = nn.ops.rmsnorm
+
+    def spy(x, scale, **kw):
+        seen.append((tuple(x.shape), x.is_contiguous(), tuple(scale.shape)))
+        return real(x, scale, **kw)
+
+    monkeypatch.setattr(nn.ops, "rmsnorm", spy)
+    x = torch.randn(2, 5, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    pos = torch.arange(5, dtype=torch.int32)[None].expand(2, 5)
+    attn.attention_apply(_map_period0(p["blocks"]["pos0"]["mixer"]), x, cfg, "ga", pos)
+    hd = cfg.head_dim
+    assert seen == [((2, 5, cfg.n_heads, hd), True, (hd,)),
+                    ((2, 5, cfg.n_kv_heads, hd), True, (hd,))]
+
+
+def _map_period0(tree):
+    if isinstance(tree, dict):
+        return {k: _map_period0(v) for k, v in tree.items()}
+    return tree[0]
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_forward_with_frontend_matches_jax(arch):
+    """The full forward's hidden states with frontend embeddings (norm
+    scales perturbed), against the JAX forward; the embeddings change them."""
+    jcfg, cfg, jp, p = _both_perturbed(arch, 43)
+    rng = np.random.default_rng(44)
+    B, S = 2, 9
+    toks = rng.integers(0, cfg.vocab_size, (B, S))
+    fe = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    jh, _, _ = jax_lm.forward(jp, jcfg, jnp.asarray(toks, jnp.int32), frontend_embed=jnp.asarray(fe))
+    th, _ = lm.forward(p, cfg, _t(toks), frontend_embed=_t(fe))
+    _close(jh, th)
+    without, _ = lm.forward(p, cfg, _t(toks))
+    assert float((without - th).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_prefill_and_decode_with_frontend_match_jax(arch):
+    """Prefill with (B, S, d) embeddings, then four decode steps each with
+    its (B, 1, d) slice, as tests/test_arch_smoke.py feeds them: logits and
+    caches against the JAX model."""
+    jcfg, cfg, jp, p = _both_perturbed(arch, 45)
+    rng = np.random.default_rng(46)
+    B, S, max_seq = 2, 8, 16
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 4))
+    fe = rng.standard_normal((B, S + 4, cfg.d_model)).astype(np.float32)
+    jl, jc = jax_lm.prefill(jp, jcfg, jnp.asarray(toks[:, :S], jnp.int32),
+                            jnp.asarray(fe[:, :S]), max_seq=max_seq)
+    tl, tc = lm.prefill(p, cfg, _t(toks[:, :S]), _t(fe[:, :S]), max_seq=max_seq)
+    _close(jl, tl)
+    _tree_close(jc, tc)
+    for t in range(S, S + 4):
+        cur = np.full((B,), t, np.int32)
+        jl, jc = jax_lm.decode_step(jp, jcfg, jnp.asarray(toks[:, t], jnp.int32),
+                                    jnp.asarray(cur), jc, jnp.asarray(fe[:, t:t + 1]))
+        tl, tc = lm.decode_step(p, cfg, _t(toks[:, t]), _t(cur), tc, _t(fe[:, t:t + 1]))
+        _close(jl, tl)
+    _tree_close(jc, tc)
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_decode_with_frontend_matches_full_forward(arch):
+    """Teacher-forced decode with each step's embedding slice reproduces the
+    full forward's logits with the whole embedding stream."""
+    cfg = reduced(get_config(arch))
+    params = lm.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(47)
+    B, S = 2, 12
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    fe = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model)).astype(np.float32))
+    hidden, _ = lm.forward(params, cfg, tokens, frontend_embed=fe)
+    full = lm._logits(params, cfg, hidden)
+    half = S // 2
+    _, caches = lm.prefill(params, cfg, tokens[:, :half], fe[:, :half], max_seq=S)
+    got = []
+    for t in range(half, S):
+        logits, caches = lm.decode_step(params, cfg, tokens[:, t],
+                                        torch.full((B,), t, dtype=torch.int32), caches,
+                                        fe[:, t:t + 1])
+        got.append(logits)
+    torch.testing.assert_close(torch.stack(got, 1), full[:, half:], atol=2e-5, rtol=2e-5)
+
+
+def test_text_arch_ignores_frontend_embed():
+    """As in the JAX forward, an arch without a frontend ignores embeddings."""
+    cfg = reduced(get_config("qwen2-0.5b"))
+    params = lm.init_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(48).integers(0, cfg.vocab_size, (2, 6)))
+    fe = torch.randn(2, 6, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(lm.forward(params, cfg, toks, frontend_embed=fe)[0],
+                               lm.forward(params, cfg, toks)[0], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_bridge_frontend_and_qk_norm_leaves(arch, dtype):
+    """``params_from_jax`` walks any tree: ``frontend/proj/w`` and the
+    per-period stacked ``q_norm`` / ``k_norm`` scales cross unchanged, bit
+    for bit, in the JAX dtypes (norm scales stay f32)."""
+    jcfg, cfg, jp, p = _both(arch, param_dtype=dtype, activation_dtype=dtype)
+    jw, tw = np.asarray(jp["frontend"]["proj"]["w"]), p["frontend"]["proj"]["w"]
+    assert str(tw.dtype).removeprefix("torch.") == str(jw.dtype) == dtype
+    assert tuple(tw.shape) == jw.shape == (cfg.d_model, cfg.d_model)
+    bits = np.uint16 if dtype == "bfloat16" else np.uint32
+    tv = tw.view(torch.int16) if dtype == "bfloat16" else tw.view(torch.int32)
+    np.testing.assert_array_equal(tv.numpy().view(bits), jw.view(bits))
+    mixer = jp["blocks"]["pos0"]["mixer"]
+    assert ("q_norm" in mixer) == cfg.qk_norm == ("q_norm" in p["blocks"]["pos0"]["mixer"])
+    for name in ("q_norm", "k_norm") if cfg.qk_norm else ():
+        js = np.asarray(mixer[name]["scale"])
+        ts = p["blocks"]["pos0"]["mixer"][name]["scale"]
+        assert ts.dtype == torch.float32 and tuple(ts.shape) == js.shape == (cfg.n_periods,
+                                                                               cfg.head_dim)
+        np.testing.assert_array_equal(ts.numpy(), js)

@@ -70,7 +70,8 @@ def test_engine_matches_jax_engine(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["deepseek-moe-16b", "rwkv6-7b", "jamba-1.5-large",
-                                  "gemma2-27b", "gemma3-4b"])
+                                  "gemma2-27b", "gemma3-4b", "chameleon-34b",
+                                  "musicgen-large"])
 def test_engine_matches_jax_direct_decode(arch):
     """Each request's tokens equal the JAX model's own prefill + greedy
     decode loop for that request alone."""
@@ -319,6 +320,19 @@ def test_serve_driver_runs_jamba_arch_on_cpu():
     rec = serve.main(["--arch", "jamba-1.5-large", "--reduced", "--device", "cpu",
                       "--requests", "3", "--max-new", "4", "--max-batch", "2"])
     assert rec["arch"] == "jamba-1.5-large-smoke"
+    assert rec["requests"] == 3 and rec["generated_tokens"] == 12
+    assert rec["kernels"] == dict.fromkeys(KERNELS, 0)
+
+
+@pytest.mark.parametrize("arch", ["chameleon-34b", "musicgen-large"])
+def test_serve_driver_runs_frontend_arch_on_cpu(arch):
+    """--arch chameleon-34b | musicgen-large --reduced --device cpu: served
+    on tokens alone, as the JAX engine serves them."""
+    from repro_torch.launch import serve
+
+    rec = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--requests", "3", "--max-new", "4", "--max-batch", "2"])
+    assert rec["arch"] == f"{arch}-smoke"
     assert rec["requests"] == 3 and rec["generated_tokens"] == 12
     assert rec["kernels"] == dict.fromkeys(KERNELS, 0)
 

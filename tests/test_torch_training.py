@@ -38,7 +38,9 @@ from repro_torch.training import step as step_mod  # noqa: E402
 
 # the archs of tests/test_arch_smoke.py::test_train_step that the port has
 ARCHS = ["smollm-360m", "qwen2-0.5b", "deepseek-moe-16b", "dbrx-132b", "rwkv6-7b",
-         "jamba-1.5-large", "gemma2-27b", "gemma3-4b"]
+         "jamba-1.5-large", "gemma2-27b", "gemma3-4b", "chameleon-34b", "musicgen-large"]
+# the archs with a frontend stub, whose loss also takes (B, S, d) embeddings
+FRONTEND_ARCHS = ["chameleon-34b", "musicgen-large"]
 # f32 on both sides; XLA:CPU and torch sum the matmuls, the scans and the
 # backward in different orders, so a leaf's gradient is held relative to
 # its largest entry (up to 4e-7 seen), and the loss to 1e-5 of itself
@@ -205,6 +207,55 @@ def test_loss_and_grads_match_jax(arch):
     _assert_leaves_close(jg, tg, GRAD_TOL)
 
 
+def _perturb_scales(tree, seed):
+    """A copy of a JAX param tree whose RMSNorm scales (zeros at init) are
+    N(0, 0.5), so each norm's scale, QK-norm's included, reaches the loss."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else
+                (rng.standard_normal(v.shape) * 0.5).astype(v.dtype) if k == "scale" else v
+                for k, v in t.items()}
+
+    return walk(jax.tree.map(np.asarray, tree))
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_loss_and_grads_with_frontend_match_jax(arch):
+    """loss_fn with frontend embeddings, its parts and every gradient leaf
+    (``frontend/proj``, and chameleon's ``q_norm`` / ``k_norm`` among them),
+    f32, against jax.value_and_grad(lm.loss_fn), norm scales perturbed."""
+    jcfg, cfg, jp, _ = _both(arch)
+    np_p = _perturb_scales(jp, 36)
+    jp, tp = jax.tree.map(jnp.asarray, np_p), params_from_jax(np_p, cfg, device="cpu")
+    B, S = 2, 32
+    rng = np.random.default_rng(37)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    fe = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    x, y = toks[:, :-1], toks[:, 1:]
+
+    def jloss(p):
+        return jax_lm.loss_fn(p, jcfg, jnp.asarray(x), jnp.asarray(y), jnp.asarray(fe))
+
+    (jl, jm), jg = jax.value_and_grad(jloss, has_aux=True)(jp)
+    tp = step_mod._requires_grad(tp)
+    tl, tm = lm.loss_fn(tp, cfg, torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(fe))
+    tg = step_mod._rebuild(tp, iter(step_mod._grad(tl, optim.leaves(tp))))
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=LOSS_TOL)
+    for k in ("ce", "z_loss", "aux", "tokens"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=LOSS_TOL, atol=1e-9,
+                                   err_msg=k)
+    _assert_leaves_close(jg, tg, GRAD_TOL)
+    named = _flat(tg)
+    assert float(named["/frontend/proj/w"].abs().max()) > 0
+    for name in ("q_norm", "k_norm") if cfg.qk_norm else ():
+        assert float(named[f"/blocks/pos0/mixer/{name}/scale"].abs().max()) > 0
+    # without the embeddings the loss is another one
+    with torch.no_grad():
+        bare, _ = lm.loss_fn(tp, cfg, torch.from_numpy(x), torch.from_numpy(y))
+    assert abs(float(bare) - float(tl)) > 1e-3
+
+
 @pytest.mark.parametrize("policy", ["nothing", "dots"])
 def test_remat_policies_give_the_same_grads(policy):
     """Per-period checkpointing recomputes the same values: every gradient
@@ -262,6 +313,44 @@ def test_train_step_with_microbatches_matches_jax():
     # the first step moves each weight by ~lr (Adam's normalised update), so
     # the params agree to well under it
     _assert_leaves_close(jstate["params"], state["params"], 1e-5)
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_train_step_with_microbatches_and_frontend_matches_jax(arch):
+    """One step with two microbatches and frontend embeddings, split with
+    the tokens as the JAX step splits them: params, loss and grad norm."""
+    jcfg, cfg, jp, tp = _both(arch)
+    tcfg = step_mod.TrainConfig(microbatches=2)
+    jtcfg = jax_step.TrainConfig(microbatches=2)
+    rng = np.random.default_rng(38)
+    toks = rng.integers(0, cfg.vocab_size, (4, 17)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "frontend_embed": rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32)}
+    jstate = {"params": jp, "opt": jax_optim.init_opt_state(jp, jtcfg.opt)}
+    jstate, jm = jax_step.make_train_step(jcfg, jtcfg)(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    state = step_mod.init_train_state(cfg, tcfg, params=tp)
+    state, m = step_mod.make_train_step(cfg, tcfg)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    for k in ("loss", "ce", "z_loss", "aux", "tokens", "grad_norm"):
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, atol=1e-9, err_msg=k)
+    _assert_leaves_close(jstate["params"], state["params"], 1e-5)
+
+
+def test_compiled_train_step_refuses_frontend_embed():
+    """The compiled step takes tokens and labels only: a batch with
+    embeddings is refused, never run without them."""
+    from repro_torch.training.compiled import CompiledTrainStep
+
+    cfg = reduced(get_config("musicgen-large"))
+    tcfg = step_mod.TrainConfig()
+    state = step_mod.init_train_state(cfg, tcfg, 0, "cpu")
+    step = CompiledTrainStep(cfg, tcfg, state)
+    toks = torch.zeros(2, 8, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="frontend"):
+        step(state, {"tokens": toks, "labels": toks,
+                     "frontend_embed": torch.zeros(2, 8, cfg.d_model)})
+    assert step.counts()["calls"] == 0
 
 
 def test_microbatches_match_the_full_batch():
