@@ -223,9 +223,42 @@ failure of which exits non-zero:
    request's tokens equal, the cap's evictions, and the reserved memory
    after each length, which must not grow past its value at the cap with
    the cap and must grow past it without (the control);
-7. print the script's run time, the per-kernel JSON line (launches from the
-   nine compiled serving runs; K1b's and K3b's from phase 5 (e)), the card
-   line, and last the ``{"ok": true, "device": ...}`` line.
+7. profile-guided dispatch (``dispatch/``) between the kernel tier and the
+   plain tier on the card, every dispatched set with DISPATCH_MIN_SAMPLES
+   (a compiled step's third call is its first plain replay), its held and
+   peak memory printed: (a) full-width, full-depth qwen2-0.5b in bf16 (8
+   slots, 1024-slot caches, 8 requests of 512 prompt tokens, 32 new
+   tokens, greedy, compiled) undispatched, static kernel, static plain,
+   roofline and profiled: the static kernel run's tokens and exact launch
+   counts those of the undispatched run, the static plain run launching
+   no kernel, roofline choosing the kernels for both surfaces, the
+   profiled run exploring
+   each tier DISPATCH_MIN_SAMPLES times per surface and then choosing the
+   tier whose minimum sample so far is lower, every decision measured and
+   logged; reported: the roofline estimates beside both tiers' replay
+   medians, the dispatcher's cost a tick (static kernel against
+   undispatched) and the tiers' bf16 token agreement (ROADMAP R10); (e)
+   ``launch.serve --dispatch profiled`` (the same set) with
+   ``--profile-out``, then with ``--profile-in`` of that store and of a
+   store stamped ``tpu_v5e``: no exploration, every TPU entry aged out,
+   the card's store stamped ``h100_sxm``; (b) qwen2-0.5b at full width and
+   DISPATCH_GATE_LAYERS layers in f32: a profiled engine, switching tiers
+   partway through requests, gives every request the undispatched tokens;
+   (c) rwkv6-7b at full width and DISPATCH_RWKV_LAYERS layers in f32 (phase
+   4c's noise on its flat leaves; prompts of 256, a multiple of its chunk):
+   roofline and profiled engines give the undispatched tokens (pricing
+   must not advance the recurrent state); (d) ``python -m
+   repro_torch.launch.train --arch smollm-360m --dispatch profiled`` at
+   full width, 4 x 2048, DISPATCH_TRAIN_STEPS steps, a checkpoint every
+   DISPATCH_CKPT_EVERY, a failure before step DISPATCH_FAIL_AT, in a child
+   process: both tiers dispatched, one restart, the kernel tier's losses
+   up to the first plain step equal bit for bit to phase 5 (e')'s compiled
+   run's; reported: each tier's step ms (its ``--profile-out`` store) and
+   the stragglers;
+8. print the script's run time, the per-kernel JSON line (launches from the
+   nine compiled serving runs, K1b's and K3b's from phase 5 (e), and phase
+   7's runs), the card line, and last the ``{"ok": true, "device": ...}``
+   line.
 
 ``--record PATH`` also writes the full record (every check, the serving
 run, the profiles) there as JSON.
@@ -367,6 +400,18 @@ TAPE_TRAIN_REPLAYS = 6  # (d) replays of the compiled train step with its tape
 R13_LENGTHS = (512, 64, 384, 128, 256, 192)
 R13_CAP = 4
 SHARE_MAX = 1.05  # (f) no model-FLOP or roofline share of a measured step may read over this
+# phase 7: profile-guided dispatch (dispatch/) between the kernel and plain tiers
+DISPATCH_SERVE = dict(max_batch=8, max_seq=1024, requests=8, prompt_len=512, max_new=32)
+# a compiled step's first call runs eagerly and its second captures: its
+# third is the first plain replay, so a tier is warm after 3 samples
+DISPATCH_MIN_SAMPLES = 3
+DISPATCH_GATE_LAYERS = 4  # (b) qwen2-0.5b at full width in f32
+DISPATCH_GATE_SERVE = dict(max_batch=8, max_seq=1024, requests=8, prompt_len=512, max_new=16)
+DISPATCH_RWKV_LAYERS = 4  # (c) rwkv6-7b at full width in f32; prompts a multiple of its chunk
+DISPATCH_RWKV_SERVE = dict(max_batch=4, max_seq=512, requests=4, prompt_len=256, max_new=32)
+# (d) launch.train --dispatch profiled: a checkpoint every 4 steps, a
+# failure before step 7 (restores step 4)
+DISPATCH_TRAIN_STEPS, DISPATCH_CKPT_EVERY, DISPATCH_FAIL_AT = 8, 4, 7
 
 
 def closed_form_tol(chunk: int) -> float:
@@ -2123,14 +2168,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     rparams, rwkv_init = init_model(rcfg)
-    for sub in rparams["blocks"]["pos0"].values():  # mixer and ffn
-        for name, law in RWKV_FLAT_NOISE.items():
-            if name in sub:
-                t = sub[name]
-                noise = (torch.rand(t.shape, generator=gen, device=dev) if law == "uniform"
-                         else torch.randn(t.shape, generator=gen, device=dev) * law)
-                t.copy_(noise)
-    del sub, t, noise  # the loop's names would keep the channel mix's 8.6 GB alive
+    seed_rwkv_noise(rparams, gen)
     reng, rprompts, routs, rwkv_serve, eager_outs, eager_serve = serve_both(rcfg, rparams,
                                                                            RWKV_SERVE)
     rcounts, n_ticks = rwkv_serve["kernels"], rwkv_serve["decode_ticks"]
@@ -3051,7 +3089,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     measurement = measurement_phase(dev, smi)
 
-    # -- 7. report ----------------------------------------------------------
+    # -- 7. profile-guided dispatch ------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dispatch = dispatch_phase(dev, smi, records, compiled_rec["losses"])
+
+    # -- 8. report ----------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
             "serving_logits": agree, "breakdown": breakdown,
@@ -3071,7 +3114,8 @@ def main() -> None:
                           "bf16_full_depth": g2_gate_bf16, "gate_f32": g2_gate,
                           "gate_f32_init": g2_init4},
             **m10,
-            "measurement": measurement, "seconds": time.time() - t_start}
+            "measurement": measurement, "dispatch": dispatch,
+            "seconds": time.time() - t_start}
     print(f"chip_smoke: {full['seconds']:.1f} s", flush=True)
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
@@ -3487,6 +3531,323 @@ def measurement_phase(dev, smi: str) -> dict:
     torch.cuda.empty_cache()
     return rec
 
+def dispatch_phase(dev, smi: str, records: dict, compiled_losses: list) -> dict:
+    """Phase 7: profile-guided dispatch on the card (see the module
+    docstring); adds its runs' launches to ``records`` and returns its
+    record.  ``compiled_losses`` are phase 5 (e')'s compiled run's losses,
+    step by step (launch.train's schedule is the same for 8 and 20 steps
+    until step 10: warmup)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.events import EventLog
+    from repro_torch.dispatch import DispatchConfig, Dispatcher, ProfileStore, host_registry
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.trace.session import load_profile_store
+
+    rec: dict = {}
+    reg = host_registry(device=dev)
+    if reg.names() != ["kernel", "plain"]:
+        fail(f"host_registry on {dev}: {reg.names()}, expected ['kernel', 'plain']")
+    stray = {name: 0 for name in records}  # phase 7's launches, added to the kernel line
+
+    def memory(label: str) -> dict:
+        line = {"held_gb": torch.cuda.memory_allocated() / 1e9,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"7 {label} memory: {json.dumps(line)}", flush=True)
+        return line
+
+    def ms(xs) -> "float | None":
+        return 1e3 * float(np.median(xs)) if len(xs) else None
+
+    def run(label, c, p, spec, policy=None, backend="kernel"):
+        """One serve set through the compiled engine, undispatched (policy
+        None) or under a dispatcher over the card's tiers, with the launch
+        counts reset just before; every request delivered in full, every
+        decision measured and logged."""
+        log = EventLog()
+        disp = None if policy is None else Dispatcher(
+            DispatchConfig(policy=policy, static_backend=backend,
+                           min_samples=DISPATCH_MIN_SAMPLES), registry=reg, log=log)
+        eng = Engine(c, p, ServeConfig(max_batch=spec["max_batch"], max_seq=spec["max_seq"],
+                                       seed=SEED), log=log, dispatcher=disp)
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, c.vocab_size, spec["prompt_len"]).tolist()
+                   for _ in range(spec["requests"])]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.time()
+        rids = [eng.submit(pr, max_new=spec["max_new"]) for pr in prompts]
+        res = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        outs = [res.get(r, []) for r in rids]
+        if any(len(o) != spec["max_new"] for o in outs):
+            fail(f"7 {label}: serving did not deliver every request in full")
+        ticks, prefills = log.durations("decode_tick"), log.durations("prefill")
+        r = {"policy": policy or "off", "arch": c.name, "layers": c.n_layers,
+             "dtype": c.activation_dtype, **spec, "wall_s": wall,
+             "tokens_per_s": sum(map(len, outs)) / wall,
+             # the first two of each step run eagerly / capture
+             "median_tick_ms": ms(ticks[2:]), "median_prefill_ms": ms(prefills[2:]),
+             "kernels": launch_counts(), "graphs": eng.compiled_counts(),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        for name in stray:
+            stray[name] += r["kernels"][name]
+        if disp is not None:
+            r["static_backend"] = backend if policy == "static" else None
+            r["dispatch"] = disp.summary()
+            r["dispatch_events"] = len(log.events(kind="dispatch"))
+            if (r["dispatch_events"] != r["dispatch"]["decisions"]
+                    or any(d.measured_s is None for d in disp.decisions)):
+                fail(f"7 {label}: {r['dispatch_events']} dispatch events for "
+                     f"{r['dispatch']['decisions']} decisions, or a decision without measured_s")
+            r["decision_ms"] = {op: {b: ms([d.measured_s for d in disp.decisions
+                                            if d.op == op and d.backend == b][2:])
+                                     for b in reg.names()}
+                                for op in ("serve_prefill", "serve_decode")}
+        print(f"7 {label}: {json.dumps(r)}", flush=True)
+        return eng, disp, outs, r
+
+    def check_profiled(label, disp) -> dict:
+        """Each tier explored DISPATCH_MIN_SAMPLES times per surface, and
+        every later decision the tier whose minimum sample so far is lower."""
+        seen: dict = {}
+        for d in disp.decisions:
+            samples = seen.setdefault(d.op, {b: [] for b in reg.names()})
+            if d.source == "measured":
+                best = min(samples, key=lambda b: min(samples[b], default=float("inf")))
+                if any(len(v) < DISPATCH_MIN_SAMPLES for v in samples.values()):
+                    fail(f"7 {label}: {d.op} measured before every tier was warm")
+                if d.backend != best:
+                    fail(f"7 {label}: {d.op} chose {d.backend}, the minimum samples were "
+                         f"{ {b: min(v) for b, v in samples.items()} }")
+            elif d.source != "explore":
+                fail(f"7 {label}: a decision from {d.source!r}")
+            samples[d.backend].append(d.measured_s)
+        explored = {op: {b: sum(1 for d in disp.decisions if d.op == op and d.backend == b
+                                and d.source == "explore") for b in reg.names()}
+                    for op in seen}
+        if any(n < DISPATCH_MIN_SAMPLES for v in explored.values() for n in v.values()):
+            fail(f"7 {label}: explored {explored}, each tier at least {DISPATCH_MIN_SAMPLES}")
+        return {"explored": explored,
+                "min_sample_ms": {op: {b: 1e3 * min(v) for b, v in s.items()}
+                                  for op, s in seen.items()},
+                "settled_on": {op: disp.decisions[max(i for i, d in enumerate(disp.decisions)
+                                                      if d.op == op)].backend for op in seen}}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH)
+
+    # -- (a) qwen2-0.5b, full width and depth, bf16, five ways ---------------
+    print(f"7 (a) {ARCH} under dispatch, {smi}:", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, SEED, device=dev)
+    rec["a_memory_after_init"] = memory("(a) init")
+    runs = {}
+    for label, policy, backend in (("off", None, "kernel"), ("static_kernel", "static", "kernel"),
+                                   ("static_plain", "static", "plain"),
+                                   ("roofline", "roofline", "kernel"),
+                                   ("profiled", "profiled", "kernel")):
+        eng, disp, outs, r = run(f"(a) {label}", cfg, params, DISPATCH_SERVE, policy, backend)
+        if policy == "roofline":
+            r["estimates_ms"] = {op: {b: 1e3 * s for b, s in est.items()}
+                                 for (op, _), est in eng._est_cache.items()}
+        if policy == "profiled":
+            r["profiled"] = check_profiled("(a) profiled", disp)
+        runs[label] = (outs, r)
+        del eng, disp
+        gc.collect()
+    rec["a_memory"] = memory("(a) sets")
+    off, sk, sp = runs["off"], runs["static_kernel"], runs["static_plain"]
+    if sk[0] != off[0]:
+        fail("7 (a): the static kernel run's tokens differ from the undispatched run's")
+    if sk[1]["kernels"] != off[1]["kernels"]:
+        fail(f"7 (a): static kernel launches {sk[1]['kernels']}, undispatched "
+             f"{off[1]['kernels']}")
+    if any(sp[1]["kernels"].values()):
+        fail(f"7 (a): the static plain run launched {sp[1]['kernels']}")
+    roof = runs["roofline"][1]
+    if any(set(v) != {"kernel"} for v in roof["dispatch"]["by_op"].values()):
+        fail(f"7 (a): roofline chose {roof['dispatch']['by_op']}, the kernels expected")
+    n_tok = sum(map(len, off[0]))
+    agree = {"requests_equal": sum(a == b for a, b in zip(sk[0], sp[0])),
+             "requests": len(sk[0]),
+             "tokens_equal": sum(x == y for a, b in zip(sk[0], sp[0]) for x, y in zip(a, b)),
+             "tokens": n_tok,
+             "first_divergence": [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                                  for a, b in zip(sk[0], sp[0])]}
+    tiers = {"replay_ms": {"kernel": sk[1]["decision_ms"], "plain": sp[1]["decision_ms"]},
+             "roofline_estimates_ms": roof["estimates_ms"],
+             "roofline_choices": roof["dispatch"]["by_op"],
+             "profiled": runs["profiled"][1]["profiled"],
+             "profiled_choices": runs["profiled"][1]["dispatch"]["by_op"]}
+    cost = {"undispatched_tick_ms": off[1]["median_tick_ms"],
+            "static_kernel_tick_ms": sk[1]["median_tick_ms"],
+            "dispatcher_ms": sk[1]["median_tick_ms"] - off[1]["median_tick_ms"],
+            "dispatcher_share": sk[1]["median_tick_ms"] / off[1]["median_tick_ms"] - 1,
+            "undispatched_prefill_ms": off[1]["median_prefill_ms"],
+            "static_kernel_prefill_ms": sk[1]["median_prefill_ms"]}
+    print(f"7 (a) {ARCH} tiers, {smi}: {json.dumps(tiers)}", flush=True)
+    print(f"7 (a) {ARCH} dispatcher cost a step (median replays, static kernel vs "
+          f"undispatched): {json.dumps(cost)}", flush=True)
+    print(f"7 (a) {ARCH} bf16 tokens, static kernel vs static plain (ROADMAP R10; reported): "
+          f"{json.dumps(agree)}", flush=True)
+    rec["a"] = {"runs": {k: v[1] for k, v in runs.items()}, "tiers": tiers, "cost": cost,
+                "bf16_token_agreement": agree}
+
+    # -- (e) warm start through the serve driver ----------------------------
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="repro_torch_profiles_"))
+    try:
+        argv = ["--arch", ARCH, "--seed", str(SEED), "--dispatch", "profiled",
+                *(f"--{k.replace('_', '-')}={DISPATCH_SERVE[k]}" for k in
+                  ("requests", "prompt_len", "max_new", "max_batch", "max_seq"))]
+        store_path, tpu_path = tmp / "card.json", tmp / "tpu_v5e.json"
+        cold = serve_cli.main(argv + ["--profile-out", str(store_path)])
+        tpu = ProfileStore()
+        tpu.set_stamp(git_sha="0000000", chip="tpu_v5e")
+        for backend in ("pallas", "chunked", "ref"):
+            tpu.record("serve_prefill", backend, "int32[1,512]", 5e-3)
+            tpu.record("serve_decode", backend, "int32[8]", 3e-3)
+        tpu_path.write_text(tpu.to_json())
+        warm = serve_cli.main(argv + ["--profile-in", str(store_path),
+                                      "--profile-in", str(tpu_path)])
+        card_store = load_profile_store(str(store_path))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in stray:
+        stray[name] += cold["kernels"][name] + warm["kernels"][name]
+    stamps = sorted({(e.git_sha, e.chip) for e in card_store._entries.values()})
+    warm_rec = {"cold_explore": cold["dispatch"]["explore_dispatches"],
+                "warm_explore": warm["dispatch"]["explore_dispatches"],
+                "tpu_entries": len(tpu), "profile_aged_out": warm["profile_aged_out"],
+                "card_store_entries": len(card_store), "card_store_stamps": stamps,
+                "cold_tokens_per_s": cold["tokens_per_s"], "warm_tokens_per_s": warm["tokens_per_s"],
+                "cold_by_op": cold["dispatch"]["by_op"], "warm_by_op": warm["dispatch"]["by_op"]}
+    print(f"7 (e) warm start through launch.serve: {json.dumps(warm_rec)}", flush=True)
+    if warm_rec["cold_explore"] == 0 or warm_rec["warm_explore"] != 0:
+        fail(f"7 (e): explore dispatches cold {warm_rec['cold_explore']}, warm "
+             f"{warm_rec['warm_explore']}; expected > 0 and 0")
+    if warm_rec["profile_aged_out"] != len(tpu) or any(c != "h100_sxm" for _, c in stamps):
+        fail(f"7 (e): aged out {warm_rec['profile_aged_out']} of the TPU store's {len(tpu)} "
+             f"entries; the card's store is stamped {stamps}")
+    rec["e"] = {**warm_rec, "memory": memory("(e) warm start")}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) the f32 gate: switching tiers partway through requests ---------
+    c32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32",
+                              n_layers=DISPATCH_GATE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    p32 = lm.init_params(c32, SEED, device=dev)
+    _, _, base, base_r = run("(b) f32 off", c32, p32, DISPATCH_GATE_SERVE)
+    _, disp, got, prof_r = run("(b) f32 profiled", c32, p32, DISPATCH_GATE_SERVE, "profiled")
+    switched = {op: set(v) for op, v in prof_r["dispatch"]["by_op"].items()}
+    gate_b = {"requests": len(base), "requests_equal": sum(a == b for a, b in zip(base, got)),
+              "by_op": prof_r["dispatch"]["by_op"], "profiled": check_profiled("(b)", disp),
+              "memory": memory("(b) f32 gate")}
+    print(f"7 (b) {ARCH} f32 gate at {DISPATCH_GATE_LAYERS} layers, profiled vs undispatched: "
+          f"{json.dumps(gate_b)}", flush=True)
+    if gate_b["requests_equal"] != len(base):
+        fail("7 (b): the profiled engine's f32 tokens differ from the undispatched engine's")
+    if any(v != {"kernel", "plain"} for v in switched.values()):
+        fail(f"7 (b): the profiled engine did not switch tiers ({switched})")
+    rec["b"] = {**gate_b, "runs": {"off": base_r, "profiled": prof_r}}
+    del p32, disp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) recurrent state: rwkv6-7b at full width, 4 layers, f32 ---------
+    rc = dataclasses.replace(get_config(RWKV_ARCH), param_dtype="float32",
+                             activation_dtype="float32", n_layers=DISPATCH_RWKV_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    rp = lm.init_params(rc, SEED, device=dev)
+    seed_rwkv_noise(rp, torch.Generator(device=dev).manual_seed(SEED))
+    rwkv_runs = {}
+    for policy in (None, "roofline", "profiled"):
+        _, disp, outs, r = run(f"(c) {RWKV_ARCH} f32 {policy or 'off'}", rc, rp,
+                               DISPATCH_RWKV_SERVE, policy)
+        rwkv_runs[policy or "off"] = (outs, r)
+        del disp
+    gate_c = {pol: sum(a == b for a, b in zip(outs, rwkv_runs["off"][0]))
+              for pol, (outs, _) in rwkv_runs.items()}
+    gate_c_rec = {"requests": DISPATCH_RWKV_SERVE["requests"], "requests_equal": gate_c,
+                  "profiled_by_op": rwkv_runs["profiled"][1]["dispatch"]["by_op"],
+                  "rwkv6_scan_launches": {k: v[1]["kernels"]["rwkv6_scan"]
+                                          for k, v in rwkv_runs.items()},
+                  "memory": memory("(c) rwkv6-7b")}
+    print(f"7 (c) {RWKV_ARCH} f32, {DISPATCH_RWKV_LAYERS} layers, dispatched vs undispatched "
+          f"tokens: {json.dumps(gate_c_rec)}", flush=True)
+    if any(n != DISPATCH_RWKV_SERVE["requests"] for n in gate_c.values()):
+        fail(f"7 (c): {RWKV_ARCH}'s dispatched tokens differ from the undispatched run's "
+             f"({gate_c}): pricing or a tier switch moved the recurrent state")
+    rec["c"] = {**gate_c_rec, "runs": {k: v[1] for k, v in rwkv_runs.items()}}
+    del rp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) training through launch.train --dispatch profiled --------------
+    ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    store_path = Path(ckpt_dir) / "train_profiles.json"
+    cli_args = ["--arch", TRAIN_ARCH, "--steps", str(DISPATCH_TRAIN_STEPS), "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir", ckpt_dir,
+                "--ckpt-every", str(DISPATCH_CKPT_EVERY), "--fail-at", str(DISPATCH_FAIL_AT),
+                "--dispatch", "profiled", "--profile-out", str(store_path)]
+    try:
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *cli_args],
+                              cwd=ROOT, capture_output=True, text=True,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                              timeout=CLI_TIMEOUT_S)
+        if proc.returncode != 0:
+            fail(f"7 (d) repro_torch.launch.train exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        store = load_profile_store(str(store_path))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in stray:
+        stray[name] += cli["kernels"][name]
+    sig = f"int32[{TRAIN_BATCH},{TRAIN_SEQ}];int32[{TRAIN_BATCH},{TRAIN_SEQ}]"
+    tier_ms = {}
+    for b in reg.names():
+        e = store.entry("train_step", b, sig)
+        tier_ms[b] = None if e is None else {"samples": e.count, "min_ms": 1e3 * e.min_s,
+                                             "mean_ms": 1e3 * e.mean_s}
+    first_plain = cli["step_backends"].index("plain") if "plain" in cli["step_backends"] \
+        else len(cli["step_backends"])
+    kernel_steps = list(range(first_plain))
+    train_rec = {"args": " ".join(cli_args[:-2]), "restarts": cli["restarts"],
+                 "stragglers": cli["stragglers"], "by_op": cli["dispatch"]["by_op"],
+                 "by_source": cli["dispatch"]["by_source"], "step_backends": cli["step_backends"],
+                 "compiled": cli["compiled"], "tier_step_ms": tier_ms, "step_ms": cli["step_ms"],
+                 "losses": cli["losses"], "kernel_steps_before_first_plain": kernel_steps,
+                 "losses_equal_compiled_run": all(
+                     cli["losses"][i] == compiled_losses[i] for i in kernel_steps),
+                 "kernels": cli["kernels"]}
+    print(f"7 (d) repro_torch.launch.train {train_rec['args']}, {smi}: {json.dumps(train_rec)}",
+          flush=True)
+    if set(cli["dispatch"]["by_op"].get("train_step", {})) != {"kernel", "plain"}:
+        fail(f"7 (d): train_step dispatched to {cli['dispatch']['by_op']}, both tiers expected")
+    if cli["restarts"] != 1:
+        fail(f"7 (d): {cli['restarts']} restarts, expected 1")
+    if not kernel_steps or not train_rec["losses_equal_compiled_run"]:
+        fail(f"7 (d): the kernel tier's losses {[cli['losses'][i] for i in kernel_steps]} "
+             f"against phase 5 (e')'s {compiled_losses[:len(kernel_steps)]}")
+    rec["d"] = train_rec
+
+    for name in stray:
+        records[name]["launches"] += stray[name]
+    rec["launches"] = stray
+    return rec
+
 
 def _overheads(rows, baseline: str = "baseline") -> dict:
     """Each row's mean-time overhead against its own round's baseline row
@@ -3616,6 +3977,19 @@ def ptxas_instances(log_text: str) -> list[tuple[str, int, int]]:
         out.append((part.split("'")[0], int(regs.group(1)) if regs else 0,
                     int(spill.group(1)) if spill else 0))
     return out
+
+
+def seed_rwkv_noise(params, gen) -> None:
+    """Overwrites the flat-init leaves of an RWKV6 model's stacked blocks
+    (mixer and ffn) with RWKV_FLAT_NOISE's seeded draws, in place."""
+    import torch
+
+    for sub in params["blocks"]["pos0"].values():
+        for name, law in RWKV_FLAT_NOISE.items():
+            if name in sub:
+                t = sub[name]
+                t.copy_(torch.rand(t.shape, generator=gen, device=t.device) if law == "uniform"
+                        else torch.randn(t.shape, generator=gen, device=t.device) * law)
 
 
 def seed_mamba_noise(params, gen) -> None:

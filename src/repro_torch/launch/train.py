@@ -33,8 +33,20 @@ On the card attention and RMSNorm differentiate through their kernels
 Mamba scan or the RWKV6 scan (K4, K5, K6) has no backward kernel there yet:
 the driver stops with the ROADMAP item that brings it (K4b, K5b, K6b).
 
-Not here yet: ``--mesh`` (ROADMAP M13), ``--dispatch`` (M8), ``--tune`` /
-``--fleet`` (M12), the trace and metrics flags (M11).
+``--dispatch {static,roofline,profiled}`` routes every step through
+``dispatch/`` between the tiers that run on ``--device`` (``kernel`` and
+``plain`` on the card, ``plain`` on the CPU), each its own compiled step
+over the same state tensors; ``--dispatch-backend``, ``--profile-in`` and
+``--profile-out`` and the JSON line's dispatch fields are the serve
+driver's (``launch/serve.py``).  On the card a compiled step's first call
+runs eagerly and its second captures, so a tier warms after 3 steps there
+(``min_samples=3``: every warm set holds a replay), after 2 on the CPU.
+``compiled`` then holds each tier's counts, and the line gains
+``step_backends``, the tier of each step's last run.  ``losses`` is the
+loss of each step's last run, in step order.
+
+Not here yet: ``--mesh`` (ROADMAP M13), ``--tune`` / ``--fleet`` (M12),
+the trace and metrics flags (M11).
 """
 from __future__ import annotations
 
@@ -51,7 +63,9 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.events import EventLog
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.dispatch import with_impl
 from repro_torch.kernels import launch_counts, reset_launches
+from repro_torch.launch.serve import add_dispatch_args, dispatch_record, make_dispatcher
 from repro_torch.runtime.supervisor import FailureInjector, Supervisor, SupervisorConfig
 from repro_torch.training import optim
 from repro_torch.training.compiled import CompiledTrainStep
@@ -74,6 +88,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch versions")
+    add_dispatch_args(ap, "each train step")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -86,10 +101,21 @@ def main(argv: list[str] | None = None) -> dict:
         microbatches=args.microbatches,
     )
     state = init_train_state(cfg, tcfg, args.seed, device)
-    step = CompiledTrainStep(cfg, tcfg, state)
+    log = EventLog(maxlen=1 << 16)
+    dispatcher, aged = make_dispatcher(args, device, log)
+    if dispatcher is None:
+        steps = {None: CompiledTrainStep(cfg, tcfg, state)}
+        step_variants = None
+    else:  # one compiled step per tier, all over the same state tensors
+        steps = {t.name: CompiledTrainStep(cfg, tcfg, state)
+                 for t in dispatcher.registry.targets()}
+        step_variants = {t.name: with_impl(t.impl, steps[t.name])
+                         for t in dispatcher.registry.targets()}
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch, seed=args.seed))
+    order: list[int] = []  # the step of each call, replays after a restart too
 
     def batch_fn(i: int) -> dict:
+        order.append(i)
         return {k: torch.from_numpy(v).to(device) for k, v in data.batch(i).items()}
 
     ckpt_ctx = contextlib.nullcontext(args.ckpt_dir) if args.ckpt_dir else \
@@ -98,8 +124,9 @@ def main(argv: list[str] | None = None) -> dict:
         sup = Supervisor(
             SupervisorConfig(ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every,
                              max_steps=args.steps),
-            step, batch_fn, state, log=EventLog(maxlen=1 << 16),
+            steps.get(None), batch_fn, state, log=log,
             failures=FailureInjector(tuple(int(s) for s in args.fail_at.split(",") if s)),
+            dispatcher=dispatcher, step_variants=step_variants,
         )
         reset_launches()
         t0 = time.time()
@@ -110,21 +137,30 @@ def main(argv: list[str] | None = None) -> dict:
                 raise
             raise SystemExit(f"{cfg.name} cannot train on {device} yet: {e}") from e
         wall = time.time() - t0
-    losses = [m["loss"] for m in out["metrics"]]
+    # a failure is raised before its step's batch is drawn: calls and
+    # metrics pair one to one, and a replayed step's later run wins
+    last = dict(zip(order, (m["loss"] for m in out["metrics"])))
+    losses = [last[i] for i in range(out["steps"])]
     rec = {
         "arch": cfg.name,
         "steps": out["steps"],
         "restarts": out["restarts"],
         "stragglers": out["stragglers"],
-        "first_loss": losses[0],
-        "last_loss": losses[-1],
+        "first_loss": out["metrics"][0]["loss"],
+        "last_loss": out["metrics"][-1]["loss"],
         "tokens_per_s": round(out["steps"] * args.batch * args.seq / wall, 1),
         "wall_s": round(wall, 2),
         "step_ms": round(1e3 * statistics.median(sup.durations), 2),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else str(device),
         "kernels": launch_counts(),
-        "compiled": step.counts(),
+        "compiled": (steps[None].counts() if dispatcher is None
+                     else {name: s.counts() for name, s in steps.items()}),
+        "losses": losses,
+        **dispatch_record(args, dispatcher, aged, log),
     }
+    if dispatcher is not None:
+        backend = dict(zip(order, (d.backend for d in dispatcher.decisions)))
+        rec["step_backends"] = [backend[i] for i in range(out["steps"])]
     print(json.dumps(rec), flush=True)
     return rec
 

@@ -17,19 +17,28 @@
   ``straggler`` event under its step's span and counted.
 * **Lifecycle tracing.**  step / checkpoint / restart spawn-exit brackets
   go into the :class:`~repro_torch.core.events.EventLog`.
+* **Profile-guided placement.**  Given a ``dispatcher`` and
+  ``step_variants`` (target name -> step, each its own compiled step over
+  the same state tensors, run under its target's impl: ``with_impl``),
+  every step goes through ``dispatcher.dispatch("train_step", ...)``
+  inside the step's span, so the decision is the step's child.  A restore
+  copies into the tensors every variant's graph reads, so each still
+  serves after a restart.
 
-The reference's ``dispatcher`` / ``step_variants`` (ROADMAP M8), ``stream``
-(M11) and ``resize`` (M13) come with those items.
+The reference's ``stream`` (ROADMAP M11) and ``resize`` (M13) come with
+those items.
 """
 from __future__ import annotations
 
 import dataclasses
 import statistics
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Mapping, Optional
 
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore_into
 from repro_torch.core.events import GLOBAL_LOG, EventLog
+from repro_torch.dispatch.dispatcher import Dispatcher
+from repro_torch.dispatch.profiles import signature
 
 Tree = Any
 
@@ -80,10 +89,18 @@ class Supervisor:
         *,
         log: Optional[EventLog] = None,
         failures: Optional[FailureInjector] = None,
+        dispatcher: Optional[Dispatcher] = None,
+        step_variants: Optional[Mapping[str, Callable]] = None,
     ) -> None:
         self.cfg = cfg
         self.train_step = train_step
         self.batch_fn = batch_fn
+        # profile-guided placement: when both are given, each step routes to
+        # the argmin-cost variant (see repro_torch.dispatch)
+        self.dispatcher = dispatcher
+        self.step_variants = dict(step_variants) if step_variants else None
+        # per-backend tuned-config tags, resolved at the first dispatched step
+        self._configs: Optional[dict] = None
         self.state = init_state
         self.log = GLOBAL_LOG if log is None else log
         self.failures = failures or FailureInjector()
@@ -126,7 +143,18 @@ class Supervisor:
                     self.failures.maybe_fail(self.step)
                     t0 = time.monotonic()
                     batch = self.batch_fn(self.step)
-                    self.state, metrics = self.train_step(self.state, batch)
+                    if self.dispatcher is not None and self.step_variants:
+                        # inside the step's span: the dispatch event lands
+                        # in the span tree as the step's child
+                        if self._configs is None:
+                            self._configs = self.dispatcher.active_configs()
+                        self.state, metrics = self.dispatcher.dispatch(
+                            "train_step", self.step_variants, self.state, batch,
+                            sig=signature(batch),  # the state's shapes are fixed
+                            configs=self._configs,
+                        )
+                    else:
+                        self.state, metrics = self.train_step(self.state, batch)
                     # the host copy waits for the step (block_until_ready +
                     # device_get); a compiled step's metrics live in its
                     # graph's pool only until the next replay

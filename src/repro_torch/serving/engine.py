@@ -1,7 +1,6 @@
 """Continuous-batching serving engine (fixed decode slots).
 
-Counterpart of ``repro/serving/engine.py`` without the dispatcher branch
-(profile-guided dispatch is ROADMAP item M8).  A fixed ``max_batch``-slot
+Counterpart of ``repro/serving/engine.py``.  A fixed ``max_batch``-slot
 decode batch keeps its caches on the device; a new request is prefilled
 alone (batch 1) and its cache is copied into its slot in place; one batched
 decode step per tick advances every slot.
@@ -34,6 +33,23 @@ static buffers feed eager calls.  ``compiled=False`` calls ``lm.prefill``
 and ``lm.decode_step`` directly, the counterpart of ``jax.disable_jit``,
 so that a check on the card can hold the two paths against each other.
 
+With a ``dispatcher`` (``dispatch/``), each surface exists once per
+backend target that runs on the engine's device (``kernel`` and ``plain``
+on a CUDA device, ``plain`` on the CPU), each variant run inside its
+target's ``kernels.ops.impl_scope`` (``with_impl``), and every call is
+routed by the dispatcher and recorded as a ``dispatch`` event.  Compiled,
+that is one :class:`CompiledStep` per target for the decode step and one
+per (target, prompt length) for prefill: a graph keeps the kernels its
+capture launched, so each tier has graphs of its own.  They share the
+engine's graph pool and ``max_prefill_graphs`` counts every (target,
+length) graph.  Every decode variant reads and writes the same ``caches``
+in place, so the tier may change between ticks.  The a-priori estimates
+come from one ``sdfg.extract`` run of each surface under ``impl="auto"``
+per token signature (``dispatch/cost.py``); a decode step is priced
+against a scratch set of caches of the same shapes, since the run updates
+its caches in place and would advance the recurrent states of the served
+requests.  Policy ``static`` prices nothing.
+
 Request lifecycle events (spawn/exit) and the ``prefill`` / ``decode_tick``
 brackets flow into the :class:`~repro_torch.core.events.EventLog`, as in the
 JAX engine.
@@ -41,17 +57,22 @@ JAX engine.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.events import GLOBAL_LOG, EventLog, current_span, next_span_id, span_scope
+from repro_torch.core import sdfg
+from repro_torch.dispatch.cost import estimate_run
+from repro_torch.dispatch.dispatcher import Dispatcher, with_impl
+from repro_torch.dispatch.profiles import signature
 from repro_torch.models import lm
 from repro_torch.serving.compiled import CompiledStep, Graphs
 
@@ -87,6 +108,11 @@ def _copy_into_slot(dst: Any, src: Any, slot: int, batch_axis: int) -> None:
         dst.select(batch_axis, slot).copy_(src.select(batch_axis, 0))
 
 
+def _bind(impl: Optional[str], fn: Callable) -> Callable:
+    """``fn`` under ``impl`` (``with_impl``), or as it is for no dispatcher."""
+    return fn if impl is None else with_impl(impl, fn)
+
+
 class Engine:
     def __init__(
         self,
@@ -97,6 +123,7 @@ class Engine:
         log: Optional[EventLog] = None,
         compiled: bool = True,
         max_prefill_graphs: int = 4,
+        dispatcher: Optional[Dispatcher] = None,
     ) -> None:
         if max_prefill_graphs < 1:
             raise ValueError(f"max_prefill_graphs must be >= 1, got {max_prefill_graphs}")
@@ -105,6 +132,19 @@ class Engine:
         self.scfg = scfg
         self.log = GLOBAL_LOG if log is None else log
         self.device = params["embed"]["table"].device
+        self.dispatcher = dispatcher
+        # the tiers this engine serves, target name -> kernels.ops impl: the
+        # registry's targets that run on the engine's device (one unnamed
+        # tier under the process default without a dispatcher)
+        self._impls: dict[Optional[str], Optional[str]] = {None: None}
+        if dispatcher is not None:
+            self._impls = {t.name: t.impl for t in dispatcher.registry.available(self.device)}
+            if not self._impls:
+                raise ValueError(f"no target of {dispatcher.registry.names()} runs on "
+                                 f"{self.device}")
+            self._est_cache: dict[tuple[str, str], dict[str, float]] = {}
+            # per-backend tuned-config tags, resolved at the first dispatch
+            self._configs: Optional[dict[str, str]] = None
         B = scfg.max_batch
         self.caches = lm.init_caches(cfg, B, scfg.max_seq, self.device)
         self.compiled = compiled
@@ -113,11 +153,12 @@ class Engine:
             # keeps a deleted engine's graphs and pool alive)
             caches, S = self.caches, scfg.max_seq
             self._graphs = Graphs(self.device)
-            self._decode = self._graphs.step(
-                lambda t, pos: lm.decode_step(params, cfg, t, pos, caches)[0])
+            decode_fn = lambda t, pos: lm.decode_step(params, cfg, t, pos, caches)[0]  # noqa: E731
+            self._decodes = {name: self._graphs.step(_bind(impl, decode_fn))
+                             for name, impl in self._impls.items()}
             self._prefill_fn = lambda t: lm.prefill(params, cfg, t, max_seq=S)
-            # prompt length -> its step, least recently used first
-            self._prefills: OrderedDict[int, CompiledStep] = OrderedDict()
+            # (target, prompt length) -> its step, least recently used first
+            self._prefills: OrderedDict[tuple[Optional[str], int], CompiledStep] = OrderedDict()
             self.max_prefill_graphs = max_prefill_graphs
             self._evictions = 0
         self.cur_pos = np.zeros(B, np.int32)  # next position per slot
@@ -206,41 +247,103 @@ class Engine:
     def prefill(self, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """``lm.prefill`` of one prompt, tokens (1, S) on any device: (logits
         (1, V) f32, caches of batch 1).  Compiled, the outputs belong to this
-        length's graph and are overwritten by its next replay."""
-        if not self.compiled:
-            return lm.prefill(self.params, self.cfg, tokens.to(self.device),
-                              max_seq=self.scfg.max_seq)
-        n = tokens.shape[1]
-        step = self._prefills.get(n)
-        if step is None:
-            if len(self._prefills) == self.max_prefill_graphs:
-                # its graph, static buffers and outputs go back to the pool
-                self._prefills.popitem(last=False)
-                self._evictions += 1
-            step = self._prefills[n] = self._graphs.step(self._prefill_fn)
-        else:
-            self._prefills.move_to_end(n)
-        return step(tokens)
+        length's graph and are overwritten by its next replay.  With a
+        dispatcher, the call goes to the tier it chooses."""
+        if self.dispatcher is None:
+            return self._prefill_on(None, tokens)
+        variants = {name: functools.partial(self._prefill_on, name) for name in self._impls}
+        return self._dispatched("serve_prefill", variants, tokens)
 
     def decode(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """``lm.decode_step`` of every slot against ``self.caches``, advanced
         in place: tokens (max_batch,) int64 and positions (max_batch,) int32
         on any device -> logits (max_batch, V) f32.  Compiled, the logits
-        belong to the decode graph and are overwritten by its next replay."""
+        belong to the decode graph and are overwritten by its next replay.
+        With a dispatcher, the call goes to the tier it chooses."""
+        if self.dispatcher is None:
+            return self._decode_on(None, tokens, positions)
+        variants = {name: functools.partial(self._decode_on, name) for name in self._impls}
+        return self._dispatched("serve_decode", variants, tokens, positions)
+
+    def _prefill_on(self, name: Optional[str], tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        impl = self._impls[name]
         if not self.compiled:
-            return lm.decode_step(self.params, self.cfg, tokens.to(self.device),
-                                  positions.to(self.device), self.caches)[0]
-        return self._decode(tokens, positions)
+            return _bind(impl, lm.prefill)(self.params, self.cfg, tokens.to(self.device),
+                                           max_seq=self.scfg.max_seq)
+        key = (name, tokens.shape[1])
+        step = self._prefills.get(key)
+        if step is None:
+            if len(self._prefills) == self.max_prefill_graphs:
+                # its graph, static buffers and outputs go back to the pool
+                self._prefills.popitem(last=False)
+                self._evictions += 1
+            step = self._prefills[key] = self._graphs.step(_bind(impl, self._prefill_fn))
+        else:
+            self._prefills.move_to_end(key)
+        return step(tokens)
+
+    def _decode_on(self, name: Optional[str], tokens: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        if not self.compiled:
+            return _bind(self._impls[name], lm.decode_step)(
+                self.params, self.cfg, tokens.to(self.device), positions.to(self.device),
+                self.caches)[0]
+        return self._decodes[name](tokens, positions)
+
+    def _dispatched(self, op: str, variants: dict, *args: torch.Tensor) -> Any:
+        """Route one surface call through the dispatcher.
+
+        The profile key is the token tensor's signature (it tells prompt
+        lengths apart; params and caches are fixed per engine).  The
+        a-priori estimates are priced once per (op, signature) from one
+        ``sdfg.extract`` run of the surface under ``impl="auto"``, which the
+        dispatcher overrides with measured times once warm.
+        """
+        disp = self.dispatcher
+        sig = signature(args[0])
+        if self._configs is None:
+            self._configs = disp.active_configs()
+        if disp.cfg.policy == "static":
+            # pinned backend: the pricing would only be logged
+            return disp.dispatch(op, variants, *args, sig=sig, configs=self._configs)
+        key = (op, sig)
+        if key not in self._est_cache:
+            graph = sdfg.extract(with_impl("auto", self._canonical(op)), *args)
+            self._est_cache[key] = {
+                name: estimate_run(graph, disp.registry.get(name), disp.chip).seconds
+                for name in self._impls
+            }
+        return disp.dispatch(op, variants, *args, estimates=self._est_cache[key], sig=sig,
+                             configs=self._configs)
+
+    def _canonical(self, op: str) -> Callable:
+        """The surface ``op`` as the pricing run calls it: prefill as it is
+        (it writes only the caches it returns), the decode step against a
+        fresh scratch set of caches of the engine's shapes, so that pricing
+        leaves ``self.caches`` (KV caches and recurrent states) as they were."""
+        params, cfg, dev, S = self.params, self.cfg, self.device, self.scfg.max_seq
+        if op == "serve_prefill":
+            return lambda t: lm.prefill(params, cfg, t.to(dev), max_seq=S)
+        scratch = lm.init_caches(cfg, self.scfg.max_batch, S, dev)
+        return lambda t, pos: lm.decode_step(params, cfg, t.to(dev), pos.to(dev), scratch)[0]
 
     def compiled_counts(self) -> dict:
         """Calls, captures and replays of the decode step and of each kept
         prompt length's prefill (least recently used first), and how many
-        prefill steps were evicted (empty when the engine is not compiled)."""
+        prefill steps were evicted (empty when the engine is not compiled).
+        With a dispatcher, ``decode`` and ``prefill`` are keyed by target
+        first."""
         if not self.compiled:
             return {}
-        return {"decode": self._decode.counts(),
-                "prefill": {n: step.counts() for n, step in self._prefills.items()},
-                "prefill_evictions": self._evictions}
+        if self.dispatcher is None:
+            return {"decode": self._decodes[None].counts(),
+                    "prefill": {n: step.counts() for (_, n), step in self._prefills.items()},
+                    "prefill_evictions": self._evictions}
+        prefill: dict[str, dict[int, dict[str, int]]] = {name: {} for name in self._impls}
+        for (name, n), step in self._prefills.items():
+            prefill[name][n] = step.counts()
+        return {"decode": {name: step.counts() for name, step in self._decodes.items()},
+                "prefill": prefill, "prefill_evictions": self._evictions}
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         if self.scfg.temperature <= 0.0:

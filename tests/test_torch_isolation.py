@@ -74,6 +74,25 @@ def test_model_module_imports_no_jax_no_repro(module):
     assert "import jax" not in source and "from repro." not in source
 
 
+# profile-guided dispatch (ROADMAP M8) and its provenance module: each
+# imports alone, without JAX, the JAX package (not even the jax-free
+# repro/dispatch/profiles.py or repro/trace/session.py) or triton
+DISPATCH_MODULES = ["repro_torch.dispatch", "repro_torch.dispatch.profiles",
+                    "repro_torch.dispatch.registry", "repro_torch.dispatch.cost",
+                    "repro_torch.dispatch.dispatcher", "repro_torch.trace.session"]
+
+
+@pytest.mark.parametrize("module", DISPATCH_MODULES)
+def test_dispatch_module_imports_no_jax_no_repro(module):
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    path = REPO / "src" / module.replace(".", "/")
+    source = (path / "__init__.py" if path.is_dir() else path.with_suffix(".py")).read_text()
+    assert "import jax" not in source and "from repro." not in source
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     """No card here: chip_smoke.py exits non-zero and prints no result line,
