@@ -255,10 +255,36 @@ failure of which exits non-zero:
    up to the first plain step equal bit for bit to phase 5 (e')'s compiled
    run's; reported: each tier's step ms (its ``--profile-out`` store) and
    the stragglers;
-8. print the script's run time, the per-kernel JSON line (launches from the
+8. the trace and metrics plane on the card (ROADMAP M11): (a)
+   ``launch.serve`` of qwen2-0.5b (full width and depth, bf16, compiled, the
+   SERVE set, ``--dispatch static --dispatch-backend kernel``) untraced and
+   then with ``--trace-out``, ``--trace-dir`` (TRACE_ROTATE events a
+   segment), ``--metrics-port 0 --ready-file`` (one scrape of ``/metrics``
+   during ``--metrics-linger-s``), ``--trace-overhead-budget-pct 5`` and
+   ``--torch-profile`` (backend ``torch``, TRACE_PERIOD_S): the same tokens
+   and launch counts; every device slice of every window bound to a host
+   span (the share bound by a ``span=`` annotation reported); K1's slices
+   under ``prefill`` spans, K2's under ``decode_tick`` spans, K1's, K2's
+   and K3's each under its ``dispatch`` event; a replayed tick's bound
+   device time within TRACE_TICK_TOL of phase 4's ``profile_step`` busy
+   time; the compacted ``--trace-dir`` holds the session's events, no drops
+   on the host tracks; ``python -m repro_torch.trace report`` (and
+   ``--tree``, device rows under their spans), ``export --format chrome``
+   and ``diff`` on both; the scrape has ``repro_serve_queue_depth`` and
+   the ``repro_device_*`` series; (b) ``launch.train`` of smollm-360m (4 x
+   2048, TRACE_TRAIN_STEPS steps, a checkpoint every TRACE_CKPT_EVERY, a
+   failure before TRACE_FAIL_AT, ``--trace-dir``, ``--trace-out``,
+   ``--torch-profile``): the stream rotated at every checkpoint after step 0
+   and at the end, the restart a span, K1's, K1b's, K3's and K3b's slices
+   under ``step`` spans, each step's launches phase 5 (e)'s, the warmup
+   steps' losses bit-equal phase 5 (e')'s compiled run's, the median step
+   beside phase 5 (j)'s supervised run (checkpoints in flight there too); (c) ``tools/trace_record_cost.py`` on the card's
+   host, and a profiler window opened from another thread around a K3
+   launch under a ``span=`` range on this one (reported: what it saw);
+9. print the script's run time, the per-kernel JSON line (launches from the
    nine compiled serving runs, K1b's and K3b's from phase 5 (e), and phase
-   7's runs), the card line, and last the ``{"ok": true, "device": ...}``
-   line.
+   7's and phase 8's runs), the card line, and last the ``{"ok": true,
+   "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
 run, the profiles) there as JSON.
@@ -269,10 +295,12 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -412,6 +440,17 @@ DISPATCH_RWKV_SERVE = dict(max_batch=4, max_seq=512, requests=4, prompt_len=256,
 # (d) launch.train --dispatch profiled: a checkpoint every 4 steps, a
 # failure before step 7 (restores step 4)
 DISPATCH_TRAIN_STEPS, DISPATCH_CKPT_EVERY, DISPATCH_FAIL_AT = 8, 4, 7
+# phase 8: the trace and metrics plane.  A 0.6 s window period opens windows
+# of 0.3 s of profiling (the budget's first on-fraction is 0.5; time paused
+# around a CUDA graph capture does not count), which in the qwen2 set spans
+# the prefill replays, the eager tick and ~20 replayed ticks; the budget
+# then spaces windows to hold their cost under TRACE_BUDGET_PCT of the wall.
+TRACE_PERIOD_S, TRACE_BUDGET_PCT, TRACE_ROTATE, TRACE_LINGER_S = 0.6, 5.0, 4096, 3.0
+TRACE_TICK_TOL = 0.10  # a replayed tick's bound device ms against profile_step's busy ms
+# (b) launch.train: a checkpoint every 4 steps, a failure before step 7
+# (restores step 4); launch.train's lr is the same for 12 and 20 steps
+# through the warmup, so steps 0-10 are phase 5 (e')'s steps
+TRACE_TRAIN_STEPS, TRACE_CKPT_EVERY, TRACE_FAIL_AT = 12, 4, 7
 
 
 def closed_form_tol(chunk: int) -> float:
@@ -2871,6 +2910,7 @@ def main() -> None:
             "manifest_dtypes_live": listed == live, "manifest_bf16_params": bf16_params,
             "manifest_leaves": len(listed), "wall_s": sup_wall,
             "checkpoint_spans_s": sup_log.durations("checkpoint"),
+            "median_step_span_ms": 1e3 * statistics.median(sup_log.durations("step")),
             "restart_span_s": sup_log.durations("restart"),
             "snapshot_ms": snapshot_ms, "write_s": write_s, "restore_s": restore_s,
             "restore_into_s": restore_into_s, "restore_into_extra_gb": restore_into_extra_gb,
@@ -3094,7 +3134,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     dispatch = dispatch_phase(dev, smi, records, compiled_rec["losses"])
 
-    # -- 8. report ----------------------------------------------------------
+    # -- 8. the trace and metrics plane ---------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    tracing = trace_phase(dev, smi, records, breakdown["decode_tick_compiled"], training)
+
+    # -- 9. report ----------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
             "serving_logits": agree, "breakdown": breakdown,
@@ -3114,7 +3159,7 @@ def main() -> None:
                           "bf16_full_depth": g2_gate_bf16, "gate_f32": g2_gate,
                           "gate_f32_init": g2_init4},
             **m10,
-            "measurement": measurement, "dispatch": dispatch,
+            "measurement": measurement, "dispatch": dispatch, "tracing": tracing,
             "seconds": time.time() - t_start}
     print(f"chip_smoke: {full['seconds']:.1f} s", flush=True)
     if args.record is not None:
@@ -3843,6 +3888,304 @@ def dispatch_phase(dev, smi: str, records: dict, compiled_losses: list) -> dict:
              f"against phase 5 (e')'s {compiled_losses[:len(kernel_steps)]}")
     rec["d"] = train_rec
 
+    for name in stray:
+        records[name]["launches"] += stray[name]
+    rec["launches"] = stray
+    return rec
+
+
+def trace_phase(dev, smi: str, records: dict, tick_profile: dict, training: dict) -> dict:
+    """Phase 8: the trace and metrics plane on the card (see the module
+    docstring).  ``tick_profile`` is phase 4's ``profile_step`` of a replayed
+    qwen2 tick, ``training`` phase 5's record (its compiled run's losses,
+    the supervised run's step spans, a step's launches); adds the runs'
+    launches to ``records`` and returns the phase's record."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from repro_torch.kernels import rmsnorm as k3
+    from repro_torch.kernels import uncounted
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.trace import liveprof
+    from repro_torch.trace.cli import main as trace_cli
+    from repro_torch.trace.device import NoDeviceRows, load_window
+    from repro_torch.trace.session import Session
+    from repro_torch.trace.stream import MANIFEST_NAME, load_stream
+    from repro_torch.utils.ready import wait_for_ready_file
+    sys.path.insert(0, str(ROOT / "tools"))
+    from trace_record_cost import record_cost
+
+    work = Path(tempfile.mkdtemp(prefix="repro_torch_trace_"))
+    rec: dict = {}
+    stray = {name: 0 for name in records}
+    compiled_rec = training["compiled"]
+
+    def cli(*argv) -> str:
+        """``python -m repro_torch.trace *argv``, in this process (a child
+        would spend seconds importing torch for each)."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = trace_cli(list(argv))
+        if rc != 0:
+            fail(f"8: python -m repro_torch.trace {' '.join(argv)} exited {rc}")
+        return out.getvalue()
+
+    def lineage(spans: dict, sid: int) -> list:
+        """The spans from ``sid`` up to its root, innermost first."""
+        out = []
+        while sid in spans and len(out) < 64:
+            out.append(spans[sid])
+            sid = spans[sid].parent
+        return out
+
+    def device_tree(sess) -> tuple[dict, list]:
+        spans = {s.span: s for s in sess.spans() if s.span}
+        return spans, [e for e in sess.events if e.kind == "device"]
+
+    def bound(dev_evs: list, label: str) -> dict:
+        """Every slice bound to a host span; the share bound by annotation."""
+        modes = _count(e.payload.get("align") for e in dev_evs)
+        unbound = [e.name for e in dev_evs if not e.parent or e.payload.get("align") == "none"]
+        if not dev_evs or unbound:
+            fail(f"8 {label}: {len(dev_evs)} device slices, unbound: {unbound[:8]}")
+        return {"slices": len(dev_evs), "align": modes,
+                "span_share": modes.get("span", 0) / len(dev_evs)}
+
+    def under(spans: dict, dev_evs: list, pattern: str, unit: str, label: str,
+              dispatched: bool = False) -> int:
+        """The slices named ``pattern`` each sit under a ``unit`` span (and,
+        with ``dispatched``, right under a dispatch event)."""
+        got = [e for e in dev_evs if re.search(pattern, e.name)]
+        for e in got:
+            chain = lineage(spans, e.parent)
+            if unit not in [s.name for s in chain] or (
+                    dispatched and (not chain or chain[0].track != "dispatch")):
+                fail(f"8 {label}: {e.name[:60]} bound under {[s.name for s in chain]}, "
+                     f"expected a {unit} span" + (" through a dispatch" if dispatched else ""))
+        if not got:
+            fail(f"8 {label}: no {pattern} slice in any window")
+        return len(got)
+
+    try:
+        # -- (a) qwen2-0.5b served, traced -----------------------------------
+        base = ["--arch", ARCH, "--requests", str(SERVE["requests"]),
+                "--prompt-len", str(SERVE["prompt_len"]), "--max-new", str(SERVE["max_new"]),
+                "--max-batch", str(SERVE["max_batch"]), "--max-seq", str(SERVE["max_seq"]),
+                "--dispatch", "static", "--dispatch-backend", "kernel"]
+        with contextlib.redirect_stdout(io.StringIO()):  # the drivers' long JSON lines
+            plain, plain_out = serve_cli.run(base)
+        gc.collect()
+        torch.cuda.empty_cache()
+        scraped: dict = {}
+
+        def scrape() -> None:
+            url = wait_for_ready_file(str(work / "ready"), timeout_s=300)
+            deadline = time.time() + 300
+            while time.time() < deadline:
+                with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+                    text = r.read().decode()
+                if f"repro_requests_total {SERVE['requests']}" in text:
+                    scraped["text"] = text
+                    return
+                time.sleep(0.2)
+
+        scraper = threading.Thread(target=scrape, daemon=True)
+        scraper.start()
+        with contextlib.redirect_stdout(io.StringIO()):
+            traced, traced_out = serve_cli.run(base + [
+                "--trace-out", str(work / "serve.json"), "--trace-dir", str(work / "serve_dir"),
+                "--trace-rotate", str(TRACE_ROTATE), "--metrics-port", "0",
+                "--ready-file", str(work / "ready"), "--metrics-linger-s", str(TRACE_LINGER_S),
+                "--trace-overhead-budget-pct", str(TRACE_BUDGET_PCT),
+                "--torch-profile", str(work / "serve_prof"), "--torch-profile-backend", "torch",
+                "--torch-profile-period-s", str(TRACE_PERIOD_S)])
+        scraper.join(timeout=60)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for r in (plain, traced):
+            for name in stray:
+                stray[name] += r["kernels"][name]
+        if traced_out != plain_out or traced["kernels"] != plain["kernels"]:
+            fail(f"8 (a): traced run's launches {traced['kernels']} / tokens against the "
+                 f"untraced {plain['kernels']}, equal requests "
+                 f"{sum(traced_out[k] == plain_out.get(k) for k in traced_out)}")
+        sess = Session.load(traced["trace_out"])
+        spans, dev_evs = device_tree(sess)
+        a = {"tokens_per_s": {"untraced": plain["tokens_per_s"], "traced": traced["tokens_per_s"]},
+             "wall_s": {"untraced": plain["wall_s"], "traced": traced["wall_s"]},
+             "requests_equal": len(traced_out), "launches_equal": True,
+             "bound": bound(dev_evs, "(a)"),
+             "k1_under_prefill": under(spans, dev_evs, r"flash_fwd_mma", "prefill", "(a)", True),
+             "k2_under_decode_tick": under(spans, dev_evs, r"decode_split_mma|decode_combine",
+                                           "decode_tick", "(a)", True),
+             "k3_under_dispatch": under(spans, dev_evs, r"rmsnorm_rows", "serve_run", "(a)",
+                                        True),
+             "trace_controller": traced["trace_controller"],
+             "device_capture": {k: v for k, v in traced["device_capture"].items()
+                                if k != "window_log"},
+             "windows": traced["device_capture"]["window_log"]}
+        # a replayed tick: its kernels came from one cudaGraphLaunch
+        ticks: dict = {}
+        for e in dev_evs:
+            tick = next((s for s in lineage(spans, e.parent) if s.name == "decode_tick"), None)
+            if tick is not None:
+                row = ticks.setdefault(tick.span, [0.0, False])
+                row[0] += 1e3 * e.payload["dur_s"]
+                row[1] |= "GraphLaunch" in (e.payload.get("args") or {}).get("launch", "")
+        replayed = sorted(ms for ms, graph in ticks.values() if graph)
+        busy = tick_profile["device_busy_ms"]
+        if not replayed or busy is None:
+            fail(f"8 (a): no replayed tick in any window ({len(ticks)} ticks), or no "
+                 f"profile_step busy time ({busy})")
+        tick_ms = replayed[len(replayed) // 2]
+        a["replayed_tick"] = {"ticks": len(replayed), "median_bound_ms": tick_ms,
+                              "profile_step_busy_ms": busy, "ratio": tick_ms / busy}
+        if abs(tick_ms / busy - 1) > TRACE_TICK_TOL:
+            fail(f"8 (a): a replayed tick's bound device time {tick_ms:.3f} ms against "
+                 f"profile_step's {busy:.3f} ms busy")
+        compact = load_stream(traced["trace_dir"])
+        keys = {(e.t, e.kind, e.name, e.span) for e in compact.events}
+        missing = [e for e in sess.events if (e.t, e.kind, e.name, e.span) not in keys]
+        drops = {k: v for k, v in (sess.collector_stats or {}).get("dropped_by_track", {}).items()
+                 if v}
+        host_drops = {k: v for k, v in drops.items() if not k.startswith("device")}
+        a["compact"] = {"session_events": len(sess.events), "stream_events": len(compact.events),
+                        "missing": len(missing), "drops": drops,
+                        "device_ring_dropped": drops.get("device", 0),
+                        "segments": compact.meta["stream"]["segments"]}
+        if missing or host_drops or compact.meta["stream"]["segments"] < 2:
+            fail(f"8 (a): compact vs session: {a['compact']}")
+        for target in (traced["trace_out"], traced["trace_dir"]):
+            cli("report", target)
+            cli("export", target, "--format", "chrome", "-o", str(work / "chrome.json"))
+        cli("diff", traced["trace_out"], traced["trace_dir"])
+        tree = json.loads(cli("report", traced["trace_out"], "--tree", "--json"))
+        dev_rows = [r for r in tree if r["track"].startswith("device:")]
+        a["tree_device_rows"] = [(r["depth"], r["name"][:40], r["count"]) for r in dev_rows[:12]]
+        if not dev_rows or min(r["depth"] for r in dev_rows) < 2:
+            fail(f"8 (a): report --tree device rows {a['tree_device_rows']}")
+        text = scraped.get("text", "")
+        series = {k: k in text for k in ("repro_serve_queue_depth", "repro_device_ms_bucket",
+                                         "repro_device_capture_windows",
+                                         "repro_device_capture_overhead_pct")}
+        a["scrape"] = series
+        if not all(series.values()):
+            fail(f"8 (a): the /metrics scrape lacks {[k for k, v in series.items() if not v]}")
+        print(f"8 (a) {ARCH} traced serve set, {smi}: {json.dumps(a)}", flush=True)
+        rec["a"] = a
+
+        # -- (b) smollm-360m trained, traced ----------------------------------
+        targs = ["--arch", TRAIN_ARCH, "--steps", str(TRACE_TRAIN_STEPS),
+                 "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                 "--ckpt-every", str(TRACE_CKPT_EVERY), "--fail-at", str(TRACE_FAIL_AT)]
+        flags = ["--ckpt-dir", str(work / "ckpt"), "--trace-out", str(work / "train.json"),
+                 "--trace-dir", str(work / "train_dir"), "--trace-rotate", "1000000",
+                 "--torch-profile", str(work / "train_prof"),
+                 "--torch-profile-period-s", str(TRACE_PERIOD_S)]
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr = train_cli.main(targs + flags)
+        shutil.rmtree(work / "ckpt", ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name in stray:
+            stray[name] += tr["kernels"][name]
+        # untraced: phase 5's runs of the same step (the per-step launches of
+        # (e), the supervised run (j), checkpoints in flight as here)
+        calls = tr["compiled"]["calls"]
+        want = {k: v * calls for k, v in training["train"]["launches_per_step"].items()}
+        tsess = Session.load(tr["trace_out"])
+        tspans, tdev = device_tree(tsess)
+        manifest = json.loads((work / "train_dir" / MANIFEST_NAME).read_text())
+        ends = []
+        for seg in manifest["segments"]:
+            last = (work / "train_dir" / seg["name"]).read_text().splitlines()[-1]
+            ends.append(tuple(json.loads(last)[k] for k in ("kind", "name")))
+        n_ckpt = sum(s.name == "checkpoint" for s in tspans.values())
+        warm = min(TRAIN_WARMUP + 1, len(tr["losses"]))
+        step_ms = {"traced": 1e3 * statistics.median(
+                       s.dur for s in tspans.values() if s.name == "step" and not s.truncated),
+                   "untraced": training["supervised"]["median_step_span_ms"]}
+        b = {"args": " ".join(targs + flags), "restarts": tr["restarts"],
+             "median_step_span_ms": step_ms,
+             "tokens_per_s_at_the_median_step": {k: TRAIN_BATCH * TRAIN_SEQ / (v / 1e3)
+                                                 for k, v in step_ms.items()},
+             "driver_tokens_per_s": tr["tokens_per_s"], "wall_s": tr["wall_s"],
+             "launches_equal_untraced": tr["kernels"] == want,
+             "segments": len(manifest["segments"]),
+             "device_ring_dropped": (tsess.collector_stats or {}).get(
+                 "dropped_by_track", {}).get("device", 0),
+             "rotations_at_checkpoints": ends.count(("exit", "checkpoint")),
+             "checkpoints": n_ckpt, "restart_spans": sum(s.name == "restart"
+                                                         for s in tspans.values()),
+             "bound": bound(tdev, "(b)"),
+             **{f"{k}_under_step": under(tspans, tdev, pat, "step", "(b)")
+                for k, pat in (("k1", r"flash_fwd_mma"), ("k1b", r"flash_bwd_(dq|dkdv)_wgmma"),
+                               ("k3", r"rmsnorm_rows"), ("k3b", r"rmsnorm_bwd_fused"))},
+             "losses_equal_compiled_run": tr["losses"][:warm] == compiled_rec["losses"][:warm],
+             "steps_compared": warm,
+             "trace_controller": tr.get("trace_controller"),
+             "device_capture": {k: v for k, v in tr["device_capture"].items()
+                                if k != "window_log"},
+             "windows": tr["device_capture"]["window_log"]}
+        print(f"8 (b) {TRAIN_ARCH} traced train, {smi}: {json.dumps(b)}", flush=True)
+        if b["rotations_at_checkpoints"] != n_ckpt - 1 or tr["restarts"] != 1 \
+                or not b["restart_spans"]:
+            fail(f"8 (b): {b['rotations_at_checkpoints']} rotations at {n_ckpt} checkpoints "
+                 f"(all but step 0's expected), {tr['restarts']} restarts, "
+                 f"{b['restart_spans']} restart spans")
+        if not b["launches_equal_untraced"]:
+            fail(f"8 (b): traced launches {tr['kernels']} against {calls} untraced steps' {want}")
+        if not b["losses_equal_compiled_run"]:
+            fail(f"8 (b): losses {tr['losses'][:warm]} against phase 5 (e')'s "
+                 f"{compiled_rec['losses'][:warm]}")
+        rec["b"] = b
+
+        # -- (c) the record path's cost; a window opened from another thread --
+        cost = record_cost(events=20_000, rounds=3)
+        x = torch.randn(SERVE["max_batch"], 896, device=dev, dtype=torch.bfloat16)
+        scale = torch.randn(896, device=dev)
+        k3.rmsnorm(x, scale)  # built and loaded before the window
+        ready, done = threading.Event(), threading.Event()
+        path = work / "thread" / "window.trace.json"
+        path.parent.mkdir()
+
+        def window() -> None:
+            from torch.profiler import ProfilerActivity, profile
+            p = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            p.start()
+            ready.set()
+            done.wait(60)
+            torch.cuda.synchronize()
+            p.stop()
+            p.export_chrome_trace(str(path))
+
+        other = threading.Thread(target=window)
+        other.start()
+        ready.wait(60)
+        liveprof.set_annotations(True)
+        try:
+            with uncounted(), liveprof.device_annotation(987654321):
+                k3.rmsnorm(x, scale)
+            torch.cuda.synchronize()
+        finally:
+            liveprof.set_annotations(False)
+            done.set()
+            other.join(60)
+        try:
+            win = load_window(str(path))
+            seen = {"device_rows": len(win.slices), "span_ranges": len(win.ranges),
+                    "bound_to_span": sum(s.span_hint == 987654321 for s in win.slices)}
+        except NoDeviceRows as exc:
+            seen = {"device_rows": 0, "launches": exc.launches}
+        c = {"record_cost": cost, "window_from_another_thread": seen}
+        print(f"8 (c) trace record path and a window from another thread, {smi}: "
+              f"{json.dumps(c)}", flush=True)
+        rec["c"] = c
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     for name in stray:
         records[name]["launches"] += stray[name]
     rec["launches"] = stray

@@ -27,7 +27,6 @@ build, such as ``kernel`` on a CPU engine).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Mapping, Optional
@@ -40,16 +39,9 @@ from repro_torch.dispatch.cost import CostEstimate, estimate_region
 from repro_torch.dispatch.profiles import ProfileStore, _leaves, signature
 from repro_torch.dispatch.registry import BackendRegistry, host_registry
 from repro_torch.hw.specs import ChipSpec
+from repro_torch.trace.liveprof import device_annotation
 
 POLICIES = ("static", "roofline", "profiled")
-
-
-def _device_annotation(span_id: int) -> contextlib.AbstractContextManager:
-    """The profiler annotation of the executed variant: a null context until
-    the live device profiler is ported (ROADMAP M11, ``trace/liveprof.py``).
-    Not a ``core/scopes.scope``: that would rename every SDFG region and
-    ``by_scope`` key below it."""
-    return contextlib.nullcontext()
 
 
 def _wait_for(out: Any) -> None:
@@ -230,11 +222,13 @@ class Dispatcher:
         )
         idx = len(self.decisions) - 1  # choose() appended; backfill measurement
         fn = variants[decision.backend]
-        # span id allocated before execution, so that a device profiler can
-        # annotate the launched work with it (ROADMAP M11)
+        # span id allocated before execution: a live device profiler binds
+        # the launched kernels to it (trace/liveprof.py).  The annotation is
+        # not a core/scopes.scope, which would rename every SDFG region and
+        # by_scope key below it.
         span_id = next_span_id() if self.cfg.record_events else 0
         t0 = time.perf_counter()
-        with _device_annotation(span_id):
+        with device_annotation(span_id):
             out = fn(*args, **kwargs)
             _wait_for(out)
         dt = time.perf_counter() - t0

@@ -35,13 +35,39 @@ warm-starts the store from earlier runs' ``--profile-out`` files (either
 package's), merged, with the entries of other code or another chip aged
 out first.  The JSON line then gains ``dispatch`` (the dispatcher's
 summary), ``dispatch_events``, ``profile_in``, ``profile_aged_out`` and
-``profile_out``, as the JAX driver's.  Not here yet: the trace and
-metrics flags (ROADMAP M11), ``--fleet`` and ``--tune`` (M12).
+``profile_out``, as the JAX driver's; ``--profile-in`` also takes a trace
+session (``--trace-out``) of either package.
+
+Observability (``trace/``, ``metrics/``), the JAX driver's flags: the log
+is a bounded :class:`~repro_torch.trace.collector.TraceCollector`
+(``--trace-capacity``) with a metrics plane always attached.
+``--trace-out PATH`` writes a session of the run (events, dispatch
+decisions, profiles, chip, provenance) for ``python -m repro_torch.trace
+{report,export,diff}``; ``--trace-dir DIR`` streams the events as rotated,
+fsynced JSONL segments (``--trace-rotate`` events a segment,
+``--trace-rotate-keep`` segments kept; ``python -m repro_torch.trace
+compact DIR`` recovers a session after a crash); ``--metrics-port P`` serves
+Prometheus text on ``http://127.0.0.1:P/metrics`` while the run is live
+(0 picks a port; ``--ready-file`` announces the URL, ``--metrics-linger-s``
+keeps it up after the run); ``--trace-overhead-budget-pct B`` (or
+``--metrics-port``) starts the adaptive controller, which duty-cycles span
+capture to hold the record path's measured cost under B %.
+``--torch-profile DIR`` opens duty-cycled ``torch.profiler`` windows under
+the same budget (``--torch-profile-period-s``), at step boundaries on the
+serving thread, and merges each window's kernels under the host span that
+launched them (``trace/liveprof.py``); ``--torch-profile-backend
+synthetic`` runs that path without a card (CPU only; ``auto`` means
+``torch``).  With any of these flags the JSON line gains ``trace``,
+``metrics`` and, as they apply, ``trace_controller``, ``device_capture``,
+``trace_dir`` and ``trace_out``; without them it is what it was, and
+the run launches the same kernels.  Not here yet: ``--fleet`` and
+``--tune`` (ROADMAP M12).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
@@ -52,9 +78,15 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core.events import EventLog
 from repro_torch.dispatch import DispatchConfig, Dispatcher, host_registry
 from repro_torch.kernels import launch_counts, reset_launches
+from repro_torch.metrics import (DEFAULT_BUDGET_PCT, AdaptiveController, MetricsPlane,
+                                 serve_metrics)
 from repro_torch.models import lm
 from repro_torch.serving.engine import Engine, ServeConfig
-from repro_torch.trace.session import age_out_profiles, load_profile_stores
+from repro_torch.trace.collector import DEFAULT_CAPACITY, TraceCollector
+from repro_torch.trace.liveprof import BACKENDS, DEFAULT_PERIOD_S, LiveDeviceProfiler
+from repro_torch.trace.session import Session, age_out_profiles, load_profile_stores
+from repro_torch.trace.stream import StreamingSession
+from repro_torch.utils.ready import write_ready_file
 
 
 def make_dispatcher(args: argparse.Namespace, device: torch.device, log: EventLog):
@@ -80,8 +112,8 @@ def add_dispatch_args(ap: argparse.ArgumentParser, what: str) -> None:
     ap.add_argument("--dispatch-backend", default="kernel",
                     help="tier pinned by --dispatch static (kernel or plain)")
     ap.add_argument("--profile-in", action="append", default=None, metavar="PATH",
-                    help="warm-start dispatch profiles from a --profile-out file "
-                         "(repeatable; merged)")
+                    help="warm-start dispatch profiles from a --profile-out file or a "
+                         "--trace-out session (repeatable; merged)")
     ap.add_argument("--profile-out", default=None, metavar="PATH",
                     help="write the dispatcher's ProfileStore JSON here at the end")
 
@@ -102,7 +134,138 @@ def dispatch_record(args: argparse.Namespace, dispatcher, aged: list, log: Event
     return rec
 
 
+def add_trace_args(ap: argparse.ArgumentParser) -> None:
+    """The trace and metrics flags of both drivers (the JAX drivers')."""
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a trace session of this run")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="stream events durably as rotated JSONL segments (a crash loses at "
+                         "most the open segment; recover with `python -m repro_torch.trace "
+                         "compact DIR`)")
+    ap.add_argument("--trace-rotate", type=int, default=2048, metavar="N",
+                    help="events per streaming segment before rotation + fsync")
+    ap.add_argument("--trace-rotate-keep", type=int, default=None, metavar="N",
+                    help="keep only the newest N closed segments")
+    ap.add_argument("--trace-capacity", type=int, default=DEFAULT_CAPACITY,
+                    help="trace ring capacity (events); evictions are counted")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve Prometheus /metrics on this port while the run is live "
+                         "(0 picks a free port)")
+    ap.add_argument("--trace-overhead-budget-pct", type=float, default=None, metavar="PCT",
+                    help="adaptive tracing: duty-cycle span capture to keep the measured "
+                         "record-path overhead under PCT%% (0 = measure, never shed; "
+                         f"default {DEFAULT_BUDGET_PCT:g} when --metrics-port is given); "
+                         "also the device-capture budget of --torch-profile")
+    ap.add_argument("--ready-file", default=None, metavar="PATH",
+                    help="announce the /metrics URL here once the listener is up "
+                         "(requires --metrics-port)")
+    ap.add_argument("--metrics-linger-s", type=float, default=0.0, metavar="S",
+                    help="keep the /metrics listener up S seconds after the run")
+    ap.add_argument("--torch-profile", default=None, metavar="DIR",
+                    help="live device profiling: duty-cycled torch.profiler windows under "
+                         "DIR, merged into the live trace under the overhead budget")
+    ap.add_argument("--torch-profile-backend", default="auto", choices=BACKENDS,
+                    help="torch.profiler (auto, torch) or the synthetic stub (CPU only)")
+    ap.add_argument("--torch-profile-period-s", type=float, default=DEFAULT_PERIOD_S,
+                    metavar="S", help="device capture window period (on + off)")
+
+
+class TracePlane:
+    """The drivers' trace and metrics plane, from the flags of
+    :func:`add_trace_args`: the collector (always), the metrics plane
+    (always), the adaptive controller and the scrape listener, the live
+    device profiler and the streaming session (each when asked for)."""
+
+    def __init__(self, args: argparse.Namespace, ap: argparse.ArgumentParser,
+                 device: torch.device) -> None:
+        if args.ready_file and args.metrics_port is None:
+            ap.error("--ready-file requires --metrics-port (nothing to announce)")
+        self.args = args
+        self.traced = bool(args.trace_out or args.trace_dir or args.torch_profile
+                           or args.metrics_port is not None
+                           or args.trace_overhead_budget_pct is not None)
+        self.log = TraceCollector(capacity=args.trace_capacity)
+        # always attached: exact counts even while capture is shed
+        self.plane = MetricsPlane(self.log)
+        budget = (DEFAULT_BUDGET_PCT if args.trace_overhead_budget_pct is None
+                  else args.trace_overhead_budget_pct)
+        self.controller = self.server = self.prof = self.stream = None
+        if args.metrics_port is not None or args.trace_overhead_budget_pct is not None:
+            self.controller = AdaptiveController(self.log, self.plane.registry,
+                                                 budget_pct=budget)
+        if args.metrics_port is not None:
+            self.server = serve_metrics(self.plane, port=args.metrics_port)
+            print(f"metrics: {self.server.url}/metrics", file=sys.stderr)
+            if args.ready_file:
+                write_ready_file(args.ready_file, self.server.url)
+        if args.torch_profile:
+            self.prof = LiveDeviceProfiler(
+                self.log, args.torch_profile, device=device, registry=self.plane.registry,
+                backend=args.torch_profile_backend, budget_pct=budget,
+                period_s=args.torch_profile_period_s)
+
+    def open_stream(self, meta: dict, dispatcher) -> None:
+        """The ``--trace-dir`` session, attached to the log."""
+        if not self.args.trace_dir:
+            return
+        self.stream = StreamingSession(
+            self.args.trace_dir, rotate_events=self.args.trace_rotate,
+            max_segments=self.args.trace_rotate_keep, meta=meta,
+            store_provider=(lambda: dispatcher.store) if dispatcher is not None else None,
+            metrics_provider=self.plane.snapshot,
+            device_provider=self.prof.snapshot if self.prof is not None else None,
+        ).attach(self.log)
+
+    def start(self) -> None:
+        """Start the controller and the device profiler (after the stream is
+        attached: the stream then holds every event of the session)."""
+        if self.controller is not None:
+            self.controller.start()
+        if self.prof is not None:
+            self.prof.start()
+
+    def stop_capture(self) -> None:
+        """Close the last device window (raises if capture failed on the card)."""
+        if self.prof is not None:
+            self.prof.stop()
+
+    def record(self, dispatcher, meta: dict) -> dict:
+        """The JSON line's trace fields (none for an untraced run); closes the
+        stream and writes ``--trace-out``."""
+        out: dict = {}
+        if self.controller is not None:
+            self.controller.stop()  # the final overhead reading lands in the gauges
+            out["trace_controller"] = self.controller.snapshot()
+        if self.prof is not None:
+            out["device_capture"] = meta["device_capture"] = self.prof.snapshot()
+        if not self.traced:
+            return out
+        out["metrics"] = self.plane.summary()
+        stats = out["trace"] = self.log.stats()  # resolves spans: once
+        if self.stream is not None:
+            out["trace_dir"] = self.stream.close(stats=stats)
+        if self.args.trace_out:
+            sess = Session.capture(self.log, dispatcher=dispatcher,
+                                   meta={**meta, "metrics": self.plane.snapshot(),
+                                         "drops": self.log.drop_counters()},
+                                   collector_stats=stats)
+            out["trace_out"] = sess.save(self.args.trace_out)
+        return out
+
+    def close(self) -> None:
+        """After the JSON line: linger for scrapers, then stop the listener."""
+        if self.server is not None:
+            if self.args.metrics_linger_s > 0:
+                time.sleep(self.args.metrics_linger_s)
+            self.server.stop()
+
+
 def main(argv: list[str] | None = None) -> dict:
+    return run(argv)[0]
+
+
+def run(argv: list[str] | None = None) -> tuple[dict, dict[int, list[int]]]:
+    """:func:`main`, also returning every request's tokens by request id."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -116,6 +279,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch versions")
     add_dispatch_args(ap, "prefill and decode")
+    add_trace_args(ap)
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -123,16 +287,20 @@ def main(argv: list[str] | None = None) -> dict:
     if args.reduced:
         cfg = reduced(cfg)
     params = lm.init_params(cfg, args.seed, device)
-    log = EventLog()
+    trace = TracePlane(args, ap, device)
+    log = trace.log
     dispatcher, aged = make_dispatcher(args, device, log)
+    run_meta = {"driver": "serve", "arch": cfg.name, "requests": args.requests}
+    trace.open_stream(run_meta, dispatcher)
     eng = Engine(
         cfg, params,
         ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
                     temperature=args.temperature, seed=args.seed),
-        log=log, dispatcher=dispatcher,
+        log=log, dispatcher=dispatcher, metrics=trace.plane.registry,
     )
     rng = np.random.default_rng(args.seed)
     reset_launches()
+    trace.start()
     t0 = time.time()
     with log.lifecycle("serve_run", {"arch": cfg.name, "requests": args.requests}):
         for _ in range(args.requests):
@@ -142,6 +310,7 @@ def main(argv: list[str] | None = None) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.time() - t0
+    trace.stop_capture()
     total_new = sum(len(v) for v in results.values())
     durations = log.durations("prefill")
     rec = {
@@ -156,8 +325,10 @@ def main(argv: list[str] | None = None) -> dict:
         "kernels": launch_counts(),
         **dispatch_record(args, dispatcher, aged, log),
     }
+    rec.update(trace.record(dispatcher, run_meta))
     print(json.dumps(rec), flush=True)
-    return rec
+    trace.close()
+    return rec, results
 
 
 if __name__ == "__main__":

@@ -45,8 +45,14 @@ runs eagerly and its second captures, so a tier warms after 3 steps there
 ``step_backends``, the tier of each step's last run.  ``losses`` is the
 loss of each step's last run, in step order.
 
-Not here yet: ``--mesh`` (ROADMAP M13), ``--tune`` / ``--fleet`` (M12),
-the trace and metrics flags (M11).
+The trace and metrics flags (``--trace-out``, ``--trace-dir``,
+``--trace-rotate``, ``--trace-rotate-keep``, ``--trace-capacity``,
+``--metrics-port``, ``--trace-overhead-budget-pct``, ``--ready-file``,
+``--metrics-linger-s`` and ``--torch-profile*``) and the JSON line's trace
+fields are the serve driver's; the run is a ``train_run`` span, and a
+``--trace-dir`` stream rotates at every checkpoint and at the end.
+
+Not here yet: ``--mesh`` (ROADMAP M13), ``--tune`` / ``--fleet`` (M12).
 """
 from __future__ import annotations
 
@@ -61,11 +67,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
-from repro_torch.core.events import EventLog
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.dispatch import with_impl
 from repro_torch.kernels import launch_counts, reset_launches
-from repro_torch.launch.serve import add_dispatch_args, dispatch_record, make_dispatcher
+from repro_torch.launch.serve import (TracePlane, add_dispatch_args, add_trace_args,
+                                     dispatch_record, make_dispatcher)
 from repro_torch.runtime.supervisor import FailureInjector, Supervisor, SupervisorConfig
 from repro_torch.training import optim
 from repro_torch.training.compiled import CompiledTrainStep
@@ -89,6 +95,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch versions")
     add_dispatch_args(ap, "each train step")
+    add_trace_args(ap)
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -101,8 +108,11 @@ def main(argv: list[str] | None = None) -> dict:
         microbatches=args.microbatches,
     )
     state = init_train_state(cfg, tcfg, args.seed, device)
-    log = EventLog(maxlen=1 << 16)
+    trace = TracePlane(args, ap, device)
+    log = trace.log
     dispatcher, aged = make_dispatcher(args, device, log)
+    run_meta = {"driver": "train", "arch": cfg.name, "steps": args.steps}
+    trace.open_stream(run_meta, dispatcher)
     if dispatcher is None:
         steps = {None: CompiledTrainStep(cfg, tcfg, state)}
         step_variants = None
@@ -126,17 +136,20 @@ def main(argv: list[str] | None = None) -> dict:
                              max_steps=args.steps),
             steps.get(None), batch_fn, state, log=log,
             failures=FailureInjector(tuple(int(s) for s in args.fail_at.split(",") if s)),
-            dispatcher=dispatcher, step_variants=step_variants,
+            dispatcher=dispatcher, step_variants=step_variants, stream=trace.stream,
         )
         reset_launches()
+        trace.start()
         t0 = time.time()
         try:
-            out = sup.run()
+            with log.lifecycle("train_run", {"arch": cfg.name, "steps": args.steps}):
+                out = sup.run()
         except RuntimeError as e:
             if "ROADMAP" not in str(e):
                 raise
             raise SystemExit(f"{cfg.name} cannot train on {device} yet: {e}") from e
         wall = time.time() - t0
+        trace.stop_capture()
     # a failure is raised before its step's batch is drawn: calls and
     # metrics pair one to one, and a replayed step's later run wins
     last = dict(zip(order, (m["loss"] for m in out["metrics"])))
@@ -161,7 +174,9 @@ def main(argv: list[str] | None = None) -> dict:
     if dispatcher is not None:
         backend = dict(zip(order, (d.backend for d in dispatcher.decisions)))
         rec["step_backends"] = [backend[i] for i in range(out["steps"])]
+    rec.update(trace.record(dispatcher, run_meta))
     print(json.dumps(rec), flush=True)
+    trace.close()
     return rec
 
 

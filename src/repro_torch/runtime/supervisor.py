@@ -16,7 +16,13 @@
   median of the last ``straggler_window`` steps (after 5) is recorded as a
   ``straggler`` event under its step's span and counted.
 * **Lifecycle tracing.**  step / checkpoint / restart spawn-exit brackets
-  go into the :class:`~repro_torch.core.events.EventLog`.
+  go into the :class:`~repro_torch.core.events.EventLog`; while a live
+  device profiler is active, each step's work runs under its ``span=<id>``
+  annotation (``trace/liveprof.py``), so its kernels (or the graph it
+  replays) bind to the step.  ``stream`` (a
+  :class:`~repro_torch.trace.stream.StreamingSession`) is rotated at every
+  checkpoint and at the end, so the trace on disk is never staler than the
+  model state on disk: a crash recovers both to the same point.
 * **Profile-guided placement.**  Given a ``dispatcher`` and
   ``step_variants`` (target name -> step, each its own compiled step over
   the same state tensors, run under its target's impl: ``with_impl``),
@@ -25,8 +31,7 @@
   copies into the tensors every variant's graph reads, so each still
   serves after a restart.
 
-The reference's ``stream`` (ROADMAP M11) and ``resize`` (M13) come with
-those items.
+The reference's ``resize`` (ROADMAP M13) comes with that item.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore_into
 from repro_torch.core.events import GLOBAL_LOG, EventLog
 from repro_torch.dispatch.dispatcher import Dispatcher
 from repro_torch.dispatch.profiles import signature
+from repro_torch.trace.liveprof import device_annotation
 
 Tree = Any
 
@@ -91,6 +97,7 @@ class Supervisor:
         failures: Optional[FailureInjector] = None,
         dispatcher: Optional[Dispatcher] = None,
         step_variants: Optional[Mapping[str, Callable]] = None,
+        stream: Optional[Any] = None,
     ) -> None:
         self.cfg = cfg
         self.train_step = train_step
@@ -101,6 +108,7 @@ class Supervisor:
         self.step_variants = dict(step_variants) if step_variants else None
         # per-backend tuned-config tags, resolved at the first dispatched step
         self._configs: Optional[dict] = None
+        self.stream = stream
         self.state = init_state
         self.log = GLOBAL_LOG if log is None else log
         self.failures = failures or FailureInjector()
@@ -139,7 +147,8 @@ class Supervisor:
                 self.ckpt.save(0, self.state)
         while self.step < self.cfg.max_steps:
             try:
-                with self.log.lifecycle("step", self.step) as step_span:
+                with self.log.lifecycle("step", self.step) as step_span, \
+                        device_annotation(step_span):
                     self.failures.maybe_fail(self.step)
                     t0 = time.monotonic()
                     batch = self.batch_fn(self.step)
@@ -172,6 +181,8 @@ class Supervisor:
                 if self.step % self.cfg.ckpt_every == 0:
                     with self.log.lifecycle("checkpoint", self.step, parent=step_span):
                         self.ckpt.save(self.step, self.state)
+                    if self.stream is not None:
+                        self.stream.rotate()
             except NodeFailure:
                 self.restarts += 1
                 if self.restarts > self.cfg.max_restarts:
@@ -181,6 +192,8 @@ class Supervisor:
         with self.log.lifecycle("checkpoint", self.step):
             self.ckpt.save(self.step, self.state)
             self.ckpt.wait()
+        if self.stream is not None:
+            self.stream.rotate()
         return {
             "steps": self.step,
             "restarts": self.restarts,

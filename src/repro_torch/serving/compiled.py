@@ -28,9 +28,11 @@ buffers: a tensor rebound to a new one is not seen by later replays.
 Kernel launches are counted by the wrappers in Python, which a replay does
 not call: the capture runs under ``kernels.uncounted`` and each replay adds
 what it counted (``kernels.add_launches``), so ``kernels.LAUNCHES`` stays the
-number of kernels the card ran.  On a CPU device there is no graph: every
-call copies its inputs into the static buffers and runs ``fn`` eagerly, so
-the CPU tests drive the same buffers.  A capture or replay that fails
+number of kernels the card ran.  A capture runs inside
+``trace.liveprof.capture_guard``, which stops a live profiler's open
+session first: no profiler window spans a capture.  On a CPU device there
+is no graph: every call copies its inputs into the static buffers and runs
+``fn`` eagerly, so the CPU tests drive the same buffers.  A capture or replay that fails
 raises; nothing runs eagerly in its place.
 """
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.kernels import add_launches, uncounted
+from repro_torch.trace.liveprof import capture_guard
 
 
 class Graphs:
@@ -94,8 +97,8 @@ class CompiledStep:
             return out
         if self._graph is None:
             graph = torch.cuda.CUDAGraph()
-            with uncounted() as made, torch.cuda.graph(graph, pool=self.graphs.pool,
-                                                       stream=stream):
+            with capture_guard(), uncounted() as made, \
+                    torch.cuda.graph(graph, pool=self.graphs.pool, stream=stream):
                 self._out = self.fn(*static)
             self._graph, self.launches = graph, made
             self.captures += 1

@@ -52,7 +52,12 @@ requests.  Policy ``static`` prices nothing.
 
 Request lifecycle events (spawn/exit) and the ``prefill`` / ``decode_tick``
 brackets flow into the :class:`~repro_torch.core.events.EventLog`, as in the
-JAX engine.
+JAX engine; while a live device profiler is active each bracket's work runs
+under its ``span=<id>`` annotation (``trace/liveprof.py``), so the kernels a
+prefill or a tick launched (or the graph it replayed) bind to its span.
+``metrics=`` (a :class:`~repro_torch.metrics.registry.MetricsRegistry`) adds
+the JAX engine's gauges, ``repro_serve_queue_depth`` and
+``repro_serve_active_slots``.
 """
 from __future__ import annotations
 
@@ -75,6 +80,7 @@ from repro_torch.dispatch.dispatcher import Dispatcher, with_impl
 from repro_torch.dispatch.profiles import signature
 from repro_torch.models import lm
 from repro_torch.serving.compiled import CompiledStep, Graphs
+from repro_torch.trace.liveprof import device_annotation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +130,7 @@ class Engine:
         compiled: bool = True,
         max_prefill_graphs: int = 4,
         dispatcher: Optional[Dispatcher] = None,
+        metrics: Optional[Any] = None,
     ) -> None:
         if max_prefill_graphs < 1:
             raise ValueError(f"max_prefill_graphs must be >= 1, got {max_prefill_graphs}")
@@ -133,6 +140,14 @@ class Engine:
         self.log = GLOBAL_LOG if log is None else log
         self.device = params["embed"]["table"].device
         self.dispatcher = dispatcher
+        # live occupancy gauges: queue depth and decode-slot use are states,
+        # which the trace answers only by replaying it
+        self._g_queue = self._g_slots = None
+        if metrics is not None:
+            self._g_queue = metrics.gauge(
+                "repro_serve_queue_depth", "requests waiting for a decode slot")
+            self._g_slots = metrics.gauge(
+                "repro_serve_active_slots", "occupied decode slots")
         # the tiers this engine serves, target name -> kernels.ops impl: the
         # registry's targets that run on the engine's device (one unnamed
         # tier under the process default without a dispatcher)
@@ -177,7 +192,10 @@ class Engine:
                       span=next_span_id(), parent=current_span())
         with self._queue_lock:
             self.queue.append(req)
+            depth = len(self.queue)
         self.log.record("spawn", "request", req.rid, span=req.span, parent=req.parent)
+        if self._g_queue is not None:
+            self._g_queue.set(depth)
         return req.rid
 
     def pending(self) -> int:
@@ -209,7 +227,8 @@ class Engine:
                 req = self.queue.pop(0)
             req.slot = slot
             req.t_active = time.monotonic()
-            with span_scope(req.span), self.log.lifecycle("prefill", req.rid):
+            with span_scope(req.span), self.log.lifecycle("prefill", req.rid) as psid, \
+                    device_annotation(psid):
                 logits, new_caches = self.prefill(torch.tensor([req.prompt], dtype=torch.long))
                 # stacked leaves are (n_periods, B, ...): the slot is axis 1
                 for name, sub in self.caches.items():
@@ -217,6 +236,9 @@ class Engine:
                 req.out.append(int(self._sample(logits)[0]))
                 self.cur_pos[slot] = len(req.prompt)
             self.active[slot] = req
+        if self._g_queue is not None:
+            self._g_queue.set(len(self.queue))
+            self._g_slots.set(sum(r is not None for r in self.active))
 
     def _decode_tick(self) -> list[Request]:
         live = [r for r in self.active if r is not None]
@@ -225,7 +247,7 @@ class Engine:
         tokens = np.zeros(self.scfg.max_batch, np.int64)
         for r in live:
             tokens[r.slot] = r.out[-1]
-        with self.log.lifecycle("decode_tick", len(live)):
+        with self.log.lifecycle("decode_tick", len(live)) as dsid, device_annotation(dsid):
             logits = self.decode(torch.from_numpy(tokens), torch.from_numpy(self.cur_pos))
             nxt = self._sample(logits).tolist()  # the tick's one device-to-host sync
         finished: list[Request] = []
@@ -240,6 +262,8 @@ class Engine:
                 self.active[r.slot] = None
                 self.log.record("exit", "request", r.rid, span=r.span, parent=r.parent)
                 finished.append(r)
+        if finished and self._g_slots is not None:
+            self._g_slots.set(sum(r is not None for r in self.active))
         return finished
 
     # -- the two serving surfaces ---------------------------------------------

@@ -1,3 +1,9 @@
-"""Run provenance and the profile files of a run (the start of the
-counterpart of ``repro/trace/``; sessions, export and streaming come with
-ROADMAP M11)."""
+"""The port's trace plane (counterpart of ``repro/trace/``): the bounded
+collector (``collector``), sessions and their diffs (``session``), the
+exporters (``export``), durable segment streams (``stream``), the Kineto
+adapter (``device``), live ``torch.profiler`` windows (``liveprof``) and the
+CLI (``cli``, ``python -m repro_torch.trace``).  Submodules are imported by
+name: ``serving/compiled.py`` and ``dispatch/dispatcher.py`` import
+``liveprof``, and a package that imported ``session`` here would cycle back
+through ``dispatch``.  Cross-process stitching (``stitch``) waits for the
+router and the fleet (ROADMAP M12)."""

@@ -93,6 +93,31 @@ def test_dispatch_module_imports_no_jax_no_repro(module):
     assert "import jax" not in source and "from repro." not in source
 
 
+# the trace and metrics plane (ROADMAP M11): each imports alone, without
+# JAX, the JAX package (not even its jax-free repro/trace, repro/metrics and
+# repro/utils modules) or triton
+TRACE_MODULES = ["repro_torch.core.events", "repro_torch.utils.io", "repro_torch.utils.ready",
+                 "repro_torch.trace.collector", "repro_torch.trace.session",
+                 "repro_torch.trace.export", "repro_torch.trace.stream",
+                 "repro_torch.trace.device", "repro_torch.trace.liveprof",
+                 "repro_torch.trace.cli", "repro_torch.trace.__main__",
+                 "repro_torch.metrics", "repro_torch.metrics.registry",
+                 "repro_torch.metrics.sink", "repro_torch.metrics.controller",
+                 "repro_torch.metrics.http"]
+
+
+@pytest.mark.parametrize("module", TRACE_MODULES)
+def test_trace_module_imports_no_jax_no_repro(module):
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    path = REPO / "src" / module.replace(".", "/")
+    source = (path / "__init__.py" if path.is_dir() else path.with_suffix(".py")).read_text()
+    assert "import jax" not in source and "from repro." not in source
+    assert "import repro." not in source and "import triton" not in source
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     """No card here: chip_smoke.py exits non-zero and prints no result line,
