@@ -10,7 +10,8 @@ failure of which exits non-zero:
 1. print the card (``nvidia-smi`` name and power limit); TF32 off;
 2. build the CUDA kernels (one ``nvcc`` per source, in parallel), printing
    the build time and ptxas' report (per instance for K3, K5 and both K1b
-   sources, none of whose instances may spill, nor K5's take more than 128
+   sources, the wide K1b's at D 128 / 256 among them, none of whose
+   instances may spill, nor K5's take more than 128
    registers, nor the wgmma K1b's differ from the entry count its
    setmaxnreg exchange assumes; the wgmma K1b's shared memory, blocks an
    SM and any wgmma serialisation ptxas reports; K1 and K2 per instance,
@@ -143,36 +144,44 @@ failure of which exits non-zero:
    ``ref.flash_attention_bwd_ref`` and against torch autograd through
    ``ref.mha_ref`` (relative to each gradient's max |.|, BWD_TOL), at the
    CPU tests' edge cases (q_offset, window + softcap, ragged Sq / Sk, G =
-   8, head dims 8 to 128; at D 64, the wgmma instance's, also window +
-   softcap + q_offset under GQA and Sq, Sk off its 64-row tiles at G = 8)
-   in f32 and bf16 and at the training shape (4, 2048, 15/5, 64) in bf16,
-   each K1b run twice with bitwise-equal results;
-   (c) K3b against ``ref.rmsnorm_bwd_ref`` at (8192, 960) and every served
-   (rows, D), twice, bitwise equal, and on two streams at once, bitwise
-   equal to one call at a time; (d) one f32 train step at full width
-   and depth (batch 2 x 1024), kernels vs plain: the loss within
-   F32_LOSS_RTOL and every gradient leaf within F32_GRAD_TOL of its max
-   |.|; (e) TRAIN_STEPS bf16 steps at batch 4 x 2048 on ``SyntheticLM``,
-   the loss falling by more than 0.1, with the exact launches of every step
-   (2 x 32 K1, 32 K1b, 2 x 64 + 1 K3, 65 K3b: per-period remat runs each
-   period's forward again), step ms, tokens/s and peak memory (the
+   8, head dims 8 to 256; at D 64, the wgmma instance's, also window +
+   softcap + q_offset under GQA and Sq, Sk off its 64-row tiles at G = 8;
+   at D 128 and 256, the wide pair's, the CPU tests' VJP cases, window +
+   softcap + q_offset under GQA and Sq, Sk off its tiles at G = 8) in f32
+   and bf16 and in bf16 at the training shapes (4, 2048, 15/5, 64) and
+   phase (k)'s: gemma3-4b's global and local (window 1024) layers at D
+   256, gemma2-27b's with softcap 50 and chameleon-34b's at G 8 at D 128,
+   musicgen-large's at G 1 on the wgmma pair; each K1b run twice with
+   bitwise-equal results;
+   (c) K3b against ``ref.rmsnorm_bwd_ref`` at (8192, 960), every served
+   (rows, D) and phase (k)'s training rows (d 2560, 4608, 8192 and QK-norm's
+   rows of 128), twice, bitwise equal, and on two streams at once, bitwise
+   equal to one call at a time; (d)-(f') smollm-360m at full width and
+   depth through ``train_checks``, the checks every training arch of this
+   phase passes: (d) one f32 train step (batch 2 x 1024), kernels vs plain,
+   its launches exact, the loss within F32_LOSS_RTOL and every gradient
+   leaf within F32_GRAD_TOL of its max |.|, and one f32 step as a CUDA
+   graph replay against an eager step from the seed's state, the loss and
+   every param and moment leaf within GRAPH_TRAIN_F32_TOL of its max |.|;
+   (e) TRAIN_STEPS bf16 steps at batch 4 x 2048 on ``SyntheticLM`` (the
    schedule launch.train gives 20 steps: peak lr 3e-4 after 10 warmup
-   steps); (f) one
-   step under torch.profiler, which must show K1's ``flash_fwd_mma``, K1b's
-   wgmma pair (``flash_attention.bwd_instances``) and neither mma.sync K1b
-   kernel, K3's ``rmsnorm_rows`` and K3b's ``rmsnorm_bwd_fused`` and neither
-   kernel of the previous K3b, and the device ms a step of each of those
-   kernels; (e') the same 20 steps through ``training/compiled.py``'s
+   steps), eagerly and then through ``training/compiled.py``'s
    ``CompiledTrainStep`` (the step captured as a CUDA graph) from a fresh
-   state of the same seed: one capture, TRAIN_STEPS - 1 replays (the
-   capturing call's own replay counted, as serving counts them), each
-   step's exact launches, the loss falling by more than 0.1, and the loss
-   sequence beside (e)'s with their max |difference|; and one f32 step at
-   2 x 1024 as a replay against an eager step from equal states, the loss
-   and every param and moment leaf within GRAPH_TRAIN_F32_TOL of its max
-   |.|; (f') one replayed step under torch.profiler beside (f)'s eager one
-   (wall / busy / idle, host ops, kernels, median step, tokens/s, peak
-   memory): at most COMPILED_TICK_HOST_OPS host ops; (j) the compiled bf16
+   state of the same seed: the exact launches of every step
+   (``train_launches_per_step``: 2 x 32 K1, 32 K1b, 2 x 64 + 1 K3, 65 K3b;
+   per-period remat runs each period's forward again), one capture and
+   TRAIN_STEPS - 1 replays (the capturing call's own replay counted, as
+   serving counts them), the replays' losses those of the eager run, the
+   loss falling by more than 0.1, step ms, tokens/s and peak memory; (f)
+   one eager step and (f') one replayed step under torch.profiler, each of
+   which must name K1's ``flash_fwd_mma``, K1b's instances of its dtype and
+   head dim (``flash_attention.bwd_instances``: the wgmma pair here) and no
+   other K1b instance, K3's ``rmsnorm_rows`` and K3b's
+   ``rmsnorm_bwd_fused`` and neither kernel of the previous K3b (a session
+   that names no kernel fails), with the device ms a step of each of those
+   kernels; wall / busy / idle, host ops, kernels, median step, tokens/s,
+   peak memory of the two, and the replay at most COMPILED_TICK_HOST_OPS
+   host ops; (j) the compiled bf16
    step under ``runtime/supervisor.py``'s ``Supervisor`` for 20 steps, a
    checkpoint every SUP_CKPT_EVERY, a node failure injected before step
    SUP_FAIL_AT, in a temporary directory removed at the end: one restart,
@@ -189,11 +198,24 @@ failure of which exits non-zero:
    (``rmsnorm.previous_bwd``), and K3B_CALLS K3b calls under
    torch.profiler, which must show its one kernel, at most once a call,
    and nothing else (no memset); and K3 at the training rows beside
-   ``F.rms_norm``; (h) K2, K4, K5 and K6 refuse an input that requires grad
-   (ROADMAP R11), and K1b one at head dim 256 (K1b-D256) before any
-   launch; (i) ``python -m repro_torch.launch.train --arch
-   smollm-360m --steps 20 --ckpt-dir <tmp> --fail-at 7`` in a child
-   process: one restart, one capture, its loss falling;
+   ``F.rms_norm``; K1b at phase (k)'s training shapes (the wide pair at D
+   128 / 256, with its rate and its multiple of the bound) beside its
+   bound, plain version and SDPA's backward, and gemma3-4b's in f32; (h)
+   K2, K4, K5 and K6 refuse an input that requires grad (ROADMAP R11),
+   and K1b one at a head dim without an instance (96) before any launch;
+   (i) ``python -m repro_torch.launch.train --arch smollm-360m --steps 20
+   --ckpt-dir <tmp> --fail-at 7`` in a child process: one restart, one
+   capture, its loss falling; (k) the dense archs of DENSE_TRAIN (gemma3-4b and
+   musicgen-large at full depth, gemma2-27b and chameleon-34b cut to 4
+   layers) at full width through ``train_checks``, as smollm-360m in
+   (d)-(f'): the f32 steps at DENSE_GATE_LAYERS layers, DENSE_TRAIN_STEPS
+   bf16 steps at 4 x 2048 on one batch eagerly and then compiled (the loss
+   falling), frontend archs with seeded embeddings, and one replayed step
+   under torch.profiler (the tensor-core K1b, the wide pair at D 128 / 256,
+   and no other K1b instance; K1b's ms a step); then ``python -m
+   repro_torch.launch.train --arch gemma3-4b`` (DENSE_CLI_ARGS, no
+   checkpoints) in a child process: one capture, every step's K1b
+   launches, its loss falling;
 6. the paper's measurement layer (``core/``): (a) Table I, the hyperfine
    protocol (TABLE1_MICRO warm-up and measured calls) on the microbench
    (``configs/microbench.py``), baseline / usdt (tape-mode tracepoints) /
@@ -282,8 +304,9 @@ failure of which exits non-zero:
    host, and a profiler window opened from another thread around a K3
    launch under a ``span=`` range on this one (reported: what it saw);
 9. print the script's run time, the per-kernel JSON line (launches from the
-   nine compiled serving runs, K1b's and K3b's from phase 5 (e), and phase
-   7's and phase 8's runs), the card line, and last the ``{"ok": true,
+   nine compiled serving runs, K1b's and K3b's from phase 5 (e), the wide
+   K1b's from phase 5 (k), and phase 7's and phase 8's runs), the card
+   line, and last the ``{"ok": true,
    "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
@@ -412,6 +435,33 @@ CLI_FAIL_AT = 7  # phase 5 (i): --fail-at of the driver's run (restores step 0)
 CLI_TIMEOUT_S = 300  # phase 5 (i): python -m repro_torch.launch.train on the card
 K3B_CALLS = 10  # phase 5 (g): K3b calls under torch.profiler, one kernel each
 K3B_OVERLAP_ROUNDS = 8  # phase 5 (c): K3b calls on each of two streams at once
+# phase 5 (k): the dense archs K1b's head dims 256 and 128 bring to the
+# card, each trained at full width in bf16 with f32 moments on SyntheticLM
+# batches of (layers (None: full depth), batch) x DENSE_TRAIN_SEQ.
+# gemma2-27b and chameleon-34b are cut to 4 of 46 / 48 layers (gemma2: two
+# periods of (swa, ga)): whole, their bf16 params and grads and f32
+# moments, 12 bytes a parameter, take 326 and 412 GB
+DENSE_TRAIN = {GEMMA3_ARCH: (None, 4), MUSICGEN_ARCH: (None, 4), GEMMA2_ARCH: (4, 4),
+               CHAMELEON_ARCH: (4, 4)}
+DENSE_TRAIN_SEQ = 2048
+# (b), (c), (g): K1b and K3b at 4 x 2048 tokens of each arch's heads and widths
+DENSE_KERNEL_BATCH = 4
+# each arch's bf16 run: DENSE_TRAIN_STEPS steps eagerly, then the same steps
+# compiled from a fresh state of the same seed (an eager call, a capture,
+# replays), all on SyntheticLM batch 0, so that the loss falls by the
+# steps' own gradients (over a few different batches a random-init model's
+# loss moves by their spread as much); DENSE_TRAIN_LR at the first update,
+# cosine to 0.1 x it
+DENSE_TRAIN_STEPS, DENSE_TRAIN_LR = 5, 1e-4
+# its f32 gates at full width and DENSE_GATE_LAYERS layers: gemma3-4b's
+# pattern cut to one period of (swa, ga), one local and one global layer
+DENSE_GATE_LAYERS = 2
+# the training driver's child run: gemma3-4b at full width and depth with
+# no checkpoints (a copy of its state is 39 GB), on SyntheticLM batches 0-5;
+# launch.train's warmup of 10 steps takes the lr from 1e-4 to 6e-4
+DENSE_CLI_ARCH = GEMMA3_ARCH
+DENSE_CLI_ARGS = ("--steps", "6", "--batch", "4", "--seq", "2048", "--lr", "1e-3",
+                  "--ckpt-every", "0")
 # a named scope of the model (core/scopes.py), as torch.profiler names its range
 SCOPE_NAME = re.compile(r"^(embed|final_norm|(head|tail)\d+|pos\d+_[a-z]+_[a-z_]+|mixer_[a-z]+"
                         r"|ffn_[a-z_]+)$")
@@ -504,6 +554,7 @@ def main() -> None:
     from repro_torch.serving.engine import Engine, ServeConfig
 
     t_start = time.time()
+    phase_s: dict[str, float] = {}
     dev = torch.device("cuda")
 
     # -- 1. the card ------------------------------------------------------
@@ -533,6 +584,7 @@ def main() -> None:
           f"{spec.peak_flops_bf16:.3g} / {spec.peak_flops_f32:.3g} FLOP/s, HBM "
           f"{spec.hbm_bw:.3g} B/s", flush=True)
 
+    phase_s["2"] = time.time() - t_start  # when each phase began
     # -- 2. build ---------------------------------------------------------
     t0 = time.time()
     paths = _build.build()
@@ -666,6 +718,7 @@ def main() -> None:
     def fmt_ms(t) -> str:
         return "none" if t is None else f"{t:.4f} ms"
 
+    phase_s["3"] = time.time() - t_start
     # -- 3. kernels against their plain versions ---------------------------
     print("kernels vs plain:", flush=True)
     # K1: the CPU tests' sweep, q_offset, and the prefill shape
@@ -2029,6 +2082,7 @@ def main() -> None:
             fail(f"{c32.name}: the engine's first token is not the argmax of its prefill logits")
         return gate
 
+    phase_s["4"] = time.time() - t_start
     # -- 4. serve full-width qwen2-0.5b through the port's Engine ----------
     params, _ = init_model(cfg)
     eng, prompts, outs, serve, eager_outs, eager_serve = serve_both(cfg, params, SERVE)
@@ -2067,6 +2121,7 @@ def main() -> None:
     agree = logit_gate(cfg32, _map(lambda t: t.float(), eng.params), prompts[0], outs[0],
                        SERVE["max_seq"], bf16=(cfg, eng.params))
 
+    phase_s["4b"] = time.time() - t_start
     # -- 4b. serve full-width, full-depth deepseek-moe-16b --------------------
     del eng, params, table
     gc.collect()
@@ -2201,6 +2256,7 @@ def main() -> None:
     print(f"{MOE_ARCH} bf16 (c), full depth, kernels vs plain (reported, no bound): "
           f"{json.dumps(gate_c)}", flush=True)
 
+    phase_s["4c"] = time.time() - t_start
     # -- 4c. serve full-width, full-depth rwkv6-7b ---------------------------
     del meng, mparams
     picks.clear()
@@ -2267,6 +2323,7 @@ def main() -> None:
         fail(f"{RWKV_ARCH}: the engine's first token is not the argmax of its prefill logits")
     del rlog, kl, pl, k32, f32
 
+    phase_s["4d"] = time.time() - t_start
     # -- 4d. serve full-width jamba-1.5-large, cut to its first five layers --
     gc.collect()
     torch.cuda.empty_cache()
@@ -2370,6 +2427,7 @@ def main() -> None:
     if gate_failures:
         fail(f"{JAMBA_ARCH}: " + "; ".join(gate_failures))
 
+    phase_s["4e"] = time.time() - t_start
     # -- 4e. serve full-width, full-depth gemma3-4b: K1 and K2 at head dim 256 --
     # 34 layers (5 periods of swa x 5 + ga, and 4 swa layers unscanned), bf16
     # 7.8 GB.  Prompts of 1536 tokens against the 1024-token window: K1 masks
@@ -2393,6 +2451,7 @@ def main() -> None:
                          GEMMA3_SERVE["max_seq"], bf16=(g3, g3params))
     del g3params
 
+    phase_s["4f"] = time.time() - t_start
     # -- 4f. serve full-width, full-depth gemma2-27b: softcaps at D 128 --------
     # 46 layers, 54.45 GB in bf16, the standard set (1024-slot caches, 16
     # prompts of 512 tokens): the attention softcap of 50 in K1 and K2 in
@@ -2436,6 +2495,7 @@ def main() -> None:
     g2_gate = logit_gate(g2cfg4, g2params4, *g2req)
     del g2params4
 
+    phase_s["4g-4i"] = time.time() - t_start
     # -- 4g-4i. ROADMAP M10: musicgen-large, chameleon-34b, dbrx-132b -------
     # Each the standard set (8 slots, 1024-slot caches, 16 prompts of 512
     # tokens, 32 new tokens) through serve_set: eager then compiled, the
@@ -2534,6 +2594,7 @@ def main() -> None:
     if sum(norm_launches.values()) != records["rmsnorm"]["launches"]:
         fail("rmsnorm launches by shape do not add up to its launch count")
 
+    phase_s["5"] = time.time() - t_start
     # -- 5. training: smollm-360m through K1 (with its lse), K1b, K3, K3b -----
     gc.collect()
     torch.cuda.empty_cache()
@@ -2561,10 +2622,35 @@ def main() -> None:
                  # the wgmma instance's features at D 64: window + softcap +
                  # q_offset with GQA, and Sq, Sk off its 64-row tiles at G = 8
                  (2, 136, 264, 15, 5, 64, 48, 30.0, 128), (1, 200, 330, 8, 1, 64, 100, None, 130)]
-    err_lse = err_b = 0.0
+    # the wide pair's head dims 128 and 256: the CPU tests' VJP cases there
+    # (window 16 with softcap 50, softcap 30, q_offset 24), a window starting
+    # inside a tile with a softcap under GQA, Sq, Sk off its 64- and 32-row
+    # tiles at G = 8
+    k1b_cases += [c for D_ in (128, 256) for c in (
+        (2, 40, 40, 4, 2, D_, 16, 50.0, 0), (2, 40, 40, 4, 2, D_, None, 30.0, 0),
+        (2, 40, 64, 4, 2, D_, None, None, 24), (2, 136, 264, 8, 4, D_, 48, 30.0, 128),
+        (1, 333, 333, 8, 1, D_, None, None, 0))]
+    # the training shapes of phase (k): gemma3-4b's global and local (window
+    # 1024) layers at D 256, gemma2-27b's at D 128 with softcap 50,
+    # chameleon-34b's at D 128 with G 8, and musicgen-large's at D 64 with G 1
+    # (the wgmma pair)
+    g3t, g2t, cht, mgt = (get_config(a) for a in (GEMMA3_ARCH, GEMMA2_ARCH, CHAMELEON_ARCH,
+                                                   MUSICGEN_ARCH))
+    dB, dS = DENSE_KERNEL_BATCH, DENSE_TRAIN_SEQ
+    dense_shapes = {
+        f"{GEMMA3_ARCH} global": (dB, dS, dS, g3t.n_heads, g3t.n_kv_heads, g3t.head_dim, None,
+                                  None, 0),
+        f"{GEMMA3_ARCH} local": (dB, dS, dS, g3t.n_heads, g3t.n_kv_heads, g3t.head_dim,
+                                 g3t.sliding_window, None, 0),
+        GEMMA2_ARCH: (dB, dS, dS, g2t.n_heads, g2t.n_kv_heads, g2t.head_dim, None,
+                      g2t.attn_logit_softcap, 0),
+        CHAMELEON_ARCH: (dB, dS, dS, cht.n_heads, cht.n_kv_heads, cht.head_dim, None, None, 0),
+        MUSICGEN_ARCH: (dB, dS, dS, mgt.n_heads, mgt.n_kv_heads, mgt.head_dim, None, None, 0)}
+    err_lse = err_b = err_wide = 0.0
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).removeprefix("torch.")
-        train_shape = [(tB, tS, tS, tHq, tHkv, tD, None, None, 0)] if dt == torch.bfloat16 else []
+        train_shape = ([(tB, tS, tS, tHq, tHkv, tD, None, None, 0), *dense_shapes.values()]
+                       if dt == torch.bfloat16 else [])
         for B_, Sq_, Sk_, Hq_, Hkv_, D_, w, cap, qo in k1b_cases + train_shape:
             q, k, v, do = (randn(B_, n, h, D_, dtype=dt)
                            for n, h in ((Sq_, Hq_), (Sk_, Hkv_), (Sk_, Hkv_), (Sq_, Hq_)))
@@ -2579,18 +2665,28 @@ def main() -> None:
                        zip(got, k1.flash_attention_bwd(q, k, v, out, lse, do, **kw))):
                 fail(f"flash_attention_bwd {label}: two runs differ")
             want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
-            err_b = max(err_b, hold_rel(f"{label} dq dk dv vs ref.flash_attention_bwd_ref", got,
-                                        want, BWD_TOL[dn], kernel="flash_attention_bwd"))
+            pair = k1.bwd_instances(dt, D_)[0]
+            err = hold_rel(f"{label} dq dk dv vs ref.flash_attention_bwd_ref ({pair})", got,
+                           want, BWD_TOL[dn], kernel="flash_attention_bwd")
+            if pair == "flash_bwd_dq_wide":
+                err_wide = max(err_wide, err)
+            else:
+                err_b = max(err_b, err)
             leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
             auto = torch.autograd.grad(ref.mha_ref(*leaves, **kw), leaves, do.float())
             hold_rel(f"{label} dq dk dv vs autograd through ref.mha_ref", got, auto,
                      BWD_TOL[dn], kernel="flash_attention_bwd")
             del q, k, v, do, out, lse, out_p, lse_p, got, want, leaves, auto
 
-    # (c) K3b at smollm's training rows and at every served (rows, D), f32
-    # and bf16, twice with bitwise-equal results
+    # (c) K3b at smollm's training rows, at every served (rows, D) and at
+    # phase (k)'s training rows (gemma3-4b's d 2560, gemma2-27b's 4608,
+    # chameleon-34b's 8192 and its QK-norm's rows of 128, G 8 query rows and
+    # one key row a token), f32 and bf16, twice with bitwise-equal results
     err3b = 0.0
-    for shape in [(tB * tS, tdm), *served_norms]:
+    dT = DENSE_KERNEL_BATCH * DENSE_TRAIN_SEQ
+    dense_norms = [(dT, g3t.d_model), (dT, g2t.d_model), (dT, cht.d_model),
+                   (dT * cht.n_heads, cht.head_dim), (dT * cht.n_kv_heads, cht.head_dim)]
+    for shape in [(tB * tS, tdm), *served_norms, *dense_norms]:
         for dt in (torch.float32, torch.bfloat16):
             dn = str(dt).removeprefix("torch.")
             x, s_, dy = randn(*shape, dtype=dt), randn(shape[-1]) * 0.1, randn(*shape, dtype=dt)
@@ -2625,162 +2721,28 @@ def main() -> None:
         fail("rmsnorm_bwd on two streams at once differs from one call at a time")
     del x, s_, dy, got, args3b, alone, together
 
-    # launches of one train step with per-period remat ("nothing"): every
-    # period's forward runs again in the backward
-    want_step = {name: 0 for name in launch_counts()}
-    want_step.update({"flash_attention": 2 * tL, "flash_attention_bwd": tL,
-                      "rmsnorm": 2 * 2 * tL + 1, "rmsnorm_bwd": 2 * tL + 1})
-
-    # (d) one f32 train step at full width and depth, one set of weights,
-    # through the kernels (impl auto) and through the plain versions: the
-    # loss and every gradient leaf
+    # (d)-(f') smollm-360m at full width and depth through train_checks: the
+    # f32 step at 2 x 1024 kernels vs plain and as a replay vs eager, then
+    # TRAIN_STEPS bf16 steps on SyntheticLM eagerly and compiled (the
+    # schedule launch.train gives 20 steps), an eager step and a replay
+    # under torch.profiler
     cfg32 = dataclasses.replace(tcfg, param_dtype="float32", activation_dtype="float32")
-    p32 = lm.init_params(cfg32, SEED, device=dev)
-    for t in _leaves(p32):
-        t.requires_grad_()
-    b = SyntheticLM(DataConfig(tcfg.vocab_size, F32_GATE_SEQ, F32_GATE_BATCH, seed=SEED)).batch(0)
-    toks, labels = (torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels"))
-    names = [n for n, _ in _named_leaves(p32)]
-    torch.cuda.reset_peak_memory_stats()
-    f32_runs = {}
-    for impl in ("auto", "plain"):
-        reset_launches()
-        with ops.impl_scope(impl):
-            loss, _ = lm.loss_fn(p32, cfg32, toks, labels)
-            grads = torch.autograd.grad(loss, list(_leaves(p32)))
-        torch.cuda.synchronize()
-        f32_runs[impl] = (float(loss.detach()), grads, launch_counts())
-    if f32_runs["auto"][2] != want_step or any(f32_runs["plain"][2].values()):
-        fail(f"f32 train step launches: kernels {f32_runs['auto'][2]}, plain "
-             f"{f32_runs['plain'][2]}, expected {want_step} and none")
-    worst = max(((float((gk - gp).abs().max()) / max(float(gp.abs().max()), 1e-30), n)
-                 for n, gk, gp in zip(names, f32_runs["auto"][1], f32_runs["plain"][1])))
-    finite = all(bool(torch.isfinite(g).all()) for g in f32_runs["auto"][1])
-    f32_gate = {"loss_kernel": f32_runs["auto"][0], "loss_plain": f32_runs["plain"][0],
-                "loss_rel_diff": abs(f32_runs["auto"][0] - f32_runs["plain"][0])
-                / abs(f32_runs["plain"][0]),
-                "worst_leaf_rel_diff": worst[0], "worst_leaf": worst[1], "leaves": len(names),
-                "grads_finite": finite, "batch": F32_GATE_BATCH, "seq": F32_GATE_SEQ,
-                "layers": tL, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(f"{TRAIN_ARCH} f32 train step, full width and depth, kernels vs plain: "
-          f"{json.dumps(f32_gate)} (tol {F32_LOSS_RTOL} on loss_rel_diff, {F32_GRAD_TOL} on "
-          "worst_leaf_rel_diff)", flush=True)
-    if not finite or f32_gate["loss_rel_diff"] > F32_LOSS_RTOL or worst[0] > F32_GRAD_TOL:
-        fail(f"{TRAIN_ARCH}: the f32 train step through the kernels disagrees with the plain "
-             "versions")
-    del p32, f32_runs, grads, loss
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # (e) TRAIN_STEPS bf16 steps at full width and depth on SyntheticLM, the
-    # launch counts reset before each step and held after it
     tcfg_train = step_mod.TrainConfig(opt=optim.AdamWConfig(
         peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
     data = SyntheticLM(DataConfig(tcfg.vocab_size, tS, tB, seed=SEED))
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
                for i in range(TRAIN_STEPS)]
-    torch.cuda.reset_peak_memory_stats()
-    state = step_mod.init_train_state(tcfg, tcfg_train, SEED, dev)
-    train_step = step_mod.make_train_step(tcfg, tcfg_train)
-    losses, step_ms = [], []
-    train_launches = dict.fromkeys(want_step, 0)
-    for bt in batches:
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = train_step(state, bt)
-        losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-        got = launch_counts()
-        if got != want_step:
-            fail(f"{TRAIN_ARCH} train step {len(losses)}: launches {got}, expected {want_step}")
-        for name, n in got.items():
-            train_launches[name] += n
-    med_ms = float(np.median(step_ms))
-    train_rec = {"steps": TRAIN_STEPS, "batch": tB, "seq": tS, "peak_lr": TRAIN_LR,
-                 "remat_policy": tcfg.remat_policy, "losses": losses,
-                 "first_loss": losses[0], "last_loss": losses[-1], "step_ms": step_ms,
-                 "median_step_ms": med_ms, "tokens_per_s": tB * tS / (med_ms / 1e3),
-                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                 "launches_per_step": want_step, "launches": train_launches}
-    print(f"{TRAIN_ARCH} train: {json.dumps(train_rec)}", flush=True)
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] - 0.1:
-        fail(f"{TRAIN_ARCH}: the loss did not fall by more than 0.1 in {TRAIN_STEPS} steps")
-
-    def port_kernels(profile: dict) -> dict:
-        """Device ms a step and launches of the port's training kernels."""
-        return {w: [sum(ms for n, ms, _ in profile["all_kernels"] if f"::{w}" in n),
-                    sum(c for n, _, c in profile["all_kernels"] if f"::{w}" in n)]
-                for w in ("flash_fwd_mma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma",
-                          "rmsnorm_rows", "rmsnorm_bwd_fused")}
-
-    # (f) one train step under torch.profiler
-    train_profile = profile_step(lambda: train_step(state, batches[0]), top=12)
-    print(f"{TRAIN_ARCH} train step profile: {json.dumps(train_profile)}", flush=True)
-    step_kernels = port_kernels(train_profile)
-    print(f"{TRAIN_ARCH} train step, device ms and launches of the port's kernels: "
-          f"{json.dumps(step_kernels)}", flush=True)
-    # the bf16 step ran the tensor-core instances of K1 and K1b and the K3 /
-    # K3b kernels, and no CUDA-core instance of K1 or K1b nor the previous
-    # K3b's kernels (a session that saw no kernel at all names none)
-    names = train_profile["kernel_names"]
-    want_names = [k1.instance(torch.bfloat16, tD), *k1.bwd_instances(torch.bfloat16, tD),
-                  "rmsnorm_rows", "rmsnorm_bwd_fused"]
-    other_names = ["flash_fwd_simt", *k1.bwd_instances(torch.float32, tD),
-                   *k1.bwd_instances(torch.bfloat16, 32),  # the mma.sync pair, D 16 / 32 now
-                   "rmsnorm_bwd_rows", "rmsnorm_bwd_dscale"]  # the previous K3b
-    ran = {w: any(f"::{w}<" in n or f"::{w}(" in n for n in names)
-           for w in want_names + other_names}
-    print(f"{TRAIN_ARCH} train step attention and norm kernels: {json.dumps(ran)}", flush=True)
-    if names and (not all(ran[w] for w in want_names) or any(ran[w] for w in other_names)):
-        fail(f"{TRAIN_ARCH} train step ran {ran}, expected {want_names} and none of "
-             f"{other_names}")
-    del state, train_step, m
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # (e') the same TRAIN_STEPS bf16 steps through the compiled step (the
-    # step captured as a CUDA graph), from a fresh state of the same seed:
-    # the first step eager, the second captured, the rest replays, each
-    # step's launches exact (a replay adds what its capture counted)
-    torch.cuda.reset_peak_memory_stats()
-    cstate = step_mod.init_train_state(tcfg, tcfg_train, SEED, dev)
-    cstep = CompiledTrainStep(tcfg, tcfg_train, cstate)
-    closses, cstep_ms = [], []
-    for bt in batches:
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, m = cstep(cstate, bt)
-        closses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        cstep_ms.append(1e3 * (time.perf_counter() - t0))
-        got = launch_counts()
-        if got != want_step:
-            fail(f"{TRAIN_ARCH} compiled train step {len(closses)}: launches {got}, expected "
-                 f"{want_step}")
-    cmed = float(np.median(cstep_ms))
-    compiled_rec = {"steps": TRAIN_STEPS, "counts": cstep.counts(), "losses": closses,
-                    "first_loss": closses[0], "last_loss": closses[-1],
-                    "max_abs_loss_diff_vs_eager": max(abs(a - b) for a, b in zip(closses, losses)),
-                    "step_ms": cstep_ms, "median_step_ms": cmed,
-                    "tokens_per_s": tB * tS / (cmed / 1e3),
-                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(f"{TRAIN_ARCH} compiled train: {json.dumps(compiled_rec)}", flush=True)
-    want_counts = {"calls": TRAIN_STEPS, "captures": 1, "replays": TRAIN_STEPS - 1}
-    if compiled_rec["counts"] != want_counts:
-        fail(f"{TRAIN_ARCH} compiled train step counts {compiled_rec['counts']}, expected "
-             f"{want_counts}")
-    if not all(np.isfinite(closses)) or not closses[-1] < closses[0] - 0.1:
-        fail(f"{TRAIN_ARCH}: the compiled run's loss did not fall by more than 0.1")
-
-    # (f') one replayed step under torch.profiler, beside (f)'s eager step
-    compiled_profile = profile_step(lambda: cstep(cstate, batches[0]), top=12)
-    print(f"{TRAIN_ARCH} compiled train step profile (a replay): "
-          f"{json.dumps(compiled_profile)}", flush=True)
-    print(f"{TRAIN_ARCH} compiled train step, device ms and launches of the port's kernels: "
-          f"{json.dumps(port_kernels(compiled_profile))}", flush=True)
+    b32 = [{k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(DataConfig(
+        tcfg.vocab_size, F32_GATE_SEQ, F32_GATE_BATCH, seed=SEED)).batch(i).items()}
+        for i in range(2)]
+    smollm = train_checks(dev, smi, TRAIN_ARCH, tcfg, cfg32, tcfg_train, b32, lambda: batches,
+                          fall_by=0.1, profiled=("eager", "compiled"), reps=3)
+    del b32
+    want_step = smollm["launches_per_step"]
+    train_launches = smollm["eager"]["launches"]
+    f32_gate, graph_train_f32 = smollm["f32_gate"], smollm["graph_f32"]
+    train_rec, compiled_rec = smollm["eager"], smollm["compiled"]
+    train_profile, compiled_profile = smollm["profile"]["eager"], smollm["profile"]["compiled"]
     train_vs = {
         mode: {"wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
                "device_idle_share": prof["device_idle_share"], "host_ops": prof["host_ops"],
@@ -2789,48 +2751,6 @@ def main() -> None:
         for mode, prof, rec in (("eager", train_profile, train_rec),
                                 ("compiled", compiled_profile, compiled_rec))}
     print(f"{TRAIN_ARCH} train step eager vs compiled, {smi}: {json.dumps(train_vs)}", flush=True)
-    if compiled_profile["host_ops"] > COMPILED_TICK_HOST_OPS:
-        fail(f"{TRAIN_ARCH}: a replayed train step dispatched {compiled_profile['host_ops']} "
-             f"host ops (at most {COMPILED_TICK_HOST_OPS})")
-    del cstate, cstep, m
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # (e') f32 at (d)'s 2 x 1024: one replay against one eager step from
-    # equal states (the compiled state made equal after its eager call and
-    # its capture)
-    b32 = [{k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(DataConfig(
-        tcfg.vocab_size, F32_GATE_SEQ, F32_GATE_BATCH, seed=SEED)).batch(i).items()}
-        for i in range(2)]
-    s_graph = step_mod.init_train_state(cfg32, tcfg_train, SEED, dev)
-    graph32 = CompiledTrainStep(cfg32, tcfg_train, s_graph)
-    for _ in range(2):
-        graph32(s_graph, b32[0])
-    s_eager = step_mod.init_train_state(cfg32, tcfg_train, SEED, dev)
-    with torch.no_grad():
-        for a, b_ in zip(_leaves(s_graph), _leaves(s_eager)):
-            a.copy_(b_)
-    loss_graph = float(graph32(s_graph, b32[1])[1]["loss"])
-    loss_eager = float(step_mod.make_train_step(cfg32, tcfg_train)(s_eager, b32[1])[1]["loss"])
-    worst32 = max((float((a - b_).abs().max()) / max(float(b_.abs().max()), 1e-30), n)
-                  for (n, a), b_ in zip(_named_leaves(_map(torch.Tensor.detach, s_graph)),
-                                        _leaves(_map(torch.Tensor.detach, s_eager)))
-                  if a.is_floating_point())
-    graph_train_f32 = {"loss_graph": loss_graph, "loss_eager": loss_eager,
-                       "loss_rel_diff": abs(loss_graph - loss_eager) / abs(loss_eager),
-                       "worst_leaf_rel_diff": worst32[0], "worst_leaf": worst32[1],
-                       "steps_equal": int(s_graph["opt"]["step"]) == int(s_eager["opt"]["step"]),
-                       "counts": graph32.counts(), "batch": F32_GATE_BATCH, "seq": F32_GATE_SEQ}
-    print(f"{TRAIN_ARCH} f32 train step, a CUDA graph replay vs eager from equal states: "
-          f"{json.dumps(graph_train_f32)} (tol {GRAPH_TRAIN_F32_TOL} on loss_rel_diff and "
-          "worst_leaf_rel_diff)", flush=True)
-    if (graph_train_f32["loss_rel_diff"] > GRAPH_TRAIN_F32_TOL
-            or worst32[0] > GRAPH_TRAIN_F32_TOL or not graph_train_f32["steps_equal"]
-            or graph32.counts() != {"calls": 3, "captures": 1, "replays": 2}):
-        fail(f"{TRAIN_ARCH}: the replayed f32 train step disagrees with the eager step")
-    del s_graph, s_eager, graph32, b32
-    gc.collect()
-    torch.cuda.empty_cache()
 
     # (j) the supervised run: the compiled bf16 step under Supervisor for
     # TRAIN_STEPS steps, a checkpoint every SUP_CKPT_EVERY, a node failure
@@ -2903,7 +2823,8 @@ def main() -> None:
         supervised = {
             "steps": out["steps"], "restarts": out["restarts"], "stragglers": out["stragglers"],
             "metrics": len(out["metrics"]), "step_order": order, "losses": sup_losses,
-            "losses_equal_compiled_run": sup_losses == closses, "counts": jstep.counts(),
+            "losses_equal_compiled_run": sup_losses == compiled_rec["losses"],
+            "counts": jstep.counts(),
             "launches": sup_launches, "data_ptrs_unchanged": ptrs_unchanged,
             "step_counter": step_counter, "restored_step_equal": restored_equal,
             "restored_into_equal": restored_into_equal,
@@ -3040,6 +2961,76 @@ def main() -> None:
           f"SDPA's backward {k1b['library_tflops']:.1f}", flush=True)
     del q, k, v, do, out, lse, qs, ks_, vs_, dos, qg, kg, vg, x, s_, dy, xg, wg
 
+    # (g) K1b at phase (k)'s training shapes, L2 flushed, beside its bound,
+    # its plain version, SDPA's forward + backward less its forward (at
+    # gemma3-4b's local layers with a boolean mask; SDPA has no softcap, so
+    # at gemma2-27b's shape it is timed without one, sdpa_without_softcap_ms);
+    # gemma3-4b's global shape also in f32 (the CUDA-core pair the f32 gates
+    # run)
+    def live_pairs(Sq_, Sk_, w, qo) -> int:
+        pos = qo + np.arange(Sq_)
+        lo = np.maximum(0, pos - w + 1) if w is not None else 0
+        return int(np.maximum(0, np.minimum(pos, Sk_ - 1) - lo + 1).sum())
+
+    def sdpa_bwd_ms(qs_, ks_, vs_, dos_, mask) -> float:
+        qg_, kg_, vg_ = (t.clone().requires_grad_() for t in (qs_, ks_, vs_))
+        kw_ = dict(attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+
+        def fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qg_, kg_, vg_, **kw_)
+
+        def both():
+            o = F.scaled_dot_product_attention(qg_, kg_, vg_, **kw_)
+            return torch.autograd.grad(o, (qg_, kg_, vg_), dos_)
+
+        return time_ms(both) - time_ms(fwd)
+
+    dense_k1b: dict[str, dict] = {}
+    for label, (B_, Sq_, Sk_, Hq_, Hkv_, D_, w, cap, qo) in dense_shapes.items():
+        q, k, v, do = (randn(B_, n, h, D_, dtype=torch.bfloat16)
+                       for n, h in ((Sq_, Hq_), (Sk_, Hkv_), (Sk_, Hkv_), (Sq_, Hq_)))
+        kw = dict(window=w, softcap=cap, q_offset=qo)
+        out, lse = k1.flash_attention(q, k, v, return_lse=True, **kw)
+        n_flops = 10 * D_ * B_ * Hq_ * live_pairs(Sq_, Sk_, w, qo)
+        b_ms, b_by = bound_ms(nbytes(q, k, v, out, lse, do, q, k, v), n_flops, peaks["bfloat16"])
+        row = {"ms": time_ms(lambda: k1.flash_attention_bwd(q, k, v, out, lse, do, **kw)),
+               "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                                       **kw), iters=5),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "shape": f"{B_}x{Sq_}x{Hq_}/{Hkv_}x{D_} bf16 causal window={w} softcap={cap} "
+                        f"({' + '.join(k1.bwd_instances(torch.bfloat16, D_))})"}
+        qs, ks_, vs_, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+        mask = None
+        if w is not None:
+            pos = torch.arange(Sq_, device=dev)[:, None] + qo
+            key = torch.arange(Sk_, device=dev)[None, :]
+            mask = (key <= pos) & (key > pos - w)
+        lib = sdpa_bwd_ms(qs, ks_, vs_, dos, mask)
+        row["library_ms"] = None if cap else lib
+        if cap:
+            row["sdpa_without_softcap_ms"] = lib
+        row["tflops"] = n_flops / (row["ms"] * 1e-3) / 1e12
+        row["x_bound"] = row["ms"] / b_ms
+        if label == f"{GEMMA3_ARCH} global":
+            q, k, v, do, out, lse = (t.float() for t in (q, k, v, do, out, lse))
+            qs, ks_, vs_, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+            b32_ms, b32_by = bound_ms(nbytes(q, k, v, out, lse, do, q, k, v), n_flops,
+                                      peaks["float32"])
+            row["float32"] = {
+                "ms": time_ms(lambda: k1.flash_attention_bwd(q, k, v, out, lse, do, **kw), iters=3),
+                "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                                        **kw), iters=3),
+                "bound_ms": b32_ms, "bound_by": b32_by,
+                "library_ms": sdpa_bwd_ms(qs, ks_, vs_, dos, None),
+                "shape": f"{B_}x{Sq_}x{Hq_}/{Hkv_}x{D_} f32 causal "
+                         f"({' + '.join(k1.bwd_instances(torch.float32, D_))})"}
+        dense_k1b[label] = row
+        print(f"  flash_attention_bwd at {label}: {json.dumps(row)}", flush=True)
+        del q, k, v, do, out, lse, qs, ks_, vs_, dos, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # (h) R11: the forward-only kernels refuse an input that requires grad
     def refuses(name, fn) -> None:
         try:
@@ -3064,22 +3055,23 @@ def main() -> None:
                                                 randn(2, 16), randn(1, 2, 16, 16)))
     print("  R11 guard: decode_attention, moe_gmm, mamba_scan and rwkv6_scan refuse an input "
           "that requires grad: ok", flush=True)
-    # K1b has no D-256 instance: the wrapper refuses before any launch,
-    # naming its ROADMAP item
-    q, k, v = (randn(1, 64, h, 256, dtype=torch.bfloat16) for h in (8, 4, 4))
-    out, lse = k1.flash_attention(q, k, v, return_lse=True)
+    # K1b at a head dim without an instance (96) refuses before any launch
+    q = randn(1, 64, 8, 96, dtype=torch.bfloat16)
+    kv = randn(1, 64, 4, 96, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 8, 64), dtype=torch.float32, device=dev)
     before = launch_counts()["flash_attention_bwd"]
     try:
-        k1.flash_attention_bwd(q, k, v, out, lse, out)
+        k1.flash_attention_bwd(q, kv, kv, q, lse, q)
     except NotImplementedError as e:
-        if "K1b-D256" not in str(e) or launch_counts()["flash_attention_bwd"] != before:
-            fail(f"flash_attention_bwd at D 256: raised {e!r} after "
+        if ("no backward kernel at head dim 96" not in str(e)
+                or launch_counts()["flash_attention_bwd"] != before):
+            fail(f"flash_attention_bwd at D 96: raised {e!r} after "
                  f"{launch_counts()['flash_attention_bwd'] - before} launches")
     else:
-        fail("flash_attention_bwd at D 256 ran, with no backward instance there")
-    print("  flash_attention_bwd at D 256 refuses before any launch, naming K1b-D256: ok",
+        fail("flash_attention_bwd at D 96 ran, with no backward instance there")
+    print("  flash_attention_bwd at D 96 (no instance) refuses before any launch: ok",
           flush=True)
-    del q, k, v, out, lse
+    del q, kv, lse
 
     # (i) the training driver, as a user runs it, on the card, with a node
     # failure injected before step CLI_FAIL_AT (it restarts from step 0)
@@ -3103,6 +3095,12 @@ def main() -> None:
         fail(f"repro_torch.launch.train: restarts {cli['restarts']}, compiled "
              f"{cli['compiled']}, expected 1 restart and 1 capture")
 
+    # (k) the dense archs through the training path
+    phase_s["5 (k)"] = time.time() - t_start
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = dense_train_phase(dev, smi)
+
     records["flash_attention"]["with_lse"] = k1_lse
     records["flash_attention"]["train_launches"] = train_launches["flash_attention"]
     records["flash_attention"]["lse_max_abs_err"] = err_lse
@@ -3112,7 +3110,17 @@ def main() -> None:
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_vjp.py:108", "max_abs_err": err_b,
-        "launches": train_launches["flash_attention_bwd"], **k1b,
+        "launches": (train_launches["flash_attention_bwd"]
+                     + dense["launches"]["flash_attention_bwd"]),
+        **k1b, MUSICGEN_ARCH: dense_k1b[MUSICGEN_ARCH],
+    }
+    records["flash_attention_bwd_wide"] = {
+        "name": "flash_attention_bwd_wide", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_vjp.py:108", "max_abs_err": err_wide,
+        "launches": dense["launches"]["flash_attention_bwd_wide"],
+        **dense_k1b[f"{GEMMA3_ARCH} global"],
+        "shapes": {k_: v_ for k_, v_ in dense_k1b.items() if k_ != MUSICGEN_ARCH},
     }
     records["rmsnorm_bwd"] = {
         "name": "rmsnorm_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -3122,23 +3130,27 @@ def main() -> None:
     training = {"f32_gate": f32_gate, "train": train_rec, "profile": train_profile,
                 "compiled": compiled_rec, "compiled_profile": compiled_profile,
                 "eager_vs_compiled": train_vs, "graph_f32": graph_train_f32,
-                "supervised": supervised, "cli": cli}
+                "supervised": supervised, "cli": cli, "dense": dense}
 
+    phase_s["6"] = time.time() - t_start
     # -- 6. the paper's measurement layer ------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     measurement = measurement_phase(dev, smi)
 
+    phase_s["7"] = time.time() - t_start
     # -- 7. profile-guided dispatch ------------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     dispatch = dispatch_phase(dev, smi, records, compiled_rec["losses"])
 
+    phase_s["8"] = time.time() - t_start
     # -- 8. the trace and metrics plane ---------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     tracing = trace_phase(dev, smi, records, breakdown["decode_tick_compiled"], training)
 
+    phase_s["9"] = time.time() - t_start
     # -- 9. report ----------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
@@ -3160,8 +3172,9 @@ def main() -> None:
                           "gate_f32_init": g2_init4},
             **m10,
             "measurement": measurement, "dispatch": dispatch, "tracing": tracing,
-            "seconds": time.time() - t_start}
-    print(f"chip_smoke: {full['seconds']:.1f} s", flush=True)
+            "seconds": time.time() - t_start, "phase_s": phase_s}
+    print(f"chip_smoke: {full['seconds']:.1f} s; phases began at (s): {json.dumps(phase_s)}",
+          flush=True)
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
         args.record.write_text(json.dumps(full, indent=1))
@@ -3173,6 +3186,323 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+def train_launches_per_step(c) -> dict[str, int]:
+    """The kernel launches of one train step of the dense config ``c`` (one
+    microbatch): the layers inside the stacked periods run their forward
+    twice under per-period remat (again in the backward; once with remat
+    "everything"), the unscanned head / tail layers and the final norm
+    once; one K1b for each attention layer and one K3b for each K3 launch
+    of a forward (norm_launches_per_forward)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+
+    again = 1 if c.remat_policy == "everything" else 2
+    unscanned = {int(re.sub(r"\D", "", name)) for name, _ in lm._unscanned_layers(c)}
+    fwd_attn = fwd_norm = n_attn = 0
+    for i in range(c.n_layers):
+        sp = c.layer_spec(i)
+        attn = sp.mixer in ("ga", "swa")
+        norms = (1 + (sp.ffn != "none")) * (2 if c.post_block_norms else 1)
+        norms += 2 * (attn and c.qk_norm)
+        runs = 1 if i in unscanned else again
+        n_attn += attn
+        fwd_attn += runs * attn
+        fwd_norm += runs * norms
+    out = dict.fromkeys(LAUNCHES, 0)
+    out.update({"flash_attention": fwd_attn, "flash_attention_bwd": n_attn,
+                "rmsnorm": fwd_norm + 1, "rmsnorm_bwd": norms_per_forward(c)})
+    return out
+
+
+def train_checks(dev, smi: str, arch: str, cfg, cfg32, tcfg, b32: list[dict], bf16_batches,
+                 *, fall_by: float, profiled: tuple[str, ...] = ("compiled",),
+                 reps: int = 1) -> dict:
+    """One config through the training path on the card, at full width:
+    (1) the f32 step at ``cfg32`` on ``b32[0]`` through the kernels and
+    through the plain versions, its launches exact, the loss within
+    F32_LOSS_RTOL and every gradient leaf within F32_GRAD_TOL of its max
+    |.|; (2) f32 at ``cfg32``: a CUDA graph replay on ``b32[1]`` against an
+    eager step from the seed's state, the loss and every param and moment
+    leaf within GRAPH_TRAIN_F32_TOL; (3) the bf16 steps at ``cfg`` over
+    ``bf16_batches()``, eagerly and then through ``CompiledTrainStep`` from
+    a fresh state of the same seed (an eager call, one capture, replays):
+    each step's launches exact (``train_launches_per_step``), the replays'
+    losses the eager run's, the loss falling by more than ``fall_by``; (4)
+    a step of each mode in ``profiled`` under torch.profiler (its wall time
+    the median of ``reps``): K1's, K1b's, K3's and K3b's instances of bf16
+    at this head dim and no other K1b instance, no CUDA-core K1 and not the
+    previous K3b (a session that names no kernel fails), a replay at most
+    COMPILED_TICK_HOST_OPS host ops.  A frontend arch's batches carry
+    ``frontend_embed``.  Returns the record, with each mode's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as k1
+    from repro_torch.kernels import launch_counts, ops, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.training import step as step_mod
+    from repro_torch.training.compiled import CompiledTrainStep
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def rel_diff(pairs) -> tuple[float, str]:
+        return max((float((a.float() - b.float()).abs().max())
+                    / max(float(b.float().abs().max()), 1e-30), n) for n, a, b in pairs)
+
+    def ran(w: str, name: str) -> bool:
+        return f"::{w}<" in name or f"::{w}(" in name
+
+    D = cfg.head_dim
+    rec: dict = {"layers": cfg.n_layers, "head_dim": D, "gate_layers": cfg32.n_layers,
+                 "peak_lr": tcfg.opt.peak_lr, "remat_policy": cfg.remat_policy}
+    # (1) the f32 step, kernels vs plain
+    want32 = train_launches_per_step(cfg32)
+    p32 = lm.init_params(cfg32, SEED, device=dev)
+    for t in _leaves(p32):
+        t.requires_grad_()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for impl in ("auto", "plain"):
+        reset_launches()
+        with ops.impl_scope(impl):
+            loss, _ = lm.loss_fn(p32, cfg32, b32[0]["tokens"], b32[0]["labels"],
+                                 b32[0].get("frontend_embed"))
+            grads = torch.autograd.grad(loss, list(_leaves(p32)))
+        torch.cuda.synchronize()
+        runs[impl] = (float(loss.detach()), grads, launch_counts())
+    del loss, grads
+    names = [n for n, _ in _named_leaves(p32)]
+    worst = rel_diff(zip(names, runs["auto"][1], runs["plain"][1]))
+    finite = all(bool(torch.isfinite(g).all()) for g in runs["auto"][1])
+    gate = {"loss_kernel": runs["auto"][0], "loss_plain": runs["plain"][0],
+            "loss_rel_diff": abs(runs["auto"][0] - runs["plain"][0]) / abs(runs["plain"][0]),
+            "worst_leaf_rel_diff": worst[0], "worst_leaf": worst[1], "leaves": len(names),
+            "grads_finite": finite, "launches": runs["auto"][2],
+            "batch": b32[0]["tokens"].shape[0], "seq": b32[0]["tokens"].shape[1],
+            "layers": cfg32.n_layers, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{arch} f32 train step, full width, {cfg32.n_layers} layers, kernels vs plain: "
+          f"{json.dumps(gate)} (tol {F32_LOSS_RTOL} on loss_rel_diff, {F32_GRAD_TOL} on "
+          "worst_leaf_rel_diff)", flush=True)
+    if runs["auto"][2] != want32 or any(runs["plain"][2].values()):
+        fail(f"{arch} f32 train step launches: kernels {runs['auto'][2]}, plain "
+             f"{runs['plain'][2]}, expected {want32} and none")
+    if not finite or gate["loss_rel_diff"] > F32_LOSS_RTOL or worst[0] > F32_GRAD_TOL:
+        fail(f"{arch}: the f32 train step through the kernels disagrees with the plain versions")
+    rec["f32_gate"] = gate
+    del p32, runs
+    free()
+
+    # (2) one eager step from the seed's state, its result kept on the host;
+    # then the seed's state restored in place from a host copy of its params
+    # (zero moments and step), the step compiled (its eager call and its
+    # capture on another batch), the state restored again and the same step
+    # replayed.  The eager step runs first: beside the captured step's memory
+    # pool, an eager step's or a second state's memory does not fit the card
+    # at the larger archs
+    s32 = step_mod.init_train_state(cfg32, tcfg, SEED, dev)
+    seed_params = [t.detach().cpu() for t in _leaves(s32["params"])]
+
+    def reseed() -> None:
+        with torch.no_grad():
+            for a, h in zip(_leaves(s32["params"]), seed_params):
+                a.copy_(h)
+            for t in _leaves(s32["opt"]):
+                t.zero_()
+
+    loss_eager = float(step_mod.make_train_step(cfg32, tcfg)(s32, b32[1])[1]["loss"])
+    on_host = [t.detach().cpu() for t in _leaves(s32)]
+    reseed()
+    free()
+    g32 = CompiledTrainStep(cfg32, tcfg, s32)
+    for _ in range(2):
+        g32(s32, b32[0])
+    reseed()
+    loss_graph = float(g32(s32, b32[1])[1]["loss"])
+    counts32 = g32.counts()
+    del g32  # its memory pool: the comparison needs the room
+    free()
+    leaves32 = [(n, t.detach()) for n, t in _named_leaves(s32)]
+    worst32 = rel_diff((n, h.to(dev), t) for (n, t), h in zip(leaves32, on_host)
+                       if t.is_floating_point())
+    steps_equal = all(torch.equal(h.to(dev), t) for (_, t), h in zip(leaves32, on_host)
+                      if not t.is_floating_point())
+    rec["graph_f32"] = {"loss_graph": loss_graph, "loss_eager": loss_eager,
+                        "loss_rel_diff": abs(loss_graph - loss_eager) / abs(loss_eager),
+                        "worst_leaf_rel_diff": worst32[0], "worst_leaf": worst32[1],
+                        "steps_equal": steps_equal, "counts": counts32}
+    print(f"{arch} f32 train step, a CUDA graph replay vs eager: "
+          f"{json.dumps(rec['graph_f32'])} (tol {GRAPH_TRAIN_F32_TOL} on loss_rel_diff and "
+          "worst_leaf_rel_diff)", flush=True)
+    if (rec["graph_f32"]["loss_rel_diff"] > GRAPH_TRAIN_F32_TOL
+            or worst32[0] > GRAPH_TRAIN_F32_TOL or not steps_equal
+            or counts32 != {"calls": 3, "captures": 1, "replays": 2}):
+        fail(f"{arch}: the replayed f32 train step disagrees with the eager step")
+    del s32, on_host, leaves32, seed_params
+    free()
+
+    # (3) the bf16 steps, eager then compiled, and (4) their profiles
+    want = train_launches_per_step(cfg)
+    bwd = k1.bwd_instances(torch.bfloat16, D)
+    want_names = [k1.instance(torch.bfloat16, D), *bwd, "rmsnorm_rows", "rmsnorm_bwd_fused"]
+    other_bwd = {n for d in k1.BWD_HEAD_DIMS for dt in (torch.bfloat16, torch.float32)
+                 for n in k1.bwd_instances(dt, d)} - set(bwd)
+    other_names = ["flash_fwd_simt", *sorted(other_bwd), "rmsnorm_bwd_rows",
+                   "rmsnorm_bwd_dscale"]
+    bts = bf16_batches()
+    B, S = bts[0]["tokens"].shape
+    rec.update(batch=B, seq=S, steps=len(bts), launches_per_step=want, profile={})
+    failures = []
+    for mode in ("eager", "compiled"):
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        state = step_mod.init_train_state(cfg, tcfg, SEED, dev)
+        step = (step_mod.make_train_step(cfg, tcfg) if mode == "eager"
+                else CompiledTrainStep(cfg, tcfg, state))
+        losses, step_ms = [], []
+        total = dict.fromkeys(want, 0)
+        for bt in bts:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, bt)[1]  # (the new state is state, updated in place)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            got = launch_counts()
+            if got != want:
+                fail(f"{arch} {mode} train step {len(losses)}: launches {got}, expected {want}")
+            for name, n in got.items():
+                total[name] += n
+        med = float(np.median(step_ms))
+        rec[mode] = {"losses": losses, "first_loss": losses[0], "last_loss": losses[-1],
+                     "step_ms": step_ms, "median_step_ms": med,
+                     "tokens_per_s": B * S / (med / 1e3),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches_per_step": want, "launches": total}
+        if mode == "compiled":
+            rec[mode]["counts"] = step.counts()
+            if rec[mode]["counts"] != {"calls": len(bts), "captures": 1,
+                                       "replays": len(bts) - 1}:
+                failures.append(f"compiled counts {rec[mode]['counts']}")
+        print(f"{arch} bf16 {mode}, {cfg.n_layers} layers, {B} x {S}, {smi}: "
+              f"{json.dumps(rec[mode])}", flush=True)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0] - fall_by:
+            failures.append(f"the {mode} loss did not fall by more than {fall_by}: {losses}")
+        if mode in profiled:
+            prof = profile_step(lambda: step(state, bts[0]), reps=reps, top=12)
+            names = prof["kernel_names"]
+            prof["kernels_ran"] = {w: any(ran(w, n) for n in names)
+                                   for w in want_names + other_names}
+            prof["port_kernels"] = {w: [sum(ms for n, ms, _ in prof["all_kernels"] if ran(w, n)),
+                                        sum(c for n, _, c in prof["all_kernels"] if ran(w, n))]
+                                    for w in want_names}
+            prof["k1b_ms"] = sum(prof["port_kernels"][w][0] for w in bwd)
+            rec["profile"][mode] = prof
+            print(f"{arch} bf16 {mode} step under torch.profiler, {smi}: "
+                  f"{json.dumps({k: v for k, v in prof.items() if k != 'all_kernels'})}",
+                  flush=True)
+            if not names:
+                failures.append(f"the profiled {mode} step named no kernel")
+            elif (not all(prof["kernels_ran"][w] for w in want_names)
+                    or any(prof["kernels_ran"][w] for w in other_names)):
+                failures.append(f"the profiled {mode} step ran {prof['kernels_ran']}, expected "
+                                f"{want_names} and none of {other_names}")
+            if mode == "compiled" and prof["host_ops"] > COMPILED_TICK_HOST_OPS:
+                failures.append(f"a replayed step dispatched {prof['host_ops']} host ops (at "
+                                f"most {COMPILED_TICK_HOST_OPS})")
+        del state, step, m
+    free()
+    rec["losses_equal_eager"] = rec["compiled"]["losses"] == rec["eager"]["losses"]
+    if not rec["losses_equal_eager"]:
+        failures.append("the replays' losses are not the eager run's")
+    if failures:
+        fail(f"{arch} bf16 train: " + "; ".join(failures))
+    return rec
+
+
+def dense_train_phase(dev, smi: str) -> dict:
+    """Phase 5 (k): DENSE_TRAIN's archs through ``train_checks`` and the
+    training driver (see the module docstring); returns its record, with
+    ``launches``, the K1b launches of the bf16 runs and the driver's child
+    run by record of the kernel line (``flash_attention_bwd_wide``: bf16 D
+    128 / 256; ``flash_attention_bwd``: musicgen-large's wgmma pair)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LayerSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as k1
+    from repro_torch.training import optim
+    from repro_torch.training import step as step_mod
+
+    S, N = DENSE_TRAIN_SEQ, DENSE_TRAIN_STEPS
+    tcfg = step_mod.TrainConfig(opt=optim.AdamWConfig(peak_lr=DENSE_TRAIN_LR, warmup_steps=1,
+                                                      total_steps=N))
+    out: dict = {"archs": {}}
+    launches = {"flash_attention_bwd_wide": 0, "flash_attention_bwd": 0}
+
+    for arch, (layers, B) in DENSE_TRAIN.items():
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+        cut = dict(n_layers=DENSE_GATE_LAYERS, param_dtype="float32", activation_dtype="float32")
+        if arch == GEMMA3_ARCH:
+            cut["layer_pattern"] = (LayerSpec("swa"), LayerSpec("ga"))
+        cfg32 = dataclasses.replace(full, **cut)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def batches(batch: int, seq: int, n: int, dtype, full=full, gen=gen) -> list[dict]:
+            """SyntheticLM batches 0 .. n - 1, with seeded frontend
+            embeddings for a frontend arch."""
+            data = SyntheticLM(DataConfig(full.vocab_size, seq, batch, seed=SEED))
+            got = []
+            for i in range(n):
+                bt = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
+                if full.frontend != "text":
+                    bt["frontend_embed"] = torch.randn((batch, seq, full.d_model), generator=gen,
+                                                       device=dev).to(dtype)
+                got.append(bt)
+            return got
+
+        b32 = batches(F32_GATE_BATCH, F32_GATE_SEQ, 2, torch.float32)
+        rec = train_checks(dev, smi, arch, cfg, cfg32, tcfg, b32,
+                           lambda B=B, batches=batches: batches(B, S, 1, torch.bfloat16) * N,
+                           fall_by=0.0)
+        wide = k1.bwd_instances(torch.bfloat16, cfg.head_dim)[0] == "flash_bwd_dq_wide"
+        launches["flash_attention_bwd_wide" if wide else "flash_attention_bwd"] += sum(
+            rec[mode]["launches"]["flash_attention_bwd"] for mode in ("eager", "compiled"))
+        out["archs"][arch] = rec
+        del b32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (k4) the training driver, as a user runs it, on gemma3-4b
+    cli_args = ["--arch", DENSE_CLI_ARCH, *DENSE_CLI_ARGS]
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *cli_args],
+                          cwd=ROOT, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          timeout=CLI_TIMEOUT_S)
+    if proc.returncode != 0:
+        fail(f"repro_torch.launch.train {' '.join(cli_args)} exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"5 (k) repro_torch.launch.train {' '.join(cli_args)}: {json.dumps(cli)}", flush=True)
+    n_steps = int(DENSE_CLI_ARGS[DENSE_CLI_ARGS.index("--steps") + 1])
+    n_attn = sum(get_config(DENSE_CLI_ARCH).layer_spec(i).mixer in ("ga", "swa")
+                 for i in range(get_config(DENSE_CLI_ARCH).n_layers))
+    if (cli["compiled"] != {"calls": n_steps, "captures": 1, "replays": n_steps - 1}
+            or cli["kernels"]["flash_attention_bwd"] != n_steps * n_attn
+            or not cli["last_loss"] < cli["first_loss"]):
+        fail(f"repro_torch.launch.train --arch {DENSE_CLI_ARCH}: compiled {cli['compiled']}, "
+             f"K1b launches {cli['kernels']['flash_attention_bwd']} (expected "
+             f"{n_steps * n_attn}), losses {cli['first_loss']} -> {cli['last_loss']}")
+    out["cli"] = cli
+    launches["flash_attention_bwd_wide"] += cli["kernels"]["flash_attention_bwd"]
+    out["launches"] = launches
+    return out
 
 
 def measurement_phase(dev, smi: str) -> dict:
@@ -3588,7 +3918,7 @@ def dispatch_phase(dev, smi: str, records: dict, compiled_losses: list) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.events import EventLog
     from repro_torch.dispatch import DispatchConfig, Dispatcher, ProfileStore, host_registry
-    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels import LAUNCHES, launch_counts, reset_launches
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine, ServeConfig
@@ -3598,7 +3928,9 @@ def dispatch_phase(dev, smi: str, records: dict, compiled_losses: list) -> dict:
     reg = host_registry(device=dev)
     if reg.names() != ["kernel", "plain"]:
         fail(f"host_registry on {dev}: {reg.names()}, expected ['kernel', 'plain']")
-    stray = {name: 0 for name in records}  # phase 7's launches, added to the kernel line
+    # phase 7's launches, added to the kernel line (the wide K1b's record is
+    # launched only in phase 5 (k): its launches count as flash_attention_bwd)
+    stray = {name: 0 for name in records if name in LAUNCHES}
 
     def memory(label: str) -> dict:
         line = {"held_gb": torch.cuda.memory_allocated() / 1e9,
@@ -3905,8 +4237,8 @@ def trace_phase(dev, smi: str, records: dict, tick_profile: dict, training: dict
 
     import torch
 
+    from repro_torch.kernels import LAUNCHES, uncounted
     from repro_torch.kernels import rmsnorm as k3
-    from repro_torch.kernels import uncounted
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
     from repro_torch.trace import liveprof
@@ -3920,7 +4252,7 @@ def trace_phase(dev, smi: str, records: dict, tick_profile: dict, training: dict
 
     work = Path(tempfile.mkdtemp(prefix="repro_torch_trace_"))
     rec: dict = {}
-    stray = {name: 0 for name in records}
+    stray = {name: 0 for name in records if name in LAUNCHES}
     compiled_rec = training["compiled"]
 
     def cli(*argv) -> str:

@@ -33,8 +33,12 @@
 // * bf16 at D 16 / 32 / 64: flash_bwd_dq_mma + flash_bwd_dkdv_mma, the
 //   products on the tensor cores (mma.sync m16n8k16, P and dS rounded to
 //   bf16 as their A operands; below).  S is computed in both passes, so
-//   they do 14 D flops a pair where the bound counts 10 D.
-// * f32, and bf16 at D 8 and 128: flash_bwd_dq + flash_bwd_dkdv, the
+//   they do 14 D flops a pair where the bound counts 10 D.  (Python routes
+//   bf16 D 64 to the wgmma pair of flash_attention_bwd_sm90.cu.)
+// * bf16 at D 128 / 256: flash_bwd_dq_wide + flash_bwd_dkdv_wide, the same
+//   products on mma.sync with head_dim split across 8 warps, P and dS
+//   passed between the warps through shared memory (the last section).
+// * f32, and bf16 at D 8: flash_bwd_dq + flash_bwd_dkdv, the
 //   products on the f32 CUDA cores one (row, key) pair at a time per thread
 //   group (the layout of flash_fwd_simt: thread g of a row owns dims
 //   VW*(g + TPR*i) .. +VW-1, and the row's partial dot products meet by
@@ -45,9 +49,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int D> constexpr int kTpr = D <= 64 ? 4 : 8;          // threads per row
+template <int D> constexpr int kTpr = D <= 64 ? 4 : D <= 128 ? 8 : 16;  // threads per row
 template <int D> constexpr int kRows = kThreads / kTpr<D>;      // rows (or keys) a block
-template <int D> constexpr int kTile = D <= 64 ? 64 : 32;       // staged rows: 32 KB of f32
+template <int D> constexpr int kTile = D <= 64 ? 64 : 4096 / D; // staged rows: <= 32 KB of f32
 
 template <int VW>
 __device__ __forceinline__ void lds(const float* p, float* out) {
@@ -327,8 +331,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 // dP^T = V dout^T, then dV += P^T dout and dK += dS^T Q with P and dS
 // rounded to bf16.  The A-operand fragments of P and dS are the f32 C
 // fragments of S repacked in registers, as flash_fwd_mma repacks P.  D 128
-// would hold 256 registers of fragments and accumulators a thread, so it
-// and D 8 stay on the CUDA cores.
+// would hold 256 registers of fragments and accumulators a thread: it takes
+// the wide pair below.
 
 constexpr int kMmaThreads = 128;  // 4 warps, 16 rows (or keys) each
 constexpr int kMB = 64;           // rows a block and rows a staged tile
@@ -668,6 +672,384 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D 128 / 256: the two passes on the tensor cores, D split over warps
+// ---------------------------------------------------------------------------
+//
+// At D 128 and 256 a warp cannot hold a 16-row strip's fragments and a
+// 16 x D accumulator (or two, dK and dV) in its 255 registers a thread, so
+// each block of 8 warps works in two phases per tile:
+//
+// * phase A, scores: warp (strip, part) computes S and dP (dq pass: Q K^T
+//   and dout V^T; dkdv pass: K Q^T and V dout^T) for its 16 rows (keys) and
+//   its part of the tile's keys (rows), A and B fragments both by ldmatrix
+//   from shared memory; it turns them into dS (and P) and writes them to
+//   shared memory in bf16;
+// * phase B, gradients: warp (strip, part) accumulates its 16 rows (keys) of
+//   dQ (dK and dV) over its part of D's columns, D / parts of them, reading
+//   dS (P) by ldmatrix and K (Q, dout) by ldmatrix.trans.
+//
+// A barrier separates the phases; the next tile's cp.async loads (2 stages)
+// are in flight across both.  Tiles (own rows x the other side's tile):
+//
+//   dq pass    D 128: 64 rows x 64 keys (warps 4 x 2, 64 columns of dQ each)
+//              D 256: 64 rows x 32 keys (warps 4 x 2, 128 columns each)
+//   dkdv pass  D 128: 64 keys x 64 rows (warps 4 x 2, 64 columns of dK, dV)
+//              D 256: 32 keys x 64 rows (warps 2 x 4, 64 columns each)
+//
+// so a thread holds at most 64 accumulator registers.  The sums and their
+// order are fixed, with no atomics: equal inputs give equal bits.
+
+constexpr int kWideThreads = 256;  // 8 warps
+constexpr int kWideWarps = kWideThreads / 32;
+template <int D> constexpr int kWideDqKeys = D <= 128 ? 64 : 32;    // keys of a dq tile
+template <int D> constexpr int kWideDkdvKeys = D <= 128 ? 64 : 32;  // keys of a dkdv block
+constexpr int kWideDqRows = 64;    // rows of a dq block
+constexpr int kWideDkdvRows = 64;  // q rows of a dkdv tile
+
+// shared memory (bytes): dq: Q, dout; K, V in 2 stages; dS; lse, delta.
+// dkdv: K, V; Q, dout in 2 stages; P^T, dS^T; lse, delta in 2 stages
+template <int D> constexpr int kWideDqSmem =
+    ((2 * kWideDqRows + 4 * kWideDqKeys<D>) * (D + 8) + kWideDqRows * (kWideDqKeys<D> + 8)) * 2 +
+    2 * kWideDqRows * 4;
+template <int D> constexpr int kWideDkdvSmem =
+    ((2 * kWideDkdvKeys<D> + 4 * kWideDkdvRows) * (D + 8) +
+     2 * kWideDkdvKeys<D> * (kWideDkdvRows + 8)) * 2 + 4 * kWideDkdvRows * 4;
+
+// rows [row0, row0 + n) of a (rows, ld) bf16 matrix -> ROWS rows of a shared
+// tile with row stride D + 8, by 16-byte cp.async; rows past n zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void load_wide(bf16* dst, const bf16* src, int ld, int row0, int n,
+                                          int tid) {
+  constexpr int kPerRow = D / 8;
+#pragma unroll 4
+  for (int i = tid; i < ROWS * kPerRow; i += kWideThreads) {
+    const int r = i / kPerRow, c = i % kPerRow;
+    const bool ok = r < n;
+    cp_async16(smem_addr(dst + r * (D + 8) + c * 8),
+               src + static_cast<size_t>(row0 + (ok ? r : 0)) * ld + c * 8, ok);
+  }
+}
+
+// c[16 x 16 NP] = A B^T: A the 16 rows at `a`, B the 16 NP rows at `b`, both
+// 16 KC columns wide in shared memory (row strides lda, ldb)
+template <int KC, int NP>
+__device__ __forceinline__ void mm_abt(float (&c)[2 * NP][4], const bf16* a, int lda,
+                                       const bf16* b, int ldb, int lane) {
+#pragma unroll
+  for (int n = 0; n < 2 * NP; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+  uint32_t af[4];
+  pipelined<KC * (NP + 1)>(
+      [&](int i, uint32_t (&r)[4]) {
+        const int kc = i / (NP + 1), j = i % (NP + 1);
+        if (j == 0)
+          ldmatrix_x4(r, smem_addr(a + (lane & 15) * lda + kc * 16 + (lane >> 4) * 8));
+        else
+          ldmatrix_x4(r, smem_addr(b + ((j - 1) * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldb +
+                                   kc * 16 + ((lane >> 3) & 1) * 8));
+      },
+      [&](int i, const uint32_t (&r)[4]) {
+        const int j = i % (NP + 1);
+        if (j == 0) {
+          af[0] = r[0]; af[1] = r[1]; af[2] = r[2]; af[3] = r[3];
+        } else {
+          mma_bf16(c[2 * (j - 1)], af, r[0], r[1]);
+          mma_bf16(c[2 * (j - 1) + 1], af, r[2], r[3]);
+        }
+      });
+}
+
+// acc[16 x 16 NP] += A B: A the 16 rows at `a` (16 KC columns), B the 16 KC
+// rows at `b` (16 NP columns), both in shared memory, B read by ldmatrix.trans
+template <int KC, int NP>
+__device__ __forceinline__ void mm_ab(float (&acc)[2 * NP][4], const bf16* a, int lda,
+                                      const bf16* b, int ldb, int lane) {
+  uint32_t af[4];
+  pipelined<KC * (NP + 1)>(
+      [&](int i, uint32_t (&r)[4]) {
+        const int kc = i / (NP + 1), j = i % (NP + 1);
+        if (j == 0)
+          ldmatrix_x4(r, smem_addr(a + (lane & 15) * lda + kc * 16 + (lane >> 4) * 8));
+        else
+          ldmatrix_x4_trans(r, smem_addr(b + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb +
+                                         (j - 1) * 16 + (lane >> 4) * 8));
+      },
+      [&](int i, const uint32_t (&r)[4]) {
+        const int j = i % (NP + 1);
+        if (j == 0) {
+          af[0] = r[0]; af[1] = r[1]; af[2] = r[2]; af[3] = r[3];
+        } else {
+          mma_bf16(acc[2 * (j - 1)], af, r[0], r[1]);
+          mma_bf16(acc[2 * (j - 1) + 1], af, r[2], r[3]);
+        }
+      });
+}
+
+// a 16 x 8 C fragment's two rows (gr, gr + 8) into a bf16 shared tile
+__device__ __forceinline__ void put_frag(bf16* dst, int ld, const float (&c)[4], int gr, int tq) {
+  *reinterpret_cast<__nv_bfloat162*>(dst + gr * ld + 2 * tq) = __floats2bfloat162_rn(c[0], c[1]);
+  *reinterpret_cast<__nv_bfloat162*>(dst + (gr + 8) * ld + 2 * tq) =
+      __floats2bfloat162_rn(c[2], c[3]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dq_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ o,
+                  const float* __restrict__ lse, const bf16* __restrict__ dout,
+                  bf16* __restrict__ dq, float* __restrict__ delta, int Sq, int Sk, int Hq,
+                  int Hkv, int causal, int window, float softcap, float scale, int q_offset) {
+  constexpr int M = kWideDqRows, N = kWideDqKeys<D>, RS = D + 8, PS = N + 8;
+  constexpr int STRIPS = M / 16, PARTS = kWideWarps / STRIPS;
+  constexpr int NK = N / PARTS, DW = D / PARTS;  // a warp's keys in phase A, columns in B
+  static_assert(NK % 16 == 0 && DW % 16 == 0, "a warp's slices are whole 16-wide fragments");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [M][RS]
+  bf16* dos = qs + M * RS;                        // [M][RS]
+  bf16* ks = dos + M * RS;                        // [2][N][RS]
+  bf16* vs = ks + 2 * N * RS;                     // [2][N][RS]
+  bf16* dss = vs + 2 * N * RS;                    // [M][PS]
+  float* stat = reinterpret_cast<float*>(dss + M * PS);  // lse * log2 e [M], delta [M]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // causal: the longest (last) q tiles first
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane >> 2, tq = lane & 3;
+  const int strip = warp % STRIPS, part = warp / STRIPS;
+  const int row0 = qt * M, n_rows = min(M, Sq - row0);
+  const int ldq = Hq * D, ldkv = Hkv * D;
+  const size_t qoff = (static_cast<size_t>(b) * Sq * Hq + h) * D;
+  const bf16* kg = k + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
+  const bf16* vg = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
+
+  const int last_row = row0 + n_rows - 1;
+  const int k_hi = causal ? min(Sk, q_offset + last_row + 1) : Sk;
+  const int k_lo = window >= 0 ? max(0, q_offset + row0 - window + 1) : 0;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + N - 1) / N : 0;
+  auto load_kv = [&](int it) {
+    const int k0 = k_lo + it * N, n = min(N, k_hi - k0);
+    load_wide<D, N>(ks + (it & 1) * N * RS, kg, ldkv, k0, n, tid);
+    load_wide<D, N>(vs + (it & 1) * N * RS, vg, ldkv, k0, n, tid);
+  };
+  load_wide<D, M>(qs, q + qoff, ldq, row0, n_rows, tid);
+  load_wide<D, M>(dos, dout + qoff, ldq, row0, n_rows, tid);
+  cp_async_commit();
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
+  // delta = rowsum(dout * out) and lse for the block's rows: 4 threads a row
+  {
+    const int r = tid >> 2, quarter = tid & 3;
+    float acc = 0.f;
+    if (r < n_rows) {
+      const size_t at = qoff + static_cast<size_t>(row0 + r) * ldq;
+#pragma unroll 8
+      for (int d = quarter * 2; d < D; d += 8) {
+        const float2 ov = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + at + d));
+        const float2 dv_ =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + at + d));
+        acc += ov.x * dv_.x + ov.y * dv_.y;
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (quarter == 0) {
+      const size_t si = (static_cast<size_t>(b) * Hq + h) * Sq + row0 + r;
+      stat[r] = r < n_rows ? lse[si] * kLog2e : 0.f;
+      stat[M + r] = acc;
+      if (r < n_rows) delta[si] = acc;
+    }
+  }
+  __syncthreads();
+  float m2[2], dl[2];
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = strip * 16 + gr + i * 8;
+    m2[i] = stat[r];
+    dl[i] = stat[M + r];
+    qpos[i] = q_offset + row0 + r;
+  }
+  const bool capped = softcap > 0.f;
+
+  float acc[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_lo + it * N;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile landed; every warp is done with the last one and dS
+    if (it + 1 < n_tiles) load_kv(it + 1);
+    cp_async_commit();
+    const bf16* kt = ks + (it & 1) * N * RS;
+    const bf16* vt = vs + (it & 1) * N * RS;
+    float s[NK / 8][4], dp[NK / 8][4];
+    mm_abt<D / 16, NK / 16>(s, qs + strip * 16 * RS, RS, kt + part * NK * RS, RS, lane);
+    mm_abt<D / 16, NK / 16>(dp, dos + strip * 16 * RS, RS, vt + part * NK * RS, RS, lane);
+#pragma unroll
+    for (int n = 0; n < NK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, key = k0 + part * NK + n * 8 + 2 * tq + (e & 1);
+        float x = s[n][e] * scale, chain = 1.f;
+        if (capped) {
+          const float t = tanhf(x / softcap);
+          x = t * softcap;
+          chain = 1.f - t * t;
+        }
+        bool live = key < k_hi;
+        if (causal) live = live && key <= qpos[i];
+        if (window >= 0) live = live && key > qpos[i] - window;
+        const float p = live ? exp2f(x * kLog2e - m2[i]) : 0.f;
+        s[n][e] = p * (dp[n][e] - dl[i]) * chain;  // dS
+      }
+      put_frag(dss + strip * 16 * PS + part * NK + n * 8, PS, s[n], gr, tq);
+    }
+    __syncthreads();  // dS complete
+    mm_ab<N / 16, DW / 16>(acc, dss + strip * 16 * PS, PS, kt + part * DW, RS, lane);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + strip * 16 + gr + i * 8;
+    if (row < Sq)
+      store_rows<DW>(dq + qoff + static_cast<size_t>(row) * ldq + part * DW + 2 * tq, acc, i,
+                     scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dkdv_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const bf16* __restrict__ dout,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int Hq,
+                    int Hkv, int causal, int window, float softcap, float scale, int q_offset) {
+  constexpr int M = kWideDkdvKeys<D>, N = kWideDkdvRows, RS = D + 8, PS = N + 8;
+  constexpr int STRIPS = M / 16, PARTS = kWideWarps / STRIPS;
+  constexpr int NR = N / PARTS, DW = D / PARTS;  // a warp's q rows in phase A, columns in B
+  static_assert(NR % 16 == 0 && DW % 16 == 0, "a warp's slices are whole 16-wide fragments");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [M][RS]
+  bf16* vs = ks + M * RS;                         // [M][RS]
+  bf16* qs = vs + M * RS;                         // [2][N][RS]
+  bf16* dos = qs + 2 * N * RS;                    // [2][N][RS]
+  bf16* pts = dos + 2 * N * RS;                   // P^T [M][PS]
+  bf16* dsts = pts + M * PS;                      // dS^T [M][PS]
+  float* stat = reinterpret_cast<float*>(dsts + M * PS);  // [2][lse * log2 e (N), delta (N)]
+
+  const int hk = blockIdx.x, b = blockIdx.y, kt_ = blockIdx.z;  // causal: long tiles first
+  const int G = Hq / Hkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane >> 2, tq = lane & 3;
+  const int strip = warp % STRIPS, part = warp / STRIPS;
+  const int key0 = kt_ * M, n_keys = min(M, Sk - key0);
+  const int ldq = Hq * D, ldkv = Hkv * D;
+  const size_t kvoff = (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
+
+  const int last_key = key0 + n_keys - 1;
+  const int i_lo = causal ? max(0, key0 - q_offset) : 0;
+  const int i_hi = window >= 0 ? min(Sq, last_key + window - q_offset) : Sq;
+  const int n_qt = i_hi > i_lo ? (i_hi - i_lo + N - 1) / N : 0;
+  const int n_it = G * n_qt;
+  auto load_q = [&](int it) {  // q tile it % n_qt of head hk * G + it / n_qt
+    const int h = hk * G + it / n_qt, i0 = i_lo + (it % n_qt) * N, n = min(N, i_hi - i0);
+    const size_t qoff = (static_cast<size_t>(b) * Sq * Hq + h) * D;
+    load_wide<D, N>(qs + (it & 1) * N * RS, q + qoff, ldq, i0, n, tid);
+    load_wide<D, N>(dos + (it & 1) * N * RS, dout + qoff, ldq, i0, n, tid);
+    float* st = stat + (it & 1) * 2 * N;
+    const size_t si = (static_cast<size_t>(b) * Hq + h) * Sq + i0;
+    for (int j = tid; j < N; j += kWideThreads) {
+      st[j] = j < n ? lse[si + j] * kLog2e : 0.f;
+      st[N + j] = j < n ? delta[si + j] : 0.f;
+    }
+  };
+  load_wide<D, M>(ks, k + kvoff, ldkv, key0, n_keys, tid);
+  load_wide<D, M>(vs, v + kvoff, ldkv, key0, n_keys, tid);
+  cp_async_commit();
+  if (n_it > 0) load_q(0);
+  cp_async_commit();
+  int kpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) kpos[i] = key0 + strip * 16 + gr + i * 8;
+  const bool capped = softcap > 0.f;
+
+  float dka[DW / 8][4], dva[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  for (int it = 0; it < n_it; ++it) {
+    const int i0 = i_lo + (it % n_qt) * N;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile landed; every warp is done with the last one and P, dS
+    if (it + 1 < n_it) load_q(it + 1);
+    cp_async_commit();
+    const bf16* qt = qs + (it & 1) * N * RS;
+    const bf16* dt = dos + (it & 1) * N * RS;
+    const float* st = stat + (it & 1) * 2 * N;
+    float s[NR / 8][4], dp[NR / 8][4];
+    mm_abt<D / 16, NR / 16>(s, ks + strip * 16 * RS, RS, qt + part * NR * RS, RS, lane);   // S^T
+    mm_abt<D / 16, NR / 16>(dp, vs + strip * 16 * RS, RS, dt + part * NR * RS, RS, lane);  // dP^T
+#pragma unroll
+    for (int n = 0; n < NR / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = part * NR + n * 8 + 2 * tq + (e & 1), row = i0 + j, key = kpos[e >> 1];
+        float x = s[n][e] * scale, chain = 1.f;
+        if (capped) {
+          const float t = tanhf(x / softcap);
+          x = t * softcap;
+          chain = 1.f - t * t;
+        }
+        bool live = row < i_hi && key < Sk;
+        if (causal) live = live && key <= q_offset + row;
+        if (window >= 0) live = live && key > q_offset + row - window;
+        const float p = live ? exp2f(x * kLog2e - st[j]) : 0.f;
+        s[n][e] = p;                                       // P^T
+        dp[n][e] = p * (dp[n][e] - st[N + j]) * chain;     // dS^T
+      }
+      put_frag(pts + strip * 16 * PS + part * NR + n * 8, PS, s[n], gr, tq);
+      put_frag(dsts + strip * 16 * PS + part * NR + n * 8, PS, dp[n], gr, tq);
+    }
+    __syncthreads();  // P^T and dS^T complete
+    // dV += P^T dout, dK += dS^T Q
+    mm_ab<N / 16, DW / 16>(dva, pts + strip * 16 * PS, PS, dt + part * DW, RS, lane);
+    mm_ab<N / 16, DW / 16>(dka, dsts + strip * 16 * PS, PS, qt + part * DW, RS, lane);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kpos[i] >= Sk) continue;
+    const size_t off = kvoff + static_cast<size_t>(kpos[i]) * ldkv + part * DW + 2 * tq;
+    store_rows<DW>(dk + off, dka, i, scale);
+    store_rows<DW>(dv + off, dva, i, 1.f);
+  }
+}
+
+template <int D>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* o,
+                        const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                        void* delta, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                        int window, float softcap, float scale, int q_offset, cudaStream_t st) {
+  cudaError_t err = allow_smem<flash_bwd_dq_wide<D>>(kWideDqSmem<D>);
+  if (err == cudaSuccess) err = allow_smem<flash_bwd_dkdv_wide<D>>(kWideDkdvSmem<D>);
+  if (err != cudaSuccess) return err;
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  flash_bwd_dq_wide<D><<<dim3(Hq, B, (Sq + kWideDqRows - 1) / kWideDqRows), kWideThreads,
+                         kWideDqSmem<D>, st>>>(qb, kb, vb, static_cast<const bf16*>(o), l, db,
+                                               static_cast<bf16*>(dq), dl, Sq, Sk, Hq, Hkv,
+                                               causal, window, softcap, scale, q_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_wide<D><<<dim3(Hkv, B, (Sk + kWideDkdvKeys<D> - 1) / kWideDkdvKeys<D>),
+                           kWideThreads, kWideDkdvSmem<D>, st>>>(
+      qb, kb, vb, l, dl, db, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, Hq, Hkv,
+      causal, window, softcap, scale, q_offset);
+  return cudaGetLastError();
+}
+
+
 #define BWD_ARGS \
   q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, Hq, Hkv, causal, window, softcap, scale, \
       q_offset, st
@@ -683,6 +1065,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* o,
     case 32: return launch<T, 32>(BWD_ARGS);
     case 64: return launch<T, 64>(BWD_ARGS);
     case 128: return launch<T, 128>(BWD_ARGS);
+    case 256: return launch<T, 256>(BWD_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -707,10 +1090,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     case kF32: return launch_d<float>(BWD_ARGS_D);
     case kBF16:
       switch (D) {
+        case 8: return launch<__nv_bfloat16, 8>(BWD_ARGS);
         case 16: return launch_mma<16>(BWD_ARGS);
         case 32: return launch_mma<32>(BWD_ARGS);
         case 64: return launch_mma<64>(BWD_ARGS);
-        default: return launch_d<__nv_bfloat16>(BWD_ARGS_D);
+        case 128: return launch_wide<128>(BWD_ARGS);
+        case 256: return launch_wide<256>(BWD_ARGS);
+        default: return cudaErrorInvalidValue;
       }
     default: return cudaErrorInvalidValue;
   }

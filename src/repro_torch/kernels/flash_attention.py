@@ -26,9 +26,8 @@ Sq)), which the backward needs.  The backward, K1b
 (:func:`flash_attention_bwd`), replaces ``repro/kernels/flash_vjp.py``'s
 ``_bwd_rule``: two passes, no atomics (dq and delta per q tile; dk and dv
 per KV head and key tile, summed over its G query heads in the block).
-Three instances, by dtype and head dim only (:func:`bwd_instances`), up to
-D 128; a D-256 backward raises before any launch (ROADMAP Queue 2,
-K1b-D256):
+Four instances, by dtype and head dim only (:func:`bwd_instances`), at
+every head dim of K1; another head dim raises before any launch:
 
 * bf16 at D 64, the training path's shape: ``flash_bwd_dq_wgmma`` +
   ``flash_bwd_dkdv_wgmma`` (``csrc/flash_attention_bwd_sm90.cu``), designed
@@ -38,10 +37,17 @@ K1b-D256):
   :func:`bwd_plan` (each item onto the least loaded block, longest first:
   causal items differ more than 10-fold in work at S 2048).  It is bound
   by the tensor cores: m64n64k16 products, 7 where a fused backward does 5;
+* bf16 at D 128 / 256 (the gemmas, chameleon-34b, the MoE archs' heads):
+  ``flash_bwd_dq_wide`` + ``flash_bwd_dkdv_wide``
+  (``csrc/flash_attention_bwd.cu``, ``mma.sync``): a 16-row strip's
+  fragments and a 16 x D accumulator do not fit a thread's registers
+  there, so 8 warps split each tile in two phases, scores (S, dP, and dS /
+  P to shared memory in bf16) and gradients (each warp D / 2 or D / 4 of
+  dQ's, or dK's and dV's, columns);
 * bf16 at D 16 / 32: ``flash_bwd_dq_mma`` + ``flash_bwd_dkdv_mma``
   (``csrc/flash_attention_bwd.cu``, ``mma.sync``);
-* f32, and bf16 at D 8 / 128: ``flash_bwd_dq`` + ``flash_bwd_dkdv``, the
-  f32 CUDA cores (the f32 gates run it).
+* f32, and bf16 at D 8: ``flash_bwd_dq`` + ``flash_bwd_dkdv``, the f32
+  CUDA cores (the f32 gates run it).
 
 ``ops.attention`` is the ``torch.autograd.Function`` that runs K1 and K1b.
 
@@ -66,10 +72,12 @@ from repro_torch.kernels.ref import mha_ref as plain
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the instances csrc/flash_attention.cu builds
 MMA_HEAD_DIMS = (16, 32, 64, 128, 256)  # bf16 head dims on the tensor cores (multiples of 16)
-BWD_HEAD_DIMS = (8, 16, 32, 64, 128)  # the instances of the backward sources
-# bf16 head dims of K1b on mma.sync: at 128 its fragments and accumulators
-# would take more than a thread's 255 registers; D 64 takes the wgmma instance
+BWD_HEAD_DIMS = HEAD_DIMS  # the instances of the backward sources
+# bf16 head dims of K1b on mma.sync with a warp's whole rows (D 64 takes the
+# wgmma instance); at 128 and 256 its fragments and accumulators would take
+# more than a thread's 255 registers, so the wide pair splits D over warps
 BWD_MMA_HEAD_DIMS = (16, 32)
+BWD_WIDE_HEAD_DIMS = (128, 256)
 BWD_SM90_HEAD_DIM = 64
 BWD_TILE = 64  # rows (or keys) of a wgmma tile and of a consumer warpgroup
 BWD_ITEM_COST = 1  # an item's own loads and stores, in tiles, for bwd_plan
@@ -84,15 +92,15 @@ def instance(dtype: torch.dtype, head_dim: int) -> str:
 
 def bwd_instances(dtype: torch.dtype, head_dim: int) -> tuple[str, str]:
     """The two kernels a K1b call runs: a function of dtype and head dim
-    only.  A head dim without a backward instance (256) raises, naming the
-    ROADMAP item that brings it."""
+    only.  A head dim without a backward instance raises."""
     if head_dim not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention_bwd: no backward kernel at head dim {head_dim} (instances at "
-            f"{BWD_HEAD_DIMS}; ROADMAP Queue 2, K1b-D256: K1b in bf16 at D 128 and 256, for "
-            "training the gemmas)")
+            f"{BWD_HEAD_DIMS})")
     if dtype == torch.bfloat16 and head_dim == BWD_SM90_HEAD_DIM:
         return "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"
+    if dtype == torch.bfloat16 and head_dim in BWD_WIDE_HEAD_DIMS:
+        return "flash_bwd_dq_wide", "flash_bwd_dkdv_wide"
     if dtype == torch.bfloat16 and head_dim in BWD_MMA_HEAD_DIMS:
         return "flash_bwd_dq_mma", "flash_bwd_dkdv_mma"
     return "flash_bwd_dq", "flash_bwd_dkdv"

@@ -123,7 +123,7 @@ def mamba_scan(
     """-> (y (B, T, DI) in x's dtype, final state (B, DI, N) f32)."""
     if x.device.type == "cpu":
         return plain(x, dt, A, Bm, C, D, state, chunk=chunk)
-    refuse_grad("mamba_scan", "its backward kernel is ROADMAP item K5b", x, dt, A, Bm, C, D,
+    refuse_grad("mamba_scan", "its backward kernel is ROADMAP Queue 2 item K5b", x, dt, A, Bm, C, D,
                 state)
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan: no kernel for device {x.device}")

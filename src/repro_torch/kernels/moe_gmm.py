@@ -116,7 +116,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None) -> 
         raise ValueError(f"moe_gmm: epilogue {epilogue!r} not in {list(EPILOGUE_CODES)}")
     if x.device.type == "cpu":
         return plain(x, w, epilogue=epilogue)
-    refuse_grad("moe_gmm", "its backward kernel is ROADMAP item K4b", x, w)
+    refuse_grad("moe_gmm", "its backward kernel is ROADMAP Queue 2 item K4b", x, w)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm: no kernel for device {x.device}")
     if x.dim() != 3 or w.dim() != 3 or w.shape[:2] != (x.shape[0], x.shape[2]):

@@ -119,7 +119,8 @@ def rwkv6_scan(
     """-> (out (B, T, H, V) in r's dtype, final state (B, H, K, V) f32)."""
     if r.device.type == "cpu":
         return plain(r, k, v, w, u, state, chunk=chunk)
-    refuse_grad("rwkv6_scan", "its backward kernel is ROADMAP item K6b", r, k, v, w, u, state)
+    refuse_grad("rwkv6_scan", "its backward kernel is ROADMAP Queue 2 item K6b", r, k, v, w, u,
+                state)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
     if r.dim() != 4 or v.dim() != 4:

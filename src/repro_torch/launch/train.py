@@ -3,6 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduced --device cpu \
       --fail-at 2 --ckpt-dir "$(mktemp -d)"
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b --steps 6 --batch 4 \
+      --seq 2048 --ckpt-every 0
 
 Counterpart of ``repro/launch/train.py``.  Weights are random, drawn from
 ``--seed`` on the device; batch ``i`` is ``SyntheticLM`` batch ``i`` (the
@@ -16,7 +18,9 @@ Without ``--ckpt-dir`` the checkpoints go to a fresh directory under the
 temporary directory (``$TMPDIR``), removed when the run ends.  A given
 directory is kept; if it already holds checkpoints, no step-0 checkpoint
 is written and a failure restores the newest one there, which may be an
-earlier run's: give a fresh one.  On
+earlier run's: give a fresh one.  ``--ckpt-every 0`` writes no checkpoint
+(a full-width gemma3-4b's state, bf16 params and f32 moments, is 39 GB a
+copy); such a run cannot restart, so ``--fail-at`` needs checkpoints.  On
 the card the step is captured as a CUDA graph (``training/compiled.py``):
 the first step runs eagerly, the second is captured, every later one
 (replays after a restart too) is a replay.  On the CPU it runs eagerly.
@@ -29,9 +33,17 @@ run (all 0 on the CPU, where the plain versions run), and ``compiled``, the
 compiled step's ``calls`` / ``captures`` / ``replays``.
 
 On the card attention and RMSNorm differentiate through their kernels
-(K1 + K1b, K3 + K3b).  An arch whose path reaches the grouped matmul, the
-Mamba scan or the RWKV6 scan (K4, K5, K6) has no backward kernel there yet:
-the driver stops with the ROADMAP item that brings it (K4b, K5b, K6b).
+(K1 + K1b, K3 + K3b), which cover every dense arch: K1b has instances at
+head dims 64 (smollm-360m, qwen2-0.5b, musicgen-large), 128 (gemma2-27b,
+chameleon-34b) and 256 (gemma3-4b).  The frontend archs train on tokens
+alone here: this driver passes no frontend embeddings, as the JAX driver
+passes none.  One card holds gemma3-4b and musicgen-large whole, with
+bf16 params and grads and f32 moments (12 bytes a parameter); gemma2-27b
+and chameleon-34b need more (326 and 412 GB).
+An arch whose path reaches the grouped matmul, the Mamba scan or the RWKV6
+scan (K4, K5, K6: deepseek-moe-16b, dbrx-132b, jamba-1.5-large, rwkv6-7b)
+has no backward kernel there yet: the driver stops with the ROADMAP Queue 2
+item that brings it (K4b, K5b, K6b).
 
 ``--dispatch {static,roofline,profiled}`` routes every step through
 ``dispatch/`` between the tiers that run on ``--device`` (``kernel`` and
@@ -89,7 +101,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (default: a fresh temporary one, removed at the end)")
-    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="steps between checkpoints; 0 writes none (and cannot restart)")
     ap.add_argument("--fail-at", default="", help="comma list of steps to inject failures")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -97,6 +110,8 @@ def main(argv: list[str] | None = None) -> dict:
     add_dispatch_args(ap, "each train step")
     add_trace_args(ap)
     args = ap.parse_args(argv)
+    if args.ckpt_every < 0 or (args.ckpt_every == 0 and args.fail_at):
+        ap.error("--ckpt-every must be >= 0, and --fail-at needs checkpoints (--ckpt-every > 0)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -21,8 +21,9 @@ head dim of the ported archs runs on the card, gemma3-4b's 256 included
 window of both gemmas.  QK-norm (chameleon-34b) normalises each query and
 key head over its head_dim after the projections and before RoPE, through
 the RMSNorm kernel (K3) over rows of head_dim.  The backward of attention
-is always the flash backward (K1b), which has no D-256 instance yet
-(ROADMAP Queue 2, K1b-D256).
+is always the flash backward (K1b), at every head dim K1 has (in bf16 at D
+128 and 256 its tensor-core pair ``flash_bwd_dq_wide`` /
+``flash_bwd_dkdv_wide``).
 """
 from __future__ import annotations
 

@@ -11,7 +11,10 @@
   the checkpoint into the live tensors of the state; a state rebound to new
   tensors would leave the graph training the old ones.  For the same reason
   step 0 is checkpointed before the first step, as the reference does
-  before its first donating step.
+  before its first donating step.  ``ckpt_every`` 0 writes no checkpoint at
+  all (a copy of a full-width gemma3-4b's state, bf16 params and f32
+  moments, is 39 GB); such a run cannot restart, so a failure in it is
+  raised.
 * **Straggler detection.**  A step slower than ``straggler_factor`` x the
   median of the last ``straggler_window`` steps (after 5) is recorded as a
   ``straggler`` event under its step's span and counted.
@@ -70,7 +73,7 @@ class FailureInjector:
 @dataclasses.dataclass
 class SupervisorConfig:
     ckpt_dir: str
-    ckpt_every: int = 50
+    ckpt_every: int = 50  # 0: no checkpoints, and no restarts
     max_steps: int = 200
     straggler_factor: float = 3.0  # deadline = factor x rolling median
     straggler_window: int = 20
@@ -140,7 +143,8 @@ class Supervisor:
 
     def run(self) -> dict[str, Any]:
         metrics_hist = []
-        if latest_step(self.cfg.ckpt_dir) is None:
+        every = self.cfg.ckpt_every
+        if every > 0 and latest_step(self.cfg.ckpt_dir) is None:
             # step 0 before the first (in-place) step: a restart from scratch
             # needs the state as it was
             with self.log.lifecycle("checkpoint", 0):
@@ -178,20 +182,21 @@ class Supervisor:
                 self.durations.append(dt)
                 metrics_hist.append(metrics)
                 self.step += 1
-                if self.step % self.cfg.ckpt_every == 0:
+                if every > 0 and self.step % every == 0:
                     with self.log.lifecycle("checkpoint", self.step, parent=step_span):
                         self.ckpt.save(self.step, self.state)
                     if self.stream is not None:
                         self.stream.rotate()
             except NodeFailure:
                 self.restarts += 1
-                if self.restarts > self.cfg.max_restarts:
+                if self.restarts > self.cfg.max_restarts or every <= 0:
                     raise
                 self._restore_latest()
         self.ckpt.wait()
-        with self.log.lifecycle("checkpoint", self.step):
-            self.ckpt.save(self.step, self.state)
-            self.ckpt.wait()
+        if every > 0:
+            with self.log.lifecycle("checkpoint", self.step):
+                self.ckpt.save(self.step, self.state)
+                self.ckpt.wait()
         if self.stream is not None:
             self.stream.rotate()
         return {

@@ -10,9 +10,13 @@ captures the whole step into a graph (forward, both remat recomputes,
 the backward and the AdamW update; with several microbatches the
 accumulation loop unrolled) and replays it, and every later call replays.
 
-The graph's inputs are ``tokens`` and ``labels``, copied into static
-buffers; a batch with frontend embeddings (chameleon-34b, musicgen-large)
-is refused, not run without them.  The params, the moments and the step counter are read and
+The graph's inputs are ``tokens`` and ``labels``, and for a frontend arch
+(chameleon-34b, musicgen-large) built for a batch with ``frontend_embed``
+(B, S, d_model) those too, copied into static buffers; the first call fixes
+which, and a step built with embeddings refuses a batch without them, and
+the reverse (one input set, as one shape).  With several microbatches the
+embeddings are split with the tokens, as ``training/step.py`` splits
+them.  The params, the moments and the step counter are read and
 written in place at the addresses the capture saw, the counterpart of the
 donated state: the step refuses a state whose leaves are not the ones it
 captured (a restore copies into them, ``runtime/supervisor.py``).  The
@@ -51,8 +55,12 @@ class CompiledTrainStep:
         self._leaves = leaves(state)
         step = tp.collect(make_train_step(cfg, tcfg))
 
-        def fn(tokens: torch.Tensor, labels: torch.Tensor) -> tuple[dict, dict]:
-            (_, metrics), tape = step(state, {"tokens": tokens, "labels": labels})
+        def fn(tokens: torch.Tensor, labels: torch.Tensor, *embed: torch.Tensor
+               ) -> tuple[dict, dict]:
+            batch = {"tokens": tokens, "labels": labels}
+            if embed:
+                batch["frontend_embed"] = embed[0]
+            (_, metrics), tape = step(state, batch)
             return metrics, tape
 
         self.graphs = Graphs(self._leaves[0].device)
@@ -68,10 +76,8 @@ class CompiledTrainStep:
         if len(now) != len(self._leaves) or any(a is not b for a, b in zip(now, self._leaves)):
             raise ValueError("compiled train step called with a state whose tensors are not "
                              "the ones it was built for (restore into them in place)")
-        if batch.get("frontend_embed") is not None:
-            raise NotImplementedError(
-                "the compiled train step takes tokens and labels only; frontend embeddings "
-                "as a static input are a ROADMAP Queue 1 item (frontend-arch training)")
-        metrics, self.tape = self.compiled(batch["tokens"], batch["labels"])
+        fe = batch.get("frontend_embed")
+        inputs = (batch["tokens"], batch["labels"]) + (() if fe is None else (fe,))
+        metrics, self.tape = self.compiled(*inputs)  # raises on another input set
         return state, metrics
 

@@ -37,6 +37,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import compiled  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.training.optim import leaves  # noqa: E402
 from repro_torch.training.step import TrainConfig, init_train_state, make_train_step  # noqa: E402
 
 ARCHS = ["qwen2-0.5b", "deepseek-moe-16b", "rwkv6-7b", "jamba-1.5-large", "gemma2-27b",
@@ -141,6 +142,88 @@ def test_train_step_trace_is_capture_safe(microbatches):
     assert all(_sync_ops(t) == [] for t in traces)
     _assert_same_trace(traces[0], traces[1])
     _assert_same_trace(traces[0], traces[2])
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("arch", ["chameleon-34b", "musicgen-large"])
+def test_train_step_with_frontend_embed_trace_is_capture_safe(arch, microbatches):
+    """As above for a frontend arch's step with embeddings (the compiled
+    step's third static input, split with the tokens over microbatches):
+    other embeddings and tokens at other step counts dispatch the same ops,
+    and none syncs."""
+    cfg = reduced(get_config(arch))
+    tcfg = TrainConfig(microbatches=microbatches)
+    state = init_train_state(cfg, tcfg, 0, "cpu")
+    step = make_train_step(cfg, tcfg)
+    rng = np.random.default_rng(6)
+    traces = []
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 17)))
+        fe = torch.from_numpy(rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "frontend_embed": fe}
+        traces.append(_trace(lambda: step(state, batch)))
+        if len(traces) == 2:
+            state["opt"]["step"].add_(4)
+    assert all(_sync_ops(t) == [] for t in traces)
+    _assert_same_trace(traces[0], traces[1])
+    _assert_same_trace(traces[0], traces[2])
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("arch", ["chameleon-34b", "musicgen-large"])
+def test_compiled_train_step_with_frontend_embed_matches_eager(arch, microbatches):
+    """CompiledTrainStep with frontend embeddings (eager through its static
+    buffers on the CPU) equals make_train_step's step bit for bit: each
+    step's metrics and every leaf of the state after three steps from
+    states of the same seed; the embeddings reach the loss."""
+    from repro_torch.training.compiled import CompiledTrainStep
+
+    cfg = reduced(get_config(arch))
+    tcfg = TrainConfig(microbatches=microbatches)
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 17)))
+        fe = torch.from_numpy(rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32))
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:], "frontend_embed": fe})
+    eager_state = init_train_state(cfg, tcfg, 0, "cpu")
+    eager = make_train_step(cfg, tcfg)
+    state = init_train_state(cfg, tcfg, 0, "cpu")
+    step = CompiledTrainStep(cfg, tcfg, state)
+    for batch in batches:
+        _, want = eager(eager_state, batch)
+        _, got = step(state, batch)
+        assert set(got) == set(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    assert step.counts() == {"calls": 3, "captures": 0, "replays": 0}
+    for a, b in zip(leaves(state), leaves(eager_state)):
+        assert torch.equal(a, b)
+    # without the embeddings the step is another one
+    bare_state = init_train_state(cfg, tcfg, 0, "cpu")
+    _, bare = make_train_step(cfg, tcfg)(
+        bare_state, {k: v for k, v in batches[0].items() if k != "frontend_embed"})
+    first_state = init_train_state(cfg, tcfg, 0, "cpu")
+    _, first = make_train_step(cfg, tcfg)(first_state, batches[0])
+    assert float(bare["loss"]) != float(first["loss"])
+
+
+def test_compiled_train_step_with_frontend_embed_refuses_a_batch_without():
+    """A step built with embeddings (its first call) refuses a batch
+    without them, and keeps their static buffer's shape."""
+    from repro_torch.training.compiled import CompiledTrainStep
+
+    cfg = reduced(get_config("chameleon-34b"))
+    tcfg = TrainConfig()
+    state = init_train_state(cfg, tcfg, 0, "cpu")
+    step = CompiledTrainStep(cfg, tcfg, state)
+    toks = torch.zeros(2, 8, dtype=torch.long)
+    fe = torch.zeros(2, 8, cfg.d_model)
+    step(state, {"tokens": toks, "labels": toks, "frontend_embed": fe})
+    with pytest.raises(ValueError, match="built for"):
+        step(state, {"tokens": toks, "labels": toks})
+    with pytest.raises(ValueError, match="built for"):
+        step(state, {"tokens": toks, "labels": toks, "frontend_embed": fe[:, :4]})
+    assert step.counts()["calls"] == 1
 
 
 @pytest.mark.parametrize("arch", ARCHS)

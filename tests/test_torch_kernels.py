@@ -328,23 +328,27 @@ def test_attention_instances_depend_on_dtype_and_head_dim_only():
     (torch.bfloat16, 16, ("flash_bwd_dq_mma", "flash_bwd_dkdv_mma")),
     (torch.bfloat16, 32, ("flash_bwd_dq_mma", "flash_bwd_dkdv_mma")),
     (torch.bfloat16, 8, ("flash_bwd_dq", "flash_bwd_dkdv")),
-    (torch.bfloat16, 128, ("flash_bwd_dq", "flash_bwd_dkdv")),
+    (torch.bfloat16, 128, ("flash_bwd_dq_wide", "flash_bwd_dkdv_wide")),
     (torch.float32, 64, ("flash_bwd_dq", "flash_bwd_dkdv")),
     (torch.float32, 16, ("flash_bwd_dq", "flash_bwd_dkdv")),
+    (torch.bfloat16, 256, ("flash_bwd_dq_wide", "flash_bwd_dkdv_wide")),
+    (torch.float32, 256, ("flash_bwd_dq", "flash_bwd_dkdv")),
+    (torch.float32, 128, ("flash_bwd_dq", "flash_bwd_dkdv")),
 ])
 def test_bwd_instances_depend_on_dtype_and_head_dim_only(dtype, D, want):
-    """K1b: bf16 D 64 (the training path) runs the wgmma pair, bf16 D 16 /
-    32 the mma.sync pair, f32 and bf16 D 8 / 128 the CUDA-core pair."""
+    """K1b: bf16 D 64 (the training path) runs the wgmma pair, bf16 D 128 /
+    256 the wide mma.sync pair, bf16 D 16 / 32 the mma.sync pair, f32 and
+    bf16 D 8 the CUDA-core pair."""
     assert k1.bwd_instances(dtype, D) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_refuses_head_dim_256_before_any_launch(dtype, monkeypatch):
-    """K1b has no D-256 instance: off the CPU the wrapper raises before it
-    loads a library or launches, naming the ROADMAP item (meta tensors
-    stand in for the card; a library load fails the test).  D 128 passes
-    that check and stops at the device check; on the CPU D 256 runs the
-    plain version."""
+    """Off the CPU a head dim without a K1b instance (96, 512) raises before
+    the wrapper loads a library or launches; D 256 and 128 now pass that
+    check and stop at the device check (meta tensors stand in for the
+    card; a library load fails the test).  On the CPU D 256 runs the plain
+    version.  (The name dates from when D 256 had no backward instance.)"""
     def no_launch():
         raise AssertionError("a K1b library was loaded")
 
@@ -357,12 +361,13 @@ def test_flash_attention_bwd_refuses_head_dim_256_before_any_launch(dtype, monke
         lse = torch.zeros((1, 4, 8), dtype=torch.float32, device=device)
         return flash_attention_bwd(q, k, v, torch.zeros_like(q), lse, torch.zeros_like(q))
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, K1b-D256"):
-        bwd(256, "meta")
-    with pytest.raises(NotImplementedError, match="head dim 256"):
-        k1.bwd_instances(dtype, 256)
-    with pytest.raises(ValueError, match="no kernel for device"):
-        bwd(128, "meta")
+    with pytest.raises(NotImplementedError, match="no backward kernel at head dim 96"):
+        bwd(96, "meta")
+    with pytest.raises(NotImplementedError, match="head dim 512"):
+        k1.bwd_instances(dtype, 512)
+    for D in (256, 128):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            bwd(D, "meta")
     dq, dk, dv = bwd(256, "cpu")
     assert dq.shape == (1, 8, 4, 256) and dk.shape == dv.shape == (1, 8, 2, 256)
     assert launch_counts() == before
@@ -1075,10 +1080,11 @@ def test_mamba_wrapper_refuses_other_devices():
 VJP_CASES = [(None, None, 0), (16, None, 0), (None, 30.0, 0), (16, 50.0, 0), (None, None, 24)]
 
 
-def _vjp_inputs(q_offset: int, dtype: str, seed: int):
+def _vjp_inputs(q_offset: int, dtype: str, seed: int, D: int = 16):
     """(B, Sq, Hq, Hkv, D) = (2, 40, 4, 2, 16) and Sk = Sq + q_offset, as
-    tests/test_kernels_vjp.py draws them; q, k, v and the output cotangent."""
-    B, Sq, Hq, Hkv, D = 2, 40, 4, 2, 16
+    tests/test_kernels_vjp.py draws them (or another head dim D); q, k, v
+    and the output cotangent."""
+    B, Sq, Hq, Hkv = 2, 40, 4, 2
     rng = np.random.default_rng(seed)
     shapes = [(B, Sq, Hq, D), (B, Sq + q_offset, Hkv, D), (B, Sq + q_offset, Hkv, D),
               (B, Sq, Hq, D)]
@@ -1109,14 +1115,21 @@ def test_flash_attention_lse_vs_fwd_impl(window, softcap, q_offset, dtype):
     assert torch.equal(out_w, out_t) and torch.equal(lse_w, lse_t)
 
 
+# the VJP cases at head dim 16, and again at the wide pair's head dims 128
+# and 256 (the gemmas, chameleon-34b)
+VJP_BWD_CASES = [pytest.param(*c, 16, id="-".join(map(str, c))) for c in VJP_CASES] + [
+    pytest.param(*c, D, id="-".join(map(str, c)) + f"-D{D}") for D in (128, 256)
+    for c in VJP_CASES]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("window,softcap,q_offset", VJP_CASES)
-def test_flash_attention_bwd_vs_flash_vjp(window, softcap, q_offset, dtype):
+@pytest.mark.parametrize("window,softcap,q_offset,D", VJP_BWD_CASES)
+def test_flash_attention_bwd_vs_flash_vjp(window, softcap, q_offset, D, dtype):
     """ref.flash_attention_bwd_ref, the K1b wrapper's CPU route and the
     autograd.Function behind ops.attention against jax.vjp of
     flash_vjp.flash_attention_fused; each gradient relative to its max |.|
     (f32: 1e-5, rounding; bf16: 2e-2, the inputs' rounding)."""
-    (qj, qt), (kj, kt), (vj, vt), (cj, ct) = _vjp_inputs(q_offset, dtype, 62)
+    (qj, qt), (kj, kt), (vj, vt), (cj, ct) = _vjp_inputs(q_offset, dtype, 62, D)
     out_j, vjp = jax.vjp(
         lambda q, k, v: jax_flash_vjp(q, k, v, True, window, softcap, None, q_offset, 16),
         qj, kj, vj)

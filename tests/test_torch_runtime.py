@@ -377,3 +377,43 @@ def test_train_driver_checkpoints_into_a_fresh_temporary_dir(tmp_path, monkeypat
     assert seen["ckpts"] == ["step_00000000", "step_00000004"]
     assert not os.path.exists(seen["dir"])
     assert [d for d in os.listdir(tmp_path) if d.startswith("repro_torch_ckpt_")] == []
+
+
+def test_supervisor_without_checkpoints(tmp_path):
+    """``ckpt_every`` 0 writes no checkpoint and trains as a run with
+    checkpoints does; a failure in it cannot restart and is raised."""
+    _, _, state_a, step, batch_fn = _mk()
+    _, _, state_b, _, _ = _mk()
+    out_a = Supervisor(SupervisorConfig(ckpt_dir=str(tmp_path / "a"), ckpt_every=3, max_steps=6),
+                       step, batch_fn, state_a, log=EventLog()).run()
+    log = EventLog()
+    out_b = Supervisor(SupervisorConfig(ckpt_dir=str(tmp_path / "b"), ckpt_every=0, max_steps=6),
+                       step, batch_fn, state_b, log=log).run()
+    assert [m["loss"] for m in out_b["metrics"]] == [m["loss"] for m in out_a["metrics"]]
+    assert not (tmp_path / "b").exists() or os.listdir(tmp_path / "b") == []
+    assert log.events("spawn", "checkpoint") == [] and out_b["steps"] == 6
+    _, _, state_c, _, _ = _mk()
+    sup = Supervisor(SupervisorConfig(ckpt_dir=str(tmp_path / "c"), ckpt_every=0, max_steps=6),
+                     step, batch_fn, state_c, failures=FailureInjector((2,)))
+    with pytest.raises(NodeFailure):
+        sup.run()
+    assert sup.restarts == 1 and sup.step == 2
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma2-27b", "chameleon-34b", "musicgen-large"])
+def test_train_driver_trains_the_dense_archs(arch, capsys):
+    """The archs K1b's head dims 128 and 256 bring to the card train through
+    the driver (reduced, on the CPU), without checkpoints (--ckpt-every 0)."""
+    rec = train_cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "3",
+                          "--batch", "2", "--seq", "16", "--ckpt-every", "0"])
+    capsys.readouterr()
+    assert rec["steps"] == 3 and rec["restarts"] == 0 and len(rec["losses"]) == 3
+    assert rec["compiled"] == {"calls": 3, "captures": 0, "replays": 0}
+    assert all(np.isfinite(rec["losses"]))
+
+
+def test_train_driver_refuses_failures_without_checkpoints(capsys):
+    with pytest.raises(SystemExit):
+        train_cli.main(["--arch", "smollm-360m", "--reduced", "--device", "cpu", "--steps", "4",
+                        "--ckpt-every", "0", "--fail-at", "2"])
+    assert "--fail-at needs checkpoints" in capsys.readouterr().err

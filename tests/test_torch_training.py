@@ -256,6 +256,53 @@ def test_loss_and_grads_with_frontend_match_jax(arch):
     assert abs(float(bare) - float(tl)) > 1e-3
 
 
+# the dense archs the card trains with K1b at their own head dims (256 and
+# 128; the reduced configs' 16 never reach the wide pair's head dims), at 2
+# layers: gemma3-4b one local and one global (its pattern of 5 local to 1
+# global, cut to one period of (swa, ga)), chameleon-34b two QK-normed
+# layers, with embeddings
+@pytest.mark.parametrize("arch,head_dim", [("gemma3-4b", 256), ("chameleon-34b", 128)])
+def test_loss_and_grads_at_the_full_head_dim_match_jax(arch, head_dim):
+    """loss_fn's loss, its parts and every gradient leaf at the arch's own
+    head dim, 2 layers, norm scales perturbed, f32, against
+    jax.value_and_grad(lm.loss_fn); chameleon-34b with frontend
+    embeddings."""
+    from repro.configs.base import LayerSpec as JaxLayerSpec
+
+    from repro_torch.configs.base import LayerSpec
+
+    pattern = {"gemma3-4b": ("swa", "ga"), "chameleon-34b": ("ga",)}[arch]
+    jcfg = dataclasses.replace(jax_reduced(jax_get_config(arch)), n_layers=2, head_dim=head_dim,
+                               layer_pattern=tuple(JaxLayerSpec(m) for m in pattern))
+    cfg = dataclasses.replace(reduced(get_config(arch)), n_layers=2, head_dim=head_dim,
+                              layer_pattern=tuple(LayerSpec(m) for m in pattern))
+    jp = jax_lm.init_params(jcfg, jax.random.PRNGKey(0))
+    np_p = _perturb_scales(jp, 39)
+    jp, tp = jax.tree.map(jnp.asarray, np_p), params_from_jax(np_p, cfg, device="cpu")
+    assert tuple(tp["blocks"]["pos0"]["mixer"]["q"]["w"].shape)[-2:] == (cfg.n_heads, head_dim)
+    B, S = 2, 32
+    rng = np.random.default_rng(40)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    x, y = toks[:, :-1], toks[:, 1:]
+    fe = (rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+          if cfg.frontend is not None else None)
+
+    def jloss(p):
+        return jax_lm.loss_fn(p, jcfg, jnp.asarray(x), jnp.asarray(y),
+                              None if fe is None else jnp.asarray(fe))
+
+    (jl, jm), jg = jax.value_and_grad(jloss, has_aux=True)(jp)
+    tp = step_mod._requires_grad(tp)
+    tl, tm = lm.loss_fn(tp, cfg, torch.from_numpy(x), torch.from_numpy(y),
+                        None if fe is None else torch.from_numpy(fe))
+    tg = step_mod._rebuild(tp, iter(step_mod._grad(tl, optim.leaves(tp))))
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=LOSS_TOL)
+    for k in ("ce", "z_loss", "aux", "tokens"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=LOSS_TOL, atol=1e-9,
+                                   err_msg=k)
+    _assert_leaves_close(jg, tg, GRAD_TOL)
+
+
 @pytest.mark.parametrize("policy", ["nothing", "dots"])
 def test_remat_policies_give_the_same_grads(policy):
     """Per-period checkpointing recomputes the same values: every gradient
@@ -338,8 +385,9 @@ def test_train_step_with_microbatches_and_frontend_matches_jax(arch):
 
 
 def test_compiled_train_step_refuses_frontend_embed():
-    """The compiled step takes tokens and labels only: a batch with
-    embeddings is refused, never run without them."""
+    """A compiled step built for tokens and labels alone (its first call)
+    refuses a batch with embeddings: it never runs them as another input
+    set, nor drops them."""
     from repro_torch.training.compiled import CompiledTrainStep
 
     cfg = reduced(get_config("musicgen-large"))
@@ -347,10 +395,11 @@ def test_compiled_train_step_refuses_frontend_embed():
     state = step_mod.init_train_state(cfg, tcfg, 0, "cpu")
     step = CompiledTrainStep(cfg, tcfg, state)
     toks = torch.zeros(2, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="frontend"):
+    step(state, {"tokens": toks, "labels": toks})
+    with pytest.raises(ValueError, match="built for"):
         step(state, {"tokens": toks, "labels": toks,
                      "frontend_embed": torch.zeros(2, 8, cfg.d_model)})
-    assert step.counts()["calls"] == 0
+    assert step.counts()["calls"] == 1
 
 
 def test_microbatches_match_the_full_batch():
@@ -422,3 +471,85 @@ def test_train_driver_on_the_cpu(tmp_path, capsys):
     assert set(line) >= {"first_loss", "last_loss", "tokens_per_s", "wall_s", "restarts",
                          "stragglers", "compiled"}
     assert line["restarts"] == 0 and line["compiled"]["captures"] == 0
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports torch and the port only in its
+    functions)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_module", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("smollm-360m", {}), ("gemma3-4b", {"n_layers": 8}), ("gemma3-4b", {"n_layers": 2}),
+    ("gemma2-27b", {"n_layers": 4}), ("chameleon-34b", {"n_layers": 3}),
+    ("musicgen-large", {"n_layers": 2}), ("qwen2-0.5b", {"remat_policy": "everything"}),
+])
+def test_chip_smoke_train_launches_per_step(arch, changes):
+    """chip_smoke.py's count of each step's kernel launches (which it holds
+    every train step on the card to) is the number of calls the step makes
+    to each kernel wrapper, counted here on the CPU, where the wrappers run
+    their plain versions: per-period remat runs the periods' forward again,
+    not the unscanned tail's or the final norm."""
+    from repro_torch.configs.base import LayerSpec
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), remat_policy="nothing")
+    if arch == "gemma3-4b" and changes["n_layers"] == 2:
+        changes = {**changes, "layer_pattern": (LayerSpec("swa"), LayerSpec("ga"))}
+    cfg = dataclasses.replace(cfg, **changes)
+    calls = dict.fromkeys(("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"), 0)
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    tcfg = step_mod.TrainConfig()
+    state = step_mod.init_train_state(cfg, tcfg, 0, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(41).integers(0, cfg.vocab_size, (2, 17)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.frontend != "text":
+        batch["frontend_embed"] = torch.zeros(2, 16, cfg.d_model)
+    with pytest.MonkeyPatch.context() as mp:
+        for name, attr in (("flash_attention", "_fa_kernel"),
+                           ("flash_attention_bwd", "_fa_bwd_kernel"),
+                           ("rmsnorm", "_rmsnorm_kernel"), ("rmsnorm_bwd", "_rmsnorm_bwd_kernel")):
+            mp.setattr(ops, attr, counted(name, getattr(ops, attr)))
+        step_mod.make_train_step(cfg, tcfg)(state, batch)
+    want = _chip_smoke().train_launches_per_step(cfg)
+    assert {k: want[k] for k in calls} == calls
+    assert all(v == 0 for k, v in want.items() if k not in calls)
+    assert calls["flash_attention_bwd"] == cfg.n_layers
+
+
+def test_adamw_update_in_chunks_gives_the_whole_leafs_bits(monkeypatch):
+    """adamw_update takes a leaf UPDATE_CHUNK elements at a time: with
+    chunks of 7 elements (ragged against every leaf) the params and moments
+    are the bits of one chunk per leaf, decayed (a matrix) and not (a
+    vector), with the clip acting."""
+    rng = np.random.default_rng(42)
+    shapes = {"w": (5, 13), "b": (11,), "s": ()}
+    params = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for k, s in
+              shapes.items()}
+    grads = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)) * 10 for k, s in
+             shapes.items()}
+    opt = optim.AdamWConfig(warmup_steps=2, total_steps=10, grad_clip=1.0)
+    out = {}
+    for chunk in (1 << 26, 7):
+        monkeypatch.setattr(optim, "UPDATE_CHUNK", chunk)
+        p = {k: v.clone() for k, v in params.items()}
+        state = optim.init_opt_state(p, opt)
+        for _ in range(3):
+            optim.adamw_update(p, grads, state, opt)
+        out[chunk] = optim.leaves(p) + optim.leaves(state)
+    assert all(torch.equal(a, b) for a, b in zip(out[1 << 26], out[7]))
+    with pytest.raises(ValueError, match="contiguous"):
+        optim.adamw_update({"w": params["w"].t()}, {"w": grads["w"].t()},
+                           optim.init_opt_state({"w": params["w"]}, opt), opt)
