@@ -200,7 +200,10 @@ failure of which exits non-zero:
    and nothing else (no memset); and K3 at the training rows beside
    ``F.rms_norm``; K1b at phase (k)'s training shapes (the wide pair at D
    128 / 256, with its rate and its multiple of the bound) beside its
-   bound, plain version and SDPA's backward, and gemma3-4b's in f32; (h)
+   bound, plain version and SDPA's backward, and gemma3-4b's in f32, and
+   K1's forward with its lse (``flash_fwd_mma``, as the train step
+   launches it) at the same shapes beside its bound, plain version and
+   SDPA's forward; (h)
    K2, K4, K5 and K6 refuse an input that requires grad (ROADMAP R11),
    and K1b one at a head dim without an instance (96) before any launch;
    (i) ``python -m repro_torch.launch.train --arch smollm-360m --steps 20
@@ -303,14 +306,56 @@ failure of which exits non-zero:
    beside phase 5 (j)'s supervised run (checkpoints in flight there too); (c) ``tools/trace_record_cost.py`` on the card's
    host, and a profiler window opened from another thread around a K3
    launch under a ``span=`` range on this one (reported: what it saw);
-9. print the script's run time, the per-kernel JSON line (launches from the
+9. ROADMAP M12's serving tier on the card, each process started with
+   ``python -m`` and stopped at the end: (a) a fleet daemon
+   (``repro_torch.fleet serve``, port 0, a ready file); (b) the router
+   (``repro_torch.router``) over 2 real replicas of full-width qwen2-0.5b
+   (compiled, bf16, ``--dispatch profiled --fleet --trace-dir``, 8 slots,
+   1024-slot caches); (c) TIER_ALONE requests one at a time over the
+   prompt lengths TIER_LENGTHS (TIER_MAX_NEW new tokens, greedy), each
+   reply equal token for token to an in-process compiled Engine's on the
+   same prompt served alone; (d) ``router.loadgen`` with TIER_LOAD of those
+   prompts at concurrency TIER_CONC: each answered once with TIER_MAX_NEW
+   tokens (the share equal to the alone replies printed, not gated); (e)
+   each replica's ``/healthz``: K1, K2 and K3 launched, the kernel and
+   plain tiers on the card, no static fallback and no plain route but the
+   dispatcher's explored calls (the plain share printed), stamped
+   ``h100_sxm``, and the fleet's one bucket (SHA, ``h100_sxm``) holding
+   their pushed profiles, every entry stamped ``h100_sxm`` (each prefill
+   length's and the decode step's minimum per tier printed); (f) a third
+   replica started with ``--fleet`` pulls an exact match, explores fewer
+   times than either cold replica (its dispatch events) and routes nothing
+   to plain; (g) SIGKILL of the replica the router sent most to during
+   TIER_KILL_LOAD requests: every one answered once, the replica restarted
+   on a new pid, the restart time, and every replica's plain routes
+   explored calls only;
+   (h) ``python -m repro_torch.trace stitch`` of the router's trace
+   directory (its replicas discovered from its manifest) and ``hops``:
+   every routed request one tree rooted at the run, front door request ->
+   route -> replica rpc -> engine request -> prefill, with TIER_MAX_NEW - 1
+   of the replica's decode ticks while it held its slot (spans of two
+   processes nested to within the stitcher's skew estimate, which on one
+   host is its error); its hops (differences of the front door's and the
+   replica's durations, so they add up to its front-door latency by
+   construction) adding up to no more than the latency the client
+   measured, and its service hop no shorter than the replica's engine
+   interval in the trace (prefill start to the request's exit); printed,
+   not gated: how many requests' hops come within TIER_HOP_TOL
+   of their front-door span in the stitched trace, which also holds the
+   reply's send, and of the client's latency; (i) the same
+   load on warm replicas through the router and on one replica directly
+   (direct, router, router, direct): tokens/s, p50 / p99 ms, the front
+   door's own hop, the hop means, the restart time and the phase's
+   seconds, each line with the card's name and power limit;
+10. print the script's run time, the per-kernel JSON line (launches from the
    nine compiled serving runs, K1b's and K3b's from phase 5 (e), the wide
-   K1b's from phase 5 (k), and phase 7's and phase 8's runs), the card
-   line, and last the ``{"ok": true,
+   K1b's from phase 5 (k), and phase 7's, phase 8's and phase 9's replicas'
+   runs), the card line, and last the ``{"ok": true,
    "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
-run, the profiles) there as JSON.
+run, the profiles) there as JSON.  ``tools/serving_tier.py`` runs phase 9
+alone.
 """
 from __future__ import annotations
 
@@ -501,6 +546,16 @@ TRACE_TICK_TOL = 0.10  # a replayed tick's bound device ms against profile_step'
 # (restores step 4); launch.train's lr is the same for 12 and 20 steps
 # through the warmup, so steps 0-10 are phase 5 (e')'s steps
 TRACE_TRAIN_STEPS, TRACE_CKPT_EVERY, TRACE_FAIL_AT = 12, 4, 7
+# phase 9: the serving tier.  Full-width qwen2-0.5b replicas (compiled, bf16,
+# --dispatch profiled) with the engine shape of the in-process reference;
+# a few fixed prompt lengths (each a captured prefill graph per tier)
+TIER_LENGTHS, TIER_MAX_NEW, TIER_BATCH, TIER_SEQ = (64, 128, 256, 512), 32, 8, 1024
+TIER_ALONE, TIER_LOAD, TIER_CONC, TIER_KILL_LOAD = 8, 64, 8, 32
+TIER_HOP_TOL = 0.05  # each routed request's hops against its front-door span
+# an interval measured inside another (the front door's in the client's,
+# the engine's in the replica's service) may pass it by the hops'
+# rounding (1 us each) only
+TIER_CLOCK_SLACK_MS = 0.05
 
 
 def closed_form_tol(chunk: int) -> float:
@@ -2972,7 +3027,9 @@ def main() -> None:
         lo = np.maximum(0, pos - w + 1) if w is not None else 0
         return int(np.maximum(0, np.minimum(pos, Sk_ - 1) - lo + 1).sum())
 
-    def sdpa_bwd_ms(qs_, ks_, vs_, dos_, mask) -> float:
+    def sdpa_ms(qs_, ks_, vs_, dos_, mask) -> tuple[float, float]:
+        """SDPA's forward, and its backward (forward + backward less the
+        forward), at one shape."""
         qg_, kg_, vg_ = (t.clone().requires_grad_() for t in (qs_, ks_, vs_))
         kw_ = dict(attn_mask=mask, is_causal=mask is None, enable_gqa=True)
 
@@ -2984,9 +3041,14 @@ def main() -> None:
             o = F.scaled_dot_product_attention(qg_, kg_, vg_, **kw_)
             return torch.autograd.grad(o, (qg_, kg_, vg_), dos_)
 
-        return time_ms(both) - time_ms(fwd)
+        fwd_ms = time_ms(fwd)
+        return fwd_ms, time_ms(both) - fwd_ms
 
+    # K1's forward (flash_fwd_mma with its lse, as the train step launches
+    # it) at the same shapes, beside its bound, plain version and SDPA's
+    # forward
     dense_k1b: dict[str, dict] = {}
+    dense_k1f: dict[str, dict] = {}
     for label, (B_, Sq_, Sk_, Hq_, Hkv_, D_, w, cap, qo) in dense_shapes.items():
         q, k, v, do = (randn(B_, n, h, D_, dtype=torch.bfloat16)
                        for n, h in ((Sq_, Hq_), (Sk_, Hkv_), (Sk_, Hkv_), (Sq_, Hq_)))
@@ -3006,10 +3068,23 @@ def main() -> None:
             pos = torch.arange(Sq_, device=dev)[:, None] + qo
             key = torch.arange(Sk_, device=dev)[None, :]
             mask = (key <= pos) & (key > pos - w)
-        lib = sdpa_bwd_ms(qs, ks_, vs_, dos, mask)
+        lib_f, lib = sdpa_ms(qs, ks_, vs_, dos, mask)
         row["library_ms"] = None if cap else lib
         if cap:
             row["sdpa_without_softcap_ms"] = lib
+        f_ms, f_by = bound_ms(nbytes(q, k, v, out, lse),
+                              4 * D_ * B_ * Hq_ * live_pairs(Sq_, Sk_, w, qo), peaks["bfloat16"])
+        fwd = {"ms": time_ms(lambda: k1.flash_attention(q, k, v, return_lse=True, **kw)),
+               "plain_ms": time_ms(lambda: ref.flash_attention_lse_ref(q, k, v, **kw), iters=3),
+               "bound_ms": f_ms, "bound_by": f_by, "library_ms": None if cap else lib_f,
+               "shape": f"{B_}x{Sq_}x{Hq_}/{Hkv_}x{D_} bf16 causal window={w} softcap={cap} "
+                        f"({k1.instance(torch.bfloat16, D_)}, lse written)"}
+        if cap:
+            fwd["sdpa_without_softcap_ms"] = lib_f
+        fwd["x_bound"] = fwd["ms"] / f_ms
+        fwd["x_sdpa"] = fwd["ms"] / lib_f
+        dense_k1f[label] = fwd
+        print(f"  flash_attention forward at {label}, {smi}: {json.dumps(fwd)}", flush=True)
         row["tflops"] = n_flops / (row["ms"] * 1e-3) / 1e12
         row["x_bound"] = row["ms"] / b_ms
         if label == f"{GEMMA3_ARCH} global":
@@ -3022,7 +3097,7 @@ def main() -> None:
                 "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
                                                                         **kw), iters=3),
                 "bound_ms": b32_ms, "bound_by": b32_by,
-                "library_ms": sdpa_bwd_ms(qs, ks_, vs_, dos, None),
+                "library_ms": sdpa_ms(qs, ks_, vs_, dos, None)[1],
                 "shape": f"{B_}x{Sq_}x{Hq_}/{Hkv_}x{D_} f32 causal "
                          f"({' + '.join(k1.bwd_instances(torch.float32, D_))})"}
         dense_k1b[label] = row
@@ -3102,6 +3177,7 @@ def main() -> None:
     dense = dense_train_phase(dev, smi)
 
     records["flash_attention"]["with_lse"] = k1_lse
+    records["flash_attention"]["dense_train_forward"] = dense_k1f
     records["flash_attention"]["train_launches"] = train_launches["flash_attention"]
     records["flash_attention"]["lse_max_abs_err"] = err_lse
     records["rmsnorm"]["train_launches"] = train_launches["rmsnorm"]
@@ -3151,7 +3227,13 @@ def main() -> None:
     tracing = trace_phase(dev, smi, records, breakdown["decode_tick_compiled"], training)
 
     phase_s["9"] = time.time() - t_start
-    # -- 9. report ----------------------------------------------------------
+    # -- 9. the serving tier: fleet, router, replicas, stitch ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    tier = serving_tier_phase(dev, smi, records)
+
+    phase_s["10"] = time.time() - t_start
+    # -- 10. report ---------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
             "serving_logits": agree, "breakdown": breakdown,
@@ -3172,6 +3254,7 @@ def main() -> None:
                           "gate_f32_init": g2_init4},
             **m10,
             "measurement": measurement, "dispatch": dispatch, "tracing": tracing,
+            "serving_tier": tier,
             "seconds": time.time() - t_start, "phase_s": phase_s}
     print(f"chip_smoke: {full['seconds']:.1f} s; phases began at (s): {json.dumps(phase_s)}",
           flush=True)
@@ -4680,6 +4763,487 @@ def seed_mamba_noise(params, gen) -> None:
     for sub in params.values():
         if isinstance(sub, dict):
             seed_mamba_noise(sub, gen)
+
+
+def serving_tier_phase(dev, smi: str, records: dict) -> dict:
+    """Phase 9: ROADMAP M12's serving tier on the card (see the module
+    docstring): the fleet daemon, the router over two real replicas, a
+    warm-started third replica, a SIGKILL and the stitched trace.  Adds the
+    replicas' launches to ``records`` and returns the phase's record."""
+    import signal
+    import threading
+    import urllib.request
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dispatch.profiles import parse_profile_key
+    from repro_torch.fleet import FleetClient
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.router import loadgen
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.trace.stitch import HOPS, chain_report, hop_rows, hop_summary
+    from repro_torch.trace.stream import load_any
+    from repro_torch.utils.ready import read_ready_info, wait_for_ready_file
+
+    t0 = time.time()
+    work = Path(tempfile.mkdtemp(prefix="repro_torch_tier_"))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p_ for p_ in (str(ROOT / "src"), os.environ.get("PYTHONPATH", "")) if p_)}
+    procs: dict[str, subprocess.Popen] = {}
+    rec: dict = {}
+    launches = {name: 0 for name in ("flash_attention", "decode_attention", "rmsnorm")}
+    max_new = TIER_MAX_NEW
+
+    def spawn(name: str, argv: list) -> subprocess.Popen:
+        log_f = open(work / f"{name}.log", "wb")
+        procs[name] = subprocess.Popen([sys.executable, "-m", *argv], stdout=log_f,
+                                       stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        log_f.close()
+        return procs[name]
+
+    def stop(name: str, sig=signal.SIGTERM, timeout: float = 120.0) -> int:
+        proc = procs.pop(name)
+        if proc.poll() is None:
+            proc.send_signal(sig)
+            try:
+                proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        return proc.returncode
+
+    def logs() -> str:
+        tails = []
+        for f in sorted(list(work.glob("*.log")) + list(work.glob("work/*.log"))):
+            tails.append(f"--- {f.name}:\n" + f.read_text(errors="replace")[-3000:])
+        return "\n".join(tails)
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            print(logs(), file=sys.stderr, flush=True)
+            fail(f"9 {msg}")
+
+    def get(url: str) -> dict:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return json.loads(resp.read())
+
+    def post(url: str, spec: dict) -> dict:
+        req = urllib.request.Request(f"{url}/v1/generate", data=json.dumps(spec).encode(),
+                                     method="POST", headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read())
+
+    client: dict[str, float] = {}  # trace id -> the latency this client measured (ms)
+
+    def post_timed(url: str, spec: dict) -> dict:
+        t = time.perf_counter()
+        reply = post(url, spec)
+        client[reply["trace"]] = (time.perf_counter() - t) * 1e3
+        return reply
+
+    def load(url: str, specs: list) -> dict:
+        report = loadgen.run(url, specs, concurrency=TIER_CONC, timeout_s=300,
+                             keep_tokens=True)
+        client.update({t: ms for t, ms in zip(report["traces"], report["client_ms"]) if t})
+        return report
+
+    def plain_routes(h: dict) -> dict:
+        """Per op: (plain routes, of them settled rather than explored,
+        plain share of the op's routes)."""
+        d = h["dispatch"]
+        return {op: (n.get("plain", 0),
+                     n.get("plain", 0) - d["explore_by_op"].get(op, {}).get("plain", 0),
+                     n.get("plain", 0) / sum(n.values())) for op, n in d["by_op"].items()}
+
+    def check_plain(name: str, h: dict, where: str) -> dict:
+        routes = plain_routes(h)
+        check(all(settled == 0 for _, settled, _ in routes.values()),
+              f"{where}: replica {name} settled calls on the plain tier on the card "
+              f"(op: plain routes, settled, share): {routes}")
+        return routes
+
+    def rate(report: dict) -> dict:
+        return {"requests": report["completed"],
+                "tokens_per_s": report["completed"] * max_new / report["wall_s"],
+                "p50_ms": report["latency_ms"]["p50"], "p99_ms": report["latency_ms"]["p99"],
+                "wall_s": report["wall_s"]}
+
+    alone_specs = loadgen.build_specs(TIER_ALONE, list(TIER_LENGTHS), max_new, seed=SEED)
+    try:
+        # the reference: an in-process compiled Engine on the card, each
+        # prompt served alone, the replicas' arch, seed, max_batch and max_seq
+        cfg = get_config(ARCH)
+        params = lm.init_params(cfg, SEED, device=dev)
+        eng = Engine(cfg, params, ServeConfig(max_batch=TIER_BATCH, max_seq=TIER_SEQ, seed=SEED))
+        alone_ref = []
+        for spec in alone_specs:
+            rid = eng.submit(spec["prompt"], max_new=max_new)
+            alone_ref.append(eng.run_to_completion()[rid])
+        torch.cuda.synchronize()
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (a) the fleet daemon
+        fleet_ready = work / "fleet.ready"
+        spawn("fleet", ["repro_torch.fleet", "serve", "--root", str(work / "fleet"),
+                        "--port", "0", "--ready-file", str(fleet_ready)])
+        wait_for_ready_file(str(fleet_ready), 60, proc=procs["fleet"])
+        fleet_url = read_ready_info(str(fleet_ready))["url"]
+        check(get(f"{fleet_url}/healthz")["ok"], "(a): the fleet daemon is not healthy")
+
+        # (b) the router over two real replicas
+        t_b = time.time()
+        router_ready, trace_dir = work / "router.ready", work / "trace"
+        engine_flags = ["--arch", ARCH, "--max-batch", str(TIER_BATCH), "--max-seq", str(TIER_SEQ),
+                        "--dispatch", "profiled", "--fleet", fleet_url, "--seed", str(SEED)]
+        spawn("router", ["repro_torch.router", "--replicas", "2", "--port", "0",
+                         "--ready-file", str(router_ready), "--workdir", str(work / "work"),
+                         "--trace-dir", str(trace_dir), "--startup-timeout-s", "300",
+                         "--forward-timeout-s", "300", "--request-timeout-s", "120",
+                         *engine_flags])
+        try:
+            wait_for_ready_file(str(router_ready), 300, proc=procs["router"])
+        except (RuntimeError, TimeoutError) as exc:
+            check(False, f"(b): the router did not come up: {exc}")
+        url = read_ready_info(str(router_ready))["url"]
+        rec["b_startup_s"] = time.time() - t_b
+
+        def replicas() -> dict:
+            return get(f"{url}/healthz")["replicas"]
+
+        # (c) alone: one request at a time, each reply the in-process engine's
+        alone = [post_timed(url, spec) for spec in alone_specs]
+        equal = [a["tokens"] == r for a, r in zip(alone, alone_ref)]
+        rec["c"] = {"requests": len(alone), "equal": sum(equal),
+                    "routed_to": [a["routed_to"] for a in alone],
+                    "prompt_lens": [len(sp["prompt"]) for sp in alone_specs]}
+        print(f"9 (c) {ARCH} alone through the router vs an in-process compiled Engine, "
+              f"{smi}: {json.dumps(rec['c'])}", flush=True)
+        check(all(equal), f"(c): {len(equal) - sum(equal)} of {len(equal)} replies differ from "
+                          "the in-process engine's")
+
+        # (d) loaded: TIER_LOAD requests over the same prompts at TIER_CONC
+        load_specs = [alone_specs[i % len(alone_specs)] for i in range(TIER_LOAD)]
+        rep = load(url, load_specs)
+        same = sum(t == alone_ref[i % len(alone_ref)] for i, t in enumerate(rep["tokens"]))
+        rec["d"] = {k: rep[k] for k in ("submitted", "completed", "outcomes", "duplicates",
+                                         "lost", "by_replica", "latency_ms", "hop_ms", "wall_s")}
+        rec["d"]["equal_to_alone"] = same / len(load_specs)
+        print(f"9 (d) {TIER_LOAD} requests at concurrency {TIER_CONC} through the router, "
+              f"{smi}: {json.dumps(rec['d'])}", flush=True)
+        check(rep["completed"] == rep["submitted"] == TIER_LOAD and rep["duplicates"] == 0
+              and rep["lost"] == 0, f"(d): {rep['outcomes']}, {rep['duplicates']} duplicates")
+        check(all(t is not None and len(t) == max_new for t in rep["tokens"]),
+              f"(d): a reply without {max_new} tokens")
+        # for (i), on warm replicas: the same load through the router and on
+        # the replica the router sent most to, driven directly, in turns
+        # (direct, router, router, direct)
+        served = get(f"{url}/healthz")["router"]["replicas"]
+        busiest = replicas()[max(served, key=lambda n: served[n]["completed"])]["url"]
+        turns: dict = {"direct": [], "router": []}
+        for way in ("direct", "router", "router", "direct"):
+            r_ = load(busiest if way == "direct" else url, load_specs)
+            check(r_["completed"] == TIER_LOAD and r_["duplicates"] == 0,
+                  f"(i): a {way} run: {r_['outcomes']}")
+            turns[way].append(r_)
+
+        # (e) kernels and stamps: each replica's /healthz, and the fleet
+        health = {}
+        deadline = time.time() + 60
+        while True:  # the replicas push when idle, at most every 2 s
+            status = replicas()
+            health = {n: get(f"{r['url']}/healthz") for n, r in status.items()}
+            if all(h.get("fleet_pushed_samples", 0) > 0 for h in health.values()):
+                break
+            check(time.time() < deadline, f"(e): the replicas pushed no profiles: "
+                                          f"{ {n: h.get('fleet_pushed_samples') for n, h in health.items()} }")
+            time.sleep(0.5)
+        rec["e"] = {}
+        for n, h in health.items():
+            k = h["kernels"]
+            row = {"chip": h["chip"], "git_sha": h["git_sha"], "device": h["device"],
+                   "tiers": h["tiers"], "kernels": {x: k[x] for x in launches},
+                   "by_op": h["dispatch"]["by_op"], "by_source": h["dispatch"]["by_source"],
+                   "explore_by_op": h["dispatch"]["explore_by_op"],
+                   "plain_routes_settled_share": plain_routes(h),
+                   "explore_events": h["explore_events"],
+                   "fleet_pushed_samples": h["fleet_pushed_samples"],
+                   "fleet_pull": h["fleet"]["pull"]["match"]}
+            rec["e"][n] = row
+            print(f"9 (e) replica {n}, {smi}: {json.dumps(row)}", flush=True)
+            check(all(k[x] > 0 for x in launches), f"(e): replica {n} launched {k}")
+            check(h["tiers"] == ["kernel", "plain"] and h["device"].startswith("cuda")
+                  and "static-fallback" not in h["dispatch"]["by_source"],
+                  f"(e): replica {n} routes {h['tiers']} on {h['device']}: "
+                  f"{h['dispatch']['by_source']}")
+            check(h["chip"] == "h100_sxm" and status[n]["chip"] == "h100_sxm",
+                  f"(e): replica {n} stamps {h['chip']}")
+            check_plain(n, h, "(e)")
+        sha = next(iter(health.values()))["git_sha"]
+        buckets = FleetClient(fleet_url).ls()
+        pulled = FleetClient(fleet_url).pull(sha, "h100_sxm")
+        entries = pulled["store"]._entries if pulled["store"] else {}
+        chips = {e.chip for e in entries.values()}
+        mins: dict = {}  # op -> token signature -> tier -> [samples, minimum ms]
+        for key, e in sorted(entries.items()):
+            op, tier, sig, _ = parse_profile_key(key)
+            mins.setdefault(op, {}).setdefault(sig, {})[tier] = [e.count, e.min_s * 1e3]
+        rec["e_fleet"] = {"buckets": [(b["git_sha"], b["chip"], b["samples"], b["pushes"])
+                                      for b in buckets], "match": pulled["match"],
+                          "entries": len(entries), "entry_chips": sorted(chips),
+                          "samples_min_ms": mins}
+        print(f"9 (e) fleet: {json.dumps(rec['e_fleet'])}", flush=True)
+        check(pulled["match"] == "exact" and chips == {"h100_sxm"}
+              and [b["chip"] for b in buckets] == ["h100_sxm"],
+              f"(e): the fleet holds {rec['e_fleet']}")
+
+        # (f) a third replica, started with --fleet, warm-starts
+        warm_ready = work / "warm.ready"
+        t_f = time.time()
+        spawn("warm", ["repro_torch.router.replica", "--name", "w", "--port", "0",
+                       "--ready-file", str(warm_ready), *engine_flags])
+        try:
+            wait_for_ready_file(str(warm_ready), 300, proc=procs["warm"])
+        except (RuntimeError, TimeoutError) as exc:
+            check(False, f"(f): the warm replica did not come up: {exc}")
+        winfo = read_ready_info(str(warm_ready))
+        warm_startup = time.time() - t_f
+        warm_tokens = [post(winfo["url"], spec)["tokens"] for spec in alone_specs]
+        wh = get(f"{winfo['url']}/healthz")
+        for x in launches:
+            launches[x] += wh["kernels"][x]
+        rec["f"] = {"pull": winfo["fleet"]["pull"], "startup_s": warm_startup,
+                    "explore_events": wh["explore_events"],
+                    "cold_explore_events": {n: h["explore_events"] for n, h in health.items()},
+                    "by_source": wh["dispatch"]["by_source"], "chip": wh["chip"],
+                    "plain_routes_settled_share": plain_routes(wh),
+                    "equal_to_alone": sum(t == r for t, r in zip(warm_tokens, alone_ref))}
+        print(f"9 (f) warm-started replica, {smi}: {json.dumps(rec['f'])}", flush=True)
+        stop("warm")
+        check(winfo["fleet"]["pull"]["match"] == "exact" and wh["chip"] == "h100_sxm"
+              and wh["explore_events"] < min(h["explore_events"] for h in health.values()),
+              f"(f): the warm replica explored {wh['explore_events']} times, the cold ones "
+              f"{rec['f']['cold_explore_events']}")
+        check_plain("w", wh, "(f)")
+
+        # (g) SIGKILL a replica during a second load: the one the router
+        # has sent the most requests (its live costs may route all to one)
+        served = get(f"{url}/healthz")["router"]["replicas"]
+        vname = max(served, key=lambda n: served[n]["completed"])
+        victim = replicas()[vname]
+        before = served[vname]["completed"]
+        kill_specs = [alone_specs[(3 * i) % len(alone_specs)] for i in range(TIER_KILL_LOAD)]
+        result: dict = {}
+        drive = threading.Thread(target=lambda: result.update(load(url, kill_specs)),
+                                 daemon=True)
+        last = get(f"{victim['url']}/healthz")
+        drive.start()
+        deadline = time.time() + 120
+        while get(f"{url}/healthz")["router"]["replicas"][vname]["completed"] < before + 2:
+            check(time.time() < deadline and drive.is_alive(), f"(g): {vname} served nothing")
+            last = get(f"{victim['url']}/healthz")
+            time.sleep(0.05)
+        os.kill(victim["pid"], signal.SIGKILL)
+        t_kill = time.time()
+        for x in launches:  # the victim's counts as last read
+            launches[x] += last["kernels"][x]
+        restart_s = None
+        while time.time() - t_kill < 300:
+            rv = replicas()[vname]
+            if rv["state"] == "up" and rv["restarts"] >= 1 and rv["pid"] != victim["pid"]:
+                restart_s = time.time() - t_kill
+                break
+            time.sleep(0.1)
+        drive.join(timeout=300)
+        check(restart_s is not None, f"(g): {vname} was not restarted: {replicas()[vname]}")
+        check(not drive.is_alive() and result.get("completed") == TIER_KILL_LOAD
+              and result["duplicates"] == 0 and result["lost"] == 0
+              and all(t is not None and len(t) == max_new for t in result["tokens"]),
+              f"(g): {result.get('outcomes')}, {result.get('duplicates')} duplicates")
+        rec["g"] = {"outcomes": result["outcomes"], "completed": result["completed"],
+                    "duplicates": result["duplicates"], "lost": result["lost"],
+                    "victim": vname, "restart_s": restart_s,
+                    "restarted_chip": replicas()[vname]["chip"]}
+        print(f"9 (g) SIGKILL of {vname} during {TIER_KILL_LOAD} requests, {smi}: "
+              f"{json.dumps(rec['g'])}", flush=True)
+        check(rec["g"]["restarted_chip"] == "h100_sxm", f"(g): the restarted {vname}'s stamp")
+        rec["g"]["plain_routes_settled_share"] = {}
+        for n, r in replicas().items():
+            h = get(f"{r['url']}/healthz")
+            for x in launches:
+                launches[x] += h["kernels"][x]
+            rec["g"]["plain_routes_settled_share"][n] = check_plain(n, h, "(g)")
+        print(f"9 (g) plain routes after the restart (op: routes, settled, share): "
+              f"{json.dumps(rec['g']['plain_routes_settled_share'])}", flush=True)
+        routed = get(f"{url}/healthz")["requests"]
+        rc = stop("router")
+        check(rc == 0, f"(h): the router exited {rc}")
+
+        # (h) stitch and hops over the front door's discovered inputs
+        stitched = work / "stitched.json"
+        out = subprocess.run([sys.executable, "-m", "repro_torch.trace", "stitch", str(trace_dir),
+                              "-o", str(stitched), "--json"], capture_output=True, text=True,
+                             env=env, cwd=ROOT, timeout=300)
+        check(out.returncode == 0, f"(h): trace stitch exited {out.returncode}: {out.stderr}")
+        hops_out = subprocess.run([sys.executable, "-m", "repro_torch.trace", "hops",
+                                   str(stitched), "--json"], capture_output=True, text=True,
+                                  env=env, cwd=ROOT, timeout=300)
+        check(hops_out.returncode == 0, f"(h): trace hops exited {hops_out.returncode}")
+        hops_doc = json.loads(hops_out.stdout)
+        sess = load_any(str(stitched))
+        spans = {sp.span: sp for sp in sess.spans() if sp.span}
+        kids: dict = {}
+        for sp in spans.values():
+            kids.setdefault(sp.parent, []).append(sp)
+        roots = {sp.span for sp in spans.values() if sp.name == "router_run"}
+        ranges = [tuple(i["span_ids"]) for i in sess.meta["stitch"]["inputs"]]
+        # the processes share the host's clock, so the skew the stitcher
+        # estimated for an input (from the handshakes' asymmetric delays)
+        # is its error: spans of two inputs nest to within it
+        skew_err = [abs(i["skew_s"]) for i in sess.meta["stitch"]["inputs"]]
+
+        def origin(sid: int) -> int:  # the stitched input a span id came from
+            return next(i for i, (lo, hi) in enumerate(ranges) if lo <= sid <= hi)
+
+        ticks: dict = {}
+        for sp in spans.values():
+            if sp.name == "decode_tick":
+                ticks.setdefault(origin(sp.span), []).append(sp)
+        # each front-door request's hops, from its outcome event
+        hops_of = {e.parent: e.payload for e in sess.events
+                   if e.kind == "route" and e.name == "outcome" and isinstance(e.payload, dict)
+                   and isinstance(e.payload.get("hops"), dict)}
+        trees = 0
+        broken: dict = {}  # why a request is not a tree -> count
+        # the hops against measurements they are not made of: the hops' sum
+        # against the front-door span's duration in the trace and against
+        # the client's latency (the front door's interval lies inside the
+        # client's), the service hop against the replica's engine interval
+        # in the trace (all ms)
+        timing: list[dict] = []
+        for sp in spans.values():
+            if sp.name != "request" or sp.parent not in roots:
+                continue  # front door requests only (the run root is their parent)
+            served = None  # the attempt whose replica served it: rpc, request, prefill
+            for route in (c for c in kids.get(sp.span, []) if c.name == "route"):
+                for rpc in (c for c in kids.get(route.span, []) if c.name == "rpc"):
+                    if isinstance(rpc.payload, dict) and rpc.payload.get("torn"):
+                        continue  # an attempt on the killed replica
+                    for ereq in (c for c in kids.get(rpc.span, []) if c.name == "request"):
+                        pre = [c for c in kids.get(ereq.span, []) if c.name == "prefill"]
+                        if pre:
+                            served = (rpc, ereq, pre[0])
+            why = None
+            if served is None:
+                why = "no attempt with an engine request and prefill"
+            elif sp.span not in hops_of:
+                why = "no hops"
+            else:
+                rpc, ereq, pre = served
+                eps = skew_err[origin(rpc.span)]
+                # the replica's batched decode ticks while the request held its slot
+                n_ticks = sum(1 for t in ticks.get(origin(ereq.span), [])
+                              if t.t0 >= pre.t1 and t.t1 <= ereq.t1)
+                if not (sp.t0 - eps <= rpc.t0 and rpc.t1 <= sp.t1 + eps):
+                    why = "replica rpc outside the front door's span"
+                elif not (rpc.t0 <= ereq.t0 <= pre.t0 and ereq.t1 <= rpc.t1):
+                    why = "engine request outside the rpc"
+                elif n_ticks != max_new - 1:
+                    why = f"{n_ticks} decode ticks"
+            if why is not None:
+                broken[why] = broken.get(why, 0) + 1
+                continue
+            trees += 1
+            hops = hops_of[sp.span]["hops"]
+            timing.append({"sum_ms": sum(float(hops[h]) for h in HOPS),
+                           "span_ms": (sp.t1 - sp.t0) * 1e3,
+                           "client_ms": client.get((sp.payload or {}).get("trace")),
+                           "service_ms": float(hops["service"]),
+                           "engine_ms": (ereq.t1 - pre.t0) * 1e3})
+        chain = chain_report(sess)
+        rows = hop_rows(sess)
+        summary = hop_summary(rows)
+        off_span = [t for t in timing if abs(t["sum_ms"] - t["span_ms"]) > TIER_HOP_TOL * t["span_ms"]]
+        no_client = [t for t in timing if t["client_ms"] is None]
+        over_client = [t for t in timing if t["client_ms"] is not None
+                       and t["sum_ms"] > t["client_ms"] + TIER_CLOCK_SLACK_MS]
+        # the replica stamps a request's service from before its prefill to
+        # after its engine exit: the engine's interval lies inside it
+        off_engine = [t for t in timing
+                      if t["engine_ms"] > t["service_ms"] + TIER_CLOCK_SLACK_MS]
+
+        def spread(xs: list) -> dict:
+            xs = sorted(xs)
+            return {"min": xs[0], "p50": xs[len(xs) // 2], "max": xs[-1]} if xs else {}
+
+        rec["h"] = {"routed": routed, "rooted_trees": trees, "broken": broken, "chain": {
+            k: chain[k] for k in ("completed", "chained", "orphaned_remote")},
+            "inputs": [(i["origin"], i["events"], i["skew_s"], i["torn_spans"])
+                       for i in sess.meta["stitch"]["inputs"]],
+            "hop_rows": len(rows), "hops_cli_requests": hops_doc["summary"]["requests"],
+            "hops_cli_within_5pct_of_latency": hops_doc["summary"]["within_5pct"],
+            "sum_within_tol_of_span": len(timing) - len(off_span),
+            "sum_within_client": len(timing) - len(no_client) - len(over_client),
+            "engine_within_service": len(timing) - len(off_engine),
+            "span_minus_sum_ms": spread([t["span_ms"] - t["sum_ms"] for t in timing]),
+            "client_minus_sum_ms": spread([t["client_ms"] - t["sum_ms"] for t in timing
+                                           if t["client_ms"] is not None]),
+            "client_sum_within_tol": sum(
+                1 for t in timing if t["client_ms"] is not None
+                and abs(t["client_ms"] - t["sum_ms"]) <= TIER_HOP_TOL * t["client_ms"]),
+            "service_minus_engine_ms": spread([t["service_ms"] - t["engine_ms"]
+                                               for t in timing])}
+        print(f"9 (h) stitch and hops: {json.dumps(rec['h'])}", flush=True)
+        check(trees == routed and not broken
+              and chain["chained"] == chain["completed"] == routed,
+              f"(h): {trees} rooted trees, broken {broken}, chain {chain}, {routed} routed")
+        check(len(rows) == routed and hops_doc["summary"]["requests"] == routed,
+              f"(h): {len(rows)} hop rows, the hops CLI {hops_doc['summary']['requests']}, "
+              f"{routed} routed")
+        # the hops add up to the front door's latency by construction (they
+        # are differences of its and the replica's durations): the hops CLI
+        # must give every request's row so
+        check(hops_doc["summary"]["within_5pct"] == routed,
+              f"(h): the hops CLI finds {hops_doc['summary']['within_5pct']} of {routed} "
+              "requests' hops within 5 % of their latency")
+        check(not no_client and not over_client,
+              f"(h): {len(no_client)} requests without a client latency, {len(over_client)} "
+              f"whose hops add up to more than the client's latency: {over_client[:3]}")
+        check(not off_engine, f"(h): {len(off_engine)} of {len(timing)} service hops shorter "
+                              f"than the engine's interval: {off_engine[:3]}")
+
+        # (i) what to print
+        hop_means = {h: summary["hops"][h]["mean"] for h in HOPS}
+        warm_hops = {h: statistics.mean(r_["hop_ms"][h]["mean"] for r_ in turns["router"])
+                     for h in HOPS}
+        rec["i"] = {"router_2_replicas": [rate(r_) for r_ in turns["router"]],
+                    "one_replica_direct": [rate(r_) for r_ in turns["direct"]],
+                    "router_by_replica": [r_["by_replica"] for r_ in turns["router"]],
+                    "frontdoor_hop_ms": warm_hops["frontdoor_queue"],
+                    "route_ms_mean": statistics.mean(r_["route_ms"]["mean"]
+                                                     for r_ in turns["router"]),
+                    "hop_means_ms_warm_router": warm_hops, "hop_means_ms_stitched": hop_means,
+                    "restart_s": restart_s, "seconds": time.time() - t0}
+        print(f"9 (i) {ARCH} {TIER_LOAD} requests at concurrency {TIER_CONC}, warm, router with 2 "
+              f"replicas vs one replica directly (direct, router, router, direct), {smi}: "
+              f"{json.dumps({k: rec['i'][k] for k in ('router_2_replicas', 'one_replica_direct', 'router_by_replica')})}",
+              flush=True)
+        print(f"9 (i) front door's own hop {warm_hops['frontdoor_queue']:.4f} ms (route "
+              f"{rec['i']['route_ms_mean']:.4f} ms), hop means (ms) of the warm router runs "
+              f"{json.dumps(warm_hops)}, of every stitched request {json.dumps(hop_means)}, "
+              f"restart {restart_s:.2f} s, phase {rec['i']['seconds']:.1f} s, {smi}", flush=True)
+    finally:
+        for name in list(procs):
+            stop(name, timeout=30)
+        shutil.rmtree(work, ignore_errors=True)
+    for name, n in launches.items():
+        if name in records and name in LAUNCHES:
+            records[name]["launches"] += n
+    rec["launches"] = launches
+    return rec
 
 
 def _map(fn, tree):

@@ -11,11 +11,13 @@ asking for ``cuda`` without a card raises instead of dropping to the CPU.
 """
 from __future__ import annotations
 
-import torch
 
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:  # noqa: F821
+    """The torch device an entry point runs on; raises if CUDA is absent.
+    ``torch`` is imported here, not with the package: the router, the fleet
+    daemon and the trace CLI import ``repro_torch`` without it."""
+    import torch
 
-def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """The torch device an entry point runs on; raises if CUDA is absent."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -22,27 +22,37 @@ Typical use::
     disp = Dispatcher(DispatchConfig(policy="profiled"), registry=host_registry(device=dev))
     out = disp.dispatch("serve_decode", {"kernel": f1, "plain": f2}, *args)
 
-Nothing here imports JAX, so every name is imported eagerly.
+``profiles`` imports no ``torch``; the other modules do, so they are
+re-exported lazily (PEP 562), as the JAX package re-exports its jax
+modules: the fleet daemon and the router read profile stores without
+``torch``.
 """
-from repro_torch.dispatch.cost import (
-    CostEstimate,
-    estimate_callable,
-    estimate_region,
-    estimate_sdfg,
-)
-from repro_torch.dispatch.dispatcher import (
-    DispatchConfig,
-    DispatchDecision,
-    Dispatcher,
-    with_impl,
-)
 from repro_torch.dispatch.profiles import ProfileStore, signature
-from repro_torch.dispatch.registry import (
-    BackendRegistry,
-    BackendTarget,
-    default_registry,
-    host_registry,
-)
+
+_LAZY = {
+    "CostEstimate": "repro_torch.dispatch.cost",
+    "estimate_callable": "repro_torch.dispatch.cost",
+    "estimate_region": "repro_torch.dispatch.cost",
+    "estimate_sdfg": "repro_torch.dispatch.cost",
+    "DispatchConfig": "repro_torch.dispatch.dispatcher",
+    "DispatchDecision": "repro_torch.dispatch.dispatcher",
+    "Dispatcher": "repro_torch.dispatch.dispatcher",
+    "with_impl": "repro_torch.dispatch.dispatcher",
+    "BackendRegistry": "repro_torch.dispatch.registry",
+    "BackendTarget": "repro_torch.dispatch.registry",
+    "default_registry": "repro_torch.dispatch.registry",
+    "host_registry": "repro_torch.dispatch.registry",
+}
+
+
+def __getattr__(name: str):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(mod), name)
+
 
 __all__ = [
     "BackendRegistry",

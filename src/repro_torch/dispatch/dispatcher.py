@@ -11,10 +11,18 @@ Counterpart of ``repro/dispatch/dispatcher.py``.  Three policies (the
 
 ``dispatch()`` both *decides* and *executes*: it runs the chosen variant,
 waits for the card (``torch.cuda.synchronize`` when the outputs are CUDA
-tensors), feeds the wall time back into the
+tensors), feeds the call's time back into the
 :class:`~repro_torch.dispatch.profiles.ProfileStore`, and records a
 ``dispatch`` event whose payload carries op, backend, estimate,
-measurement and policy.  Each dispatch event carries its own span id and
+measurement and policy.  A call whose outputs are CUDA tensors is timed
+between two CUDA events on the current stream, recorded before the call
+and after it: the card's time from the call's start to its last kernel,
+with the card's idle gaps while the host launches.  The host's wall time
+would also hold whatever delays the calling thread after the wait
+returns (another thread of a server holding the GIL for up to its switch
+interval), which at a replayed graph of ~1 ms can outweigh the tiers'
+difference and settle a tier on one unlucky sample.  Other calls are
+timed on the host's clock.  Each dispatch event carries its own span id and
 inherits the current span as parent, so decisions land in the span tree as
 children of the request or step that caused them.
 
@@ -44,12 +52,30 @@ from repro_torch.trace.liveprof import device_annotation
 POLICIES = ("static", "roofline", "profiled")
 
 
-def _wait_for(out: Any) -> None:
-    """Block until the card has finished ``out`` (no-op for CPU outputs)."""
+def _start_event() -> Optional["torch.cuda.Event"]:
+    """A timing event recorded on the current CUDA stream, or None in a
+    process that has not used the card (then no call can return CUDA
+    tensors)."""
+    if not torch.cuda.is_initialized():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _wait_for(out: Any, start: Optional["torch.cuda.Event"]) -> Optional[float]:
+    """Block until the card has finished ``out``; returns the seconds
+    between ``start`` and the end of ``out``'s work on the card (None for
+    CPU outputs, or without ``start``)."""
     for leaf in _leaves(out):
         if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            end = None
+            if start is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
             torch.cuda.synchronize(leaf.device)
-            return
+            return None if end is None else start.elapsed_time(end) / 1e3
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,11 +253,12 @@ class Dispatcher:
         # not a core/scopes.scope, which would rename every SDFG region and
         # by_scope key below it.
         span_id = next_span_id() if self.cfg.record_events else 0
+        start = _start_event()
         t0 = time.perf_counter()
         with device_annotation(span_id):
             out = fn(*args, **kwargs)
-            _wait_for(out)
-        dt = time.perf_counter() - t0
+            on_card = _wait_for(out, start)
+        dt = time.perf_counter() - t0 if on_card is None else on_card
         self.store.record(op, decision.backend, sig, dt, config=decision.config)
         decision = dataclasses.replace(decision, measured_s=dt)
         self.decisions[idx] = decision
@@ -276,18 +303,26 @@ class Dispatcher:
         ``by_source`` separates exploration dispatches (``explore``) from
         steady-state ones (``measured``/``roofline``/``static``): a
         warm-started dispatcher (``--profile-in``) shows explore 0.
+        ``explore_by_op`` counts the exploration dispatches per (op,
+        backend), so a caller can tell a tier's explored calls in
+        ``by_op`` from its settled ones.
         """
         by_op: dict[str, dict[str, int]] = {}
         by_source: dict[str, int] = {}
+        explore_by_op: dict[str, dict[str, int]] = {}
         for d in self.decisions:
             by_op.setdefault(d.op, {}).setdefault(d.backend, 0)
             by_op[d.op][d.backend] += 1
             by_source[d.source] = by_source.get(d.source, 0) + 1
+            if d.source == "explore":
+                explored = explore_by_op.setdefault(d.op, {})
+                explored[d.backend] = explored.get(d.backend, 0) + 1
         return {
             "policy": self.cfg.policy,
             "decisions": len(self.decisions),
             "by_op": by_op,
             "by_source": by_source,
+            "explore_by_op": explore_by_op,
             "explore_dispatches": by_source.get("explore", 0),
             "profiled_keys": len(self.store),
         }

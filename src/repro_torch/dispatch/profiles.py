@@ -286,7 +286,9 @@ class ProfileStore:
                config: str = "") -> Optional[float]:
         """Measured seconds, or None if the key is not warm yet.
 
-        Uses the *minimum* observed wall-time (hyperfine's robust statistic):
+        Uses the *minimum* observed time (hyperfine's robust statistic; the
+        dispatcher times a call on the card with CUDA events, others on the
+        host's clock):
         the first sample of a jitted variant includes compilation, and a mean
         polluted by one cold call would mis-rank backends for the rest of the
         run.  With ``min_samples >= 2`` the minimum is a warm execution.

@@ -60,8 +60,17 @@ synthetic`` runs that path without a card (CPU only; ``auto`` means
 ``torch``).  With any of these flags the JSON line gains ``trace``,
 ``metrics`` and, as they apply, ``trace_controller``, ``device_capture``,
 ``trace_dir`` and ``trace_out``; without them it is what it was, and
-the run launches the same kernels.  Not here yet: ``--fleet`` and
-``--tune`` (ROADMAP M12).
+the run launches the same kernels.
+
+Fleet mode (``fleet/``), the JAX driver's flags: ``--fleet <url|dir>``
+(with ``--dispatch``) pulls the best matching profile snapshot at startup
+(exact (git SHA, chip) match, then the freshest bucket of the same chip,
+whose entries of other code age out and re-explore, then nothing), pushes
+the measured delta at the end and, with ``--trace-dir``, at every
+streaming rotation; ``--fleet-token`` authenticates the pushes.  The JSON
+line gains ``fleet`` (the pull's match and the pushed samples), and a
+``--profile-out`` store is marked as already fed, so ``fleet push`` refuses
+to count it twice.  Not here yet: ``--tune`` (ROADMAP M12).
 """
 from __future__ import annotations
 
@@ -128,10 +137,38 @@ def dispatch_record(args: argparse.Namespace, dispatcher, aged: list, log: Event
         rec["profile_in"] = args.profile_in
         rec["profile_aged_out"] = len(aged)
     if args.profile_out:
+        text = dispatcher.store.to_json()
+        if getattr(args, "fleet", None):
+            # marks the store as already fed to a fleet live, so `fleet push`
+            # refuses to count its samples twice
+            text = json.dumps({**json.loads(text), "fleet": args.fleet}, indent=1)
         with open(args.profile_out, "w") as f:
-            f.write(dispatcher.store.to_json())
+            f.write(text)
         rec["profile_out"] = args.profile_out
     return rec
+
+
+def add_fleet_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--fleet", default=None, metavar="URL|DIR",
+                    help="central profile service (fleet/): pull the best matching "
+                         "snapshot at startup, push measured deltas while running and "
+                         "at the end (daemon URL or store directory)")
+    ap.add_argument("--fleet-token", default=None, metavar="TOKEN",
+                    help="bearer token for a --token-protected fleet daemon")
+
+
+def warm_start(args: argparse.Namespace, dispatcher, run_meta: dict):
+    """``--fleet``: the pull's record and the delta pusher (both None without
+    it); the run's metadata is marked as feeding that fleet."""
+    if not args.fleet or dispatcher is None:
+        return None, None
+    from repro_torch.fleet import warm_start_from_fleet
+
+    fleet_rec, pusher = warm_start_from_fleet(args.fleet, dispatcher, token=args.fleet_token)
+    # recorded in session and manifest metadata: push-profiles refuses to
+    # push an artifact of a run that already fed a fleet live
+    run_meta["fleet"] = args.fleet
+    return fleet_rec, pusher
 
 
 def add_trace_args(ap: argparse.ArgumentParser) -> None:
@@ -204,14 +241,16 @@ class TracePlane:
                 backend=args.torch_profile_backend, budget_pct=budget,
                 period_s=args.torch_profile_period_s)
 
-    def open_stream(self, meta: dict, dispatcher) -> None:
-        """The ``--trace-dir`` session, attached to the log."""
+    def open_stream(self, meta: dict, dispatcher, pusher=None) -> None:
+        """The ``--trace-dir`` session, attached to the log (a fleet pusher
+        pushes at each rotation)."""
         if not self.args.trace_dir:
             return
         self.stream = StreamingSession(
             self.args.trace_dir, rotate_events=self.args.trace_rotate,
             max_segments=self.args.trace_rotate_keep, meta=meta,
             store_provider=(lambda: dispatcher.store) if dispatcher is not None else None,
+            fleet_push=pusher.push if pusher is not None else None,
             metrics_provider=self.plane.snapshot,
             device_provider=self.prof.snapshot if self.prof is not None else None,
         ).attach(self.log)
@@ -279,8 +318,12 @@ def run(argv: list[str] | None = None) -> tuple[dict, dict[int, list[int]]]:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch versions")
     add_dispatch_args(ap, "prefill and decode")
+    add_fleet_args(ap)
     add_trace_args(ap)
     args = ap.parse_args(argv)
+    if args.fleet and args.dispatch == "off":
+        # a fleet-less run would silently neither warm-start nor push
+        ap.error("--fleet requires --dispatch (static|roofline|profiled)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -291,7 +334,8 @@ def run(argv: list[str] | None = None) -> tuple[dict, dict[int, list[int]]]:
     log = trace.log
     dispatcher, aged = make_dispatcher(args, device, log)
     run_meta = {"driver": "serve", "arch": cfg.name, "requests": args.requests}
-    trace.open_stream(run_meta, dispatcher)
+    fleet_rec, pusher = warm_start(args, dispatcher, run_meta)
+    trace.open_stream(run_meta, dispatcher, pusher)
     eng = Engine(
         cfg, params,
         ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
@@ -326,6 +370,12 @@ def run(argv: list[str] | None = None) -> tuple[dict, dict[int, list[int]]]:
         **dispatch_record(args, dispatcher, aged, log),
     }
     rec.update(trace.record(dispatcher, run_meta))
+    if pusher is not None:
+        final = pusher.push()  # the rest of the delta (none if a rotation sent it)
+        fleet_rec["push"] = {"pushed_samples": pusher.pushed_samples}
+        if "error" in final:
+            fleet_rec["push"]["error"] = final["error"]
+        rec["fleet"] = fleet_rec
     print(json.dumps(rec), flush=True)
     trace.close()
     return rec, results

@@ -7,6 +7,9 @@
   PYTHONPATH=src python -m repro_torch.trace tail    run_dir/ [--once]
   PYTHONPATH=src python -m repro_torch.trace device  run_dir/ [--json]
   PYTHONPATH=src python -m repro_torch.trace metrics run_dir/ [--json]
+  PYTHONPATH=src python -m repro_torch.trace stitch  frontdoor_dir/ [replica_dir/...] -o stitched.json
+  PYTHONPATH=src python -m repro_torch.trace hops    stitched.json [--json]
+  PYTHONPATH=src python -m repro_torch.trace push-profiles run_dir/ --fleet http://host:8377
 
 ``report`` prints per-op / per-backend latency tables for one session —
 ``--tree`` renders the span hierarchy instead (indented parent/child nodes
@@ -26,8 +29,20 @@ and exits); ``device`` summarises a run's device side — live-capture window
 coverage, per-device and per-kernel time, and how the slices were bound to
 host spans (``span=`` annotation, launch time, time window; see
 :mod:`repro_torch.trace.liveprof`); ``metrics`` prints a run's metric
-snapshots.  ``stitch``, ``hops`` and ``push-profiles`` wait for the router
-and the fleet (ROADMAP M12): here they only say so.
+snapshots.
+
+``stitch`` merges a frontdoor session with its replica sessions into one
+cross-process timeline (span-id namespacing, handshake clock-skew
+correction, remote-parent re-linking — see :mod:`repro_torch.trace.stitch`);
+replica dirs announced in the frontdoor manifest are discovered
+automatically, so ``stitch <frontdoor-dir>`` alone stitches the whole
+fleet.  ``hops`` prints the per-hop latency decomposition
+(frontdoor_queue | network | replica_queue | service) recorded on each
+routed request, with the sum-vs-end-to-end consistency check.  ``report``
+also accepts several sessions at once — they are stitched first, so span
+ids from different processes never collide.  ``push-profiles`` backfills
+the fleet profile service (:mod:`repro_torch.fleet`) from a recorded
+session or segment directory.
 """
 from __future__ import annotations
 
@@ -125,12 +140,14 @@ def _maybe_merge_device(sess: Session, args: argparse.Namespace) -> int:
 
 def cmd_report(args: argparse.Namespace) -> int:
     if len(args.session) > 1:
-        # several processes' sessions need the stitcher, or their span ids
-        # would collide
-        print(f"error: reporting {len(args.session)} sessions at once needs "
-              f"`stitch` {_M12}", file=sys.stderr)
-        return 2
-    sess = load_any(args.session[0])
+        # several sessions from different processes: merge through the
+        # stitcher so their span ids are namespaced (and remote parents
+        # re-linked) instead of silently colliding
+        from repro_torch.trace.stitch import merge_for_report
+
+        sess = merge_for_report(args.session)
+    else:
+        sess = load_any(args.session[0])
     rc = _maybe_merge_device(sess, args)
     if rc:
         return rc
@@ -183,13 +200,77 @@ def cmd_compact(args: argparse.Namespace) -> int:
     return 0
 
 
-_M12 = "(cross-process stitching comes with the router and the fleet, ROADMAP M12)"
+def cmd_stitch(args: argparse.Namespace) -> int:
+    """Merge a frontdoor session with its replica sessions (see
+    :mod:`repro_torch.trace.stitch`).  Prints per-input provenance (origin, id
+    offset, clock offset, estimated skew) and the cross-process chain
+    coverage of the result."""
+    from repro_torch.trace.stitch import chain_report, stitch
+
+    try:
+        sess = stitch(args.sessions, skew_correct=not args.no_skew_correct)
+    except (ValueError, FileNotFoundError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    path = sess.save(args.out)
+    prov = sess.meta["stitch"]
+    chain = chain_report(sess)
+    if args.json:
+        print(json.dumps({"out": path, "stitch": prov, "chain": chain}, indent=1))
+        return 0
+    print(f"stitched {len(prov['inputs'])} session(s) -> {path} "
+          f"({prov['events']} events, {prov['relinked_spans']} remote spans "
+          f"re-linked"
+          + (f", {prov['unmatched_remote']} unmatched"
+             if prov["unmatched_remote"] else "") + ")")
+    print(f"\n{'origin':<24}{'events':>8}{'id_offset':>11}"
+          f"{'clock_off_s':>17}{'skew_ms':>9}  path")
+    for r in prov["inputs"]:
+        print(f"{r['origin']:<24}{r['events']:>8}{r['id_offset']:>11}"
+              f"{r['clock_offset_s']:>17.3f}{r['skew_s'] * 1e3:>9.3f}  {r['path']}")
+    for r in prov["skipped"]:
+        print(f"skipped {r['path']}: {r['reason']}")
+    print(f"\nchain    {chain['chained']}/{chain['completed']} completed "
+          f"requests have a full frontdoor->replica chain "
+          f"({chain['fraction']:.1%})"
+          + (f", {chain['orphaned_remote']} orphaned remote parents"
+             if chain["orphaned_remote"] else ""))
+    return 0
 
 
-def cmd_waits_for_m12(args: argparse.Namespace) -> int:
-    """``stitch``, ``hops`` and ``push-profiles``: not in the port yet."""
-    print(f"error: `{args.cmd}` is not in the port yet {_M12}", file=sys.stderr)
-    return 2
+def cmd_hops(args: argparse.Namespace) -> int:
+    """Per-hop latency decomposition table for a (stitched or frontdoor)
+    session: where each routed request spent its time."""
+    from repro_torch.trace.stitch import HOPS, hop_rows, hop_summary
+
+    try:
+        sess = load_any(args.session)
+    except FileNotFoundError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    rows = hop_rows(sess)
+    summary = hop_summary(rows)
+    if args.json:
+        print(json.dumps({"summary": summary, "rows": rows}, indent=1))
+        return 0
+    if not rows:
+        print("no hop decompositions recorded (the frontdoor adds them when "
+              "replicas report their handler timings)", file=sys.stderr)
+        return 1
+    print(f"{'hop':<18}{'count':>7}{'mean_ms':>10}{'p50_ms':>10}"
+          f"{'p95_ms':>10}{'max_ms':>10}")
+    for hop in HOPS:
+        st = summary["hops"][hop]
+        print(f"{hop:<18}{st['count']:>7}"
+              + _fmt_ms(st.get("mean")) + _fmt_ms(st.get("p50"))
+              + _fmt_ms(st.get("p95")) + _fmt_ms(st.get("max")))
+    lat = summary["latency_ms"]
+    print(f"{'end_to_end':<18}{lat['count']:>7}"
+          + _fmt_ms(lat.get("mean")) + _fmt_ms(lat.get("p50"))
+          + _fmt_ms(lat.get("p95")) + _fmt_ms(lat.get("max")))
+    print(f"\nsum check: {summary['within_5pct']}/{summary['requests']} "
+          f"requests' hops sum to end-to-end latency within 5%")
+    return 0
 
 
 def cmd_tail(args: argparse.Namespace) -> int:
@@ -471,6 +552,21 @@ def cmd_diff(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_push_profiles(args: argparse.Namespace) -> int:
+    """Backfill the fleet store from a recorded session / segment directory."""
+    from repro_torch.fleet.cli import PUSH_RESULT_KEYS, push_source
+    from repro_torch.fleet.client import FleetError
+
+    try:
+        res = push_source(args.session, args.fleet, args.git_sha, args.chip,
+                          force=args.force, token=args.token)
+    except (FleetError, ValueError, FileNotFoundError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({k: res.get(k) for k in PUSH_RESULT_KEYS}))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.trace", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -487,8 +583,8 @@ def main(argv: list[str] | None = None) -> int:
 
     p = sub.add_parser("report", help="per-op / per-backend latency tables for one session")
     p.add_argument("session", nargs="+",
-                   help="session JSON or streaming segment directory (one; "
-                        "several need stitch, ROADMAP M12)")
+                   help="session JSON or streaming segment directory; several "
+                        "sessions are stitched first (span ids namespaced)")
     p.add_argument("--tree", action="store_true",
                    help="render the span hierarchy (indented, with "
                         "inclusive/exclusive times per node)")
@@ -509,12 +605,27 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("-o", "--out", default="session.json", help="output session path")
     p.set_defaults(fn=cmd_compact)
 
-    for name, what in (("stitch", "merge a frontdoor session with its replicas"),
-                       ("hops", "per-hop latency decomposition of routed requests"),
-                       ("push-profiles", "backfill the fleet profile service")):
-        p = sub.add_parser(name, help=f"{what} (waits for ROADMAP M12: router and fleet)")
-        p.add_argument("args", nargs="*", help=argparse.SUPPRESS)
-        p.set_defaults(fn=cmd_waits_for_m12)
+    p = sub.add_parser("stitch",
+                       help="merge a frontdoor session with its replica "
+                            "sessions into one cross-process timeline")
+    p.add_argument("sessions", nargs="+",
+                   help="frontdoor session first, then replica sessions "
+                        "(dirs announced in the frontdoor manifest are "
+                        "auto-discovered)")
+    p.add_argument("-o", "--out", default="stitched.json",
+                   help="output session path")
+    p.add_argument("--no-skew-correct", action="store_true",
+                   help="skip NTP-style handshake skew estimation (keep "
+                        "each session on its own wall clock)")
+    p.add_argument("--json", action="store_true", help="machine-readable output")
+    p.set_defaults(fn=cmd_stitch)
+
+    p = sub.add_parser("hops",
+                       help="per-hop latency decomposition (frontdoor_queue | "
+                            "network | replica_queue | service)")
+    p.add_argument("session", help="stitched or frontdoor session / segment dir")
+    p.add_argument("--json", action="store_true", help="machine-readable output")
+    p.set_defaults(fn=cmd_hops)
 
     p = sub.add_parser("tail", help="follow a live --trace-dir like tail -f")
     p.add_argument("dir", help="directory written by --trace-dir")
@@ -554,6 +665,22 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("session", help="session JSON or streaming segment directory")
     p.add_argument("--json", action="store_true", help="machine-readable output")
     p.set_defaults(fn=cmd_metrics)
+
+    p = sub.add_parser("push-profiles",
+                       help="backfill the fleet profile service from a recorded run")
+    p.add_argument("session", help="session JSON or streaming segment directory")
+    p.add_argument("--fleet", required=True, metavar="URL|DIR",
+                   help="fleet daemon URL (http://host:port) or store directory")
+    p.add_argument("--git-sha", default=None,
+                   help="bucket key override (default: the session's own SHA)")
+    p.add_argument("--chip", default=None,
+                   help="bucket key override (default: the session's own chip)")
+    p.add_argument("--force", action="store_true",
+                   help="push even if the run already fed this fleet live "
+                        "(accepts the double count)")
+    p.add_argument("--token", default=None, metavar="TOKEN",
+                   help="bearer token for a --token-protected fleet daemon")
+    p.set_defaults(fn=cmd_push_profiles)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -12,6 +12,7 @@ targets of the plain impl: a switch of tier between ticks must leave every
 request's tokens as the undispatched engine's.
 """
 import json
+import time
 
 import numpy as np
 import pytest
@@ -292,6 +293,22 @@ def test_profiled_explores_every_candidate_then_exploits():
     events = log.events(kind="dispatch")
     assert len(events) == 6 == disp.summary()["decisions"]
     assert all(isinstance(e.payload["measured_s"], float) for e in events)
+    # the explored calls per tier, apart from the settled ones
+    assert disp.summary()["explore_by_op"] == {"toy": {"a": 2, "b": 2}}
+
+
+def test_a_call_on_the_cpu_is_timed_on_the_hosts_clock():
+    """Only a call whose outputs lie on the card is timed with CUDA events;
+    a CPU call's sample is the host's time around it."""
+    disp = Dispatcher(DispatchConfig(policy="profiled", min_samples=1),
+                      registry=_two_plain_tiers(), log=EventLog())
+
+    def slow(x):
+        time.sleep(0.02)
+        return x
+
+    disp.dispatch("toy", {"a": slow}, torch.ones(4))
+    assert disp.decisions[-1].measured_s >= 0.02
 
 
 def test_dispatch_catches_no_failure():

@@ -129,3 +129,40 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
                           cwd=script.parent, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+# ROADMAP M12's serving tier: the fleet, the router and the stitcher import
+# neither JAX nor the JAX package (not even its jax-free repro/fleet,
+# repro/router and repro/trace/stitch.py), and no torch either: the fleet
+# daemon, the router process and synthetic replicas start without it (only
+# a real replica's ``_build_real_engine`` imports it)
+SERVING_TIER_MODULES = ["repro_torch.fleet", "repro_torch.fleet.store",
+                        "repro_torch.fleet.client", "repro_torch.fleet.service",
+                        "repro_torch.fleet.cli", "repro_torch.fleet.__main__",
+                        "repro_torch.router", "repro_torch.router.cost",
+                        "repro_torch.router.manager", "repro_torch.router.frontdoor",
+                        "repro_torch.router.replica", "repro_torch.router.loadgen",
+                        "repro_torch.router.cli", "repro_torch.router.__main__",
+                        "repro_torch.trace.stitch"]
+
+_IMPORT_NO_TORCH = r"""
+import importlib, sys
+sys.modules["torch"] = None  # import torch now raises ImportError
+sys.modules["triton"] = None
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "numpy") and sys.modules[m] is not None)
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("module", SERVING_TIER_MODULES)
+def test_serving_tier_module_imports_no_torch_no_jax_no_repro(module):
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_NO_TORCH, module], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    path = REPO / "src" / module.replace(".", "/")
+    source = (path / "__init__.py" if path.is_dir() else path.with_suffix(".py")).read_text()
+    assert "import jax" not in source and "from repro." not in source
+    assert "import repro." not in source and "import triton" not in source

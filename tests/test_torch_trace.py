@@ -449,7 +449,8 @@ def _bare_session(tmp_path):
 def test_cli_on_port_and_jax_sessions(tmp_path, capsys):
     """report (and --tree), export, diff (with the gate), compact, device,
     metrics and tail on a traced run of the port, on a JAX-written session,
-    and the M12 commands' refusal."""
+    and the M12 commands (stitch, hops, push-profiles, a two-session
+    report) on them."""
     rec = serve_cli.main(SERVE + ["--trace-out", str(tmp_path / "s.json"),
                                   "--trace-dir", str(tmp_path / "d"),
                                   "--torch-profile", str(tmp_path / "prof"), *TRACE_FLAGS])
@@ -474,10 +475,17 @@ def test_cli_on_port_and_jax_sessions(tmp_path, capsys):
     assert trace_main(["metrics", rec["trace_out"]]) == 0
     assert trace_main(["tail", rec["trace_dir"], "--once"]) == 0
     capsys.readouterr()
-    for cmd in ("stitch", "hops", "push-profiles"):
-        assert trace_main([cmd, "x"]) == 2
-        assert "ROADMAP M12" in capsys.readouterr().err
-    assert trace_main(["report", rec["trace_out"], jpath]) == 2
+    # the M12 commands: a lone streamed run stitches to itself, has no routed
+    # request to decompose, and (run without --dispatch) no profiles to push
+    stitched = str(tmp_path / "st.json")
+    assert trace_main(["stitch", rec["trace_dir"], "-o", stitched, "--json"]) == 0
+    assert json.loads(capsys.readouterr().out)["stitch"]["inputs"][0]["path"] == rec["trace_dir"]
+    assert trace_main(["hops", stitched]) == 1
+    assert "no hop decompositions" in capsys.readouterr().err
+    assert trace_main(["push-profiles", rec["trace_out"], "--fleet", str(tmp_path / "f")]) == 1
+    assert "profile" in capsys.readouterr().err
+    # several sessions at once are stitched first (span ids namespaced)
+    assert trace_main(["report", rec["trace_out"], jpath]) == 0
     # the same through the module entry point, as a user runs it
     proc = subprocess.run([sys.executable, "-m", "repro_torch.trace", "report", jpath, "--json"],
                           capture_output=True, text=True, timeout=120, cwd=REPO,
