@@ -347,10 +347,34 @@ failure of which exits non-zero:
    (direct, router, router, direct): tokens/s, p50 / p99 ms, the front
    door's own hop, the hop means, the restart time and the phase's
    seconds, each line with the card's name and power limit;
-10. print the script's run time, the per-kernel JSON line (launches from the
+10. ROADMAP M12's ``tune/`` (``tune_phase``): (a) ptxas' registers and
+   spills of every ``gmm_mma<MT>`` instance (MT 9 and 10 new), each Hopper
+   space's points with their shared memory, threads, instance and
+   feasibility (a default that is infeasible fails the run), the split
+   pass's shared memory as the space prices it beside the card's, and MT 9
+   / 10 against the plain version (C 129, 144, 160, no epilogue and silu);
+   (b) ``launch.serve --arch deepseek-moe-16b`` (phase 4b's set, full width
+   and depth, compiled, ``--dispatch profiled --tune sweep --fleet DIR``,
+   in this process): a real sweep of the five spaces, every kernel point
+   held against its plain version first, each point's time, the default's
+   and the winner (any failed point fails the run); (c) K2 at its 8 and K4
+   at its 6 served shapes of ``PERF.md`` §6, default beside winner (L2
+   flushed), with the plan each ran, the winner held against the default;
+   (d) the same set in a fresh process with ``--tune cached`` (0 sweep
+   points, the sweep run's configs, an exact fleet pull, 0 explore
+   dispatches), a third run in this process (token for token the fresh
+   one's), the shares equal to the sweep run's and the untuned 4b run's
+   tokens (and, as a control, the untuned 4b run's share of a
+   ``--dispatch static`` run without tuning), the f32 gate at
+   MOE_GATE_LAYERS layers under the winners, and a step captured under
+   the winners refused under the defaults; (e) ``python -m
+   repro_torch.launch.train --arch smollm-360m --steps 4 --dispatch
+   profiled --tune cached --fleet DIR`` (winners applied, the fleet pulled
+   exactly and pushed);
+11. print the script's run time, the per-kernel JSON line (launches from the
    nine compiled serving runs, K1b's and K3b's from phase 5 (e), the wide
-   K1b's from phase 5 (k), and phase 7's, phase 8's and phase 9's replicas'
-   runs), the card line, and last the ``{"ok": true,
+   K1b's from phase 5 (k), and phase 7's, phase 8's, phase 9's replicas'
+   and phase 10's runs), the card line, and last the ``{"ok": true,
    "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
@@ -360,6 +384,7 @@ alone.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -3233,7 +3258,15 @@ def main() -> None:
     tier = serving_tier_phase(dev, smi, records)
 
     phase_s["10"] = time.time() - t_start
-    # -- 10. report ---------------------------------------------------------
+    # -- 10. tune/: the Hopper design space, swept on the card ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    tuning = tune_phase(dev, smi, records, {
+        "time_ms": time_ms, "hold": hold, "bound_ms": bound_ms, "peaks": peaks,
+        "logit_gate": logit_gate, "mcfg": mcfg, "mprompts": mprompts, "mouts": mouts})
+
+    phase_s["11"] = time.time() - t_start
+    # -- 11. report ---------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
             "serving_logits": agree, "breakdown": breakdown,
@@ -3254,7 +3287,7 @@ def main() -> None:
                           "gate_f32_init": g2_init4},
             **m10,
             "measurement": measurement, "dispatch": dispatch, "tracing": tracing,
-            "serving_tier": tier,
+            "serving_tier": tier, "tune": tuning,
             "seconds": time.time() - t_start, "phase_s": phase_s}
     print(f"chip_smoke: {full['seconds']:.1f} s; phases began at (s): {json.dumps(phase_s)}",
           flush=True)
@@ -4763,6 +4796,308 @@ def seed_mamba_noise(params, gen) -> None:
     for sub in params.values():
         if isinstance(sub, dict):
             seed_mamba_noise(sub, gen)
+
+
+def tune_phase(dev, smi: str, records: dict, kit: dict) -> dict:
+    """Phase 10: ROADMAP M12's ``tune/`` on the card (see the module
+    docstring): (a) the spaces with ptxas' report of K4's row-tile
+    instances and MT 9 / 10 against the plain version; (b) a real sweep of
+    every space, each kernel point held against its plain version; (c) K2's
+    and K4's served shapes re-timed, default beside winner; (d) the tuned
+    deepseek-moe-16b serve set through the fleet, a fresh process warm from
+    it, an f32 gate under the winners and a capture refused under another
+    tag; (e) ``launch.train --tune cached --fleet``.  ``kit`` holds main's
+    time_ms, hold, bound_ms, peaks, logit_gate and phase 4b's config,
+    prompts and tokens.  Adds the serving runs' launches to ``records``."""
+    import torch
+
+    from repro_torch.dispatch.profiles import decode_config
+    from repro_torch.fleet import FleetClient
+    from repro_torch.hw.specs import default_chip
+    from repro_torch.kernels import decode_attention as k2
+    from repro_torch.kernels import ops, plan, ref
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import lm
+    from repro_torch.serving.compiled import Graphs
+    from repro_torch.trace.session import Session, git_sha
+    from repro_torch.tune import default_spaces
+    from repro_torch.tune.explore import card_ptxas
+    from repro_torch.tune.space import NOT_SWEPT, space_report
+
+    t0 = time.time()
+    time_ms, hold, bound_ms, peaks = kit["time_ms"], kit["hold"], kit["bound_ms"], kit["peaks"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    rec: dict = {}
+    ops.clear_tuned_configs()
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    # -- (a) the spaces -----------------------------------------------------
+    ptxas = card_ptxas()
+    print(f"10 (a) gmm_mma ptxas by row tiles (the most registers and spilled bytes over the "
+          f"three epilogues): {json.dumps({k: ptxas[k] for k in sorted(ptxas)})}", flush=True)
+    rows = space_report(ptxas=ptxas)
+    for r in rows:
+        print(f"10 (a) space {r['space']}: {r['feasible']} feasible of "
+              f"{len(r['points'])} points, {r['pruned']} pruned, {r['sweep']} swept, default "
+              f"{r['default']}; {json.dumps(r['points'])}", flush=True)
+    print(f"10 (a) not swept: {json.dumps(NOT_SWEPT)}", flush=True)
+    spaces = default_spaces()
+    if any(not s.feasible(s.defaults, ptxas=ptxas) for s in spaces.values()):
+        fail("10 (a): a space's shipped default is infeasible on the card")
+    # the split pass's shared memory, as the space prices it and as the card has it
+    dec = spaces["decode_attention/kernel"]
+    chunk = plan.split_plan(dec.workload["B"], dec.workload["Hkv"], dec.workload["S"], n_sm)[1]
+    info = k2.instance_info(torch.bfloat16, dec.workload["D"], chunk)
+    rec["a"] = {"ptxas": ptxas, "spaces": rows, "decode_smem_card": info,
+                "decode_smem_space": dec.plan(dec.defaults).smem_bytes}
+    print(f"10 (a) decode_split_mma<128> at chunk {chunk}: the card {json.dumps(info)}, the "
+          f"space {rec['a']['decode_smem_space']} bytes", flush=True)
+    # the new instances, MT 9 and 10, against the plain version (no epilogue and silu)
+    for C_ in (129, 144, 160):
+        x, w = randn(16, C_, 1536), randn(16, 1536, 1024)
+        for epi in (None, "silu"):
+            with ops.tuned_scope({"moe_gmm": {"kernel": {"max_row_tiles": 10}}}):
+                got = ops.gmm(x, w, epilogue=epi, impl="kernel")
+            mt = plan.tile_plan(16, C_, 1024, 10).row_tiles
+            hold("moe_gmm", f"bf16 (16,{C_},1536)@(16,1536,1024) epilogue={epi} "
+                 f"[gmm_mma<{mt}>, max_row_tiles 10]", got, ref.gmm_ref(x, w, epilogue=epi),
+                 "bfloat16")
+    del x, w, got
+
+    # -- (b) a real sweep of every space: launch.serve --tune sweep ------------
+    # (d)'s first run, in this process: deepseek-moe-16b's serve set at full
+    # width and depth, compiled, --dispatch profiled, its sweep into a fleet
+    out_dir = Path(tempfile.mkdtemp(prefix="repro_torch_tune_"))
+    atexit.register(shutil.rmtree, out_dir, True)  # also when a check fails the run
+    fleet = out_dir / "fleet"
+    fleet.mkdir()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p_ for p_ in (str(ROOT / "src"), os.environ.get("PYTHONPATH", "")) if p_)}
+    argv = ["--arch", MOE_ARCH, "--seed", str(SEED), "--dispatch", "profiled",
+            "--fleet", str(fleet),
+            *(f"--{k.replace('_', '-')}={MOE_SERVE[k]}" for k in
+              ("requests", "prompt_len", "max_new", "max_batch", "max_seq"))]
+
+    def tokens(results: dict) -> list:
+        return [results[k] for k in sorted(results)]
+
+    def serve_here(extra: list) -> tuple[dict, list]:
+        try:
+            r, results = serve_cli.run(argv + extra)
+        finally:
+            ops.clear_tuned_configs()
+            gc.collect()
+            torch.cuda.empty_cache()
+        return r, tokens(results)
+
+    session = out_dir / "sweep_session.json"
+    swept, swept_toks = serve_here(["--tune", "sweep", "--trace-out", str(session)])
+    events = [e.payload for e in Session.load(str(session)).events if e.kind == "tune"]
+    pulled = FleetClient(str(fleet)).pull(git_sha(), default_chip().name)["store"]
+    summary = swept["tune"]
+    for p in events:
+        if p.get("winner"):
+            continue
+        if p.get("pruned"):
+            print(f"10 (b) {p['op']}/{p['backend']} {p['config']}: pruned (predicted "
+                  f"{p['predicted_s'] * 1e3:.4f} ms, bound {p['bound_s'] * 1e3:.4f})", flush=True)
+            continue
+        e = pulled.entry(p["op"], p["backend"], p["sig"], p["config"]) if pulled else None
+        print(f"10 (b) {p['op']}/{p['backend']} {p['config']}: "
+              + ("FAILED " + json.dumps(p) if p.get("failed") or e is None else
+                 f"min {e.min_s * 1e3:.4f} ms, mean {e.mean_s * 1e3:.4f} ms over {e.count}"
+                 + (f", rel_err {p['rel_err']:.3e}" if "rel_err" in p else "")), flush=True)
+    table = {op: {tier: decode_config(c) for tier, c in impls.items()}
+             for op, impls in summary["configs"].items()}
+    for key, win in sorted(summary["winners"].items()):
+        print(f"10 (b) {key} winner, {smi}: {win['config']} {win['best_s'] * 1e3:.4f} ms against "
+              f"the default {spaces[key].default_config} "
+              f"{win.get('default_s', float('nan')) * 1e3:.4f} ms "
+              f"({win.get('speedup', float('nan')):.3f}x)", flush=True)
+    rec["b"] = {"summary": summary, "events": events}
+    if summary.get("failed", 0) or summary["sweep_points"] == 0 or len(summary["winners"]) != 5:
+        fail(f"10 (b): {summary.get('failed')} failed points, {summary['sweep_points']} "
+             f"measured, winners {sorted(summary['winners'])}")
+
+    # -- (c) the served shapes of K2 and K4 under the installed winners --------
+    k2_shapes = [("qwen2-0.5b", 14, 2, 64, 1024, None, None),
+                 ("deepseek-moe-16b", 16, 16, 128, 1024, None, None),
+                 ("jamba-1.5-large", 64, 8, 128, 1024, None, None),
+                 ("musicgen-large", 32, 32, 64, 1024, None, None),
+                 ("dbrx-132b", 48, 8, 128, 1024, None, None),
+                 ("gemma3-4b global", 8, 4, 256, 2048, None, None),
+                 ("gemma3-4b local", 8, 4, 256, 1024, 1024, None),
+                 ("gemma2-27b", 32, 16, 128, 1024, None, 50.0)]
+    waves = table.get("decode_attention", {}).get("kernel", {}).get("waves", plan.WAVES)
+    k2_rows = []
+    for name, Hq, Hkv, D, S, window, softcap in k2_shapes:
+        B = 8
+        q, kc, vc = randn(B, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S).contiguous()
+        cur = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+        kw = dict(window=window, softcap=softcap)
+        fn = lambda: ops.decode_attention(q, kc, vc, pos, cur, impl="kernel", **kw)  # noqa: E731
+        row = {"shape": f"{B}x{S}x{Hq}/{Hkv}x{D}" + (f" window {window}" if window else "")
+               + (f" softcap {softcap}" if softcap else ""), "arch": name}
+        b_, by_ = bound_ms(2 * B * S * Hkv * D * 2 + 2 * q.numel() * 2 + 4 * B * (S + 1),
+                           4 * D * B * Hq * (min(S, window) if window else S), peaks["bfloat16"])
+        row.update(bound_ms=b_, bound_by=by_)
+        default_out = fn()
+        for label, w_ in (("default", plan.WAVES), ("winner", waves)):
+            with ops.tuned_scope({"decode_attention": {"kernel": {"waves": w_}}}):
+                row[f"{label}_ms"] = time_ms(fn)
+                row[f"{label}_plan"] = {"waves": w_, "n_split_chunk":
+                                        plan.split_plan(B, Hkv, S, n_sm, w_)}
+                if label == "winner":
+                    hold("decode_attention", f"{row['shape']} waves {w_} vs waves "
+                         f"{plan.WAVES}", fn(), default_out, "bfloat16")
+        k2_rows.append(row)
+        print(f"10 (c) decode_attention {name} {row['shape']} bf16, {smi}: default "
+              f"{row['default_ms']:.4f} ms {row['default_plan']}, winner {row['winner_ms']:.4f} ms "
+              f"{row['winner_plan']}, bound {b_:.5f} ({by_})", flush=True)
+    del q, kc, vc, pos, cur, default_out
+    k4_shapes = [("deepseek-moe-16b prefill", 64, 64, 2048, 1408),
+                 ("deepseek-moe-16b decode", 64, 8, 2048, 1408),
+                 ("jamba-1.5-large prefill", 16, 80, 8192, 24576),
+                 ("jamba-1.5-large decode", 16, 8, 8192, 24576),
+                 ("dbrx-132b prefill", 16, 160, 6144, 10752),
+                 ("dbrx-132b decode", 16, 8, 6144, 10752)]
+    cap = table.get("moe_gmm", {}).get("kernel", {}).get("max_row_tiles", plan.MAX_ROW_TILES)
+    k4_rows = []
+    for name, E, C_, D_, F_ in k4_shapes:
+        x, w = randn(E, C_, D_), randn(E, D_, F_)
+        fn = lambda: ops.gmm(x, w, impl="kernel")  # noqa: E731
+        b_, by_ = bound_ms(2 * (x.numel() + w.numel() + E * C_ * F_), 2 * E * C_ * D_ * F_,
+                           peaks["bfloat16"])
+        row = {"shape": f"({E},{C_},{D_})@({E},{D_},{F_})", "arch": name, "bound_ms": b_,
+               "bound_by": by_}
+        default_out = fn()
+        for label, c_ in (("default", plan.MAX_ROW_TILES), ("winner", cap)):
+            with ops.tuned_scope({"moe_gmm": {"kernel": {"max_row_tiles": c_}}}):
+                row[f"{label}_ms"] = time_ms(fn)
+                tp = plan.tile_plan(E, C_, F_, c_)
+                row[f"{label}_plan"] = {"max_row_tiles": c_, "row_tiles": tp.row_tiles,
+                                        "row_blocks": tp.row_blocks}
+                if label == "winner":
+                    got = fn()
+                    row["winner_equals_default_bitwise"] = bool(torch.equal(got, default_out))
+                    hold("moe_gmm", f"{row['shape']} max_row_tiles {c_} vs "
+                         f"{plan.MAX_ROW_TILES}", got, default_out, "bfloat16")
+        k4_rows.append(row)
+        print(f"10 (c) moe_gmm {name} {row['shape']} bf16, {smi}: default {row['default_ms']:.4f} "
+              f"ms {row['default_plan']}, winner {row['winner_ms']:.4f} ms {row['winner_plan']}, "
+              f"bound {b_:.4f} ({by_}), bitwise {row['winner_equals_default_bitwise']}",
+              flush=True)
+        del x, w, default_out
+    rec["c"] = {"decode_attention": k2_rows, "moe_gmm": k4_rows}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) a fresh process warm from the fleet, a third run, the f32 gate ------
+    snippet = ("import json, sys\nfrom repro_torch.launch import serve\n"
+               "rec, res = serve.run(sys.argv[2:])\n"
+               "open(sys.argv[1], 'w').write(json.dumps({'rec': rec, 'tokens': "
+               "[res[k] for k in sorted(res)]}))\n")
+    proc = subprocess.run([sys.executable, "-c", snippet, str(out_dir / "cached.json"), *argv,
+                           "--tune", "cached"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"10 (d): the fresh launch.serve --tune cached exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    child = json.loads((out_dir / "cached.json").read_text())
+    cached, cached_toks = child["rec"], child["tokens"]
+    again, again_toks = serve_here(["--tune", "cached"])
+    # control: the dispatched engine on the kernel tier without tuning, whose
+    # tokens against the untuned 4b run tell the winners' share of a change
+    # from the dispatch path's
+    control, control_toks = serve_here(["--tune", "off", "--dispatch", "static"])
+    # the f32 gate at MOE_GATE_LAYERS layers under the winners
+    c32 = dataclasses.replace(kit["mcfg"], n_layers=MOE_GATE_LAYERS, param_dtype="float32",
+                              activation_dtype="float32")
+    p32 = lm.init_params(c32, SEED, device=dev)
+    with ops.tuned_scope(table):
+        gate = kit["logit_gate"](c32, p32, kit["mprompts"][0], kit["mouts"][0],
+                                 MOE_SERVE["max_seq"])
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a step captured under the winners refuses a call under the defaults
+    x, w = randn(16, 160, 256), randn(16, 256, 512)
+    step = Graphs(dev).step(lambda a, b: ops.gmm(a, b, impl="kernel"))
+    with ops.tuned_scope(table):
+        step(x, w)
+        step(x, w)  # the capture, then its replay
+    try:
+        step(x, w)
+        refused = False
+    except RuntimeError as exc:
+        refused = "tuned configs" in str(exc)
+    # (e) the training driver, warm from the same fleet
+    targs = ["--arch", TRAIN_ARCH, "--steps", "4", "--ckpt-every", "0", "--dispatch",
+             "profiled", "--tune", "cached", "--fleet", str(fleet)]
+    tproc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *targs],
+                           cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=CLI_TIMEOUT_S)
+    if tproc.returncode != 0:
+        fail(f"10 (e): launch.train {' '.join(targs)} exited {tproc.returncode}: "
+             f"{tproc.stderr[-3000:]}")
+    train_rec = json.loads(tproc.stdout.strip().splitlines()[-1])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for run in (swept, cached, again, control):
+        for name in records:
+            records[name]["launches"] += run["kernels"].get(name, 0)
+
+    def share(a: list, b: list) -> str:
+        return f"{sum(x == y for x, y in zip(a, b))} of {len(b)}"
+
+    d = {"sweep": {k: swept[k] for k in ("tune", "fleet", "tokens_per_s", "dispatch")},
+         "cached_fresh_process": {k: cached[k] for k in ("tune", "fleet", "tokens_per_s",
+                                                          "dispatch")},
+         "cached_again": {k: again[k] for k in ("tune", "tokens_per_s", "dispatch")},
+         "requests_equal_cached_runs": share(cached_toks, again_toks),
+         "requests_equal_sweep_run_vs_cached": share(swept_toks, cached_toks),
+         "requests_equal_untuned_4b_vs_cached": share(kit["mouts"], cached_toks),
+         "requests_equal_untuned_4b_vs_static_kernel_untuned": share(kit["mouts"],
+                                                                     control_toks),
+         "f32_gate": gate, "capture_refused_under_other_tag": refused}
+    print(f"10 (d) {MOE_ARCH} tuned serve set through the fleet, {smi}: {json.dumps(d)}",
+          flush=True)
+    rec["d"] = d
+    ct, st_ = cached["tune"], swept["tune"]
+    if st_["sweep_points"] == 0 or st_.get("failed", 0) or not swept["fleet"]["push"].get(
+            "pushed_samples"):
+        fail(f"10 (d): the sweep run measured {st_['sweep_points']} points, failed "
+             f"{st_.get('failed')}, pushed {swept['fleet'].get('push')}")
+    if (ct["sweep_points"] != 0 or ct["configs"] != st_["configs"]
+            or cached["fleet"]["pull"]["match"] != "exact"
+            or cached["dispatch"]["explore_dispatches"] != 0):
+        fail(f"10 (d): the fresh process warm from the fleet: tune {ct}, pull "
+             f"{cached['fleet']['pull']}, explored {cached['dispatch']['explore_dispatches']}; "
+             f"expected 0 points, the sweep run's configs {st_['configs']}, an exact pull, "
+             "no exploration")
+    if cached_toks != again_toks:
+        fail(f"10 (d): the two warm tuned runs gave different tokens "
+             f"({d['requests_equal_cached_runs']} requests equal)")
+    if not refused:
+        fail("10 (d): a step captured under the winners replayed under the defaults")
+    tr = {k: train_rec[k] for k in ("tune", "fleet", "losses", "step_ms", "kernels")}
+    print(f"10 (e) repro_torch.launch.train {' '.join(targs)}, {smi}: {json.dumps(tr)}",
+          flush=True)
+    rec["e"] = tr
+    if (train_rec["tune"]["applied"] < 1 or train_rec["tune"]["sweep_points"] != 0
+            or not train_rec["fleet"]["push"].get("pushed_samples")
+            or train_rec["fleet"]["pull"]["match"] != "exact"):
+        fail(f"10 (e): launch.train's tune {train_rec['tune']}, fleet {train_rec['fleet']}")
+    for name in records:
+        records[name]["launches"] += train_rec["kernels"].get(name, 0)
+    records["moe_gmm"]["tuned"] = k4_rows
+    records["decode_attention"]["tuned"] = k2_rows
+    rec["seconds"] = time.time() - t0
+    print(f"10 tune phase: {rec['seconds']:.1f} s", flush=True)
+    return rec
 
 
 def serving_tier_phase(dev, smi: str, records: dict) -> dict:

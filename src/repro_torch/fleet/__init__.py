@@ -18,8 +18,9 @@ re-exploring (the Adaptyst cross-run aggregation the ROADMAP called for).
 Drivers wire it end-to-end via ``--fleet <url|dir>`` on ``launch.serve`` and
 the router's real replicas: pull + age-out at startup, pushes while serving
 (per rotation with ``--trace-dir``; a replica when it goes idle), and a
-final delta push at shutdown.  ``launch.train``'s ``--fleet`` comes with
-``--tune`` (ROADMAP M12).
+final delta push at shutdown; ``launch.train``'s ``--fleet`` likewise.
+``--tune`` on both drivers (``tune/``) sweeps into the same store, so its
+design-space points ride the same pushes and pulls.
 """
 from repro_torch.fleet.client import (
     FleetClient,

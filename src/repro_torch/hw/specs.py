@@ -35,6 +35,11 @@ class ChipSpec:
     links: int
     # Host link (PCIe): the "system" side of the sys/user split.
     host_bw: float  # bytes/s, one direction
+    # Launch limits a kernel's plan must meet (the tuner's feasibility,
+    # ``tune/space.py``; the kernels' plans in ``kernels/plan.py``).
+    smem_block_bytes: int  # dynamic shared memory one block may opt into
+    threads_per_block: int
+    regs_per_sm: int  # 32-bit registers of one SM's register file
 
     @property
     def link_total_bw(self) -> float:
@@ -58,6 +63,9 @@ H100_SXM = ChipSpec(
     link_bw=25e9,  # data sheet: NVLink 4, 18 links of 50 GB/s both ways
     links=18,
     host_bw=64e9,  # data sheet: PCIe Gen5 x16, 128 GB/s both ways
+    smem_block_bytes=227 * 1024,  # CUDA guide, compute capability 9.0: 227 KB a block
+    threads_per_block=1024,  # CUDA guide: 1024 threads a block
+    regs_per_sm=65536,  # CUDA guide, compute capability 9.0: 64 K registers an SM
 )
 
 

@@ -19,13 +19,17 @@ kernels without calling a wrapper.  So a capture runs inside
 out of ``LAUNCHES`` again, and each replay adds those counts back once
 (:func:`add_launches`).  ``LAUNCHES`` then stays the number of kernels the
 card ran.
+
+This package module and ``plan`` (the launch plans the tuner prices) import
+no ``torch``; the wrappers do.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Iterator, Mapping
+from typing import TYPE_CHECKING, Iterator, Mapping
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 LAUNCHES: dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0,
                             "moe_gmm": 0, "rwkv6_scan": 0, "mamba_scan": 0,
@@ -37,6 +41,8 @@ def refuse_grad(kernel: str, instead: str, *tensors: torch.Tensor) -> None:
     kernel's output would carry no gradient back to it (ROADMAP R11).
     ``instead`` says what to call instead, or which ROADMAP item brings the
     backward kernel."""
+    import torch
+
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{kernel}: an input requires grad, but the kernel has no autograd "
                            f"(ROADMAP R11): {instead}; or run it under torch.no_grad()")

@@ -25,13 +25,14 @@
 //
 // * gmm_mma (bf16, D and F multiples of 8, 16-byte aligned x and w): one
 //   block per (expert, 256-column F tile, all C rows).  The rows are C
-//   rounded up to 16, in MT 16-row tiles of mma.sync m16n8k16 (MT <= 8,
-//   128 rows; a taller C splits into row blocks of equal height), so each
-//   weight element crosses device memory exactly once per call.  The F tile
+//   rounded up to 16, in MT 16-row tiles of mma.sync m16n8k16 (MT <= the
+//   plan's cap, 8 by default and up to 10 when asked; a taller C splits into
+//   row blocks of equal height), so each weight element crosses device
+//   memory once per row block.  The F tile
 //   is the fastest grid axis and the expert the slowest, so the blocks in
 //   flight share one or two experts' x, re-read from L2.  x and w arrive in
 //   64-deep stages of a 4-stage cp.async ring in dynamic shared memory (96
-//   KB of weights in flight ahead of the tile being multiplied; 145-209 KB
+//   KB of weights in flight ahead of the tile being multiplied; 145-222 KB
 //   a block, so one block per SM; rows padded by 16 bytes, so the 8 rows an
 //   ldmatrix phase reads fall in distinct bank groups).  8 warps split the
 //   F columns, 32 each, and every warp holds all MT row tiles: per 16-deep
@@ -290,7 +291,7 @@ constexpr int kMmaBK = 64;         // depth of one ring stage along D
 constexpr int kMmaStages = 4;      // ring depth: tile k + 3 loads while tile k multiplies
 constexpr int kXRow = kMmaBK + 8;  // bf16 per x row in shared memory (+16 bytes)
 constexpr int kWRow = kMmaBN + 8;  // bf16 per w row in shared memory (+16 bytes)
-constexpr int kMaxRowTiles = 8;    // 16-row mma tiles one block holds
+constexpr int kMaxRowTiles = 10;   // 16-row mma tiles one block holds, at most
 template <int MT> constexpr int kStageElems = 16 * MT * kXRow + kMmaBK * kWRow;
 template <int MT> constexpr int kMmaSmemBytes = kMmaStages * kStageElems<MT> * 2;
 static_assert(kMmaSmemBytes<kMaxRowTiles> <= 232448, "the ring must fit one block's 227 KB");
@@ -507,6 +508,7 @@ extern "C" int moe_gmm_mma_fwd(const void* x, const void* w, void* o, int epilog
     case MT: return launch_mma_e<MT>(epilogue, x, w, o, E, C, D, F, row_blocks, st);
     REPRO_GMM_MT(1) REPRO_GMM_MT(2) REPRO_GMM_MT(3) REPRO_GMM_MT(4)
     REPRO_GMM_MT(5) REPRO_GMM_MT(6) REPRO_GMM_MT(7) REPRO_GMM_MT(8)
+    REPRO_GMM_MT(9) REPRO_GMM_MT(10)
 #undef REPRO_GMM_MT
     default: return cudaErrorInvalidValue;
   }

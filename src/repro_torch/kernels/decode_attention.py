@@ -10,10 +10,12 @@ work; the products are ~1 FLOP per byte, so what counts is blocks and bytes
 in flight.  One call launches two kernels (counted once):
 
 1. the split pass: the cache is split into ``n_split`` slot ranges
-   (:func:`split_plan`, from the shapes and the SM count alone, so the call
-   has fixed shapes and no host sync); a block per (range, KV head, batch
-   row) reads its tiles once for all G query rows, through ``cp.async``
-   rings, skips tiles without a live slot, and writes f32 partials
+   (:func:`split_plan`, from the shapes, the SM count and ``waves``, the
+   blocks to aim for in multiples of the SM count, 2 unless a caller or
+   the tuner asks for another, so the call has fixed shapes and no host
+   sync); a block per (range, KV head, batch row) reads its tiles once
+   for all G query rows, through ``cp.async`` rings, skips tiles without
+   a live slot, and writes f32 partials
    (acc, m, l) to scratch from ``torch.empty``.  bf16 at D >= 16 runs
    ``decode_split_mma`` (the G rows padded to 16 as one ``mma.sync``
    operand, P rounded to bf16; at D 256 Q's fragments are read from shared
@@ -38,23 +40,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, refuse_grad
+from repro_torch.kernels.plan import MAX_GROUP, TILE, WAVES, split_plan  # noqa: F401
 from repro_torch.kernels.ref import decode_attention_ref as plain
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the instances csrc/decode_attention.cu builds
-MAX_GROUP = 16  # query heads per KV head (kMaxG in the source)
-TILE = 32  # cache slots per tile (kTile in the source); a split is whole tiles
-WAVES = 2  # blocks to aim for, in multiples of the SM count
-
-
-def split_plan(B: int, Hkv: int, S: int, n_sm: int) -> tuple[int, int]:
-    """``(n_split, chunk)``: split each (batch row, KV head)'s S slots into
-    ``n_split`` ranges of ``chunk`` slots (the last one shorter), ``chunk`` a
-    multiple of TILE, so that ``B * Hkv * n_split >= WAVES * n_sm`` where S
-    has enough tiles for it."""
-    tiles = -(-S // TILE)
-    want = -(-WAVES * n_sm // (B * Hkv))
-    per = max(1, tiles // want)  # tiles per range
-    return -(-tiles // per), per * TILE
 
 
 def instances(dtype: torch.dtype, head_dim: int) -> tuple[str, str]:
@@ -94,9 +83,11 @@ def decode_attention(
     window: Optional[int] = None,
     softcap: Optional[float] = None,
     scale: Optional[float] = None,
+    waves: int = WAVES,
 ) -> torch.Tensor:
     """q: (B, Hq, D); caches: (B, S, Hkv, D); pos_ids: (B, S) int32;
-    cur_pos: (B,) int32 -> (B, Hq, D) in q's dtype."""
+    cur_pos: (B,) int32 -> (B, Hq, D) in q's dtype.  ``waves`` is the split
+    plan's knob (:func:`split_plan`); the plain version ignores it."""
     if q.device.type == "cpu":
         return plain(q, k_cache, v_cache, pos_ids, cur_pos, window=window,
                      softcap=softcap, scale=scale)
@@ -131,7 +122,7 @@ def decode_attention(
         raise ValueError(f"decode_attention: window {window} < 1")
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     dev_index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    n_split, chunk = split_plan(B, Hkv, S, _build.sm_count(dev_index))
+    n_split, chunk = split_plan(B, Hkv, S, _build.sm_count(dev_index), waves)
     out = torch.empty_like(q)
     # acc (B, Hkv, n_split, G, D), then m and l (B, Hkv, n_split, G)
     partials = torch.empty(B * Hq * n_split * (D + 2), dtype=torch.float32, device=q.device)

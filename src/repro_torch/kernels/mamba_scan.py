@@ -36,6 +36,7 @@ import functools
 
 import torch
 
+from repro_torch.hw.specs import H100_SXM
 from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.ref import mamba_scan_chunked as plain
 
@@ -48,7 +49,7 @@ MAX_VALUES = 8        # kMaxVPL: state values a lane holds, at most
 GROUP = 8             # kS: steps whose C·h sums are reduced together
 STAGES = 2            # kStages: ring depth
 STAGE_BYTES = 4096    # kStageBytes: of x (and of dt) in one stage
-SM_SMEM = 232448      # shared memory an SM gives its blocks (227 KB)
+SM_SMEM = H100_SXM.smem_block_bytes  # shared memory an SM gives its blocks (227 KB)
 BLOCK_RESERVED = 1024  # shared memory the card keeps per block
 
 

@@ -18,8 +18,9 @@ only:
 
 * ``gmm_mma`` (bf16, D and F multiples of 8, 16-byte aligned x and w): one
   block per (expert, 256-column F tile, all C rows), the rows in 16-row
-  ``mma.sync`` m16n8k16 tiles (up to 8, 128 rows; a taller C splits into
-  equal row blocks, :func:`tile_plan`), x and w through a 4-stage
+  ``mma.sync`` m16n8k16 tiles (up to ``max_row_tiles``, 8 unless a caller
+  or the tuner asks for another of 1-10; a taller C splits into equal row
+  blocks, :func:`tile_plan`), x and w through a 4-stage
   ``cp.async`` ring of 64-deep tiles, 8 warps of 32 columns that each hold
   every row tile, fragments fetched ahead of their mmas.
 * ``gmm_bf16_kernel`` (bf16 otherwise, e.g. F = 12 or an unaligned view):
@@ -34,58 +35,20 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
+import re
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, refuse_grad
+# gmm_mma's tiling and its plan, as csrc/moe_gmm.cu fixes them
+from repro_torch.kernels.plan import (BK, BLOCK_SMEM, BN, MAX_ROW_TILES, PAD,  # noqa: F401
+                                      ROW_TILE, ROW_TILES_BUILT, STAGES, TilePlan, stage_bytes,
+                                      tile_plan)
 from repro_torch.kernels.ref import gmm_ref as plain
 
 EPILOGUE_CODES = {None: 0, "silu": 1, "gelu": 2}  # enum Epilogue in the source
-
-# gmm_mma's tiling, as csrc/moe_gmm.cu fixes it
-ROW_TILE = 16         # rows of one mma tile
-MAX_ROW_TILES = 8     # kMaxRowTiles: row tiles one block holds
-BN = 256              # kMmaBN: F columns per block (8 warps of 32)
-BK = 64               # kMmaBK: depth of one ring stage along D
-STAGES = 4            # kMmaStages: ring depth
-PAD = 8               # bf16 of padding per shared-memory row (16 bytes)
-BLOCK_SMEM = 232448   # the most shared memory one block can take (227 KB)
-
-
-@dataclasses.dataclass(frozen=True)
-class TilePlan:
-    row_tiles: int     # 16-row mma tiles per block
-    row_blocks: int    # blocks along C
-    bn: int            # F columns per block
-    bk: int            # depth of one ring stage
-    stages: int        # ring depth
-    smem_bytes: int    # dynamic shared memory per block
-    grid: tuple[int, int, int]  # (F tiles, row blocks, E), F fastest
-
-    def rows(self, C: int) -> list[range]:
-        """The C rows each row block covers."""
-        h = ROW_TILE * self.row_tiles
-        return [range(b * h, min(C, (b + 1) * h)) for b in range(self.row_blocks)]
-
-
-def stage_bytes(row_tiles: int) -> int:
-    """One ring stage: an x tile (rows x BK) and a w tile (BK x BN), padded."""
-    return 2 * (ROW_TILE * row_tiles * (BK + PAD) + BK * (BN + PAD))
-
-
-def tile_plan(E: int, C: int, F: int) -> TilePlan:
-    """gmm_mma's plan, a pure function of the shapes: all C rows in one
-    block where C <= 128, else the fewest row blocks of equal height, so
-    every weight element is read from device memory once (or once per row
-    block)."""
-    tiles = -(-C // ROW_TILE)
-    row_blocks = -(-tiles // MAX_ROW_TILES)
-    row_tiles = -(-tiles // row_blocks)
-    return TilePlan(row_tiles, row_blocks, BN, BK, STAGES, STAGES * stage_bytes(row_tiles),
-                    (-(-F // BN), row_blocks, E))
 
 
 def instance(dtype: torch.dtype, D: int, F: int, aligned: bool) -> str:
@@ -96,6 +59,26 @@ def instance(dtype: torch.dtype, D: int, F: int, aligned: bool) -> str:
     if D % 8 == 0 and F % 8 == 0 and aligned:
         return "gmm_mma"
     return "gmm_bf16_kernel"
+
+
+def ptxas_report() -> dict[int, dict[str, int]]:
+    """ptxas' report of each ``gmm_mma<MT, EPI>`` instance of the built
+    library (``nvcc -Xptxas=-v``, kept beside it), per row-tile count MT:
+    the most registers a thread and bytes of spill stores over its three
+    epilogues.  Builds the library if it is not built yet."""
+    _entry()
+    text = _build.lib_path("moe_gmm").with_suffix(".log").read_text()
+    out: dict[int, dict[str, int]] = {}
+    for part in text.split("Compiling entry function '")[1:]:
+        m = re.search(r"gmm_mmaILi(\d+)ELi\d+E", part.split("'")[0])
+        if m is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        row = out.setdefault(int(m.group(1)), {"registers": 0, "spill_bytes": 0})
+        row["registers"] = max(row["registers"], int(regs.group(1)) if regs else 0)
+        row["spill_bytes"] = max(row["spill_bytes"], int(spill.group(1)) if spill else 0)
+    return out
 
 
 @functools.cache
@@ -110,8 +93,11 @@ def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr, ctypes._CFuncPtr]:
     return lib, fn, mma
 
 
-def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None) -> torch.Tensor:
-    """x: (E, C, D); w: (E, D, F) -> (E, C, F) in x's dtype, f32 accumulation."""
+def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None,
+        max_row_tiles: int = MAX_ROW_TILES) -> torch.Tensor:
+    """x: (E, C, D); w: (E, D, F) -> (E, C, F) in x's dtype, f32 accumulation.
+    ``max_row_tiles`` caps gmm_mma's row tiles a block (:func:`tile_plan`);
+    the other instances and the plain version ignore it."""
     if epilogue not in EPILOGUE_CODES:
         raise ValueError(f"moe_gmm: epilogue {epilogue!r} not in {list(EPILOGUE_CODES)}")
     if x.device.type == "cpu":
@@ -135,7 +121,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None) -> 
     stream = torch.cuda.current_stream(x.device).cuda_stream
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     if instance(x.dtype, D, F, aligned) == "gmm_mma":
-        p = tile_plan(E, C, F)
+        p = tile_plan(E, C, F, max_row_tiles)
         err = mma(x.data_ptr(), w.data_ptr(), out.data_ptr(), EPILOGUE_CODES[epilogue], E, C,
                   D, F, p.row_tiles, p.row_blocks, stream)
     else:

@@ -75,9 +75,21 @@ def _resolve(impl: Optional[str], x: torch.Tensor) -> str:
 # (flash_attention, decode_attention, moe_gmm, rwkv6_scan, mamba_scan) so
 # that profile and tune keys line up across the two packages.
 #
-# ``_TUNED[op][impl]`` is a kwargs dict overriding that entry point's
-# block/tile knobs.  The port's kernels take no knobs yet: their Hopper
-# design space arrives with ROADMAP item M12, which fills this table.
+# ``_TUNED[op][tier]`` is a kwargs dict overriding that entry point's knobs
+# on one tier, ``kernel`` or ``plain`` (the dispatch tiers).  The tuner
+# (``tune/``) fills it from sweep winners or a fleet-pulled store, and it
+# takes precedence over the values callers pass, as in the JAX package:
+#
+# * ``kernel``: ``decode_attention`` ``waves``, ``moe_gmm``
+#   ``max_row_tiles``, ``rwkv6_scan`` ``column_tile``, passed to the
+#   wrappers (the plans of ``kernels/plan.py``);
+# * ``plain``: ``rwkv6_scan`` / ``mamba_scan`` ``chunk``, the chunked
+#   forms' chunk, kept only where it divides T (:func:`_scan_chunk`).
+#
+# A call runs on the ``plain`` tier under ``impl="plain"`` or for a CPU
+# tensor, else on ``kernel``.  Overrides apply when a call runs, so a CUDA
+# graph bakes the ones of its capture: ``serving/compiled.py`` refuses to
+# replay a step under other ones (``config_tag``).
 # ---------------------------------------------------------------------------
 
 _TUNED: dict[str, dict[str, dict[str, Any]]] = {}
@@ -121,11 +133,29 @@ def config_tag(impl: str) -> str:
     return ";".join(parts)
 
 
+def _scan_chunk(op: str, tier: str, chunk: int, T: int) -> int:
+    """Tuned chunk for a scan op, kept only when it divides the seq length.
+
+    The chunked scans require ``T % min(chunk, T) == 0``; a winner swept on
+    one workload shape must not crash another, so an indivisible override
+    falls back to the caller's value (``repro.kernels.ops._scan_chunk``).
+    """
+    tuned = _TUNED.get(op, {}).get(tier, {}).get("chunk")
+    if tuned is not None and T % min(int(tuned), T) == 0:
+        return int(tuned)
+    return chunk
+
+
+def _tier(impl: str, x: torch.Tensor) -> str:
+    """The dispatch tier a resolved ``impl`` runs on for ``x``."""
+    return "plain" if impl == "plain" or x.device.type != "cuda" else "kernel"
+
+
 @contextmanager
 def tuned_scope(
     table: Mapping[str, Mapping[str, Mapping[str, Any]]],
 ) -> Iterator[None]:
-    """Temporarily install tuned overrides."""
+    """Temporarily install tuned overrides (sweep measurement, tests)."""
     global _TUNED
     prev = _TUNED
     set_tuned_configs(table)
@@ -266,7 +296,7 @@ def decode_attention(
         return _ref.decode_attention_ref(q, k_cache, v_cache, pos_ids, cur_pos,
                                          window=window, softcap=softcap)
     out = _decode_kernel(q, k_cache, v_cache, pos_ids, cur_pos, window=window,
-                         softcap=softcap)
+                         softcap=softcap, **tuned_overrides("decode_attention", "kernel"))
     if _sdfg.ACTIVE is not None:  # every slot: which are live is on the card
         B, Hq, D = q.shape
         _note("decode_attention", (q, k_cache, v_cache, pos_ids, cur_pos), (out,),
@@ -297,7 +327,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None,
 
 
 def _gmm(x: torch.Tensor, w: torch.Tensor, epilogue: Optional[str] = None) -> torch.Tensor:
-    out = _gmm_kernel(x, w, epilogue=epilogue)
+    out = _gmm_kernel(x, w, epilogue=epilogue, **tuned_overrides("moe_gmm", "kernel"))
     if _sdfg.ACTIVE is not None:
         E, C, D = x.shape
         _note("moe_gmm", (x, w), (out,), 2 * E * C * D * w.shape[-1])
@@ -347,11 +377,14 @@ def rwkv6_scan(
     matters for a backward pass; it is accepted and ignored.
     """
     T = r.shape[1]
+    impl = _resolve(impl, r)
+    chunk = _scan_chunk("rwkv6_scan", _tier(impl, r), chunk, T)
     if T % min(chunk, T):
         raise ValueError(f"T={T} must be a multiple of chunk={min(chunk, T)}")
-    if _resolve(impl, r) == "plain":
+    if impl == "plain":
         return _ref.rwkv6_scan_chunked(r, k, v, w, u, state, chunk=chunk)
-    out = _rwkv6_kernel(r, k, v, w, u, state, chunk=chunk)
+    out = _rwkv6_kernel(r, k, v, w, u, state, chunk=chunk,
+                        **tuned_overrides("rwkv6_scan", "kernel"))
     if _sdfg.ACTIVE is not None:  # a step: kv outer product, state update, r . state
         B, T, H, K = r.shape
         _note("rwkv6_scan", (r, k, v, w, u, state), out, 4 * B * T * H * K * v.shape[-1],
@@ -394,9 +427,11 @@ def mamba_scan(
     matters for a backward pass; it is accepted and ignored.
     """
     T = x.shape[1]
+    impl = _resolve(impl, x)
+    chunk = _scan_chunk("mamba_scan", _tier(impl, x), chunk, T)
     if T % min(chunk, T):
         raise ValueError(f"T={T} must be a multiple of chunk={min(chunk, T)}")
-    if _resolve(impl, x) == "plain":
+    if impl == "plain":
         return _ref.mamba_scan_chunked(x, dt, A, Bm, C, D, state, chunk=chunk)
     out = _mamba_kernel(x, dt, A, Bm, C, D, state, chunk=chunk)
     if _sdfg.ACTIVE is not None:  # a step: decay, input, state update, C . state

@@ -25,7 +25,9 @@ and step, not 4); the K sums of 8 time steps are reduced together by one
 reduce-scatter butterfly over the K / KT lanes of a column;
 and the inputs reach shared memory through a ``STAGES``-deep ``cp.async``
 ring of ``STEPS``-step stages, read in their (B, T, H, K) layout with no
-transposed copies.  :func:`scan_plan` sizes the grid to fill the card.
+transposed copies.  :func:`scan_plan` sizes the grid to fill the card, or
+takes ``column_tile``, the state columns a block holds, from a caller or
+the tuner.
 r, k and v are f32 or bf16, w and the state f32 (as the time mix passes
 them); ``u`` f32 or bf16 (read as it is, so no cast runs in front of the
 kernel; another dtype is cast to f32 here).  r, k, v, w and the state
@@ -38,63 +40,16 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, refuse_grad
+# the tiling and its plan, as csrc/rwkv6_scan.cu fixes them
+from repro_torch.kernels.plan import (COLUMN_TILES, HEAD_DIMS, KT, MAX_THREADS,  # noqa: F401
+                                      STEPS, VT, ScanPlan, column_tiles, scan_plan)
+from repro_torch.kernels.plan import SCAN_STAGES as STAGES  # noqa: F401
 from repro_torch.kernels.ref import rwkv6_scan_chunked as plain
-
-HEAD_DIMS = (8, 16, 64)  # the K instances the source compiles
-
-# the tiling, as csrc/rwkv6_scan.cu fixes it
-KT = 4                # kKT: state rows a thread holds
-VT = 4                # kVT: state columns a thread holds
-STEPS = 32            # kSteps: time steps per ring stage
-STAGES = 3            # kStages: ring depth
-MAX_THREADS = 256     # kMaxThreads
-COLUMN_TILES = (64, 32, 16)  # the columns a block may take, widest first
-
-
-@dataclasses.dataclass(frozen=True)
-class ScanPlan:
-    B: int
-    H: int
-    K: int
-    V: int
-    kt: int            # state rows a thread holds
-    vt: int            # state columns a thread holds
-    vb: int            # state columns a block holds
-    threads: int       # per block: (K / kt) x (vb / vt)
-    steps: int         # time steps per ring stage
-    stages: int        # ring depth
-    smem_bytes: int    # dynamic shared memory per block
-    grid: tuple[int, int]  # (column tiles, B * H)
-
-    def tile(self, block: tuple[int, int], thread: int) -> tuple[int, int, range, list[int]]:
-        """(b, h, state rows, state columns) that ``thread`` of ``block``
-        holds, as the kernel maps them (columns past V are masked off)."""
-        g = self.K // self.kt
-        b, h = divmod(block[1], self.H)
-        kg, c0 = thread % g, block[0] * self.vb + thread // g * self.vt
-        return (b, h, range(kg * self.kt, (kg + 1) * self.kt),
-                [c for c in range(c0, c0 + self.vt) if c < self.V])
-
-
-def scan_plan(B: int, H: int, K: int, V: int, n_sm: int, itemsize: int = 2) -> ScanPlan:
-    """The kernel's plan, a pure function of the shapes: one block per
-    (batch, head, tile of vb columns), vb the widest of COLUMN_TILES that
-    gives the block whole warps (its shuffles take the full mask) and still
-    gives each of the card's ``n_sm`` SMs a block (else the narrowest such
-    width); ``itemsize`` is r / k / v's element size."""
-    if K not in HEAD_DIMS:
-        raise ValueError(f"rwkv6_scan: head dim K={K} not in {HEAD_DIMS}")
-    widths = [c for c in COLUMN_TILES if K // KT * (c // VT) % 32 == 0]
-    vb = next((c for c in widths if B * H * -(-V // c) >= n_sm), widths[-1])
-    smem = STAGES * STEPS * (K * (2 * itemsize + 4) + vb * itemsize)
-    return ScanPlan(B, H, K, V, KT, VT, vb, K // KT * (vb // VT), STEPS, STAGES, smem,
-                    (-(-V // vb), B * H))
 
 
 @functools.cache
@@ -115,8 +70,11 @@ def rwkv6_scan(
     state: torch.Tensor,
     *,
     chunk: int = 32,
+    column_tile: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (out (B, T, H, V) in r's dtype, final state (B, H, K, V) f32)."""
+    """-> (out (B, T, H, V) in r's dtype, final state (B, H, K, V) f32).
+    ``column_tile`` is the plan's knob (:func:`scan_plan`; None: its rule);
+    the plain version ignores it."""
     if r.device.type == "cpu":
         return plain(r, k, v, w, u, state, chunk=chunk)
     refuse_grad("rwkv6_scan", "its backward kernel is ROADMAP Queue 2 item K6b", r, k, v, w, u,
@@ -146,7 +104,8 @@ def rwkv6_scan(
     s_out = torch.empty_like(state)
     # u is read as it is in f32 or bf16 (no cast kernel in front of each call)
     uu = (u if u.dtype in _build.DTYPE_CODES else u.float()).contiguous()
-    p = scan_plan(B, H, K, V, _build.sm_count(r.device.index), r.element_size())
+    p = scan_plan(B, H, K, V, _build.sm_count(r.device.index), r.element_size(),
+                  column_tile)
     lib, fn = _entry()
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), uu.data_ptr(),
              state.data_ptr(), out.data_ptr(), s_out.data_ptr(), _build.DTYPE_CODES[r.dtype],

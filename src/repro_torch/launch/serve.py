@@ -70,7 +70,21 @@ the measured delta at the end and, with ``--trace-dir``, at every
 streaming rotation; ``--fleet-token`` authenticates the pushes.  The JSON
 line gains ``fleet`` (the pull's match and the pushed samples), and a
 ``--profile-out`` store is marked as already fed, so ``fleet push`` refuses
-to count it twice.  Not here yet: ``--tune`` (ROADMAP M12).
+to count it twice.
+
+Kernel autotuning (``tune/``), the JAX driver's flags: ``--tune cached``
+installs the winners already in the dispatcher's store (a fleet pull or a
+``--profile-in`` file) at no sweep cost; ``--tune sweep`` first measures
+the design-space points the store lacks (``--tune-ops`` restricts the
+ops; ``--tune-mode real`` times them on the card, the default there,
+``interpret`` the plain spaces on the CPU, the default there,
+``synthetic`` prices them; ``--tune-workers`` runs interpret / synthetic
+points in processes, and is refused with ``real``, ROADMAP R16).  Tuning
+needs ``--dispatch`` (the winners live in its store), runs after the fleet
+pull and before the engine is built (a captured step refuses other tuned
+configs, ``serving/compiled.py``), and its samples ride the fleet push.
+The JSON line gains ``tune`` (``sweep_points``, ``pruned``, ``applied``,
+``configs``, and a sweep's ``winners``).
 """
 from __future__ import annotations
 
@@ -169,6 +183,47 @@ def warm_start(args: argparse.Namespace, dispatcher, run_meta: dict):
     # push an artifact of a run that already fed a fleet live
     run_meta["fleet"] = args.fleet
     return fleet_rec, pusher
+
+
+def add_tune_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--tune", choices=("off", "cached", "sweep"), default="off",
+                    help="kernel autotuning (tune/): cached installs winners already in the "
+                         "profile store (e.g. fleet-pulled) at no sweep cost; sweep measures "
+                         "missing design-space points first")
+    ap.add_argument("--tune-ops", default=None, metavar="OP[,OP]",
+                    help="restrict --tune sweep to these ops")
+    ap.add_argument("--tune-mode", choices=("real", "interpret", "synthetic"), default=None,
+                    help="sweep measurement mode (default: real on a CUDA device, interpret "
+                         "on the CPU; synthetic = model-only)")
+    ap.add_argument("--tune-workers", type=int, default=0, metavar="N",
+                    help="sweep worker processes (0 = in-process; real: 0 only)")
+
+
+def check_tune_args(args: argparse.Namespace, ap: argparse.ArgumentParser) -> None:
+    """``--tune`` needs ``--dispatch``; the mode defaults by ``--device``;
+    a real sweep with workers is refused before anything touches a card."""
+    if args.tune != "off" and args.dispatch == "off":
+        # tune winners live in the dispatcher's profile store
+        ap.error("--tune requires --dispatch (static|roofline|profiled)")
+    if args.tune_mode is None:
+        args.tune_mode = "real" if str(args.device).startswith("cuda") else "interpret"
+    from repro_torch.tune.explore import check_sweep
+
+    try:
+        check_sweep(args.tune_mode, args.tune_workers)
+    except ValueError as exc:
+        ap.error(f"--tune-mode real --tune-workers {args.tune_workers}: {exc}")
+
+
+def tune(args: argparse.Namespace, dispatcher, log: EventLog) -> dict | None:
+    """``--tune``: after the fleet pull, before any step is built."""
+    if args.tune == "off" or dispatcher is None:
+        return None
+    from repro_torch.tune import driver_tune
+
+    return driver_tune(args.tune, dispatcher, log,
+                       ops_filter=args.tune_ops.split(",") if args.tune_ops else None,
+                       mode=args.tune_mode, workers=args.tune_workers)
 
 
 def add_trace_args(ap: argparse.ArgumentParser) -> None:
@@ -319,11 +374,13 @@ def run(argv: list[str] | None = None) -> tuple[dict, dict[int, list[int]]]:
                     help="torch device; 'cpu' runs the plain PyTorch versions")
     add_dispatch_args(ap, "prefill and decode")
     add_fleet_args(ap)
+    add_tune_args(ap)
     add_trace_args(ap)
     args = ap.parse_args(argv)
     if args.fleet and args.dispatch == "off":
         # a fleet-less run would silently neither warm-start nor push
         ap.error("--fleet requires --dispatch (static|roofline|profiled)")
+    check_tune_args(args, ap)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -335,6 +392,11 @@ def run(argv: list[str] | None = None) -> tuple[dict, dict[int, list[int]]]:
     dispatcher, aged = make_dispatcher(args, device, log)
     run_meta = {"driver": "serve", "arch": cfg.name, "requests": args.requests}
     fleet_rec, pusher = warm_start(args, dispatcher, run_meta)
+    # after the fleet pull (pulled config points make sweep points warm: a
+    # fed fleet means sweep_points == 0) and before the engine captures its
+    # steps; sweep samples land in the dispatcher's store, so the pusher
+    # delta-pushes tuned winners like any other measurement
+    tune_rec = tune(args, dispatcher, log)
     trace.open_stream(run_meta, dispatcher, pusher)
     eng = Engine(
         cfg, params,
@@ -369,6 +431,8 @@ def run(argv: list[str] | None = None) -> tuple[dict, dict[int, list[int]]]:
         "kernels": launch_counts(),
         **dispatch_record(args, dispatcher, aged, log),
     }
+    if tune_rec is not None:
+        rec["tune"] = tune_rec
     rec.update(trace.record(dispatcher, run_meta))
     if pusher is not None:
         final = pusher.push()  # the rest of the delta (none if a rotation sent it)

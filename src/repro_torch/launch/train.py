@@ -64,7 +64,16 @@ The trace and metrics flags (``--trace-out``, ``--trace-dir``,
 fields are the serve driver's; the run is a ``train_run`` span, and a
 ``--trace-dir`` stream rotates at every checkpoint and at the end.
 
-Not here yet: ``--mesh`` (ROADMAP M13), ``--tune`` / ``--fleet`` (M12).
+Fleet mode and kernel autotuning, the serve driver's flags: ``--fleet``
+(with ``--dispatch``) pulls the best matching profile snapshot before the
+step variants are built and pushes the measured delta at the end and at
+each streaming rotation (``--fleet-token`` authenticates); ``--tune
+{cached,sweep}`` (with ``--tune-ops``, ``--tune-mode``, ``--tune-workers``)
+installs the design-space winners after the pull and before the steps are
+built, so every captured step runs under them.  The JSON line gains
+``fleet`` and ``tune`` as the serve driver's.
+
+Not here yet: ``--mesh`` (ROADMAP M13).
 """
 from __future__ import annotations
 
@@ -82,8 +91,9 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.dispatch import with_impl
 from repro_torch.kernels import launch_counts, reset_launches
-from repro_torch.launch.serve import (TracePlane, add_dispatch_args, add_trace_args,
-                                     dispatch_record, make_dispatcher)
+from repro_torch.launch.serve import (TracePlane, add_dispatch_args, add_fleet_args,
+                                     add_trace_args, add_tune_args, check_tune_args,
+                                     dispatch_record, make_dispatcher, tune, warm_start)
 from repro_torch.runtime.supervisor import FailureInjector, Supervisor, SupervisorConfig
 from repro_torch.training import optim
 from repro_torch.training.compiled import CompiledTrainStep
@@ -108,10 +118,16 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch versions")
     add_dispatch_args(ap, "each train step")
+    add_fleet_args(ap)
+    add_tune_args(ap)
     add_trace_args(ap)
     args = ap.parse_args(argv)
     if args.ckpt_every < 0 or (args.ckpt_every == 0 and args.fail_at):
         ap.error("--ckpt-every must be >= 0, and --fail-at needs checkpoints (--ckpt-every > 0)")
+    if args.fleet and args.dispatch == "off":
+        # a fleet-less run would silently neither warm-start nor push
+        ap.error("--fleet requires --dispatch (static|roofline|profiled)")
+    check_tune_args(args, ap)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -127,7 +143,11 @@ def main(argv: list[str] | None = None) -> dict:
     log = trace.log
     dispatcher, aged = make_dispatcher(args, device, log)
     run_meta = {"driver": "train", "arch": cfg.name, "steps": args.steps}
-    trace.open_stream(run_meta, dispatcher)
+    fleet_rec, pusher = warm_start(args, dispatcher, run_meta)
+    # after the fleet pull and before the step variants are built: every
+    # captured step runs under the installed winners
+    tune_rec = tune(args, dispatcher, log)
+    trace.open_stream(run_meta, dispatcher, pusher)
     if dispatcher is None:
         steps = {None: CompiledTrainStep(cfg, tcfg, state)}
         step_variants = None
@@ -189,7 +209,15 @@ def main(argv: list[str] | None = None) -> dict:
     if dispatcher is not None:
         backend = dict(zip(order, (d.backend for d in dispatcher.decisions)))
         rec["step_backends"] = [backend[i] for i in range(out["steps"])]
+    if tune_rec is not None:
+        rec["tune"] = tune_rec
     rec.update(trace.record(dispatcher, run_meta))
+    if pusher is not None:
+        final = pusher.push()  # the rest of the delta (none if a rotation sent it)
+        fleet_rec["push"] = {"pushed_samples": pusher.pushed_samples}
+        if "error" in final:
+            fleet_rec["push"]["error"] = final["error"]
+        rec["fleet"] = fleet_rec
     print(json.dumps(rec), flush=True)
     trace.close()
     return rec

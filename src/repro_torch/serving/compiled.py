@@ -34,6 +34,14 @@ session first: no profiler window spans a capture.  On a CPU device there
 is no graph: every call copies its inputs into the static buffers and runs
 ``fn`` eagerly, so the CPU tests drive the same buffers.  A capture or replay that fails
 raises; nothing runs eagerly in its place.
+
+A graph bakes the launch plans of its capture: the tuned configs
+(``kernels/ops.py``, ``tune/``) that were installed then.  So a step keeps
+``ops.config_tag`` of both tiers from its first call, and a later call
+under other tags raises (on the CPU too, where the step runs eagerly, so
+the tests see the same refusal): a graph captured under one plan never
+replays as if under another.  Install tuned configs before building the
+steps (the drivers tune before the engine exists).
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.kernels import add_launches, uncounted
+from repro_torch.kernels import add_launches, ops, uncounted
 from repro_torch.trace.liveprof import capture_guard
 
 
@@ -78,11 +86,19 @@ class CompiledStep:
         self._static: Optional[list[torch.Tensor]] = None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._out: Any = None
+        self.config_tags: Optional[tuple[str, str]] = None  # (kernel, plain) at the first call
 
     def counts(self) -> dict[str, int]:
         return {"calls": self.calls, "captures": self.captures, "replays": self.replays}
 
     def __call__(self, *inputs: torch.Tensor) -> Any:
+        tags = (ops.config_tag("kernel"), ops.config_tag("plain"))
+        if self.config_tags is None:
+            self.config_tags = tags
+        elif tags != self.config_tags:
+            raise RuntimeError(f"compiled step built under tuned configs {self.config_tags} "
+                               f"called under {tags}: its graph bakes the first ones' launch "
+                               "plans; build a new step after installing tuned configs")
         static = self._stage(inputs)
         self.calls += 1
         stream = self.graphs.stream

@@ -386,6 +386,46 @@ def test_compiled_step_keeps_one_shape():
     assert step.counts() == {"calls": 2, "captures": 0, "replays": 0}
 
 
+def test_compiled_step_refuses_another_config_tag():
+    """A step keeps the tuned configs' tags of its first call: a graph
+    bakes their launch plans, so a call under another kernel or plain tag
+    raises, and one under the same tags runs (tune/ installs winners before
+    the steps are built)."""
+    from repro_torch.kernels import ops
+
+    step = compiled.Graphs(torch.device("cpu")).step(lambda x: x + 1)
+    with ops.tuned_scope({"moe_gmm": {"kernel": {"max_row_tiles": 10}}}):
+        step(torch.zeros(2))
+        assert step.config_tags == ("moe_gmm:max_row_tiles=10", "")
+        step(torch.zeros(2))
+    with pytest.raises(RuntimeError, match="tuned configs"):
+        step(torch.zeros(2))
+    for table in ({"moe_gmm": {"kernel": {"max_row_tiles": 5}}},
+                  {"moe_gmm": {"kernel": {"max_row_tiles": 10}},
+                   "mamba_scan": {"plain": {"chunk": 64}}}):
+        with ops.tuned_scope(table), pytest.raises(RuntimeError, match="tuned configs"):
+            step(torch.zeros(2))
+    assert step.counts()["calls"] == 2
+
+
+def test_compiled_train_step_refuses_another_config_tag():
+    from repro_torch.kernels import ops
+    from repro_torch.training.compiled import CompiledTrainStep
+
+    cfg = reduced(get_config("smollm-360m"))
+    tcfg = TrainConfig()
+    state = init_train_state(cfg, tcfg, 0, "cpu")
+    step = CompiledTrainStep(cfg, tcfg, state)
+    toks = torch.zeros(2, 8, dtype=torch.long)
+    batch = {"tokens": toks, "labels": toks}
+    step(state, batch)
+    with ops.tuned_scope({"decode_attention": {"kernel": {"waves": 4}}}):
+        with pytest.raises(RuntimeError, match="tuned configs"):
+            step(state, batch)
+    step(state, batch)
+    assert step.counts()["calls"] == 2
+
+
 def test_first_build_inside_a_capture_raises(monkeypatch):
     """A kernel's build, load and SM-count query belong in the eager call
     before a capture; inside one they raise instead of running."""

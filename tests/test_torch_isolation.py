@@ -143,7 +143,14 @@ SERVING_TIER_MODULES = ["repro_torch.fleet", "repro_torch.fleet.store",
                         "repro_torch.router.manager", "repro_torch.router.frontdoor",
                         "repro_torch.router.replica", "repro_torch.router.loadgen",
                         "repro_torch.router.cli", "repro_torch.router.__main__",
-                        "repro_torch.trace.stitch"]
+                        "repro_torch.trace.stitch",
+                        # ROADMAP M12's tune/: the spaces, the pruner and the CLI (and
+                        # the explorer's synthetic path) enumerate and price without
+                        # torch, as do the launch plans they price with
+                        "repro_torch.tune", "repro_torch.tune.space",
+                        "repro_torch.tune.prune", "repro_torch.tune.explore",
+                        "repro_torch.tune.cli", "repro_torch.tune.__main__",
+                        "repro_torch.kernels.plan"]
 
 _IMPORT_NO_TORCH = r"""
 import importlib, sys
