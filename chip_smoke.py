@@ -209,16 +209,16 @@ failure of which exits non-zero:
    (i) ``python -m repro_torch.launch.train --arch smollm-360m --steps 20
    --ckpt-dir <tmp> --fail-at 7`` in a child process: one restart, one
    capture, its loss falling; (k) the dense archs of DENSE_TRAIN (gemma3-4b and
-   musicgen-large at full depth, gemma2-27b and chameleon-34b cut to 4
-   layers) at full width through ``train_checks``, as smollm-360m in
+   musicgen-large cut to 12 layers, gemma2-27b and chameleon-34b to 4) at
+   full width through ``train_checks``, as smollm-360m in
    (d)-(f'): the f32 steps at DENSE_GATE_LAYERS layers, DENSE_TRAIN_STEPS
    bf16 steps at 4 x 2048 on one batch eagerly and then compiled (the loss
    falling), frontend archs with seeded embeddings, and one replayed step
    under torch.profiler (the tensor-core K1b, the wide pair at D 128 / 256,
    and no other K1b instance; K1b's ms a step); then ``python -m
    repro_torch.launch.train --arch gemma3-4b`` (DENSE_CLI_ARGS, no
-   checkpoints) in a child process: one capture, every step's K1b
-   launches, its loss falling;
+   checkpoints; full depth) in a child process: one capture, every step's
+   K1b launches, its loss falling;
 6. the paper's measurement layer (``core/``): (a) Table I, the hyperfine
    protocol (TABLE1_MICRO warm-up and measured calls) on the microbench
    (``configs/microbench.py``), baseline / usdt (tape-mode tracepoints) /
@@ -371,15 +371,45 @@ failure of which exits non-zero:
    repro_torch.launch.train --arch smollm-360m --steps 4 --dispatch
    profiled --tune cached --fleet DIR`` (winners applied, the fleet pulled
    exactly and pushed);
-11. print the script's run time, the per-kernel JSON line (launches from the
+11. ROADMAP M13 and M11's last module (``mesh_phase``): (e)
+   MESH_DRYRUN_CELLS run as ``python -m repro_torch.launch.dryrun``
+   children on the host from the start of phase 10 (device-free; they run
+   while the card works), and (d)'s two training children start after
+   (a), beside (b), (c) and (f); (a) K2's
+   stats mode (``return_stats=True``: the combine writes each row's f32
+   (acc, m, l)) against ``ref.decode_attention_ref(return_stats=True)`` at
+   its 8 served shapes, timed with L2 flushed beside the normal call, and
+   an f32 cache with a row without a live slot, which must give (0, -1e30,
+   0) and combine to exactly 0; (b) a cache split into 1, 2 and 4
+   sequence shards, K2's stats of each combined by ``ops.combine_partials``
+   (the mesh path's arithmetic), against one K2 call, in bf16 and f32, a
+   row without any live slot exactly 0, and
+   ``ops.decode_attention_seq_sharded`` on a 1 x 1 ``nccl`` mesh; (c)
+   qwen2-0.5b (24 layers) and deepseek-moe-16b (4 layers) at full width in
+   f32, a prefill and 8 teacher-forced decode steps with
+   ``decode_split_kv`` on that mesh against the same without, within
+   F32_LOGIT_TOL, with exactly 8 stats launches an attention layer; (d)
+   ``launch.train --arch smollm-360m --steps 6 --ckpt-every 0`` with and
+   without ``--mesh 1x1`` in child processes (losses equal bit for bit,
+   every training kernel launched), ``Supervisor.resize`` from the mesh to
+   none and back after steps 2 and 4 (losses equal the uninterrupted run
+   bit for bit) and a checkpoint restored with ``shardings`` onto the mesh;
+   (f) ``graphanalysis.captured_kernels`` on qwen2-0.5b's compiled prefill
+   and decode tick: each port kernel's count in a replay equals its count
+   in the eager call's SDFG; then (e)'s records: each cell's status,
+   per-device FLOPs, bytes, collective bytes by op, bottleneck and
+   roofline fraction (priced from ``hw/specs.py``, not measured); a
+   ``FAIL``, a missing ``fake`` backend or a cell over
+   MESH_DRYRUN_TIMEOUT_S fails the run;
+12. print the script's run time, the per-kernel JSON line (launches from the
    nine compiled serving runs, K1b's and K3b's from phase 5 (e), the wide
-   K1b's from phase 5 (k), and phase 7's, phase 8's, phase 9's replicas'
-   and phase 10's runs), the card line, and last the ``{"ok": true,
-   "device": ...}`` line.
+   K1b's from phase 5 (k), phase 7's, phase 8's, phase 9's replicas' and
+   phase 10's runs, and K2's stats mode's from phase 11 (c)), the card
+   line, and last the ``{"ok": true, "device": ...}`` line.
 
 ``--record PATH`` also writes the full record (every check, the serving
 run, the profiles) there as JSON.  ``tools/serving_tier.py`` runs phase 9
-alone.
+alone, ``tools/mesh_phase.py`` phase 11.
 """
 from __future__ import annotations
 
@@ -475,8 +505,9 @@ COMPILED_TICK_HOST_OPS = 20
 GRAPH_F32_TOL = 1e-5
 GRAPH_LAUNCHES = 256  # K3 launches captured in one graph to time a launch inside it
 PROFILER_SESSIONS = 3  # sessions a profile may open before one sees the card's kernels
-# serving launches no backward kernel
-NO_BACKWARD = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+# serving launches no backward kernel, and not K2's stats mode (the split-KV
+# decode across the devices of a mesh; phase 11)
+NOT_SERVED = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0, "decode_attention_stats": 0}
 TRAIN_ARCH = "smollm-360m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20  # phase 5 (e): 20 bf16 steps of 8192 tokens
 # the schedule launch.train gives a run of TRAIN_STEPS steps: peak 3e-4 after
@@ -510,8 +541,11 @@ K3B_OVERLAP_ROUNDS = 8  # phase 5 (c): K3b calls on each of two streams at once
 # batches of (layers (None: full depth), batch) x DENSE_TRAIN_SEQ.
 # gemma2-27b and chameleon-34b are cut to 4 of 46 / 48 layers (gemma2: two
 # periods of (swa, ga)): whole, their bf16 params and grads and f32
-# moments, 12 bytes a parameter, take 326 and 412 GB
-DENSE_TRAIN = {GEMMA3_ARCH: (None, 4), MUSICGEN_ARCH: (None, 4), GEMMA2_ARCH: (4, 4),
+# moments, 12 bytes a parameter, take 326 and 412 GB.  gemma3-4b and
+# musicgen-large are cut to 12 of 34 / 48 (gemma3: two periods of its 5:1
+# pattern) to hold the whole run under its time limit; (k4)'s launch.train
+# child still trains gemma3-4b whole
+DENSE_TRAIN = {GEMMA3_ARCH: (12, 4), MUSICGEN_ARCH: (12, 4), GEMMA2_ARCH: (4, 4),
                CHAMELEON_ARCH: (4, 4)}
 DENSE_TRAIN_SEQ = 2048
 # (b), (c), (g): K1b and K3b at 4 x 2048 tokens of each arch's heads and widths
@@ -536,11 +570,11 @@ DENSE_CLI_ARGS = ("--steps", "6", "--batch", "4", "--seq", "2048", "--lr", "1e-3
 SCOPE_NAME = re.compile(r"^(embed|final_norm|(head|tail)\d+|pos\d+_[a-z]+_[a-z_]+|mixer_[a-z]+"
                         r"|ffn_[a-z_]+)$")
 # phase 6: the paper's measurement layer on the card
-TABLE1_MICRO = (100, 1000)  # (a) warm-up and measured calls a microbench arm (hyperfine)
+TABLE1_MICRO = (50, 500)  # (a) warm-up and measured calls a microbench arm (hyperfine)
 TABLE1_ROUNDS = 2  # (a) every arm timed twice, in turn: drift between arms shows
-TABLE1_MODEL = (10, 60)  # (a) the same for a model arm
+TABLE1_MODEL = (5, 30)  # (a) the same for a model arm
 TABLE1_MODEL_TOKENS = (8, 128)  # (a) the model arms' loss forward: full-width, full-depth qwen2
-TAPE_STEP_RUNS = {"prefill": (10, 100), "decode_tick": (20, 300)}  # (c) a compiled step's arms
+TAPE_STEP_RUNS = {"prefill": (5, 50), "decode_tick": (10, 150)}  # (c) a compiled step's arms
 TAPE_TRAIN_REPLAYS = 6  # (d) replays of the compiled train step with its tape
 # (g) R13: prompt lengths in the order served, each twice in a row (so each
 # is captured), the longest first so that the eager calls' and captures'
@@ -575,7 +609,7 @@ TRACE_TRAIN_STEPS, TRACE_CKPT_EVERY, TRACE_FAIL_AT = 12, 4, 7
 # --dispatch profiled) with the engine shape of the in-process reference;
 # a few fixed prompt lengths (each a captured prefill graph per tier)
 TIER_LENGTHS, TIER_MAX_NEW, TIER_BATCH, TIER_SEQ = (64, 128, 256, 512), 32, 8, 1024
-TIER_ALONE, TIER_LOAD, TIER_CONC, TIER_KILL_LOAD = 8, 64, 8, 32
+TIER_ALONE, TIER_LOAD, TIER_CONC, TIER_KILL_LOAD = 8, 32, 8, 32
 TIER_HOP_TOL = 0.05  # each routed request's hops against its front-door span
 # an interval measured inside another (the front door's in the client's,
 # the engine's in the replica's service) may pass it by the hops'
@@ -749,7 +783,7 @@ def main() -> None:
         evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                for _ in range(iters)]
         torch.cuda.synchronize()
-        torch.cuda._sleep(200_000_000)  # ~0.1 s of GPU clock cycles
+        torch.cuda._sleep(50_000_000)  # ~25 ms of GPU clock cycles, longer than the queueing
         for s, e in evs:
             flush_buf.zero_()
             s.record()
@@ -2071,7 +2105,7 @@ def main() -> None:
         return {"flash_attention": c.n_layers * spec["requests"],
                 "decode_attention": c.n_layers * n_ticks,
                 "rmsnorm": norms_per_forward(c) * forwards, "moe_gmm": 3 * n_moe * forwards,
-                "rwkv6_scan": 0, "mamba_scan": 0, **NO_BACKWARD}
+                "rwkv6_scan": 0, "mamba_scan": 0, **NOT_SERVED}
 
     def serve_set(c, p, spec: dict) -> tuple:
         """An attention model's serve set (the gemmas, the M10 sets), eager
@@ -2178,8 +2212,8 @@ def main() -> None:
     if counts["rmsnorm"] != norms_per_forward(cfg) * forwards:
         fail(f"rmsnorm launched {counts['rmsnorm']} times, expected "
              f"{norms_per_forward(cfg)} x {forwards} forwards")
-    if any(counts[name] for name in NO_BACKWARD):
-        fail(f"serving launched a backward kernel: {counts}")
+    if any(counts[name] for name in NOT_SERVED):
+        fail(f"serving launched a backward kernel or K2's stats mode: {counts}")
     compiled_vs_eager = {ARCH: check_compiled(cfg, SERVE, serve, outs, eager_serve, eager_outs)}
     for name in records:
         records[name]["launches"] = counts[name]
@@ -2217,7 +2251,7 @@ def main() -> None:
                    "flash_attention": n_layers * MOE_SERVE["requests"],
                    "decode_attention": n_layers * n_ticks,
                    "rmsnorm": norms_per_forward(mcfg) * forwards, "rwkv6_scan": 0,
-                   "mamba_scan": 0, **NO_BACKWARD}
+                   "mamba_scan": 0, **NOT_SERVED}
     if mcounts != want_counts:
         fail(f"{MOE_ARCH}: launch counts {mcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
@@ -2351,7 +2385,7 @@ def main() -> None:
     want_counts = {"rwkv6_scan": rcfg.n_layers * RWKV_SERVE["requests"],  # one per layer, prefill
                    "rmsnorm": norms_per_forward(rcfg) * forwards,
                    "flash_attention": 0, "decode_attention": 0, "moe_gmm": 0, "mamba_scan": 0,
-                   **NO_BACKWARD}
+                   **NOT_SERVED}
     if rcounts != want_counts:
         fail(f"{RWKV_ARCH}: launch counts {rcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
@@ -2425,7 +2459,7 @@ def main() -> None:
                    # norm1 and norm2 of every layer, dt / B / C norms of every
                    # Mamba layer, the final norm
                    "rmsnorm": norms_per_forward(jcfg) * forwards,
-                   "rwkv6_scan": 0, **NO_BACKWARD}
+                   "rwkv6_scan": 0, **NOT_SERVED}
     if jcounts != want_counts:
         fail(f"{JAMBA_ARCH}: launch counts {jcounts}, expected {want_counts} "
              f"({forwards} forwards, {n_ticks} ticks)")
@@ -3258,6 +3292,10 @@ def main() -> None:
     tier = serving_tier_phase(dev, smi, records)
 
     phase_s["10"] = time.time() - t_start
+    # phase 11 (e)'s dry-run cells run on the host from now on (device-free;
+    # phase 10 times its kernels with CUDA events, and holds its serve runs by
+    # their tokens)
+    dryrun_cells = start_dryrun_cells()
     # -- 10. tune/: the Hopper design space, swept on the card ----------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -3266,7 +3304,15 @@ def main() -> None:
         "logit_gate": logit_gate, "mcfg": mcfg, "mprompts": mprompts, "mouts": mouts})
 
     phase_s["11"] = time.time() - t_start
-    # -- 11. report ---------------------------------------------------------
+    # -- 11. the mesh and the dry-run ------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshing = mesh_phase(dev, smi, records, {
+        "time_ms": time_ms, "hold": hold, "bound_ms": bound_ms, "peaks": peaks,
+        "dryrun_cells": dryrun_cells})
+
+    phase_s["12"] = time.time() - t_start
+    # -- 12. report ---------------------------------------------------------
     full = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": list(records.values()), "checks": checks, "serve": serve,
             "serving_logits": agree, "breakdown": breakdown,
@@ -3287,7 +3333,7 @@ def main() -> None:
                           "gate_f32_init": g2_init4},
             **m10,
             "measurement": measurement, "dispatch": dispatch, "tracing": tracing,
-            "serving_tier": tier, "tune": tuning,
+            "serving_tier": tier, "tune": tuning, "mesh": meshing,
             "seconds": time.time() - t_start, "phase_s": phase_s}
     print(f"chip_smoke: {full['seconds']:.1f} s; phases began at (s): {json.dumps(phase_s)}",
           flush=True)
@@ -4796,6 +4842,404 @@ def seed_mamba_noise(params, gen) -> None:
     for sub in params.values():
         if isinstance(sub, dict):
             seed_mamba_noise(sub, gen)
+
+
+# phase 11: the mesh and the dry-run (ROADMAP M13, M11's hloanalysis counterpart)
+MESH_K2_BATCH = 8  # (a) K2's stats mode at its 8 served shapes of PERF.md §6
+MESH_SHARDS = (1, 2, 4)  # (b) sequence shards of one cache, combined as the mesh path does
+MESH_TRAIN_ARGS = ("--arch", "smollm-360m", "--steps", "6", "--ckpt-every", "0")  # (d)
+MESH_RESIZE_STEPS = (2, 4, 6)  # (d) on the 1 x 1 mesh, off it, back on it: steps run by then
+# (e) dry-run cells, device-free, each in a child process started with the phase
+MESH_DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", False), ("qwen2-0.5b", "decode_32k", False),
+                     ("qwen2-0.5b", "long_500k", False), ("qwen2-0.5b", "train_4k", True),
+                     ("deepseek-moe-16b", "decode_32k", False))
+MESH_DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryrun_cells() -> dict:
+    """Phase 11 (e)'s dry-run cells as child processes (device-free, on the
+    host): {(arch, shape, multi-pod): (process, its stderr file)}.  Fails if
+    torch's ``fake`` process group backend is missing."""
+    try:
+        import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    except ImportError as e:
+        fail(f"11 (e): torch's fake process group backend is missing ({e}); the dry-run needs it")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p_ for p_ in (str(ROOT / "src"), os.environ.get("PYTHONPATH", "")) if p_)}
+    cells = {}
+    cell_dir = Path(tempfile.mkdtemp(prefix="repro_torch_dryrun_"))
+    atexit.register(shutil.rmtree, cell_dir, True)
+    for i, (arch, shape, multi) in enumerate(MESH_DRYRUN_CELLS):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape]
+        with open(cell_dir / f"{i}.err", "wb") as err_f:  # DTensor's warnings: not into a pipe
+            proc = subprocess.Popen(cmd + (["--multi-pod"] if multi else []),
+                                    stdout=subprocess.PIPE, stderr=err_f, text=True, env=env,
+                                    cwd=ROOT)
+        atexit.register(proc.kill)  # also when a check fails the run
+        cells[(arch, shape, multi)] = (proc, cell_dir / f"{i}.err")
+    return cells
+
+
+def mesh_phase(dev, smi: str, records: dict, kit: dict) -> dict:
+    """Phase 11: ROADMAP M13 and M11's last module on the card (see the
+    module docstring): (a) K2's stats mode against its plain version; (b)
+    1, 2 and 4 sequence shards combined as the mesh path does, and
+    ``decode_attention_seq_sharded`` on a 1 x 1 ``nccl`` mesh; (c) qwen2-0.5b
+    and deepseek-moe-16b teacher-forced with ``decode_split_kv`` on that
+    mesh; (d) ``launch.train --mesh 1x1``, ``Supervisor.resize`` and a
+    restore onto the mesh; (e) dry-run cells in child processes, started
+    first; (f) the captured-graph inventory.  ``kit`` holds main's time_ms,
+    hold, bound_ms and peaks.  Adds K2's stats mode to ``records``."""
+    import functools
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.core import graphanalysis, sdfg
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.constrain import mesh_scope
+    from repro_torch.kernels import launch_counts, ops, ref, reset_launches
+    from repro_torch.kernels import decode_attention as k2
+    from repro_torch.launch.mesh import destroy_mesh, make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.runtime.supervisor import Supervisor, SupervisorConfig
+    from repro_torch.serving.compiled import Graphs
+    from repro_torch.training.step import (TrainConfig, init_train_state, make_train_step,
+                                           on_mesh, train_state_axes)
+    from repro_torch.training.optim import leaves
+
+    t0 = time.time()
+    time_ms, hold, bound_ms, peaks = kit["time_ms"], kit["hold"], kit["bound_ms"], kit["peaks"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rec: dict = {}
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p_ for p_ in (str(ROOT / "src"), os.environ.get("PYTHONPATH", "")) if p_)}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    # -- (e): the dry-run cells run on the host while the card works (main
+    # starts them with phase 10; alone, the phase starts them now) ---------------
+    cells = kit.get("dryrun_cells") or start_dryrun_cells()
+
+    # -- (a) K2's stats mode against its plain version ---------------------------
+    k2_shapes = [("qwen2-0.5b", 14, 2, 64, 1024, None, None),
+                 ("deepseek-moe-16b", 16, 16, 128, 1024, None, None),
+                 ("jamba-1.5-large", 64, 8, 128, 1024, None, None),
+                 ("musicgen-large", 32, 32, 64, 1024, None, None),
+                 ("dbrx-132b", 48, 8, 128, 1024, None, None),
+                 ("gemma3-4b global", 8, 4, 256, 2048, None, None),
+                 ("gemma3-4b local", 8, 4, 256, 1024, 1024, None),
+                 ("gemma2-27b", 32, 16, 128, 1024, None, 50.0)]
+    rows, err_a = [], 0.0
+    B = MESH_K2_BATCH
+
+    def stats_vs_plain(name, got, want, dtype_name, live):
+        """m, l relative to the plain l, and acc relative to its max |.|, on
+        the rows with a live slot."""
+        (a_, m_, l_), (a_r, m_r, l_r) = got, want
+        sel = live[:, None, None]
+        e = hold("decode_attention_stats", f"{name} m", torch.where(sel, m_, 0),
+                 torch.where(sel, m_r, 0), dtype_name)
+        e = max(e, hold("decode_attention_stats", f"{name} l / plain l",
+                        torch.where(sel, l_ / l_r, 1), torch.ones_like(l_), dtype_name))
+        scale = a_r.abs().amax().clamp(min=1e-30)
+        return max(e, hold("decode_attention_stats", f"{name} acc / max |acc|",
+                           torch.where(sel[..., None], a_, 0) / scale,
+                           torch.where(sel[..., None], a_r, 0) / scale, dtype_name))
+
+    for name, Hq, Hkv, D, S, window, softcap in k2_shapes:
+        q, kc, vc = randn(B, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S).contiguous()
+        cur = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+        kw = dict(window=window, softcap=softcap)
+        got = k2.decode_attention(q, kc, vc, pos, cur, return_stats=True, **kw)
+        want = ref.decode_attention_ref(q, kc, vc, pos, cur, return_stats=True, **kw)
+        live = torch.ones(B, dtype=torch.bool, device=dev)
+        err_a = max(err_a, stats_vs_plain(f"{name} {B}x{S}x{Hq}/{Hkv}x{D}", got, want, "bfloat16",
+                                          live))
+        stats_fn = lambda: k2.decode_attention(q, kc, vc, pos, cur, return_stats=True, **kw)  # noqa: E731
+        plain_fn = lambda: ref.decode_attention_ref(q, kc, vc, pos, cur, return_stats=True, **kw)  # noqa: E731
+        out_fn = lambda: k2.decode_attention(q, kc, vc, pos, cur, **kw)  # noqa: E731
+        n_bytes = 2 * B * S * Hkv * D * 2 + q.numel() * 2 + 4 * B * (S + 1) + 4 * B * Hq * (D + 2)
+        b_, by_ = bound_ms(n_bytes, 4 * D * B * Hq * (min(S, window) if window else S),
+                           peaks["bfloat16"])
+        row = {"arch": name, "shape": f"{B}x{S}x{Hq}/{Hkv}x{D}" + (
+            f" window {window}" if window else "") + (f" softcap {softcap}" if softcap else ""),
+            "ms": time_ms(stats_fn), "decode_ms": time_ms(out_fn), "plain_ms": time_ms(plain_fn),
+            "bound_ms": b_, "bound_by": by_}
+        rows.append(row)
+        print(f"11 (a) decode_attention stats {name} {row['shape']} bf16, {smi}: stats "
+              f"{row['ms']:.4f} ms, the normal call {row['decode_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {b_:.5f} ({by_})", flush=True)
+    # f32, and a row with no live slot: (0, -1e30, 0) exactly, and 0 out of a combine
+    q, kc, vc = randn(3, 14, 64, dtype=torch.float32), randn(3, 512, 2, 64, dtype=torch.float32), \
+        randn(3, 512, 2, 64, dtype=torch.float32)
+    pos = torch.arange(512, dtype=torch.int32, device=dev).expand(3, 512).contiguous()
+    pos[1] = -1  # row 1: no live slot
+    cur = torch.tensor([511, 511, 300], dtype=torch.int32, device=dev)
+    got = k2.decode_attention(q, kc, vc, pos, cur, return_stats=True)
+    want = ref.decode_attention_ref(q, kc, vc, pos, cur, return_stats=True)
+    live = torch.tensor([True, False, True], device=dev)
+    err_a = max(err_a, stats_vs_plain("3x512x14/2x64 f32, row 1 without a live slot", got, want,
+                                      "float32", live))
+    dead = (float(got[0][1].abs().max()), float(got[1][1].max()), float(got[2][1].abs().max()))
+    combined = ops.combine_partials(*(t[None] for t in got), lambda t: t.amax(0, keepdim=True),
+                                    lambda t: t.sum(0), q.dtype)
+    print(f"11 (a) the row without a live slot: |acc| {dead[0]}, m {dead[1]}, l {dead[2]}; "
+          f"combined out {float(combined[1].abs().max())}", flush=True)
+    if not (dead[0] == 0 and dead[2] == 0 and dead[1] <= -1e29):
+        fail(f"11 (a): a row without a live slot gave stats {dead}, (0, -1e30, 0) expected")
+    if not (bool(torch.isfinite(combined).all()) and float(combined[1].abs().max()) == 0.0):
+        fail("11 (a): the combine of a row without a live slot is not exactly 0")
+    rec["a"] = {"rows": rows, "max_abs_err": err_a, "dead_row": dead}
+
+    # (d)'s two training children start now, beside (b), (c) and (f) (no
+    # timing of this phase runs after (a)); (d) reads them
+    def train_child(extra: tuple) -> tuple:
+        log_f = tempfile.TemporaryFile(mode="w+")
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train",
+                                 *MESH_TRAIN_ARGS, *extra], stdout=subprocess.PIPE,
+                                stderr=log_f, text=True, env=env, cwd=ROOT)
+        atexit.register(proc.kill)
+        return proc, log_f, extra
+
+    children = [train_child(()), train_child(("--mesh", "1x1"))]
+
+    def train_record(child: tuple) -> dict:
+        proc, log_f, extra = child
+        try:
+            out, _ = proc.communicate(timeout=CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail(f"11 (d): launch.train {' '.join(extra)} took over {CLI_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            log_f.seek(0)
+            print(out[-3000:], log_f.read()[-5000:], file=sys.stderr, flush=True)
+            fail(f"11 (d): launch.train {' '.join(extra)} exited {proc.returncode}")
+        return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+
+    # -- (b) shards combined as the mesh path combines them ------------------------
+    mesh = make_local_mesh("cuda")  # an nccl group of this process alone
+    rec["b"] = []
+    for name, Hq, Hkv, D, S, window, softcap in k2_shapes[:2]:
+        for dtype, dname in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+            q, kc, vc = randn(B, Hq, D, dtype=dtype), randn(B, S, Hkv, D, dtype=dtype), \
+                randn(B, S, Hkv, D, dtype=dtype)
+            pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S).contiguous()
+            pos[3, S // 2:] = -1  # row 3: its second half empty, so whole shards hold no live slot
+            pos[5] = -1  # row 5: no live slot at all
+            cur = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+            one = k2.decode_attention(q, kc, vc, pos, cur)
+            for n in MESH_SHARDS:
+                w_ = S // n
+                parts = [k2.decode_attention(q, kc[:, i * w_:(i + 1) * w_].contiguous(),
+                                             vc[:, i * w_:(i + 1) * w_].contiguous(),
+                                             pos[:, i * w_:(i + 1) * w_].contiguous(), cur,
+                                             return_stats=True) for i in range(n)]
+                out = ops.combine_partials(*(torch.stack(t) for t in zip(*parts)),
+                                           lambda t: t.amax(0, keepdim=True),
+                                           lambda t: t.sum(0), dtype)
+                e = hold("decode_attention_stats", f"{name} {dname} {n} shards combined vs one "
+                         "K2 call", out, one, dname)
+                rec["b"].append({"arch": name, "dtype": dname, "shards": n, "max_abs_err": e,
+                                 "dead_row_max": float(out[5].abs().max())})
+                if float(out[5].abs().max()) != 0.0 or not bool(torch.isfinite(out).all()):
+                    fail(f"11 (b): {n} shards: the row without a live slot is not exactly 0")
+            with mesh_scope(mesh):
+                got = ops.decode_attention_seq_sharded(q, kc, vc, pos, cur, seq_axes=("model",))
+            e = hold("decode_attention_stats", f"{name} {dname} decode_attention_seq_sharded on "
+                     "a 1 x 1 nccl mesh vs one K2 call", got, one, dname)
+            rec["b"].append({"arch": name, "dtype": dname, "mesh": "1x1", "max_abs_err": e})
+    del q, kc, vc, pos, cur, one, parts, out, got
+
+    # -- (c) teacher-forced decode with decode_split_kv on the mesh ------------------
+    def forced(params, cfg, prompt, outs, steps=8):
+        """Logits of the prefill and ``steps`` decode steps fed ``outs`` (or,
+        where ``outs`` is empty, the argmax of each step, appended to it)."""
+        lg, caches = lm.prefill(params, cfg, torch.tensor([prompt], device=dev), max_seq=1024)
+        out = [lg]
+        for i in range(steps):
+            if len(outs) <= i:
+                outs.append(int(lg.argmax(-1)))
+            lg, caches = lm.decode_step(params, cfg, torch.tensor([outs[i]], device=dev),
+                                        torch.tensor([len(prompt) + i], dtype=torch.int32,
+                                                     device=dev), caches)
+            out.append(lg)
+        return torch.stack(out)
+
+    rec["c"] = {}
+    stats_launches = 0
+    for arch, layers in ((ARCH, None), (MOE_ARCH, MOE_GATE_LAYERS)):
+        c32 = dataclasses.replace(get_config(arch), param_dtype="float32",
+                                  activation_dtype="float32")
+        if layers:
+            c32 = dataclasses.replace(c32, n_layers=layers)
+        p32 = lm.init_params(c32, SEED, dev)
+        prompt = torch.randint(0, c32.vocab_size, (256,), generator=torch.Generator().manual_seed(
+            SEED)).tolist()
+        with torch.no_grad():
+            outs: list = []
+            base = forced(p32, c32, prompt, outs)
+            split = dataclasses.replace(c32, decode_split_kv=True, decode_seq_axes=("model",))
+            reset_launches()
+            with mesh_scope(mesh):
+                got = forced(p32, split, prompt, outs)
+            counts = launch_counts()
+        n_attn = sum(c32.layer_spec(i).mixer in ("ga", "swa") for i in range(c32.n_layers))
+        diff = float((got - base).abs().max())
+        row = {"layers": c32.n_layers, "max_abs_diff": diff, "kernels": counts,
+               "argmax_equal": int((got.argmax(-1) == base.argmax(-1)).sum()), "steps": 9}
+        rec["c"][arch] = row
+        print(f"11 (c) {arch} f32, full width, {c32.n_layers} layers, prefill + 8 decode steps "
+              f"with decode_split_kv on a 1 x 1 mesh vs without: {json.dumps(row)} (tol "
+              f"{F32_LOGIT_TOL})", flush=True)
+        if diff > F32_LOGIT_TOL or not bool(torch.isfinite(got).all()):
+            fail(f"11 (c) {arch}: the split-KV decode's logits disagree with the plain decode's")
+        if counts["decode_attention_stats"] != 8 * n_attn or counts["decode_attention"] != 0:
+            fail(f"11 (c) {arch}: K2's stats mode launched {counts['decode_attention_stats']} "
+                 f"times ({8 * n_attn} expected), K2's normal call {counts['decode_attention']}")
+        stats_launches += counts["decode_attention_stats"]
+        del p32, base, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (d) training on the 1 x 1 mesh ------------------------------------------------
+    plain_run, mesh_run = (train_record(c) for c in children)
+    rec["d"] = {"plain": plain_run, "mesh_1x1": mesh_run}
+    print(f"11 (d) launch.train {' '.join(MESH_TRAIN_ARGS)}, {smi}: losses without a mesh "
+          f"{plain_run['losses']}, with --mesh 1x1 {mesh_run['losses']}; kernels "
+          f"{json.dumps(mesh_run['kernels'])}, compiled {mesh_run['compiled']}", flush=True)
+    if mesh_run["losses"] != plain_run["losses"] or mesh_run["mesh"] != "1x1":
+        fail("11 (d): --mesh 1x1 losses differ from the run without a mesh")
+    if any(mesh_run["kernels"][k] == 0 for k in ("flash_attention", "flash_attention_bwd",
+                                                  "rmsnorm", "rmsnorm_bwd")):
+        fail(f"11 (d): a training kernel ran no time on the mesh: {mesh_run['kernels']}")
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig()
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 128, 8, seed=SEED))
+
+    def batch_fn(i):
+        return {k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
+
+    step = make_train_step(cfg, tcfg)
+    work = Path(tempfile.mkdtemp(prefix="repro_torch_mesh_"))
+    atexit.register(shutil.rmtree, work, True)
+    whole = Supervisor(SupervisorConfig(ckpt_dir=str(work / "whole"), ckpt_every=0,
+                                        max_steps=MESH_RESIZE_STEPS[-1]),
+                       step, batch_fn, init_train_state(cfg, tcfg, SEED, dev))
+    want = [m["loss"] for m in whole.run()["metrics"]]
+    del whole
+    move = functools.partial(shd.reshard, tree_axes=train_state_axes(cfg), rules=shd.PARAM_RULES)
+    state, shardings = move(init_train_state(cfg, tcfg, SEED, dev), mesh=mesh)
+    sup = Supervisor(SupervisorConfig(ckpt_dir=str(work / "moved"), ckpt_every=0,
+                                      max_steps=MESH_RESIZE_STEPS[0]),
+                     on_mesh(step, mesh), batch_fn, state, state_shardings=shardings)
+    reset_launches()
+    got = [m["loss"] for m in sup.run()["metrics"]]
+    for target, steps in ((None, MESH_RESIZE_STEPS[1]), (mesh, MESH_RESIZE_STEPS[2])):
+        sup.resize(target, lambda tree, new_mesh: move(tree, mesh=new_mesh))
+        sup.cfg.max_steps = steps
+        got += [m["loss"] for m in sup.run()["metrics"]]
+    resize_counts = launch_counts()
+    on_card = isinstance(sup.state["params"]["embed"]["table"], DTensor)
+    print(f"11 (d) Supervisor.resize 1x1 -> none -> 1x1 after steps {MESH_RESIZE_STEPS[:2]}, "
+          f"{smi}: losses {got}, the uninterrupted run's {want}; kernels "
+          f"{json.dumps(resize_counts)}", flush=True)
+    if got != want or not on_card:
+        fail("11 (d): the resized run's losses differ from the uninterrupted run's")
+    ckpt = work / "ckpt"
+    save(str(ckpt), 1, sup.state)
+    back = restore(str(ckpt), 1, sup.state,
+                   shardings=shd.tree_shardings(train_state_axes(cfg), sup.state,
+                                                shd.PARAM_RULES, mesh))
+    equal = all(torch.equal(a.full_tensor(), b.full_tensor())
+                for a, b in zip(leaves(back), leaves(sup.state)))
+    print(f"11 (d) a checkpoint restored with shardings onto the 1 x 1 mesh: "
+          f"{len(leaves(back))} leaves, all DTensors "
+          f"{all(isinstance(t, DTensor) for t in leaves(back))}, equal {equal}", flush=True)
+    if not equal:
+        fail("11 (d): the checkpoint restored onto the mesh differs from the saved state")
+    rec["d"].update({"resize_losses": got, "uninterrupted_losses": want,
+                     "resize_kernels": resize_counts, "restore_equal": equal})
+    del sup, state, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (f) the captured-graph inventory ---------------------------------------------
+    cfg = get_config(ARCH)
+    params = lm.init_params(cfg, SEED, dev)
+    graphs = Graphs(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=torch.Generator().manual_seed(
+        SEED)).to(dev)
+    prefill_fn = lambda t: lm.prefill(params, cfg, t, max_seq=1024)  # noqa: E731
+    rec["f"] = {}
+    with torch.no_grad():
+        eager = sdfg.extract(prefill_fn, tokens)
+        pre = graphs.step(prefill_fn)
+        pre(tokens)
+        _, caches = pre(tokens)
+        caches = _map(torch.clone, caches)
+        scratch = _map(torch.clone, caches)
+        tok = torch.tensor([7], device=dev)
+        at = torch.tensor([512], dtype=torch.int32, device=dev)
+        eager_tick = sdfg.extract(lambda t, p_: lm.decode_step(params, cfg, t, p_, scratch)[0],
+                                  tok, at)
+        state = {"caches": scratch}
+        tick = graphs.step(lambda t, p_: lm.decode_step(params, cfg, t, p_, state["caches"])[0])
+        tick(tok, at)
+        state["caches"] = caches
+        tick(tok, at)
+        for name, step_, graph in (("prefill", pre, eager), ("decode_tick", tick, eager_tick)):
+            inv = graphanalysis.captured_kernels(step_, graph)
+            rec["f"][name] = inv
+            print(f"11 (f) {ARCH} compiled {name}: {inv['n_kernels']} kernels a replay "
+                  f"(the last of {inv['replays_seen']} in one profiler session), the "
+                  f"port's {json.dumps(inv['port_kernels'])}, the eager SDFG's kernel nodes "
+                  f"{json.dumps(inv['sdfg_kernels'])}, equal {inv['equal']}; top "
+                  f"{json.dumps(inv['kernels'][:6])}", flush=True)
+            if not inv["equal"] or not inv["port_kernels"]:
+                fail(f"11 (f): {name}: a replay's port kernels differ from the eager SDFG's")
+    del params, graphs, pre, tick, caches, scratch, state
+    destroy_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (e) the dry-run cells ------------------------------------------------------
+    rec["e"] = []
+    for (arch, shape, multi), (proc, err_path) in cells.items():
+        try:
+            out, _ = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for p_, _ in cells.values():
+                p_.kill()
+            fail(f"11 (e): the dry-run cell {arch} {shape} took over {MESH_DRYRUN_TIMEOUT_S} s")
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if not lines:
+            print(err_path.read_text(errors="replace")[-3000:], file=sys.stderr, flush=True)
+            fail(f"11 (e): the dry-run cell {arch} {shape} printed no record")
+        r = json.loads(lines[-1])
+        rec["e"].append(r)
+        keep = ("arch", "shape", "mesh", "status", "reason", "hlo_flops_per_dev",
+                "hlo_bytes_per_dev", "collective_bytes_per_dev", "collective_breakdown",
+                "bottleneck", "roofline_fraction", "replicated_ops", "seconds")
+        print(f"11 (e) dryrun {json.dumps({k: r.get(k) for k in keep})} (priced from hw/specs.py's "
+              "H100 figures, not measured)", flush=True)
+        if r["status"] not in ("ok", "skip") or (r["status"] == "skip") != (shape == "long_500k"):
+            fail(f"11 (e): dry-run cell {arch} {shape}: {r.get('status')} {r.get('error', '')}")
+    records["decode_attention_stats"] = {
+        "name": "decode_attention_stats", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:91", "launches": stats_launches,
+        "max_abs_err": err_a, "library_ms": None,
+        **{k: rows[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "shape": rows[1]["shape"], "served_shapes": rows}
+    rec["seconds"] = time.time() - t0
+    print(f"11 mesh and dry-run phase: {rec['seconds']:.1f} s", flush=True)
+    return rec
 
 
 def tune_phase(dev, smi: str, records: dict, kit: dict) -> dict:

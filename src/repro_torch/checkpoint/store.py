@@ -22,6 +22,12 @@ manifest for the same tree.
   the snapshot to host, a copy on every device (on the CPU ``Tensor.cpu()``
   would return the live storage, which the next in-place step changes), and
   writes the files on a thread.
+* **Sharded state.**  A ``DTensor`` leaf is saved as its whole tensor
+  (``full_tensor``, a gather on every rank), so the layout stays the one
+  above and a checkpoint restores onto any mesh: :func:`restore` reads the
+  whole tensors and, given ``shardings``
+  (``distributed.sharding.tree_shardings``), distributes them; and
+  :func:`restore_into` copies each rank's shard into a live DTensor.
 * **Atomicity.**  A checkpoint is written into ``<dir>/.tmp_step_N``,
   fsynced, and renamed to ``step_N`` only then, so a killed writer never
   leaves a half checkpoint that :func:`latest_step` would pick.
@@ -55,9 +61,16 @@ def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _snapshot(state: Tree) -> list[tuple[str, torch.Tensor]]:
-    """Host copies of every leaf (never the live storage)."""
-    return [(k, t.detach().to("cpu", copy=True)) for k, t in _flatten(state)]
+    """Host copies of every leaf (never the live storage); a DTensor's
+    whole tensor."""
+    return [(k, _whole(t.detach()).to("cpu", copy=True)) for k, t in _flatten(state)]
 
 
 def save(directory: str, step: int, state: Tree) -> str:
@@ -108,17 +121,23 @@ def _read(directory: str, step: int, like: Tree):
             yield k, t, _from_numpy(z[k], dtypes[k], t)
 
 
-def restore(directory: str, step: int, like: Tree) -> Tree:
+def restore(directory: str, step: int, like: Tree, shardings: Optional[Tree] = None) -> Tree:
     """A new tree with ``like``'s structure, each leaf read from checkpoint
     ``step`` onto the like leaf's device in its dtype; a stored shape that
-    differs from the like leaf's raises."""
+    differs from the like leaf's raises.  With ``shardings`` (a tree of
+    ``distributed.sharding.Sharding`` in ``like``'s structure), each whole
+    leaf is then distributed onto its mesh: the payload is unsharded, so
+    any target mesh works."""
     flat = {k: host.to(device=t.device, dtype=t.dtype)
             for k, t, host in _read(directory, step, like)}
+    shd = dict(_flatten(shardings)) if shardings is not None else {}
 
     def build(tree: Tree, prefix: str = "") -> Tree:
         if isinstance(tree, dict):
             return {k: build(v, f"{prefix}{k}/") for k, v in tree.items()}
-        return flat[prefix[:-1]]
+        t = flat[prefix[:-1]]
+        s = shd.get(prefix[:-1])
+        return s.distribute(t) if s is not None else t
 
     return build(like)
 
@@ -126,10 +145,18 @@ def restore(directory: str, step: int, like: Tree) -> Tree:
 def restore_into(directory: str, step: int, state: Tree) -> None:
     """Checkpoint ``step`` copied into the tensors of ``state`` in place,
     leaf by leaf from the host: no second copy of the state on its device,
-    and every leaf keeps its storage (a captured graph reads it there)."""
+    and every leaf keeps its storage (a captured graph reads it there).  A
+    DTensor leaf takes this rank's shard of the whole tensor."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
     with torch.no_grad():
         for _, live, host in _read(directory, step, state):
-            live.copy_(host)
+            if isinstance(live, DTensor):
+                shard = distribute_tensor(host.to(live.device), live.device_mesh,
+                                          live.placements)
+                live.to_local().copy_(shard.to_local())
+            else:
+                live.copy_(host)
 
 
 def _from_numpy(a: np.ndarray, dtype: str, like: torch.Tensor) -> torch.Tensor:

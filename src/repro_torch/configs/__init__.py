@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (LayerSpec, MambaConfig, ModelConfig, MoEConfig, RWKVConfig,
-                                      reduced)
+from repro_torch.configs.base import (SHAPES, LayerSpec, MambaConfig, ModelConfig, MoEConfig,
+                                      RWKVConfig, ShapeConfig, reduced, supports_shape)
 
 _ARCH_MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
@@ -38,5 +38,5 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
 
 
-__all__ = ["LayerSpec", "MambaConfig", "ModelConfig", "MoEConfig", "RWKVConfig", "get_config",
-           "list_archs", "reduced"]
+__all__ = ["SHAPES", "LayerSpec", "MambaConfig", "ModelConfig", "MoEConfig", "RWKVConfig",
+           "ShapeConfig", "get_config", "list_archs", "reduced", "supports_shape"]

@@ -5,9 +5,9 @@ periodic sequence of (mixer, ffn) block kinds.  Parameters are stacked per
 pattern position over the periods; the port walks the stacked axis with a
 Python loop.
 
-The copy holds the fields the ported serving and training paths read; each
-has the JAX package's name, default and meaning.  The remaining sharding
-and dry-run fields arrive with the slices that read them (ROADMAP M13).
+The copy holds the fields the ported serving, training and dry-run paths
+read; each has the JAX package's name, default and meaning.  So do the four
+LM shapes (``SHAPES``) and ``supports_shape``, the dry-run's skip rule.
 """
 from __future__ import annotations
 
@@ -93,21 +93,26 @@ class ModelConfig:
     # profiling (the paper's technique): static tracepoints in the step when
     # enabled; see core/tracepoints.py (carried, as in the JAX package)
     tracepoints: bool = False
-    # Carried so that a JAX config carries over, with no effect on one card:
-    # the backward of attention on the card is always the flash backward
-    # (K1b), which is what fused_attention_vjp selects in the JAX package;
+    # Carried so that a JAX config carries over, with no effect here: the
+    # backward of attention on the card is always the flash backward (K1b),
+    # which is what fused_attention_vjp selects in the JAX package;
     # chunk_scan_remat checkpoints the Mamba / RWKV chunked scans, which
-    # have no backward on the card yet (ROADMAP K5b, K6b); and
-    # loss_table_replicated is a sharding choice.
+    # have no backward on the card yet (ROADMAP K5b, K6b); pad_heads_to pads
+    # GSPMD's head axis.
     fused_attention_vjp: bool = False
     chunk_scan_remat: bool = False
-    loss_table_replicated: bool = False
-    # Sharding knobs of the JAX package (GSPMD head padding, activation
-    # constraints, sequence-sharded decode).  On one card they change
-    # nothing; the port accepts them so a JAX config carries over.
     pad_heads_to: int = 0
+    # Sharding knobs (distributed/), acting under an ambient mesh only:
+    # loss_table_replicated gathers the unembed table's embed dim once in
+    # the loss; activation_constraints constrains the prefill's q / k / v by
+    # logical axes; decode_split_kv combines K2's partials across the
+    # devices a decode cache's sequence is sharded over (decode_seq_axes),
+    # its batch over decode_batch_axes.  Without a mesh they change nothing.
+    loss_table_replicated: bool = False
     activation_constraints: bool = False
     decode_split_kv: bool = False
+    decode_seq_axes: tuple = ("model",)
+    decode_batch_axes: tuple = ("pod", "data")
 
     @property
     def period(self) -> int:
@@ -121,6 +126,42 @@ class ModelConfig:
     @property
     def n_periods(self) -> int:
         return (self.n_layers - self.first_k_dense) // self.period
+
+    @property
+    def uses_attention(self) -> bool:
+        return any(s.mixer in ("ga", "swa") for s in self.layer_pattern)
+
+    @property
+    def pure_full_attention(self) -> bool:
+        """True if every mixer is global attention (no locality / recurrence)."""
+        return all(s.mixer == "ga" for s in self.layer_pattern)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+# The JAX package's four LM shapes; decode_* / long_* run the decode step.
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """long_500k requires sub-quadratic attention (the JAX package's rule)."""
+    if shape.name == "long_500k" and cfg.pure_full_attention:
+        return False, (
+            f"{cfg.name} is pure full-attention; a 512k dense KV cache has no "
+            "locality/recurrence structure — skipped per assignment"
+        )
+    return True, ""
 
 
 def reduced(cfg: ModelConfig, *, layers: int | None = None) -> ModelConfig:

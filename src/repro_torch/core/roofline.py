@@ -12,7 +12,9 @@ every aten op the dispatcher saw, and every kernel the port's ``ops``
 entries launched), in place of the JAX package's walk of the optimized HLO
 (``repro/core/hloanalysis.py``).  The larger term is the bottleneck and
 ``step_time_bound_s``, the least time the card could take for the same
-ops.  On one card there is no collective term.
+ops.  On one card there is no collective term; :func:`analyze_sharded`
+prices a step on a mesh, per device, with one (the counterpart of
+``analyze_compiled``).
 
 ``model_flops`` is the yardstick of useful work (the numerator of the
 model FLOP utilisation), arithmetic for arithmetic the JAX package's:
@@ -24,28 +26,12 @@ meta-device ones included.
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Callable, Literal, Optional
+from typing import Any, Callable, Optional
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig  # noqa: F401
 from repro_torch.hw.specs import ChipSpec, default_chip
 
 
-@dataclasses.dataclass(frozen=True)
-class ShapeConfig:
-    name: str
-    seq_len: int
-    global_batch: int
-    kind: Literal["train", "prefill", "decode"]
-
-
-# The JAX package's four LM shapes (repro/configs/base.py).
-SHAPES: dict[str, ShapeConfig] = {
-    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
-    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
-    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
-    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
-}
 
 
 def analyze_step(fn: Callable[..., Any], *args: Any, chip: Optional[ChipSpec] = None,
@@ -78,6 +64,75 @@ def analyze_step(fn: Callable[..., Any], *args: Any, chip: Optional[ChipSpec] = 
         "chip": chip.name,
         "sdfg": graph,
     }
+
+
+def analyze_sharded(fn: Callable[..., Any], args: tuple, mesh: Any,
+                    chip: Optional[ChipSpec] = None,
+                    argument_bytes: Optional[int] = None) -> dict:
+    """Roofline record of one step on a mesh, per device (terms in seconds):
+    the counterpart of the JAX package's ``analyze_compiled``, with its keys.
+
+    ``fn(*args)`` runs once on DTensor ``args`` (``core/graphanalysis.py``),
+    and what one rank ran is priced on ``chip``: the compute term splits
+    tensor-core and other FLOPs as :func:`analyze_step` does, the memory
+    term is bytes over HBM bandwidth, and the collective term is the
+    ring-priced collective bytes over the card's NVLink bandwidth
+    (``link_total_bw``), as the JAX package divides by one ICI link's.
+    ``xla_cost_flops_per_dev`` has no counterpart (None); beside it,
+    ``flop_counter_flops_per_dev`` is ``FlopCounterMode``'s count over the
+    device count: torch's own counter, which sees global shapes and counts
+    products only.  ``memory_analysis`` holds the per-device argument bytes
+    (``argument_bytes``, from ``sharding.shard_bytes_per_device``, or the
+    DTensor args' local shards), and None for what a meta run cannot know.
+    """
+    from repro_torch.core import graphanalysis
+
+    chip = chip or default_chip()
+    n_dev = mesh.size()
+    costs = graphanalysis.analyze_sharded_step(fn, *args, n_devices=n_dev)
+    flops, tc_flops = costs["flops"], costs["tensor_core_flops"]
+    t_compute = tc_flops / chip.peak_flops_bf16 + (flops - tc_flops) / chip.peak_flops_f32
+    t_memory = costs["mem_bytes"] / chip.hbm_bw
+    t_collective = costs["coll_bytes"] / chip.link_total_bw
+    terms = {"compute": t_compute, "memory": t_memory, "collective": t_collective}
+    if argument_bytes is None:
+        argument_bytes = _local_bytes(args)
+    return {
+        "hlo_flops_per_dev": flops,
+        "hlo_bytes_per_dev": costs["mem_bytes"],
+        "collective_bytes_per_dev": costs["coll_bytes"],
+        "collective_breakdown": {k: round(v) for k, v in costs["coll_by_op"].items()},
+        "collective_count": costs["coll_count"],
+        "tensor_core_flops_per_dev": tc_flops,
+        "xla_cost_flops_per_dev": None,
+        "flop_counter_flops_per_dev": costs["flop_counter_flops_per_dev"],
+        "t_compute_s": t_compute,
+        "t_memory_s": t_memory,
+        "t_collective_s": t_collective,
+        "bottleneck": max(terms, key=terms.get),
+        "step_time_bound_s": max(terms.values()),
+        "memory_analysis": {"argument_bytes": argument_bytes, "output_bytes": None,
+                            "temp_bytes": None, "peak_bytes": None},
+        "replicated_ops": costs["replicated"],
+        "nodes": costs["nodes"],
+        "chip": chip.name,
+    }
+
+
+def _local_bytes(tree: Any) -> int:
+    """Bytes of one device's shards of the DTensor leaves (a plain tensor:
+    all of it)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.utils.tree import tree_leaves
+
+    total = 0
+    for t in tree_leaves(tree):
+        if isinstance(t, DTensor):
+            t = t.to_local()
+        if hasattr(t, "element_size"):
+            total += t.numel() * t.element_size()
+    return total
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ one global check).  The components are the H100's:
                                the norm and scan kernels K3, K3b, K5, K6)
     HBM     memory movement   (copies, casts, gathers, concatenation,
                                creation; views move nothing)
-    NVLINK  interconnect      (collectives; none on one card)
+    NVLINK  interconnect      (collectives: none on one card; on a mesh,
+                               ``core/graphanalysis.py`` prices them)
     HOST    the host link     (syncs: .item(), device-to-host copies)
 
 A node's FLOPs: ``torch.utils.flop_counter``'s formulas for products, one
@@ -43,7 +44,6 @@ from typing import Any, Callable, Iterable, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.core import scopes
@@ -83,8 +83,19 @@ def _tensor_bytes(t: torch.Tensor) -> int:
     return n * t.element_size()
 
 
-def _tensors(tree: Any) -> list[torch.Tensor]:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+def _tensors(tree: Any, out: Optional[list] = None) -> list[torch.Tensor]:
+    """The tensors of an op's (args, kwargs) or outputs: tuples, lists and
+    dicts of them (a cheaper walk than a general pytree's)."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            _tensors(v, out)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _tensors(v, out)
+    return out
 
 
 @dataclasses.dataclass
@@ -216,9 +227,13 @@ class Recorder:
         for t in outs:
             self._producer[id(t)] = (weakref.ref(t), node.id)
 
-    def op(self, func: Any, args: Any, kwargs: Any, out: Any) -> None:
+    def op(self, func: Any, args: Any, kwargs: Any, out: Any,
+           ins: Optional[list] = None, outs: Optional[list] = None) -> None:
+        """One aten op (``ins`` / ``outs``: its tensors, when the caller
+        has them already)."""
         prim = func.overloadpacket.__name__
-        ins, outs = _tensors((args, kwargs)), _tensors(out)
+        if ins is None:
+            ins, outs = _tensors((args, kwargs)), _tensors(out)
         backend, product = (HBM, False) if func.is_view else classify(prim, ins + outs)
         if func.is_view or prim in _FREE_PRIMS:
             flops = nbytes = 0.0

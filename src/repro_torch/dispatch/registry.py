@@ -123,6 +123,7 @@ _KERNEL_ROWS = {  # name: (shape, bound ms, kernel ms, plain ms)
     "flash_attention": ("K1 + lse, 4x2048x15/5x64 causal", 0.0326, 0.1893, 5.7676),
     "flash_attention_bwd": ("K1b, 4x2048x15/5x64 causal", 0.0815, 0.3317, 11.8831),
     "decode_attention": ("K2, 8x1024x16/16x128", 0.0201, 0.0464, 0.4090),
+    "decode_attention_stats": ("K2's stats mode, 8x1024x16/16x128", 0.0201, 0.0460, 0.3994),
     "rmsnorm": ("K3, (8192, 960)", 0.00939, 0.0172, 0.1447),
     "rmsnorm_bwd": ("K3b, (8192, 960)", 0.0141, 0.0276, 0.4103),
     "moe_gmm": ("K4, (16,80,8192)@(16,8192,24576)", 1.9482, 2.3070, 25.3464),

@@ -33,7 +33,8 @@ if TYPE_CHECKING:
 
 LAUNCHES: dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0,
                             "moe_gmm": 0, "rwkv6_scan": 0, "mamba_scan": 0,
-                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+                            "decode_attention_stats": 0}
 
 
 def refuse_grad(kernel: str, instead: str, *tensors: torch.Tensor) -> None:

@@ -24,6 +24,12 @@
 //   for bit.  A row with no live slot at all returns zeros, as the Pallas
 //   kernel does (its pl.when(any(ok)) skips every block); the plain
 //   decode_attention_ref returns the mean of V there instead.
+//   In its stats mode (decode_attention_fwd_stats) it writes the row's
+//   unnormalised f32 partials over all its splits instead of out:
+//   acc = sum acc_i e^(m_i - m), m, l = sum l_i e^(m_i - m), i.e.
+//   decode_attention_ref(return_stats=True) over the whole cache, which a
+//   sequence-sharded decode combines across devices; (0, -1e30, 0) for a
+//   row with no live slot.
 //
 // A slot is live iff 0 <= pos <= cur and (no window or pos > cur - window),
 // exactly the Pallas kernel's mask.  A block first marks which of its tiles
@@ -599,12 +605,14 @@ decode_split_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 // a block per (batch row, query head); the split weights e^(m_i - m) go to
 // shared memory first, then D / 4 lanes per split phase sum acc_i, and the
 // phases meet in shared memory.  Every sum runs in a fixed order (no
-// atomics), so the result is reproducible bit for bit.
-template <typename T>
+// atomics), so the result is reproducible bit for bit.  kStats: write the
+// numerator (B, Hq, D), then m (B, Hq), then the denominator (B, Hq) to
+// stats, all f32, and no out.
+template <typename T, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 decode_combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
-                      const float* __restrict__ l, T* __restrict__ o, int Hq, int Hkv, int D,
-                      int n_split) {
+                      const float* __restrict__ l, T* __restrict__ o, float* __restrict__ stats,
+                      int Hq, int Hkv, int D, int n_split) {
   extern __shared__ float wts[];  // [n_split] weights, then [kThreads][kEpt] phase sums
   __shared__ float red[kWarps];
   float* part = wts + n_split;
@@ -654,9 +662,21 @@ decode_combine_kernel(const float* __restrict__ acc, const float* __restrict__ m
     for (int ph = 0; ph < n_phase; ++ph)
 #pragma unroll
       for (int e = 0; e < kEpt; ++e) sum[e] += part[(ph * lanes + tid) * kEpt + e];
-    T* op = o + (static_cast<size_t>(b) * Hq + h) * D + d0;
+    const size_t row = static_cast<size_t>(b) * Hq + h;
+    if constexpr (kStats) {
+      const size_t rows = static_cast<size_t>(gridDim.y) * Hq;
+      float* sa = stats + row * D + d0;
 #pragma unroll
-    for (int e = 0; e < kEpt; ++e) op[e] = from_f32<T>(sum[e] * inv);
+      for (int e = 0; e < kEpt; ++e) sa[e] = sum[e];
+      if (tid == 0) {
+        stats[rows * D + row] = m_all;
+        stats[rows * D + rows + row] = total;
+      }
+    } else {
+      T* op = o + row * D + d0;
+#pragma unroll
+      for (int e = 0; e < kEpt; ++e) op[e] = from_f32<T>(sum[e] * inv);
+    }
   }
 }
 
@@ -665,11 +685,12 @@ decode_combine_kernel(const float* __restrict__ acc, const float* __restrict__ m
 inline int live_flag_bytes(int n_chunk) { return ((n_chunk + 127) / 128) * 16; }
 
 // pass 1 (the split kernel of the instance), then pass 2
+// (stats: the combine's stats mode writes there instead of o)
 template <auto split_kernel, typename T>
 cudaError_t launch_passes(int fixed_smem, const T* q, const T* k, const T* v,
-                          const int* pos, const int* cur, T* o, float* partials, int B, int S,
-                          int Hq, int Hkv, int D, int window, float softcap, float scale,
-                          int n_split, int n_chunk, cudaStream_t stream) {
+                          const int* pos, const int* cur, T* o, float* stats, float* partials,
+                          int B, int S, int Hq, int Hkv, int D, int window, float softcap,
+                          float scale, int n_split, int n_chunk, cudaStream_t stream) {
   const int smem = fixed_smem + live_flag_bytes(n_chunk);
   cudaError_t err = allow_smem<split_kernel>(smem);
   if (err != cudaSuccess) return err;
@@ -682,19 +703,26 @@ cudaError_t launch_passes(int fixed_smem, const T* q, const T* k, const T* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int comb_smem = (n_split + kThreads * kEpt) * 4;
-  err = allow_smem<decode_combine_kernel<T>>(comb_smem);
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<dim3(Hq, B), kThreads, comb_smem, stream>>>(acc, m, l, o, Hq, Hkv,
-                                                                          D, n_split);
+  if (stats != nullptr) {
+    err = allow_smem<decode_combine_kernel<T, true>>(comb_smem);
+    if (err != cudaSuccess) return err;
+    decode_combine_kernel<T, true><<<dim3(Hq, B), kThreads, comb_smem, stream>>>(
+        acc, m, l, o, stats, Hq, Hkv, D, n_split);
+  } else {
+    err = allow_smem<decode_combine_kernel<T, false>>(comb_smem);
+    if (err != cudaSuccess) return err;
+    decode_combine_kernel<T, false><<<dim3(Hq, B), kThreads, comb_smem, stream>>>(
+        acc, m, l, o, stats, Hq, Hkv, D, n_split);
+  }
   return cudaGetLastError();
 }
 
 // bf16 at D 16..256 splits on the tensor cores; f32, and bf16 at D 8, on the CUDA cores
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
-                   const void* cur, void* o, float* partials, int B, int S, int Hq, int Hkv,
-                   int window, float softcap, float scale, int n_split, int n_chunk,
-                   cudaStream_t stream) {
+                   const void* cur, void* o, float* stats, float* partials, int B, int S,
+                   int Hq, int Hkv, int window, float softcap, float scale, int n_split,
+                   int n_chunk, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -703,12 +731,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
   T* ot = static_cast<T*>(o);
   if constexpr (kOnTensorCores<T, D>) {
     return launch_passes<decode_split_mma<D>>(SplitMma<D>::kFixedBytes, qt, kt, vt, pt, ct, ot,
-                         partials, B, S, Hq, Hkv, D, window, softcap, scale, n_split, n_chunk,
-                         stream);
+                         stats, partials, B, S, Hq, Hkv, D, window, softcap, scale, n_split,
+                         n_chunk, stream);
   } else {
     return launch_passes<decode_split_kernel<T, D>>(Split<T, D>::kFixedBytes, qt, kt, vt, pt, ct,
-                         ot, partials, B, S, Hq, Hkv, D, window, softcap, scale, n_split, n_chunk,
-                         stream);
+                         ot, stats, partials, B, S, Hq, Hkv, D, window, softcap, scale, n_split,
+                         n_chunk, stream);
   }
 }
 
@@ -718,11 +746,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
 // B * Hkv * n_split * G * (D + 2) floats of scratch; n_chunk: slots per
 // split, a multiple of the 32-slot tile, with (n_split - 1) * n_chunk < S
 // <= n_split * n_chunk.
-extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                    const void* pos_ids, const void* cur_pos, void* o,
-                                    void* partials, int dtype, int B, int S, int Hq, int Hkv,
-                                    int D, int window, float softcap, float scale, int n_split,
-                                    int n_chunk, void* stream) {
+namespace {
+
+int fwd(const void* q, const void* k, const void* v, const void* pos_ids, const void* cur_pos,
+        void* o, float* stats, void* partials, int dtype, int B, int S, int Hq, int Hkv, int D,
+        int window, float softcap, float scale, int n_split, int n_chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Hq % Hkv != 0 || Hq / Hkv > kMaxG || n_chunk % kTile != 0 || n_split < 1 ||
       static_cast<long long>(n_split) * n_chunk < S || (n_split - 1) * n_chunk >= S)
@@ -730,9 +758,31 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   float* part = static_cast<float*>(partials);
   return with_instance(dtype, D, [&](auto tag, auto d) {
     return launch<typename decltype(tag)::type, decltype(d)::value>(
-        q, k, v, pos_ids, cur_pos, o, part, B, S, Hq, Hkv, window, softcap, scale, n_split,
-        n_chunk, st);
+        q, k, v, pos_ids, cur_pos, o, stats, part, B, S, Hq, Hkv, window, softcap, scale,
+        n_split, n_chunk, st);
   });
+}
+
+}  // namespace
+
+extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
+                                    const void* pos_ids, const void* cur_pos, void* o,
+                                    void* partials, int dtype, int B, int S, int Hq, int Hkv,
+                                    int D, int window, float softcap, float scale, int n_split,
+                                    int n_chunk, void* stream) {
+  return fwd(q, k, v, pos_ids, cur_pos, o, nullptr, partials, dtype, B, S, Hq, Hkv, D, window,
+             softcap, scale, n_split, n_chunk, stream);
+}
+
+// The stats mode: stats gets B * Hq * (D + 2) floats, acc (B, Hq, D), then
+// m (B, Hq), then l (B, Hq), unnormalised, in place of out.
+extern "C" int decode_attention_fwd_stats(const void* q, const void* k, const void* v,
+                                          const void* pos_ids, const void* cur_pos,
+                                          void* stats, void* partials, int dtype, int B, int S,
+                                          int Hq, int Hkv, int D, int window, float softcap,
+                                          float scale, int n_split, int n_chunk, void* stream) {
+  return fwd(q, k, v, pos_ids, cur_pos, nullptr, static_cast<float*>(stats), partials, dtype,
+             B, S, Hq, Hkv, D, window, softcap, scale, n_split, n_chunk, stream);
 }
 
 // What the card made of the split pass that dtype and D run (common.cuh's

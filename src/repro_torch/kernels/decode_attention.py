@@ -25,8 +25,15 @@ in flight.  One call launches two kernels (counted once):
 2. ``decode_combine_kernel``: merges the partials per query row in a fixed
    order (``ref.decode_attention_split_ref`` is the same arithmetic).
 
-A row with no live slot returns zeros, as the Pallas kernel does; the plain
-version returns the mean of V there.  A CPU tensor takes the plain version,
+With ``return_stats=True`` the combine runs in its stats mode: it writes
+each row's unnormalised f32 partials ``(acc, m, l)`` over all its splits
+(out = acc / l), the combinable form of ``ref.decode_attention_ref(
+return_stats=True)`` that ``ops.decode_attention_seq_sharded`` reduces
+across the devices a cache's sequence is sharded over; those launches
+count as ``decode_attention_stats``.
+
+A row with no live slot returns zeros (stats: ``(0, -1e30, 0)``), as the
+Pallas kernel does; the plain version returns the mean of V there.  A CPU tensor takes the plain version,
 :func:`plain` (``ref.decode_attention_ref``); a CUDA tensor launches the
 kernels or raises.
 """
@@ -63,6 +70,8 @@ def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    stats = lib.decode_attention_fwd_stats
+    stats.argtypes, stats.restype = fn.argtypes, ctypes.c_int
     return lib, fn
 
 
@@ -84,13 +93,16 @@ def decode_attention(
     softcap: Optional[float] = None,
     scale: Optional[float] = None,
     waves: int = WAVES,
-) -> torch.Tensor:
+    return_stats: bool = False,
+):
     """q: (B, Hq, D); caches: (B, S, Hkv, D); pos_ids: (B, S) int32;
-    cur_pos: (B,) int32 -> (B, Hq, D) in q's dtype.  ``waves`` is the split
-    plan's knob (:func:`split_plan`); the plain version ignores it."""
+    cur_pos: (B,) int32 -> (B, Hq, D) in q's dtype, or with ``return_stats``
+    the f32 partials acc (B, Hkv, G, D), m and l (B, Hkv, G).  ``waves`` is
+    the split plan's knob (:func:`split_plan`); the plain version ignores
+    it."""
     if q.device.type == "cpu":
         return plain(q, k_cache, v_cache, pos_ids, cur_pos, window=window,
-                     softcap=softcap, scale=scale)
+                     softcap=softcap, scale=scale, return_stats=return_stats)
     refuse_grad("decode_attention", "decode is serving-only, as in the JAX package", q, k_cache,
                 v_cache)
     if q.device.type != "cuda":
@@ -123,15 +135,25 @@ def decode_attention(
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     dev_index = q.device.index if q.device.index is not None else torch.cuda.current_device()
     n_split, chunk = split_plan(B, Hkv, S, _build.sm_count(dev_index), waves)
-    out = torch.empty_like(q)
+    if return_stats:  # acc (B, Hq, D), then m and l (B, Hq), f32
+        out = torch.empty(B * Hq * (D + 2), dtype=torch.float32, device=q.device)
+    else:
+        out = torch.empty_like(q)
     # acc (B, Hkv, n_split, G, D), then m and l (B, Hkv, n_split, G)
     partials = torch.empty(B * Hq * n_split * (D + 2), dtype=torch.float32, device=q.device)
-    lib, fn = _entry()
+    lib = _entry()[0]
+    fn = lib.decode_attention_fwd_stats if return_stats else lib.decode_attention_fwd
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos_ids.data_ptr(),
              cur_pos.data_ptr(), out.data_ptr(), partials.data_ptr(),
              _build.DTYPE_CODES[q.dtype], B, S, Hq, Hkv, D,
              -1 if window is None else int(window), float(softcap or 0.0), float(scale),
              n_split, chunk, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "decode_attention")
-    LAUNCHES["decode_attention"] += 1
-    return out
+    if not return_stats:
+        LAUNCHES["decode_attention"] += 1
+        return out
+    LAUNCHES["decode_attention_stats"] += 1
+    G = Hq // Hkv
+    rows = B * Hq
+    return (out[:rows * D].view(B, Hkv, G, D), out[rows * D:rows * (D + 1)].view(B, Hkv, G),
+            out[rows * (D + 1):].view(B, Hkv, G))

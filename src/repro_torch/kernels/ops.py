@@ -23,6 +23,7 @@ refuse such inputs (ROADMAP R11), and only ``plain`` differentiates them.
 """
 from __future__ import annotations
 
+import sys
 from contextlib import contextmanager
 from typing import Any, Iterator, Mapping, Optional
 
@@ -206,6 +207,87 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+# ---------------------------------------------------------------------------
+# DTensor operands (a step on a mesh, distributed/): each op below runs on
+# every rank's local shards, as GSPMD runs the JAX package's: rows of the
+# batch, and for attention its heads, stay where they are, and a dim the
+# op needs whole (a norm's last dim, a cache's sequence without the split
+# combine, a scan's time) is gathered first.  The kernel or its plain
+# version then sees plain tensors; on a 1 x 1 mesh nothing moves.
+# ---------------------------------------------------------------------------
+
+
+def _dtensor(*ts: Any) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")  # none until something imported it
+    return mod is not None and any(isinstance(t, mod.DTensor) for t in ts)
+
+
+def _mesh_of(*ts: Any):
+    from torch.distributed.tensor import DTensor
+
+    return next(t.device_mesh for t in ts if isinstance(t, DTensor))
+
+
+def _common_plan(specs: list[tuple[torch.Tensor, dict[int, int]]]) -> list:
+    """One placement per mesh dim: ``Shard(d)`` where every DTensor that
+    has plan dim ``d`` shards the dim it maps it to there (``specs``:
+    (tensor, {plan dim: its dim})), else ``Replicate()``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    specs = [(t, dims) for t, dims in specs if isinstance(t, DTensor)]
+    mesh = specs[0][0].device_mesh
+    plan = []
+    for i in range(mesh.ndim):
+        got = None
+        for d in sorted({d for _, dims in specs for d in dims}):
+            having = [(t, dims) for t, dims in specs if d in dims]
+            if all(t.placements[i].is_shard() and t.placements[i].dim == dims[d]
+                   for t, dims in having):
+                got = Shard(d)
+        plan.append(got or Replicate())
+    return plan
+
+
+def _as(t: torch.Tensor, plan: list, dims: dict[int, int], mesh: Any) -> torch.Tensor:
+    """``t``'s local shard under ``plan`` (its plan dim d is ``t``'s dim
+    ``dims[d]``; a dim of the plan ``t`` lacks is replicated, and its
+    gradient from each rank's part of the op is a partial sum there).  A
+    plain tensor is taken as replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    want = [Shard(dims[p.dim]) if p.is_shard() and p.dim in dims else Replicate()
+            for p in plan]
+    if not isinstance(t, DTensor):
+        if all(w.is_replicate() for w in want):
+            return t
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    if list(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    grads = [Partial() if p.is_shard() and w.is_replicate() else w for p, w in zip(plan, want)]
+    return t.to_local(grad_placements=grads)
+
+
+def on_shards(fn, specs: list, out_dims: dict[int, int]) -> Any:
+    """``fn`` on each rank's local shards: ``specs`` is [(tensor or other
+    arg, {plan dim: its dim})]; the plan keeps a plan dim sharded where every
+    DTensor that has it shards it alike, and gathers the rest; the outputs
+    (a tensor or a tuple of them) come back as DTensors whose dims
+    ``out_dims`` map plan dims to."""
+    mesh = _mesh_of(*(a for a, _ in specs))
+    plan = _common_plan([(a, d) for a, d in specs if isinstance(a, torch.Tensor)])
+    out = fn(*(_as(a, plan, d, mesh) if isinstance(a, torch.Tensor) else a for a, d in specs))
+    if isinstance(out, tuple):
+        return tuple(_wrap(o, mesh, plan, out_dims) for o in out)
+    return _wrap(out, mesh, plan, out_dims)
+
+
+def _wrap(out: Any, mesh, plan: list, dims: dict[int, int]) -> Any:
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pl = [Shard(dims[p.dim]) if p.is_shard() and p.dim in dims else Replicate() for p in plan]
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
 class Attention(torch.autograd.Function):
     """Flash attention with the flash backward: the forward saves (q, k, v,
     out, lse); the backward recomputes P from them (K1 and K1b on the card,
@@ -268,6 +350,11 @@ def attention(
     impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Training/prefill attention: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D)."""
+    if _dtensor(q, k, v):  # batch and heads stay sharded
+        bh = {0: 0, 2: 2}
+        return on_shards(lambda *t: attention(*t, causal=causal, window=window, softcap=softcap,
+                                              q_offset=q_offset, impl=impl),
+                         [(q, bh), (k, bh), (v, bh)], bh)
     if _resolve(impl, q) == "plain":
         return _ref.mha_ref(q, k, v, causal=causal, window=window, softcap=softcap,
                             q_offset=q_offset)
@@ -292,6 +379,11 @@ def decode_attention(
     impl: Optional[str] = None,
 ) -> torch.Tensor:
     """One token per sequence against a position-tagged KV cache."""
+    if _dtensor(q, k_cache, v_cache):  # batch and heads stay; the sequence is gathered
+        qd, cd, rd = {0: 0, 2: 1}, {0: 0, 2: 2}, {0: 0}
+        return on_shards(lambda *t: decode_attention(*t, window=window, softcap=softcap,
+                                                     impl=impl),
+                         [(q, qd), (k_cache, cd), (v_cache, cd), (pos_ids, rd), (cur_pos, rd)], qd)
     if _resolve(impl, q) == "plain":
         return _ref.decode_attention_ref(q, k_cache, v_cache, pos_ids, cur_pos,
                                          window=window, softcap=softcap)
@@ -304,10 +396,110 @@ def decode_attention(
     return out
 
 
+def decode_attention_seq_sharded(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos_ids: torch.Tensor,
+    cur_pos: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    seq_axes: tuple[str, ...] = ("model",),
+    batch_axes: tuple[str, ...] = (),
+    impl: Optional[str] = None,
+) -> Optional[torch.Tensor]:
+    """Split-KV decode over a sequence-sharded cache (the flash-decoding
+    combine across devices; ``repro/kernels/ops.py``'s shard_map).
+
+    Each rank computes its cache shard's unnormalised partials (acc, m, l)
+    through K2's stats mode (the plain ``ref.decode_attention_ref(
+    return_stats=True)`` on the CPU), then the ranks all-reduce MAX of m
+    over the ``seq_axes`` group(s), SUM acc e^(m - m_g) and l e^(m - m_g)
+    over them, and divide by max(l_g, 1e-30): only (B, H, D)-sized
+    partials cross devices, never the cache.  A row with no live slot in
+    any shard gives exactly 0 from the kernel (the plain version: the mean
+    of V, ROADMAP R9).
+
+    The mesh is the ambient one (``distributed.constrain.mesh_scope``).
+    DTensor operands are taken shard by shard (``to_local``; q and cur_pos
+    replicated over the sequence axes, the batch as the cache's) and the
+    result is a DTensor replicated there; plain tensors are this rank's
+    shard as they are (a mesh of one device: the whole cache).
+    ``batch_axes`` names the mesh axes the batch is sharded over, as in the
+    JAX signature; the cache's placements say the same.  Returns None where
+    there is no ambient mesh or one of ``seq_axes`` is not in it (the caller
+    falls back to :func:`decode_attention`)."""
+    from repro_torch.distributed.constrain import ambient_mesh, is_dtensor
+
+    mesh = ambient_mesh()
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if mesh is None or not seq_axes or any(a not in names for a in seq_axes):
+        return None
+    del batch_axes  # the cache's placements carry them
+    import torch.distributed._functional_collectives as funcol
+
+    sharded = is_dtensor(k_cache)
+    placements = None
+    if sharded:
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh, placements = k_cache.device_mesh, k_cache.placements
+        # q (B, Hq, D) and cur_pos (B,): the batch placements of the cache,
+        # replicated over every other mesh dim
+        row = [p if (p.is_shard() and p.dim == 0) else Replicate() for p in placements]
+        q, cur_pos = (t.redistribute(mesh, row).to_local() if is_dtensor(t) else t
+                      for t in (q, cur_pos))
+        k_cache, v_cache, pos_ids = (t.to_local() for t in (k_cache, v_cache, pos_ids))
+    if _resolve(impl, q) == "plain":
+        acc, m, l = _ref.decode_attention_ref(q, k_cache, v_cache, pos_ids, cur_pos,
+                                              window=window, softcap=softcap, return_stats=True)
+    else:
+        acc, m, l = _decode_kernel(q, k_cache, v_cache, pos_ids, cur_pos, window=window,
+                                   softcap=softcap, return_stats=True,
+                                   **tuned_overrides("decode_attention", "kernel"))
+        if _sdfg.ACTIVE is not None:
+            B, Hq, D = q.shape
+            _note("decode_attention_stats", (q, k_cache, v_cache, pos_ids, cur_pos),
+                  (acc, m, l), 4 * D * B * Hq * k_cache.shape[1])
+    groups = [(mesh, names.index(a)) for a in seq_axes]
+
+    def over(op: str):
+        def reduce(t: torch.Tensor) -> torch.Tensor:
+            for g in groups:
+                t = funcol.all_reduce(t, op, g)
+            return t
+        return reduce
+
+    out = combine_partials(acc, m, l, over("max"), over("sum"), q.dtype)
+    if sharded:
+        return DTensor.from_local(out, mesh, row, run_check=False)
+    return out
+
+
+def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, all_max, all_sum,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The flash-decoding combine of partials (acc (..., B, Hkv, G, D), m
+    and l (..., B, Hkv, G)) held across ranks or stacked on a leading axis:
+    m_g = all_max(m), then out = all_sum(acc e^(m - m_g)) / max(all_sum(l
+    e^(m - m_g)), 1e-30) -> (B, Hkv * G, D) in ``dtype``.  The mesh path's
+    reductions are all-reduces over the sequence axes; a stack's, a max
+    (keeping the axis) and a sum over it."""
+    m_g = all_max(m)
+    w = torch.exp(m - m_g)
+    acc, l = all_sum(acc * w[..., None]), all_sum(l * w)
+    B, Hkv, G, D = acc.shape
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(B, Hkv * G, D).to(dtype)
+
+
 def rmsnorm(
     x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6, impl: Optional[str] = None
 ) -> torch.Tensor:
     """(1 + scale) RMSNorm, f32 math, x's dtype out."""
+    if _dtensor(x, scale):  # rows stay sharded; each row's D is gathered
+        rows = {d: d for d in range(x.dim() - 1)}
+        return on_shards(lambda a, b: rmsnorm(a, b, eps=eps, impl=impl), [(x, rows), (scale, {})],
+                         rows)
     if _resolve(impl, x) == "plain":
         return _ref.rmsnorm_ref(x, scale, eps=eps)
     if _wants_grad(x, scale):
@@ -351,6 +543,23 @@ def moe_ffn(
     applies the activation to the rounded product in f32, so in bf16 the
     two round at different places, as the JAX package's two routes do.
     """
+    if _dtensor(x, w1, w3, w2):
+        # experts stay where the weights are expert-sharded (x's expert dim
+        # is cut locally to match), the token rows where x's are; the
+        # weights' other shards (FSDP over embed) are gathered
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = _mesh_of(x, w1, w3, w2)
+        plan = []
+        for i in range(mesh.ndim):
+            wp = w1.placements[i] if _dtensor(w1) else Replicate()
+            xp = x.placements[i] if _dtensor(x) else Replicate()
+            plan.append(Shard(0) if wp.is_shard() and wp.dim == 0 else
+                        Shard(1) if xp.is_shard() and xp.dim == 1 else Replicate())
+        xe, we = {0: 0, 1: 1}, {0: 0}
+        out = moe_ffn(_as(x, plan, xe, mesh), *(_as(w, plan, we, mesh) for w in (w1, w3, w2)),
+                      act=act, impl=impl)
+        return _wrap(out, mesh, plan, xe)
     if _resolve(impl, x) == "plain":
         return _ref.moe_ffn_ref(x, w1, w3, w2, act=act)
     h = _gmm(x, w1, act) * _gmm(x, w3)
@@ -376,6 +585,10 @@ def rwkv6_scan(
     package, though the kernel itself walks any T.  ``remat_chunks`` only
     matters for a backward pass; it is accepted and ignored.
     """
+    if _dtensor(r, k, v, w, state):  # batch rows stay sharded
+        b = {0: 0}
+        return on_shards(lambda *t: rwkv6_scan(*t, chunk=chunk, impl=impl),
+                         [(r, b), (k, b), (v, b), (w, b), (u, {}), (state, b)], b)
     T = r.shape[1]
     impl = _resolve(impl, r)
     chunk = _scan_chunk("rwkv6_scan", _tier(impl, r), chunk, T)
@@ -398,7 +611,12 @@ def rwkv6_step(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step of the recurrence: r, k, w (B, H, K); v (B, H, V);
     state (B, H, K, V) -> (out (B, H, V) in r's dtype, state in its dtype).
-    Plain PyTorch, as the JAX package's step is plain jnp."""
+    Plain PyTorch, as the JAX package's step is plain jnp; DTensors run on
+    their shards (batch and heads kept)."""
+    if _dtensor(r, k, v, w, state):
+        bh = {0: 0, 1: 1}
+        return on_shards(rwkv6_step, [(r, bh), (k, bh), (v, bh), (w, bh), (u, {1: 0}),
+                                      (state, bh)], bh)
     rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
     sf = state.float()
     kv = kf[..., :, None] * vf[..., None, :]
@@ -426,6 +644,10 @@ def mamba_scan(
     package, though the kernel itself walks any T.  ``remat_chunks`` only
     matters for a backward pass; it is accepted and ignored.
     """
+    if _dtensor(x, dt, Bm, C, state):  # batch rows stay sharded
+        b = {0: 0}
+        return on_shards(lambda *t: mamba_scan(*t, chunk=chunk, impl=impl),
+                         [(x, b), (dt, b), (A, {}), (Bm, b), (C, b), (D, {}), (state, b)], b)
     T = x.shape[1]
     impl = _resolve(impl, x)
     chunk = _scan_chunk("mamba_scan", _tier(impl, x), chunk, T)
@@ -447,7 +669,12 @@ def mamba_step(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step of the recurrence: x, dt (B, DI); Bm, C (B, N);
     state (B, DI, N) -> (y (B, DI) in x's dtype, state in its dtype).
-    Plain PyTorch, as the JAX package's step is plain jnp."""
+    Plain PyTorch, as the JAX package's step is plain jnp; DTensors run on
+    their shards (batch and channels kept)."""
+    if _dtensor(x, dt, Bm, C, state):
+        bc, b, c = {0: 0, 1: 1}, {0: 0}, {1: 0}
+        return on_shards(mamba_step, [(x, bc), (dt, bc), (A, c), (Bm, b), (C, b), (D, c),
+                                      (state, bc)], bc)
     xf, dtf, bf, cf = (a.float() for a in (x, dt, Bm, C))
     af, df, hf = A.float(), D.float(), state.float()
     h = torch.exp(dtf[..., None] * af[None]) * hf + (dtf * xf)[..., None] * bf[:, None, :]

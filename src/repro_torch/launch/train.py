@@ -73,14 +73,29 @@ installs the design-space winners after the pull and before the steps are
 built, so every captured step runs under them.  The JSON line gains
 ``fleet`` and ``tune`` as the serve driver's.
 
-Not here yet: ``--mesh`` (ROADMAP M13).
+``--mesh DxM`` trains on a ``(data, model)`` mesh: the train state is
+distributed by ``distributed.sharding.rules_for_shape("train", ...)`` (the
+JAX package's rules), the step runs on DTensors under ``mesh_scope`` (eager
+and as ``CompiledTrainStep``), and the JSON line gains ``mesh``, as the JAX
+driver's.  On the card the mesh is one of the machine's cards per rank,
+and the driver refuses a mesh larger than the machine (one H100: ``1x1``,
+an ``nccl`` group of one rank, whose losses equal the run without a mesh
+bit for bit).  With ``--device cpu`` a mesh of N devices is real sharded
+execution over N ``gloo`` ranks that the driver spawns itself, the
+counterpart of the JAX driver's host devices; rank 0 prints the JSON line,
+and each rank checkpoints into its own ``rank<r>`` subdirectory.  Without
+``--mesh`` there is no mesh and no process group (the line's ``mesh`` is
+null).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import os
 import statistics
+import subprocess
+import sys
 import tempfile
 import time
 
@@ -90,6 +105,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.dispatch import with_impl
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.kernels import launch_counts, reset_launches
 from repro_torch.launch.serve import (TracePlane, add_dispatch_args, add_fleet_args,
                                      add_trace_args, add_tune_args, check_tune_args,
@@ -97,7 +114,7 @@ from repro_torch.launch.serve import (TracePlane, add_dispatch_args, add_fleet_a
 from repro_torch.runtime.supervisor import FailureInjector, Supervisor, SupervisorConfig
 from repro_torch.training import optim
 from repro_torch.training.compiled import CompiledTrainStep
-from repro_torch.training.step import TrainConfig, init_train_state
+from repro_torch.training.step import TrainConfig, init_train_state, train_state_axes
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -120,6 +137,8 @@ def main(argv: list[str] | None = None) -> dict:
     add_dispatch_args(ap, "each train step")
     add_fleet_args(ap)
     add_tune_args(ap)
+    ap.add_argument("--mesh", default=None,
+                    help="DxM (data x model) mesh to train on, e.g. 1x1 or 1x2; default: none")
     add_trace_args(ap)
     args = ap.parse_args(argv)
     if args.ckpt_every < 0 or (args.ckpt_every == 0 and args.fail_at):
@@ -129,6 +148,14 @@ def main(argv: list[str] | None = None) -> dict:
         ap.error("--fleet requires --dispatch (static|roofline|profiled)")
     check_tune_args(args, ap)
 
+    if args.mesh is not None:
+        try:
+            mesh_mod.parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+        if args.dispatch != "off":
+            ap.error("--mesh trains one step on its mesh; --dispatch routes between steps: "
+                     "use one of them")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -138,7 +165,12 @@ def main(argv: list[str] | None = None) -> dict:
                               total_steps=args.steps),
         microbatches=args.microbatches,
     )
+    mesh, rank, children = _mesh(args, device, argv)
     state = init_train_state(cfg, tcfg, args.seed, device)
+    if mesh is not None:
+        rules = shd.rules_for_shape("train", global_batch=args.batch, seq_len=args.seq,
+                                    mesh=mesh, n_kv_heads=cfg.n_kv_heads)
+        state = shd.distribute(state, train_state_axes(cfg), rules.param, mesh)
     trace = TracePlane(args, ap, device)
     log = trace.log
     dispatcher, aged = make_dispatcher(args, device, log)
@@ -149,7 +181,7 @@ def main(argv: list[str] | None = None) -> dict:
     tune_rec = tune(args, dispatcher, log)
     trace.open_stream(run_meta, dispatcher, pusher)
     if dispatcher is None:
-        steps = {None: CompiledTrainStep(cfg, tcfg, state)}
+        steps = {None: CompiledTrainStep(cfg, tcfg, state, mesh=mesh)}
         step_variants = None
     else:  # one compiled step per tier, all over the same state tensors
         steps = {t.name: CompiledTrainStep(cfg, tcfg, state)
@@ -166,6 +198,9 @@ def main(argv: list[str] | None = None) -> dict:
     ckpt_ctx = contextlib.nullcontext(args.ckpt_dir) if args.ckpt_dir else \
         tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_")
     with ckpt_ctx as ckpt_dir:
+        if mesh is not None and mesh.size() > 1:
+            # every rank its own checkpoints: a restore never reads another's write
+            ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
         sup = Supervisor(
             SupervisorConfig(ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every,
                              max_steps=args.steps),
@@ -204,6 +239,7 @@ def main(argv: list[str] | None = None) -> dict:
         "compiled": (steps[None].counts() if dispatcher is None
                      else {name: s.counts() for name, s in steps.items()}),
         "losses": losses,
+        "mesh": args.mesh,
         **dispatch_record(args, dispatcher, aged, log),
     }
     if dispatcher is not None:
@@ -218,9 +254,54 @@ def main(argv: list[str] | None = None) -> dict:
         if "error" in final:
             fleet_rec["push"]["error"] = final["error"]
         rec["fleet"] = fleet_rec
-    print(json.dumps(rec), flush=True)
+    if rank == 0:
+        print(json.dumps(rec), flush=True)
     trace.close()
+    if mesh is not None:
+        mesh_mod.destroy_mesh()
+    _join(children)
     return rec
+
+
+def _mesh(args: argparse.Namespace, device: torch.device, argv: list[str] | None):
+    """(mesh or None, this process's rank, the rank processes it spawned).
+
+    On the CPU a mesh of N > 1 devices is N gloo ranks: the first process
+    (no ``RANK`` in its environment) is rank 0 and starts ranks 1..N-1 as
+    copies of itself; on the card every rank needs its own card."""
+    if args.mesh is None:
+        return None, 0, []
+    data, model = mesh_mod.parse_mesh(args.mesh)
+    n = data * model
+    rank, world = mesh_mod.rank_env()
+    children: list = []
+    init = os.environ.get("REPRO_TORCH_INIT")
+    if "RANK" not in os.environ and n > 1:
+        if device.type != "cpu":
+            # one card a rank, all on this machine: build_mesh refuses a mesh
+            # larger than it, as the JAX driver refuses one larger than its devices
+            mesh_mod.build_mesh(args.mesh, device.type)
+        init = f"tcp://localhost:{mesh_mod.free_port()}"
+        cmd = [sys.executable, "-m", "repro_torch.launch.train",
+               *(sys.argv[1:] if argv is None else argv)]
+        for r in range(1, n):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n), REPRO_TORCH_INIT=init)
+            children.append(subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL))
+        rank, world = 0, n
+    mesh_mod.init_world(device.type, rank=rank, world_size=world, init_method=init)
+    try:
+        return mesh_mod.build_mesh(args.mesh, device.type), rank, children
+    except Exception:
+        _join(children, kill=True)
+        raise
+
+
+def _join(children: list, kill: bool = False) -> None:
+    for c in children:
+        if kill:
+            c.kill()
+        if c.wait() != 0 and not kill:
+            raise SystemExit(f"a rank process exited {c.returncode}")
 
 
 if __name__ == "__main__":

@@ -53,6 +53,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import tracepoints as tp
 from repro_torch.core.scopes import scope
+from repro_torch.distributed.constrain import constrain, is_dtensor, place, reduce_partials
 from repro_torch.nn import attention as attn
 from repro_torch.nn import core as nn
 from repro_torch.nn import ffn as ffn_mod
@@ -130,6 +131,43 @@ def init_params(
         gen_device = "cpu" if device.type == "meta" else device
         generator = torch.Generator(device=gen_device).manual_seed(generator)
     return build_params(cfg, nn.ParamFactory(generator, torch_dtype(cfg.param_dtype), device))
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter, as comma-joined strings in the
+    params' tree (``nn.AxesFactory``); ``distributed/sharding.py`` maps
+    them onto a mesh."""
+    return build_params(cfg, nn.AxesFactory())
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The params on the ``meta`` device: shapes and dtypes, no memory."""
+    return init_params(cfg, 0, "meta")
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every cache leaf, in the tree of
+    :func:`init_caches` (the JAX package's ``cache_axes``)."""
+    A = nn.axes_str
+
+    def block_axes(spec: LayerSpec) -> dict:
+        if spec.mixer == "rwkv":
+            c = {"mixer": {"shift": A(("batch", "embed")),
+                           "wkv": A(("batch", "heads", "head_dim", "head_dim"))}}
+        elif spec.mixer == "mamba":
+            c = {"mixer": {"conv": A(("batch", None, "mlp")), "ssm": A(("batch", "mlp", None))}}
+        else:
+            kv = A(("batch", "cache_seq", "kv_heads", "head_dim"))
+            c = {"mixer": {"k": kv, "v": kv, "pos_ids": A(("batch", "cache_seq"))}}
+        if spec.ffn == "rwkv_ffn":
+            c["ffn"] = {"shift": A(("batch", "embed"))}
+        return c
+
+    axes: dict = {name: block_axes(spec) for name, spec in _unscanned_layers(cfg)}
+    if cfg.n_periods > 0:
+        axes["blocks"] = {f"pos{pos}": _map(lambda a: "layers," + a, block_axes(spec))
+                          for pos, spec in enumerate(cfg.layer_pattern)}
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +316,7 @@ def forward(
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
     with scope("embed"):
-        x = nn.embed(params["embed"], tokens, scale_by_dim=cfg.scale_embedding)
+        x = reduce_partials(nn.embed(params["embed"], tokens, scale_by_dim=cfg.scale_embedding))
         x = x.to(torch_dtype(cfg.activation_dtype))
         if cfg.frontend != "text" and frontend_embed is not None:
             x = x + frontend_mod.frontend_apply(params["frontend"], frontend_embed.to(x.dtype))
@@ -324,6 +362,18 @@ def forward(
     return (x, aux, caches) if return_aux else (x, caches)
 
 
+def _batch_shards(x: torch.Tensor) -> int:
+    """Devices the leading (batch) dim of a DTensor is split over; 1 for a
+    plain tensor."""
+    if not is_dtensor(x):
+        return 1
+    n = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard() and p.dim == 0:
+            n *= x.device_mesh.size(i)
+    return n
+
+
 def _logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     table = params["embed"] if cfg.tied_embeddings else params["lm_head"]
     return nn.softcap(nn.unembed(table, hidden), cfg.final_logit_softcap)  # f32
@@ -345,7 +395,9 @@ def loss_fn(
     ``cfg.loss_chunk`` (one chunk of all of them when that does not divide
     B x S, as in the JAX package), each under ``torch.utils.checkpoint``, so
     a chunk's (chunk, V) f32 logits live only while it is computed, as
-    ``jax.checkpoint`` keeps them in the JAX loss.
+    ``jax.checkpoint`` keeps them in the JAX loss.  On a mesh whose devices
+    split the batch rows, a chunk is instead the same number of positions
+    of every row, so each device's chunk is its own rows' tokens.
     """
     hidden, aux, _ = forward(params, cfg, tokens, frontend_embed=frontend_embed, return_aux=True)
     B, S, D = hidden.shape
@@ -353,20 +405,32 @@ def loss_fn(
     chunk = min(cfg.loss_chunk, T)
     if T % chunk:
         chunk = T
-    h = hidden.reshape(T, D)
-    y = labels.reshape(T).long()
     table = params["embed"] if cfg.tied_embeddings else params["lm_head"]
+    if cfg.loss_table_replicated:
+        # the data (FSDP) shard of the table's embed dim would make every
+        # chunk's logits a partial sum; one gather of the table instead
+        table = {"table": constrain(table["table"], "vocab", None)}
 
     def chunk_loss(h_c, y_c):
         logits = nn.softcap(nn.unembed(table, h_c), cfg.final_logit_softcap)  # (chunk, V) f32
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(1, y_c[:, None])[:, 0]
+        gold = reduce_partials(logits.gather(-1, y_c[..., None]))[..., 0]
         return (lse - gold).sum(), lse.square().sum() * cfg.z_loss_weight
 
     nll_sum = z_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c0 in range(0, T, chunk):
-        nll, zl = ckpt.checkpoint(chunk_loss, h[c0:c0 + chunk], y[c0:c0 + chunk],
-                                  use_reentrant=False, preserve_rng_state=False)
+    n_chunks = T // chunk
+    if _batch_shards(hidden) > 1 and S % n_chunks == 0:
+        # Rows sharded over devices: a chunk of the flat token axis would
+        # gather rows across them, so each chunk is S / n_chunks positions
+        # of every row instead (the same tokens a device, its own rows).
+        parts = [(hidden[:, s0:s0 + S // n_chunks], labels[:, s0:s0 + S // n_chunks].long())
+                 for s0 in range(0, S, S // n_chunks)]
+    else:
+        h, y = hidden.reshape(T, D), labels.reshape(T).long()
+        parts = [(h[c0:c0 + chunk], y[c0:c0 + chunk]) for c0 in range(0, T, chunk)]
+    for h_c, y_c in parts:
+        nll, zl = ckpt.checkpoint(chunk_loss, h_c, y_c, use_reentrant=False,
+                                  preserve_rng_state=False)
         nll_sum, z_sum = nll_sum + nll, z_sum + zl
     ce, z = nll_sum / T, z_sum / T
     loss = ce + z + aux
@@ -391,6 +455,8 @@ def prefill(
     """Process the prompt; returns (last-position logits (B, V) f32, caches)."""
     B, S = tokens.shape
     caches = init_caches(cfg, B, max_seq or S, tokens.device)
+    if is_dtensor(tokens):  # a sharded step: its caches live on the mesh too
+        caches = place(caches, cache_axes(cfg), tokens.device_mesh)
     hidden, caches = forward(params, cfg, tokens, frontend_embed=frontend_embed, mode="full",
                              caches=caches)
     logits = _logits(params, cfg, hidden[:, -1])

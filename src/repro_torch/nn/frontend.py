@@ -17,7 +17,7 @@ from repro_torch.nn import core as nn
 
 def frontend_init(pf: nn.ParamFactory, cfg: ModelConfig) -> dict:
     D = cfg.d_model
-    return {"proj": nn.linear_init(pf, (D,), (D,), scale=0.02)}
+    return {"proj": nn.linear_init(pf, (D,), (D,), ("embed",), ("embed_out",), scale=0.02)}
 
 
 def frontend_apply(p: dict, emb: torch.Tensor) -> torch.Tensor:

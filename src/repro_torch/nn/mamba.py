@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.constrain import is_dtensor
 from repro_torch.kernels import ops
 from repro_torch.nn import core as nn
 
@@ -52,18 +53,18 @@ def mamba_init(pf: nn.ParamFactory, cfg: ModelConfig) -> dict:
     f32 = torch.float32
     out_scale = 0.02 / max(1, 2 * cfg.n_layers) ** 0.5
     return {
-        "in_proj": nn.linear_init(pf, (D,), (2 * DI,)),
-        "conv_w": pf.param((DC, DI), scale=1.0 / math.sqrt(DC)),
-        "conv_b": pf.param((DI,), init="zeros"),
-        "x_proj": nn.linear_init(pf, (DI,), (R + 2 * N,)),
-        "dt_proj": nn.linear_init(pf, (R,), (DI,), scale=R**-0.5),
-        "dt_bias": pf.param((DI,), init=dt_bias_init, dtype=f32),
-        "A_log": pf.param((DI, N), init=_a_log_init, dtype=f32),
-        "D": pf.param((DI,), init="ones", dtype=f32),
-        "dt_norm": nn.rmsnorm_init(pf, R),
-        "b_norm": nn.rmsnorm_init(pf, N),
-        "c_norm": nn.rmsnorm_init(pf, N),
-        "out_proj": nn.linear_init(pf, (DI,), (D,), scale=out_scale),
+        "in_proj": nn.linear_init(pf, (D,), (2 * DI,), ("embed",), ("mlp",)),
+        "conv_w": pf.param((DC, DI), (None, "mlp"), scale=1.0 / math.sqrt(DC)),
+        "conv_b": pf.param((DI,), ("mlp",), init="zeros"),
+        "x_proj": nn.linear_init(pf, (DI,), (R + 2 * N,), ("mlp",), (None,)),
+        "dt_proj": nn.linear_init(pf, (R,), (DI,), (None,), ("mlp",), scale=R**-0.5),
+        "dt_bias": pf.param((DI,), ("mlp",), init=dt_bias_init, dtype=f32),
+        "A_log": pf.param((DI, N), ("mlp", None), init=_a_log_init, dtype=f32),
+        "D": pf.param((DI,), ("mlp",), init="ones", dtype=f32),
+        "dt_norm": nn.rmsnorm_init(pf, R, None),
+        "b_norm": nn.rmsnorm_init(pf, N, None),
+        "c_norm": nn.rmsnorm_init(pf, N, None),
+        "out_proj": nn.linear_init(pf, (DI,), (D,), ("mlp",), ("embed",), scale=out_scale),
     }
 
 
@@ -101,6 +102,8 @@ def mamba_apply(
     in place, or None)."""
     B, S, _ = x.shape
     DI, N, DC, _ = _dims(cfg)
+    if mode == "full" and is_dtensor(x):
+        return _mamba_full_sharded(p, x, cfg, cache), cache
     xs, z = nn.linear(p["in_proj"], x).chunk(2, dim=-1)  # (B, S, DI) each
     A = -torch.exp(p["A_log"])
 
@@ -131,3 +134,46 @@ def mamba_apply(
 
     y = y * F.silu(z.float()).to(x.dtype)
     return nn.linear(p["out_proj"], y), cache
+
+
+
+def _mamba_full_sharded(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                        cache: Optional[Cache]) -> torch.Tensor:
+    """:func:`mamba_apply`'s full-sequence mode on DTensors: the in- and
+    out-projections as sharded products (``nn.linear``), and everything
+    between (the split into xs and z, the causal conv, the SSM inputs, the
+    scan, the gate) on each rank's rows, every channel of them: the input
+    projection's output is gathered over the mesh dims that split its
+    channels (splitting it into xs and z, padding and slicing it in time
+    have no DTensor strategy that every torch version gets right).  A cache
+    takes its conv window and final state shard by shard."""
+    inner = {k: v for k, v in p.items() if k not in ("in_proj", "out_proj")}
+    paths = [(k, j) for k, v in sorted(inner.items())
+             for j in (sorted(v) if isinstance(v, dict) else [None])]
+    DI, N, DC, _ = _dims(cfg)
+
+    def body(xz: torch.Tensor, *flat: torch.Tensor):
+        q: dict = {}
+        for (k, j), t in zip(paths, flat):
+            if j is None:
+                q[k] = t
+            else:
+                q.setdefault(k, {})[j] = t
+        xs, z = xz.chunk(2, dim=-1)
+        S = xs.shape[1]
+        padded = F.pad(xs, (0, 0, DC - 1, 0))
+        conv = sum(q["conv_w"][i] * padded[:, i:i + S] for i in range(DC)) + q["conv_b"]
+        xs_c = F.silu(conv.float()).to(xs.dtype)
+        dt, b, c = _ssm_inputs(q, xs_c, cfg)
+        state0 = torch.zeros((xs.shape[0], DI, N), dtype=torch.float32, device=xs.device)
+        y, state = ops.mamba_scan(xs_c, dt.to(xs.dtype), -torch.exp(q["A_log"]), b, c, q["D"],
+                                  state0, chunk=cfg.mamba.chunk)
+        return y * F.silu(z.float()).to(xs.dtype), padded[:, -(DC - 1):], state
+
+    flat = [(inner[k] if j is None else inner[k][j], {}) for k, j in paths]
+    y, window, state = ops.on_shards(body, [(nn.linear(p["in_proj"], x), {0: 0})] + flat, {0: 0})
+    if cache is not None:
+        for name, new in (("conv", window), ("ssm", state)):
+            dst = cache[name]
+            dst.to_local().copy_(new.redistribute(dst.device_mesh, dst.placements).to_local())
+    return nn.linear(p["out_proj"], y)

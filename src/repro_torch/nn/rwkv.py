@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.constrain import is_dtensor
 from repro_torch.kernels import ops
 from repro_torch.nn import core as nn
 
@@ -42,21 +43,21 @@ def time_mix_init(pf: nn.ParamFactory, cfg: ModelConfig) -> dict:
     out_scale = 0.02 / max(1, 2 * cfg.n_layers) ** 0.5
     f32 = torch.float32
     return {
-        "mu_base": pf.param((D,), init="zeros"),
-        "mu": pf.param((len(_TARGETS), D), init="zeros"),
-        "mix_w1": pf.param((D, len(_TARGETS), r.mix_lora)),
-        "mix_w2": pf.param((len(_TARGETS), r.mix_lora, D), init="zeros"),
-        "recv": nn.linear_init(pf, (D,), (H, K)),
-        "key": nn.linear_init(pf, (D,), (H, K)),
-        "value": nn.linear_init(pf, (D,), (H, K)),
-        "gate": nn.linear_init(pf, (D,), (H, K)),
-        "w0": pf.param((H, K), init=_decay_init, dtype=f32),
-        "decay_w1": pf.param((D, r.decay_lora)),
-        "decay_w2": pf.param((r.decay_lora, H, K), init="zeros"),
-        "u": pf.param((H, K), scale=0.5),
-        "ln_scale": pf.param((H, K), init="ones", dtype=f32),
-        "ln_bias": pf.param((H, K), init="zeros", dtype=f32),
-        "out": nn.linear_init(pf, (H, K), (D,), scale=out_scale),
+        "mu_base": pf.param((D,), ("embed",), init="zeros"),
+        "mu": pf.param((len(_TARGETS), D), (None, "embed"), init="zeros"),
+        "mix_w1": pf.param((D, len(_TARGETS), r.mix_lora), ("embed", None, None)),
+        "mix_w2": pf.param((len(_TARGETS), r.mix_lora, D), (None, None, "embed"), init="zeros"),
+        "recv": nn.linear_init(pf, (D,), (H, K), ("embed",), ("heads", "head_dim")),
+        "key": nn.linear_init(pf, (D,), (H, K), ("embed",), ("heads", "head_dim")),
+        "value": nn.linear_init(pf, (D,), (H, K), ("embed",), ("heads", "head_dim")),
+        "gate": nn.linear_init(pf, (D,), (H, K), ("embed",), ("heads", "head_dim")),
+        "w0": pf.param((H, K), ("heads", "head_dim"), init=_decay_init, dtype=f32),
+        "decay_w1": pf.param((D, r.decay_lora), ("embed", None)),
+        "decay_w2": pf.param((r.decay_lora, H, K), (None, "heads", "head_dim"), init="zeros"),
+        "u": pf.param((H, K), ("heads", "head_dim"), scale=0.5),
+        "ln_scale": pf.param((H, K), ("heads", "head_dim"), init="ones", dtype=f32),
+        "ln_bias": pf.param((H, K), ("heads", "head_dim"), init="zeros", dtype=f32),
+        "out": nn.linear_init(pf, (H, K), (D,), ("heads", "head_dim"), ("embed",), scale=out_scale),
     }
 
 
@@ -64,11 +65,11 @@ def channel_mix_init(pf: nn.ParamFactory, cfg: ModelConfig) -> dict:
     D, Fd = cfg.d_model, cfg.d_ff
     out_scale = 0.02 / max(1, 2 * cfg.n_layers) ** 0.5
     return {
-        "mu_k": pf.param((D,), init="zeros"),
-        "mu_r": pf.param((D,), init="zeros"),
-        "wk": nn.linear_init(pf, (D,), (Fd,)),
-        "wv": nn.linear_init(pf, (Fd,), (D,), scale=out_scale),
-        "wr": nn.linear_init(pf, (D,), (D,)),
+        "mu_k": pf.param((D,), ("embed",), init="zeros"),
+        "mu_r": pf.param((D,), ("embed",), init="zeros"),
+        "wk": nn.linear_init(pf, (D,), (Fd,), ("embed",), ("mlp",)),
+        "wv": nn.linear_init(pf, (Fd,), (D,), ("mlp",), ("embed",), scale=out_scale),
+        "wr": nn.linear_init(pf, (D,), (D,), ("embed",), ("embed_out",)),
     }
 
 
@@ -84,8 +85,14 @@ def _ddlerp(p: dict, x: torch.Tensor, sx: torch.Tensor) -> list[torch.Tensor]:
     LoRA runs in f32."""
     dx = sx - x
     xx = x + dx * p["mu_base"].to(x.dtype)
-    lo = torch.tanh(torch.einsum("bsd,dnr->bsnr", xx.float(), p["mix_w1"].float()))
-    delta = torch.einsum("bsnr,nrd->bsnd", lo, p["mix_w2"].float())  # (B, S, n, D)
+    if is_dtensor(xx):  # the same products as nn.linear's, which a mesh can split
+        lo = torch.tanh(nn.linear({"w": p["mix_w1"].float()}, xx.float()))
+        w2 = p["mix_w2"].float()
+        delta = torch.stack([nn.linear({"w": w2[i]}, lo[:, :, i]) for i in range(len(_TARGETS))],
+                            dim=2)
+    else:
+        lo = torch.tanh(torch.einsum("bsd,dnr->bsnr", xx.float(), p["mix_w1"].float()))
+        delta = torch.einsum("bsnr,nrd->bsnd", lo, p["mix_w2"].float())  # (B, S, n, D)
     return [x + dx * (p["mu"][i].float() + delta[:, :, i]).to(x.dtype)
             for i in range(len(_TARGETS))]
 
@@ -109,7 +116,10 @@ def time_mix_apply(
     v = nn.linear(p["value"], xv)
     g = nn.linear(p["gate"], xg)
     lw = torch.tanh(xw.float() @ p["decay_w1"].float())
-    lw = torch.einsum("bsr,rhk->bshk", lw, p["decay_w2"].float())
+    if is_dtensor(lw):
+        lw = nn.linear({"w": p["decay_w2"].float()}, lw)
+    else:
+        lw = torch.einsum("bsr,rhk->bshk", lw, p["decay_w2"].float())
     w = torch.exp(-torch.exp(p["w0"][None, None] + lw))  # (B, S, H, K) in (0, 1)
 
     state0 = (cache["wkv"].float() if cache is not None

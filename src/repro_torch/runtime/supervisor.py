@@ -34,7 +34,14 @@
   copies into the tensors every variant's graph reads, so each still
   serves after a restart.
 
-The reference's ``resize`` (ROADMAP M13) comes with that item.
+* **Elastic re-mesh.**  :meth:`Supervisor.resize` moves the live state
+  onto a new mesh (or off every mesh) with a ``reshard_fn(state, mesh) ->
+  (state, shardings)`` (``distributed.sharding.reshard`` with the axes and
+  rules bound), under an ``elastic_resize`` lifecycle span.  The resized
+  state is new tensors, so a step bound to the old ones (a compiled step)
+  must be rebuilt; the eager step takes either.  ``state_shardings``
+  records the state's shardings (None: whole tensors), and a restore
+  copies each rank's shard into the live DTensors.
 """
 from __future__ import annotations
 
@@ -96,6 +103,7 @@ class Supervisor:
         batch_fn: Callable[[int], Any],
         init_state: Tree,
         *,
+        state_shardings: Optional[Tree] = None,
         log: Optional[EventLog] = None,
         failures: Optional[FailureInjector] = None,
         dispatcher: Optional[Dispatcher] = None,
@@ -113,6 +121,7 @@ class Supervisor:
         self._configs: Optional[dict] = None
         self.stream = stream
         self.state = init_state
+        self.state_shardings = state_shardings
         self.log = GLOBAL_LOG if log is None else log
         self.failures = failures or FailureInjector()
         self.ckpt = AsyncCheckpointer(cfg.ckpt_dir)
@@ -132,6 +141,15 @@ class Supervisor:
                 return
             restore_into(self.cfg.ckpt_dir, last, self.state)
             self.step = last
+
+    def resize(self, new_mesh: Optional[Any],
+               reshard_fn: Callable[[Tree, Optional[Any]], tuple[Tree, Optional[Tree]]]
+               ) -> None:
+        """Elastic re-mesh: move the live state onto ``new_mesh`` (None: off
+        every mesh)."""
+        shape = None if new_mesh is None else tuple(new_mesh.shape)
+        with self.log.lifecycle("elastic_resize", {"mesh": str(shape)}):
+            self.state, self.state_shardings = reshard_fn(self.state, new_mesh)
 
     # -- main loop -----------------------------------------------------------
 

@@ -32,6 +32,11 @@ was enabled around the eager call and the capture, empty otherwise.  On a
 CPU device there is no graph: every call runs the step eagerly through the
 static buffers.  A capture or replay that fails raises; nothing runs
 eagerly in its place.
+
+On a mesh (``mesh``, a ``DeviceMesh``; ``launch.train --mesh``) the state
+is DTensors (``distributed.sharding.distribute``) and the step is
+``training.step.on_mesh``'s: the staged batch, the same on every rank,
+becomes DTensors cut locally.
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tracepoints as tp
 from repro_torch.serving.compiled import Graphs
 from repro_torch.training.optim import leaves
-from repro_torch.training.step import TrainConfig, make_train_step
+from repro_torch.training.step import TrainConfig, make_train_step, on_mesh
 
 
 class CompiledTrainStep:
@@ -51,9 +56,10 @@ class CompiledTrainStep:
     for the one state it was built for, as the replay of a captured graph
     on the state's device (eager on the CPU)."""
 
-    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, state: dict) -> None:
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, state: dict,
+                 mesh: Any = None) -> None:
         self._leaves = leaves(state)
-        step = tp.collect(make_train_step(cfg, tcfg))
+        step = tp.collect(on_mesh(make_train_step(cfg, tcfg), mesh))
 
         def fn(tokens: torch.Tensor, labels: torch.Tensor, *embed: torch.Tensor
                ) -> tuple[dict, dict]:
@@ -80,4 +86,5 @@ class CompiledTrainStep:
         inputs = (batch["tokens"], batch["labels"]) + (() if fe is None else (fe,))
         metrics, self.tape = self.compiled(*inputs)  # raises on another input set
         return state, metrics
+
 

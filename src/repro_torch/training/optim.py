@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import Any
 
 import torch
@@ -88,6 +89,11 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
 
 
+def _sharded(t: torch.Tensor) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")  # none until something imported it
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
 @torch.no_grad()
 def adamw_update(
     params: Tree, grads: Tree, state: dict, opt: AdamWConfig
@@ -108,9 +114,13 @@ def adamw_update(
         if not (p.is_contiguous() and mu.is_contiguous() and nu.is_contiguous()):
             raise ValueError("adamw_update: params and moments must be contiguous (updated in "
                              "place through flat views)")
-        flat = [t.reshape(-1) for t in (p, g, mu, nu)]
-        for i in range(0, p.numel(), UPDATE_CHUNK):
-            pc, gc, mc, nc = (t[i:i + UPDATE_CHUNK] for t in flat)
+        if _sharded(p):  # a DTensor's update runs on its local shards whole
+            chunks = [(p, g, mu, nu)]
+        else:
+            flat = [t.reshape(-1) for t in (p, g, mu, nu)]
+            chunks = [tuple(t[i:i + UPDATE_CHUNK] for t in flat)
+                      for i in range(0, p.numel(), UPDATE_CHUNK)]
+        for pc, gc, mc, nc in chunks:
             gc = gc.float() * clip
             mu32 = b1 * mc.float() + (1 - b1) * gc
             nu32 = b2 * nc.float() + (1 - b2) * gc.square()

@@ -51,6 +51,17 @@ def init_train_state(
     return {"params": params, "opt": optim.init_opt_state(params, opt_cfg)}
 
 
+def abstract_train_state(cfg: ModelConfig, tcfg: TrainConfig) -> dict:
+    """The train state on the ``meta`` device: shapes and dtypes only."""
+    return init_train_state(cfg, tcfg, 0, "meta")
+
+
+def train_state_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of the whole train state (the moments mirror the params)."""
+    p_axes = lm.param_axes(cfg)
+    return {"params": p_axes, "opt": {"mu": p_axes, "nu": p_axes, "step": ""}}
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
@@ -115,3 +126,54 @@ def _grad(loss: torch.Tensor, leaves: list[torch.Tensor]) -> tuple[torch.Tensor,
     """d loss / d each leaf; zeros for a leaf the loss does not reach, as
     ``jax.grad`` gives."""
     return torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+
+
+def on_mesh(train_step: Callable, mesh: Any) -> Callable:
+    """``train_step`` for a state that may live on ``mesh`` (DTensors,
+    ``distributed.sharding.distribute``) or on no mesh (plain tensors), as
+    the state is at each call (``Supervisor.resize`` moves it): on the mesh
+    the step runs under ``mesh_scope(mesh)``, plain tensors it creates
+    taken as replicated, the batch (the same whole batch on every rank) cut
+    into each rank's rows (:func:`shard_batch`), and the metrics come back
+    whole.  ``mesh`` None: ``train_step`` itself."""
+    if mesh is None:
+        return train_step
+
+    def step(state: dict, batch: dict) -> tuple[dict, dict]:
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        from repro_torch.distributed.constrain import is_dtensor, mesh_scope
+
+        if not is_dtensor(optim.leaves(state["params"])[0]):
+            return train_step(state, batch)
+        with mesh_scope(mesh), implicit_replication():
+            state, metrics = train_step(state, shard_batch(batch, mesh))
+        return state, {k: _whole(v) for k, v in metrics.items()}
+
+    return step
+
+
+def shard_batch(batch: dict, mesh: Any) -> dict:
+    """The whole batch (the same on every rank) as DTensors under the
+    activation rules (``batch, seq[, embed]``), each rank's rows cut
+    locally: no communication."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.distributed.sharding import ACT_RULES, placements, spec_for
+
+    out = {}
+    for k, t in batch.items():
+        axes = "batch,seq,embed" if t.dim() == 3 else "batch,seq"
+        pl = placements(spec_for(tuple(t.shape), axes, ACT_RULES, mesh), mesh)
+        shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+        local = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+        out[k] = DTensor.from_local(local, mesh, pl, run_check=False)
+    return out
+
+
+def _whole(t: Any) -> Any:
+    """A 0-dim metric as a plain tensor (its replicated value)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t

@@ -118,6 +118,33 @@ def test_trace_module_imports_no_jax_no_repro(module):
     assert "import repro." not in source and "import triton" not in source
 
 
+# ROADMAP M13 and M11's hloanalysis counterpart: sharding over a DeviceMesh,
+# the meta-device dry-run and its pricing; each imports alone, without JAX,
+# the JAX package (not even its jax-free pieces) or triton, and none of them
+# starts a process group on import
+MESH_MODULES = ["repro_torch.utils.tree", "repro_torch.distributed",
+                "repro_torch.distributed.sharding", "repro_torch.distributed.constrain",
+                "repro_torch.launch.mesh", "repro_torch.launch.inputs",
+                "repro_torch.launch.dryrun", "repro_torch.core.graphanalysis"]
+
+_IMPORT_NO_GROUP = _IMPORT_ONE + r"""
+import torch.distributed as dist
+assert not dist.is_initialized()
+"""
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_mesh_module_imports_no_jax_no_repro(module):
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_NO_GROUP, module], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    path = REPO / "src" / module.replace(".", "/")
+    source = (path / "__init__.py" if path.is_dir() else path.with_suffix(".py")).read_text()
+    assert "import jax" not in source and "from repro." not in source
+    assert "import repro." not in source and "import triton" not in source
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     """No card here: chip_smoke.py exits non-zero and prints no result line,

@@ -2,8 +2,9 @@
 the supervisor and the compiled train step.
 
 Mirrors ``tests/test_runtime.py`` (round trip, async writes with garbage
-collection, atomic writes, restart determinism, giving up, stragglers; the
-mesh reshard waits for ROADMAP M13) and adds what the port must keep
+collection, atomic writes, restart determinism, giving up, stragglers, a
+checkpoint restored onto a mesh; and ``Supervisor.resize`` off a 1 x 1
+gloo mesh and back mid-run, equal to the run that never moved) and adds what the port must keep
 across the two packages: a checkpoint the JAX store wrote, bf16 leaves
 included, read bit for bit (ROADMAP R12); the same manifest as the JAX
 store's; a snapshot that is a copy; a restore into the live tensors; the
@@ -417,3 +418,92 @@ def test_train_driver_refuses_failures_without_checkpoints(capsys):
         train_cli.main(["--arch", "smollm-360m", "--reduced", "--device", "cpu", "--steps", "4",
                         "--ckpt-every", "0", "--fail-at", "2"])
     assert "--fail-at needs checkpoints" in capsys.readouterr().err
+
+
+def _local_mesh():
+    from repro_torch.launch.mesh import make_local_mesh
+
+    return make_local_mesh("cpu")
+
+
+def test_elastic_reshard_across_meshes(tmp_path):
+    """A checkpoint of whole tensors restores onto a mesh (``shardings``),
+    and a sharded state is saved whole (the JAX test at 1-device scale:
+    1 x 1)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import destroy_mesh
+
+    state = {"w": torch.arange(64.0).reshape(8, 8), "b": torch.arange(8.0)}
+    axes = {"w": "embed,mlp", "b": "mlp"}
+    save(str(tmp_path), 1, state)
+    mesh = _local_mesh()
+    try:
+        shardings = shd.tree_shardings(axes, state, shd.PARAM_RULES, mesh)
+        got = restore(str(tmp_path), 1, state, shardings=shardings)
+        assert isinstance(got["w"], DTensor) and got["w"].device_mesh is mesh
+        assert tuple(got["w"].placements) == shardings["w"].placements
+        assert torch.equal(got["w"].full_tensor(), state["w"])
+        save(str(tmp_path), 2, got)  # a DTensor leaf is written whole
+        back = restore(str(tmp_path), 2, state)
+        assert not isinstance(back["w"], DTensor) and torch.equal(back["w"], state["w"])
+        live = shd.distribute({k: torch.zeros_like(v) for k, v in state.items()}, axes,
+                              shd.PARAM_RULES, mesh)
+        ptr = live["w"].to_local().data_ptr()
+        restore_into(str(tmp_path), 1, live)  # each rank's shard, in place
+        assert live["w"].to_local().data_ptr() == ptr
+        assert torch.equal(live["w"].full_tensor(), state["w"])
+    finally:
+        destroy_mesh()
+
+
+def test_supervisor_resize_mid_run_equals_the_run_that_never_moved(tmp_path):
+    """Two steps on a 1 x 1 mesh, off it for two, back on it for two, with a
+    restart (a restore into the sharded state) after the move back: the
+    losses equal the plain run's bit for bit, and each move is an
+    ``elastic_resize`` span."""
+    import functools
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import destroy_mesh
+    from repro_torch.training.step import on_mesh, train_state_axes
+
+    cfg, tcfg, plain_state, step, batch_fn = _mk()
+    plain = Supervisor(SupervisorConfig(ckpt_dir=str(tmp_path / "plain"), ckpt_every=0,
+                                        max_steps=6), step, batch_fn, plain_state)
+    want = [m["loss"] for m in plain.run()["metrics"]]
+    _, _, state, _, _ = _mk()
+    mesh = _local_mesh()
+    try:
+        reshard = functools.partial(shd.reshard, tree_axes=train_state_axes(cfg),
+                                    rules=shd.PARAM_RULES)
+
+        def move(tree, new_mesh):
+            return reshard(tree, mesh=new_mesh)
+
+        state, shardings = move(state, mesh)
+        log = EventLog()
+        sup = Supervisor(SupervisorConfig(ckpt_dir=str(tmp_path / "moved"), ckpt_every=2,
+                                          max_steps=2),
+                         on_mesh(step, mesh), batch_fn, state, state_shardings=shardings,
+                         log=log, failures=FailureInjector((5,)))
+        got = [m["loss"] for m in sup.run()["metrics"]]
+        sup.resize(None, move)
+        assert sup.state_shardings is None
+        assert not isinstance(sup.state["params"]["embed"]["table"], DTensor)
+        sup.cfg.max_steps = 4
+        got += [m["loss"] for m in sup.run()["metrics"]]
+        sup.resize(mesh, move)
+        assert isinstance(sup.state["params"]["embed"]["table"], DTensor)
+        assert sup.state["params"]["embed"]["table"].is_leaf
+        sup.cfg.max_steps = 6
+        out = sup.run()
+        assert out["restarts"] == 1  # step 5 failed: restored from step 4's checkpoint
+        got += [m["loss"] for m in out["metrics"]][-2:]
+        assert got == want
+        assert len(log.events("spawn", "elastic_resize")) == 2
+    finally:
+        destroy_mesh()

@@ -31,7 +31,7 @@ from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 
 ARCHS = ["qwen2-0.5b", "smollm-360m"]
 KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "moe_gmm", "rwkv6_scan", "mamba_scan",
-           "flash_attention_bwd", "rmsnorm_bwd")
+           "flash_attention_bwd", "rmsnorm_bwd", "decode_attention_stats")
 REPO = Path(__file__).resolve().parents[1]
 
 
