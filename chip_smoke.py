@@ -182,7 +182,7 @@ failure of which exits non-zero:
    kernels; wall / busy / idle, host ops, kernels, median step, tokens/s,
    peak memory of the two, and the replay at most COMPILED_TICK_HOST_OPS
    host ops; (j) the compiled bf16
-   step under ``runtime/supervisor.py``'s ``Supervisor`` for 20 steps, a
+   step under ``runtime/supervisor.py``'s ``Supervisor`` for SUP_STEPS steps, a
    checkpoint every SUP_CKPT_EVERY, a node failure injected before step
    SUP_FAIL_AT, in a temporary directory removed at the end: one restart,
    each step's last loss equal bit for bit to (e')'s, still one capture,
@@ -209,7 +209,7 @@ failure of which exits non-zero:
    (i) ``python -m repro_torch.launch.train --arch smollm-360m --steps 20
    --ckpt-dir <tmp> --fail-at 7`` in a child process: one restart, one
    capture, its loss falling; (k) the dense archs of DENSE_TRAIN (gemma3-4b and
-   musicgen-large cut to 12 layers, gemma2-27b and chameleon-34b to 4) at
+   musicgen-large cut to 6 layers, gemma2-27b and chameleon-34b to 4) at
    full width through ``train_checks``, as smollm-360m in
    (d)-(f'): the f32 steps at DENSE_GATE_LAYERS layers, DENSE_TRAIN_STEPS
    bf16 steps at 4 x 2048 on one batch eagerly and then compiled (the loss
@@ -218,7 +218,22 @@ failure of which exits non-zero:
    and no other K1b instance; K1b's ms a step); then ``python -m
    repro_torch.launch.train --arch gemma3-4b`` (DENSE_CLI_ARGS, no
    checkpoints; full depth) in a child process: one capture, every step's
-   K1b launches, its loss falling;
+   K1b launches, its loss falling; (l) K4b, the grouped matmul's backward
+   (``csrc/moe_gmm_bwd.cu``: the gated dgrad, the dgrad and the wgrad),
+   against its plain versions relative to each result's max |.| (K4B_TOL)
+   at deepseek-moe-16b's training shape K4B_SHAPE in bf16 and f32, at a
+   shape ragged against every tile on the cp.async instance and at one
+   with C off 16 rows and D, F off 8 (the element-wise instance), silu and
+   gelu, each launch twice and bitwise equal; each kernel and a whole MoE
+   layer's backward timed with L2 flushed beside its bound, plain version
+   and ``torch.bmm`` on the same (transposed) views; then deepseek-moe-16b
+   at full width, MOE_TRAIN_LAYERS of 28 layers, through
+   ``train_checks`` as the dense archs in (k) (the f32 gates at
+   MOE_GATE_LAYERS, bf16 steps eager and compiled with K4's and K4b's exact
+   launches, replays equal to eager, the loss falling, a replayed step's
+   profile naming ``gmm_mma`` and K4b's three kernels); and ``python -m
+   repro_torch.launch.train`` with MOE_CLI_ARGS in a child process (f32,
+   one capture, exact K4 / K4b / K1b launches);
 6. the paper's measurement layer (``core/``): (a) Table I, the hyperfine
    protocol (TABLE1_MICRO warm-up and measured calls) on the microbench
    (``configs/microbench.py``), baseline / usdt (tape-mode tracepoints) /
@@ -420,6 +435,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -507,7 +523,8 @@ GRAPH_LAUNCHES = 256  # K3 launches captured in one graph to time a launch insid
 PROFILER_SESSIONS = 3  # sessions a profile may open before one sees the card's kernels
 # serving launches no backward kernel, and not K2's stats mode (the split-KV
 # decode across the devices of a mesh; phase 11)
-NOT_SERVED = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0, "decode_attention_stats": 0}
+NOT_SERVED = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0, "decode_attention_stats": 0,
+              "moe_gmm_bwd": 0}
 TRAIN_ARCH = "smollm-360m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20  # phase 5 (e): 20 bf16 steps of 8192 tokens
 # the schedule launch.train gives a run of TRAIN_STEPS steps: peak 3e-4 after
@@ -531,7 +548,7 @@ F32_LOSS_RTOL, F32_GRAD_TOL = 1e-4, 1e-3
 GRAPH_TRAIN_F32_TOL = 1e-6
 # phase 5 (j): the supervised compiled run, a checkpoint every 8 steps and a
 # node failure injected before step 11 (the restart restores step 8)
-SUP_CKPT_EVERY, SUP_FAIL_AT = 8, 11
+SUP_STEPS, SUP_CKPT_EVERY, SUP_FAIL_AT = 12, 8, 11
 CLI_FAIL_AT = 7  # phase 5 (i): --fail-at of the driver's run (restores step 0)
 CLI_TIMEOUT_S = 300  # phase 5 (i): python -m repro_torch.launch.train on the card
 K3B_CALLS = 10  # phase 5 (g): K3b calls under torch.profiler, one kernel each
@@ -542,10 +559,11 @@ K3B_OVERLAP_ROUNDS = 8  # phase 5 (c): K3b calls on each of two streams at once
 # gemma2-27b and chameleon-34b are cut to 4 of 46 / 48 layers (gemma2: two
 # periods of (swa, ga)): whole, their bf16 params and grads and f32
 # moments, 12 bytes a parameter, take 326 and 412 GB.  gemma3-4b and
-# musicgen-large are cut to 12 of 34 / 48 (gemma3: two periods of its 5:1
-# pattern) to hold the whole run under its time limit; (k4)'s launch.train
+# musicgen-large are cut to 6 of 34 / 48 (gemma3: one period of its 5:1
+# pattern, local and global layers) to hold the whole run under its time
+# limit; (k4)'s launch.train
 # child still trains gemma3-4b whole
-DENSE_TRAIN = {GEMMA3_ARCH: (12, 4), MUSICGEN_ARCH: (12, 4), GEMMA2_ARCH: (4, 4),
+DENSE_TRAIN = {GEMMA3_ARCH: (6, 4), MUSICGEN_ARCH: (6, 4), GEMMA2_ARCH: (4, 4),
                CHAMELEON_ARCH: (4, 4)}
 DENSE_TRAIN_SEQ = 2048
 # (b), (c), (g): K1b and K3b at 4 x 2048 tokens of each arch's heads and widths
@@ -566,6 +584,31 @@ DENSE_GATE_LAYERS = 2
 DENSE_CLI_ARCH = GEMMA3_ARCH
 DENSE_CLI_ARGS = ("--steps", "6", "--batch", "4", "--seq", "2048", "--lr", "1e-3",
                   "--ckpt-every", "0")
+# phase 5 (l): deepseek-moe-16b, the arch K4b brings to the card, trained at
+# full width cut to its first MOE_TRAIN_LAYERS of 28 layers (the dense layer
+# and three MoE layers, ~2.27 B parameters, ~27 GB at 12 bytes a parameter;
+# whole it would take ~197 GB) at MOE_TRAIN_BATCH x DENSE_TRAIN_SEQ tokens,
+# the dense archs' way (train_checks); its f32 gates at the dense layer and
+# one MoE layer
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_GATE_LAYERS = 4, 4, 2
+# K4b against its plain version: (E, C, D, F) of the slice's MoE layers (4 x
+# 2048 tokens in groups of 2048: capacity 240 a group, 960 rows an expert);
+# one shape ragged against every 128-row / -column tile but on the
+# cp.async instance (D, F multiples of 8); one with C off 16 rows, D and F
+# off 8 (the element-wise bf16 instance)
+K4B_SHAPE = (64, 960, 2048, 1408)
+K4B_RAGGED_VEC = (3, 75, 264, 136)
+K4B_RAGGED = (3, 75, 196, 100)
+# each K4b gradient relative to its max |.|: in f32 kernel and plain version
+# sum the same f32 products (up to 2 x 1408 a element) in other orders
+# (~1e-6 expected); in bf16 both round the same f32 value once, so a
+# difference is one bf16 step (2^-8 of the element) where the two sums
+# straddle a rounding boundary
+K4B_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+K4B_KERNELS = ("gmm_dgrad_gated", "gmm_dgrad", "gmm_wgrad")  # (a), (b), (c)
+# launch.train's child run of the MoE arch at its smoke size (f32,
+# 8 experts of 32 at d 64: the f32 and ragged-capacity instances)
+MOE_CLI_ARGS = ("--arch", MOE_ARCH, "--reduced", "--steps", "6", "--ckpt-every", "0")
 # a named scope of the model (core/scopes.py), as torch.profiler names its range
 SCOPE_NAME = re.compile(r"^(embed|final_norm|(head|tail)\d+|pos\d+_[a-z]+_[a-z_]+|mixer_[a-z]+"
                         r"|ffn_[a-z_]+)$")
@@ -609,7 +652,7 @@ TRACE_TRAIN_STEPS, TRACE_CKPT_EVERY, TRACE_FAIL_AT = 12, 4, 7
 # --dispatch profiled) with the engine shape of the in-process reference;
 # a few fixed prompt lengths (each a captured prefill graph per tier)
 TIER_LENGTHS, TIER_MAX_NEW, TIER_BATCH, TIER_SEQ = (64, 128, 256, 512), 32, 8, 1024
-TIER_ALONE, TIER_LOAD, TIER_CONC, TIER_KILL_LOAD = 8, 32, 8, 32
+TIER_ALONE, TIER_LOAD, TIER_CONC, TIER_KILL_LOAD = 8, 16, 8, 32
 TIER_HOP_TOL = 0.05  # each routed request's hops against its front-door span
 # an interval measured inside another (the front door's in the client's,
 # the engine's in the replica's service) may pass it by the hops'
@@ -707,6 +750,7 @@ def main() -> None:
     k1._sm90_entry()
     k2._entry()
     k4._entry()
+    k4._bwd_entry()
     k5._entry()
     k6._entry()
     k3._entry()
@@ -736,6 +780,10 @@ def main() -> None:
     if len(sm90_regs) != 4 or any(got != want for got, want in sm90_regs.values()):
         fail(f"flash_attention_bwd_sm90: ptxas registers (got, entry count) {sm90_regs}: "
              "four instances, each at its entry count, expected")
+    # K4b's instances: reported (its first design spills a few bytes in the
+    # gated bf16 and the f32 instances; ROADMAP P-queue)
+    for fn_name, regs, spill in ptxas["moe_gmm_bwd"]:
+        print(f"    {fn_name[:72]}: {regs} registers, {spill} bytes spilled", flush=True)
     for line in paths["flash_attention_bwd_sm90"].with_suffix(".log").read_text().splitlines():
         if "Performance Loss" in line:
             print(f"    ptxas: {line.strip()[:200]}", flush=True)
@@ -2867,7 +2915,7 @@ def main() -> None:
     print(f"{TRAIN_ARCH} train step eager vs compiled, {smi}: {json.dumps(train_vs)}", flush=True)
 
     # (j) the supervised run: the compiled bf16 step under Supervisor for
-    # TRAIN_STEPS steps, a checkpoint every SUP_CKPT_EVERY, a node failure
+    # the first SUP_STEPS of (e')'s steps, a checkpoint every SUP_CKPT_EVERY, a node failure
     # injected before step SUP_FAIL_AT; the restart copies the newest
     # checkpoint into the live tensors and the graph replays on
     sup_dir = Path(tempfile.mkdtemp(prefix="repro_torch_ckpt_"))
@@ -2887,12 +2935,12 @@ def main() -> None:
         reset_launches()
         t0 = time.perf_counter()
         out = Supervisor(SupervisorConfig(ckpt_dir=str(sup_dir), ckpt_every=SUP_CKPT_EVERY,
-                                          max_steps=TRAIN_STEPS), jstep, batch_fn, jstate,
+                                          max_steps=SUP_STEPS), jstep, batch_fn, jstate,
                          log=sup_log, failures=FailureInjector((SUP_FAIL_AT,))).run()
         sup_wall = time.perf_counter() - t0
         last_loss = dict(zip(order, (mm["loss"] for mm in out["metrics"])))
-        sup_losses = [last_loss[i] for i in range(TRAIN_STEPS)]
-        calls = TRAIN_STEPS + SUP_FAIL_AT - SUP_CKPT_EVERY
+        sup_losses = [last_loss[i] for i in range(SUP_STEPS)]
+        calls = SUP_STEPS + SUP_FAIL_AT - SUP_CKPT_EVERY
         sup_launches = launch_counts()
         t0 = time.perf_counter()
         restored = restore(str(sup_dir), SUP_CKPT_EVERY, jstate)
@@ -2928,7 +2976,7 @@ def main() -> None:
         # the checkpointer alone: the blocking snapshot, then the write
         ck = AsyncCheckpointer(str(sup_dir), keep=1)
         t0 = time.perf_counter()
-        ck.save(TRAIN_STEPS, jstate)
+        ck.save(SUP_STEPS, jstate)
         snapshot_ms = 1e3 * (time.perf_counter() - t0)
         t0 = time.perf_counter()
         ck.wait()
@@ -2937,7 +2985,7 @@ def main() -> None:
         supervised = {
             "steps": out["steps"], "restarts": out["restarts"], "stragglers": out["stragglers"],
             "metrics": len(out["metrics"]), "step_order": order, "losses": sup_losses,
-            "losses_equal_compiled_run": sup_losses == compiled_rec["losses"],
+            "losses_equal_compiled_run": sup_losses == compiled_rec["losses"][:SUP_STEPS],
             "counts": jstep.counts(),
             "launches": sup_launches, "data_ptrs_unchanged": ptrs_unchanged,
             "step_counter": step_counter, "restored_step_equal": restored_equal,
@@ -2956,15 +3004,15 @@ def main() -> None:
     want_calls = {"calls": calls, "captures": 1, "replays": calls - 1}
     sup_failures = [what for what, ok in (
         ("restarts != 1", supervised["restarts"] == 1),
-        (f"steps != {TRAIN_STEPS}", supervised["steps"] == TRAIN_STEPS),
+        (f"steps != {SUP_STEPS}", supervised["steps"] == SUP_STEPS),
         ("a step's last loss differs from the uninterrupted compiled run's",
          supervised["losses_equal_compiled_run"]),
         (f"counts {supervised['counts']} != {want_calls}", supervised["counts"] == want_calls),
         ("launches are not the calls' exact launches",
          sup_launches == {k: v * calls for k, v in want_step.items()}),
         ("a leaf's data_ptr moved", supervised["data_ptrs_unchanged"]),
-        (f"step counter {supervised['step_counter']} != {TRAIN_STEPS}",
-         supervised["step_counter"] == TRAIN_STEPS),
+        (f"step counter {supervised['step_counter']} != {SUP_STEPS}",
+         supervised["step_counter"] == SUP_STEPS),
         (f"the step-{SUP_CKPT_EVERY} checkpoint differs from the live state there",
          restored_equal),
         (f"the step-{SUP_CKPT_EVERY} checkpoint copied into the live tensors differs from "
@@ -3262,10 +3310,16 @@ def main() -> None:
         "replaces": "src/repro/nn/core.py:178", "max_abs_err": err3b,
         "launches": train_launches["rmsnorm_bwd"], **k3b,
     }
+    # (l) the MoE arch through the training path: K4b
+    phase_s["5 (l)"] = time.time() - t_start
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train = moe_train_phase(dev, smi, records, {"time_ms": time_ms, "bound_ms": bound_ms,
+                                                    "peaks": peaks})
     training = {"f32_gate": f32_gate, "train": train_rec, "profile": train_profile,
                 "compiled": compiled_rec, "compiled_profile": compiled_profile,
                 "eager_vs_compiled": train_vs, "graph_f32": graph_train_f32,
-                "supervised": supervised, "cli": cli, "dense": dense}
+                "supervised": supervised, "cli": cli, "dense": dense, "moe": moe_train}
 
     phase_s["6"] = time.time() - t_start
     # -- 6. the paper's measurement layer ------------------------------------
@@ -3356,26 +3410,37 @@ def train_launches_per_step(c) -> dict[str, int]:
     twice under per-period remat (again in the backward; once with remat
     "everything"), the unscanned head / tail layers and the final norm
     once; one K1b for each attention layer and one K3b for each K3 launch
-    of a forward (norm_launches_per_forward)."""
+    of a forward (norm_launches_per_forward); three K4 for each MoE layer's
+    forward run, and for each MoE layer's backward one K4 (the recomputed
+    pre-activation) and K4B_LAUNCHES_PER_LAYER K4b."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import lm
 
     again = 1 if c.remat_policy == "everything" else 2
     unscanned = {int(re.sub(r"\D", "", name)) for name, _ in lm._unscanned_layers(c)}
-    fwd_attn = fwd_norm = n_attn = 0
+    fwd_attn = fwd_norm = n_attn = fwd_moe = n_moe = 0
     for i in range(c.n_layers):
         sp = c.layer_spec(i)
         attn = sp.mixer in ("ga", "swa")
+        moe = sp.ffn == "moe"
         norms = (1 + (sp.ffn != "none")) * (2 if c.post_block_norms else 1)
         norms += 2 * (attn and c.qk_norm)
         runs = 1 if i in unscanned else again
         n_attn += attn
         fwd_attn += runs * attn
         fwd_norm += runs * norms
+        n_moe += moe
+        fwd_moe += runs * moe
     out = dict.fromkeys(LAUNCHES, 0)
     out.update({"flash_attention": fwd_attn, "flash_attention_bwd": n_attn,
-                "rmsnorm": fwd_norm + 1, "rmsnorm_bwd": norms_per_forward(c)})
+                "rmsnorm": fwd_norm + 1, "rmsnorm_bwd": norms_per_forward(c),
+                "moe_gmm": 3 * fwd_moe + n_moe, "moe_gmm_bwd": K4B_LAUNCHES_PER_LAYER * n_moe})
     return out
+
+
+# a MoE layer's backward: K4b's gated dgrad, one dgrad for dx and a wgrad
+# for each of w1, w3, w2
+K4B_LAUNCHES_PER_LAYER = 5
 
 
 def train_checks(dev, smi: str, arch: str, cfg, cfg32, tcfg, b32: list[dict], bf16_batches,
@@ -3395,7 +3460,9 @@ def train_checks(dev, smi: str, arch: str, cfg, cfg32, tcfg, b32: list[dict], bf
     a step of each mode in ``profiled`` under torch.profiler (its wall time
     the median of ``reps``): K1's, K1b's, K3's and K3b's instances of bf16
     at this head dim and no other K1b instance, no CUDA-core K1 and not the
-    previous K3b (a session that names no kernel fails), a replay at most
+    previous K3b (a session that names no kernel fails), and for a MoE
+    config K4's ``gmm_mma`` and K4b's three kernels and no other K4
+    instance, a replay at most
     COMPILED_TICK_HOST_OPS host ops.  A frontend arch's batches carry
     ``frontend_embed``.  Returns the record, with each mode's launches."""
     import numpy as np
@@ -3514,6 +3581,10 @@ def train_checks(dev, smi: str, arch: str, cfg, cfg32, tcfg, b32: list[dict], bf
                  for n in k1.bwd_instances(dt, d)} - set(bwd)
     other_names = ["flash_fwd_simt", *sorted(other_bwd), "rmsnorm_bwd_rows",
                    "rmsnorm_bwd_dscale"]
+    k4b_names = list(K4B_KERNELS) if cfg.moe is not None else []
+    if cfg.moe is not None:  # K4's and K4b's tensor-core instances, not K4's others
+        want_names += ["gmm_mma", *k4b_names]
+        other_names += ["gmm_bf16_kernel", "gmm_f32_kernel"]
     bts = bf16_batches()
     B, S = bts[0]["tokens"].shape
     rec.update(batch=B, seq=S, steps=len(bts), launches_per_step=want, profile={})
@@ -3563,6 +3634,8 @@ def train_checks(dev, smi: str, arch: str, cfg, cfg32, tcfg, b32: list[dict], bf
                                         sum(c for n, _, c in prof["all_kernels"] if ran(w, n))]
                                     for w in want_names}
             prof["k1b_ms"] = sum(prof["port_kernels"][w][0] for w in bwd)
+            if k4b_names:
+                prof["k4b_ms"] = sum(prof["port_kernels"][w][0] for w in k4b_names)
             rec["profile"][mode] = prof
             print(f"{arch} bf16 {mode} step under torch.profiler, {smi}: "
                   f"{json.dumps({k: v for k, v in prof.items() if k != 'all_kernels'})}",
@@ -3663,6 +3736,216 @@ def dense_train_phase(dev, smi: str) -> dict:
              f"{n_steps * n_attn}), losses {cli['first_loss']} -> {cli['last_loss']}")
     out["cli"] = cli
     launches["flash_attention_bwd_wide"] += cli["kernels"]["flash_attention_bwd"]
+    out["launches"] = launches
+    return out
+
+
+def moe_train_phase(dev, smi: str, records: dict, kit: dict) -> dict:
+    """Phase 5 (l): K4b, the grouped matmul's backward, and the MoE arch it
+    brings to training on the card (see the module docstring).  ``kit``
+    holds main()'s ``time_ms``, ``bound_ms`` and ``peaks`` (and
+    ``kernels_only``: stop after K4b's checks and timing).  Adds the
+    ``moe_gmm_bwd`` kernel record to ``records`` (not with ``kernels_only``)
+    and returns the phase's record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import launch_counts, ref, reset_launches
+    from repro_torch.kernels import moe_gmm as k4
+    from repro_torch.training import optim
+    from repro_torch.training import step as step_mod
+
+    time_ms, bound_ms, peaks = kit["time_ms"], kit["bound_ms"], kit["peaks"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    out: dict = {"checks": [], "timing": {}}
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def inputs(E, C, D, F, dtype, act):
+        """The experts' input, weights and output grad, the forward's saved
+        a3, h and the recomputed pre-activation a1, all from K4."""
+        x = randn(E, C, D, dtype=dtype)
+        w1, w3 = (randn(E, D, F, dtype=dtype, scale=D ** -0.5) for _ in range(2))
+        w2 = randn(E, F, D, dtype=dtype, scale=F ** -0.5)
+        _, a3, h = ref.moe_ffn_fwd(x, w1, w3, w2, act, gmm=k4.gmm)
+        return {"x": x, "w1": w1, "w3": w3, "w2": w2, "a1": k4.gmm(x, w1), "a3": a3, "h": h,
+                "dy": randn(E, C, D, dtype=dtype)}
+
+    def kernels(t, act):
+        """K4b's five launches of one MoE layer, then ops.gmm's one-pair dgrad."""
+        da1, da3 = k4.gated_dgrad(t["dy"], t["w2"], t["a1"], t["a3"], act)
+        return {"da1": da1, "da3": da3, "dx": k4.dgrad(da1, t["w1"], da3, t["w3"]),
+                "dw1": k4.wgrad(t["x"], da1), "dw3": k4.wgrad(t["x"], da3),
+                "dw2": k4.wgrad(t["h"], t["dy"]), "dx1": k4.dgrad(da1, t["w1"])}
+
+    def plains(t, act):
+        da1, da3 = ref.gmm_gated_dgrad_ref(t["dy"], t["w2"], t["a1"], t["a3"], act)
+        return {"da1": da1, "da3": da3, "dx": ref.gmm_dgrad_ref(da1, t["w1"], da3, t["w3"]),
+                "dw1": ref.gmm_wgrad_ref(t["x"], da1), "dw3": ref.gmm_wgrad_ref(t["x"], da3),
+                "dw2": ref.gmm_wgrad_ref(t["h"], t["dy"]), "dx1": ref.gmm_dgrad_ref(da1, t["w1"])}
+
+    # (1) K4b against its plain version, each result relative to its max
+    # |.|, at the slice's shape in both dtypes and at the two ragged shapes
+    # (each epilogue); each launch twice, bitwise equal
+    worst = 0.0
+    cases = [(K4B_SHAPE, torch.bfloat16, "silu"), (K4B_SHAPE, torch.float32, "silu")]
+    cases += [(shape, dt, act) for shape in (K4B_RAGGED_VEC, K4B_RAGGED)
+              for dt in (torch.bfloat16, torch.float32) for act in ("silu", "gelu")]
+    for shape, dt, act in cases:
+        t = inputs(*shape, dt, act)
+        got, again = kernels(t, act), kernels(t, act)
+        want = plains(t, act)
+        E, C, D, F = shape
+        aligned = all(v.data_ptr() % 16 == 0 for v in t.values())
+        row = {"shape": list(shape), "dtype": str(dt).split(".")[1], "act": act,
+               "instance": k4.bwd_instance(dt, D, F, aligned), "rel_err": {}}
+        for name, g in got.items():
+            scale = max(float(want[name].float().abs().max()), 1e-30)
+            row["rel_err"][name] = float((g.float() - want[name].float()).abs().max()) / scale
+        row["bitwise_rerun"] = all(same_bits(got[n], again[n]) for n in got)
+        row["finite"] = all(bool(torch.isfinite(g).all()) for g in got.values())
+        tol = K4B_TOL[row["dtype"]]
+        row["ok"] = (row["bitwise_rerun"] and row["finite"]
+                     and max(row["rel_err"].values()) <= tol)
+        out["checks"].append(row)
+        print(f"  moe_gmm_bwd {shape} {row['dtype']} {act} ({row['instance']}): "
+              f"{json.dumps(row['rel_err'])} (tol {tol} of max |.|), bitwise rerun "
+              f"{row['bitwise_rerun']} {'ok' if row['ok'] else 'FAIL'}", flush=True)
+        if not row["ok"]:
+            fail(f"moe_gmm_bwd at {shape} {row['dtype']} {act} disagrees with its plain version")
+        worst = max(worst, max(row["rel_err"].values()))
+        del t, got, again, want
+    out["max_rel_err"] = worst
+
+    # (2) each kernel at the slice's shape in bf16, L2 flushed, beside its
+    # plain version, torch.bmm on the same (transposed) views and its bound
+    E, C, D, F = K4B_SHAPE
+    t = inputs(E, C, D, F, torch.bfloat16, "silu")
+    da1, da3 = k4.gated_dgrad(t["dy"], t["w2"], t["a1"], t["a3"], "silu")
+    g13, w13 = torch.cat([da1, da3], -1), torch.cat([t["w1"], t["w3"]], -1)
+    es = 2  # bytes a bf16 element
+    prod = 2.0 * E * C * D * F
+    timing = {
+        "gated_dgrad (a)": (
+            lambda: k4.gated_dgrad(t["dy"], t["w2"], t["a1"], t["a3"], "silu"),
+            lambda: ref.gmm_gated_dgrad_ref(t["dy"], t["w2"], t["a1"], t["a3"], "silu"),
+            lambda: torch.bmm(t["dy"], t["w2"].mT), es * (E * C * D + E * F * D + 4 * E * C * F),
+            prod),
+        "dgrad (b)": (
+            lambda: k4.dgrad(da1, t["w1"], da3, t["w3"]),
+            lambda: ref.gmm_dgrad_ref(da1, t["w1"], da3, t["w3"]),
+            lambda: torch.bmm(g13, w13.mT), es * (2 * E * C * F + 2 * E * D * F + E * C * D),
+            2 * prod),
+        "wgrad (c)": (
+            lambda: k4.wgrad(t["x"], da1), lambda: ref.gmm_wgrad_ref(t["x"], da1),
+            lambda: torch.bmm(t["x"].mT, da1), es * (E * C * D + E * C * F + E * D * F), prod),
+        # the backward's one K4 launch: the pre-activation a1 = x w1, recomputed
+        "recompute a1 (K4)": (
+            lambda: k4.gmm(t["x"], t["w1"]), lambda: ref.gmm_ref(t["x"], t["w1"]),
+            lambda: torch.bmm(t["x"], t["w1"]), es * (E * C * D + E * D * F + E * C * F), prod),
+    }
+    for name, (kern, plain, lib, n_bytes, n_flops) in timing.items():
+        b, by = bound_ms(n_bytes, n_flops, peaks["bfloat16"])
+        row = {"ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+               "bound_ms": b, "bound_by": by, "gb": n_bytes / 1e9, "gflop": n_flops / 1e9}
+        row["tflops"] = n_flops / row["ms"] / 1e9
+        row["x_bound"] = row["ms"] / b
+        out["timing"][name] = row
+        print(f"  moe_gmm_bwd {name} at {K4B_SHAPE}, bf16, L2 flushed, {smi}: "
+              f"{json.dumps(row)}", flush=True)
+    # the whole backward of one MoE layer: its five launches against the
+    # plain version and the library's five products (dh, dx over the
+    # concatenated pairs, dw1, dw3, dw2; no epilogue)
+    def kernels_whole():
+        a, b = k4.gated_dgrad(t["dy"], t["w2"], t["a1"], t["a3"], "silu")
+        return (k4.dgrad(a, t["w1"], b, t["w3"]), k4.wgrad(t["x"], a), k4.wgrad(t["x"], b),
+                k4.wgrad(t["h"], t["dy"]))
+
+    def library_whole():
+        torch.bmm(t["dy"], t["w2"].mT)
+        return (torch.bmm(g13, w13.mT), torch.bmm(t["x"].mT, da1), torch.bmm(t["x"].mT, da3),
+                torch.bmm(t["h"].mT, t["dy"]))
+
+    n_bytes = es * (2 * E * C * D + 3 * E * D * F + 3 * E * C * F + 3 * E * D * F + E * C * D)
+    b, by = bound_ms(n_bytes, 6 * prod, peaks["bfloat16"])
+    whole = {"ms": time_ms(kernels_whole),
+             "plain_ms": time_ms(lambda: ref.moe_ffn_bwd_ref(t["x"], t["w1"], t["w3"], t["w2"],
+                                                             t["a1"], t["a3"], t["h"], t["dy"])),
+             "library_ms": time_ms(library_whole), "bound_ms": b, "bound_by": by,
+             "sum_of_kernel_bounds_ms": sum(out["timing"][k]["bound_ms"] for k in (
+                 "gated_dgrad (a)", "dgrad (b)", "wgrad (c)", "wgrad (c)", "wgrad (c)"))}
+    out["timing"]["layer backward"] = whole
+    print(f"  moe_gmm_bwd, one MoE layer's backward (5 launches) at {K4B_SHAPE}, bf16, L2 "
+          f"flushed, {smi}: {json.dumps(whole)}", flush=True)
+    del t, da1, da3, g13, w13
+    gc.collect()
+    torch.cuda.empty_cache()
+    if kit.get("kernels_only"):  # tools/moe_train_phase.py --kernels-only
+        return out
+
+    # (3) + (4) deepseek-moe-16b through the training path (train_checks):
+    # the f32 gates at MOE_GATE_LAYERS layers (batch F32_GATE_BATCH x
+    # F32_GATE_SEQ), the bf16 steps at MOE_TRAIN_LAYERS layers eager and
+    # compiled on SyntheticLM batch 0, a replayed step's profile
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    cfg32 = dataclasses.replace(full, n_layers=MOE_GATE_LAYERS, param_dtype="float32",
+                                activation_dtype="float32")
+    N = DENSE_TRAIN_STEPS
+    tcfg = step_mod.TrainConfig(opt=optim.AdamWConfig(peak_lr=DENSE_TRAIN_LR, warmup_steps=1,
+                                                      total_steps=N))
+
+    def batches(batch: int, seq: int, n: int) -> list[dict]:
+        data = SyntheticLM(DataConfig(full.vocab_size, seq, batch, seed=SEED))
+        return [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
+                for i in range(n)]
+
+    b32 = batches(F32_GATE_BATCH, F32_GATE_SEQ, 2)
+    rec = train_checks(dev, smi, f"5 (l) {MOE_ARCH}", cfg, cfg32, tcfg, b32,
+                       lambda: batches(MOE_TRAIN_BATCH, DENSE_TRAIN_SEQ, 1) * N, fall_by=0.0)
+    out["train"] = rec
+    del b32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (5) launch.train, as a user runs it, on the MoE arch's smoke config
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *MOE_CLI_ARGS],
+                          cwd=ROOT, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          timeout=CLI_TIMEOUT_S)
+    if proc.returncode != 0:
+        fail(f"repro_torch.launch.train {' '.join(MOE_CLI_ARGS)} exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"5 (l) repro_torch.launch.train {' '.join(MOE_CLI_ARGS)}: {json.dumps(cli)}",
+          flush=True)
+    from repro_torch.configs import reduced
+
+    small = reduced(full)
+    n_steps = int(MOE_CLI_ARGS[MOE_CLI_ARGS.index("--steps") + 1])
+    want = train_launches_per_step(small)
+    exact = ("moe_gmm", "moe_gmm_bwd", "flash_attention_bwd")
+    if (cli["compiled"] != {"calls": n_steps, "captures": 1, "replays": n_steps - 1}
+            or any(cli["kernels"][k] != n_steps * want[k] for k in exact)
+            or not cli["kernels"]["moe_gmm_bwd"]
+            or not all(math.isfinite(cli[k]) for k in ("first_loss", "last_loss"))):
+        fail(f"repro_torch.launch.train {' '.join(MOE_CLI_ARGS)}: compiled {cli['compiled']}, "
+             f"kernels {cli['kernels']} (expected {n_steps} x {want} of {exact}), losses "
+             f"{cli['first_loss']} -> {cli['last_loss']}")
+    out["cli"] = cli
+
+    launches = sum(rec[mode]["launches"]["moe_gmm_bwd"] for mode in ("eager", "compiled"))
+    launches += cli["kernels"]["moe_gmm_bwd"]
+    records["moe_gmm_bwd"] = {
+        "name": "moe_gmm_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:54", "launches": launches,
+        "max_abs_err": worst, "ms": whole["ms"], "plain_ms": whole["plain_ms"],
+        "bound_ms": whole["bound_ms"], "bound_by": whole["bound_by"],
+        "library_ms": whole["library_ms"], "shape": list(K4B_SHAPE),
+        "kernels": out["timing"]}
     out["launches"] = launches
     return out
 

@@ -242,6 +242,7 @@ KERNEL_NAMES: dict[str, tuple[str, ...]] = {
     "rmsnorm": ("rmsnorm_rows",),
     "rmsnorm_bwd": ("rmsnorm_bwd_fused",),
     "moe_gmm": ("gmm_mma", "gmm_bf16_kernel", "gmm_f32_kernel"),
+    "moe_gmm_bwd": ("gmm_dgrad_gated", "gmm_dgrad", "gmm_wgrad"),
     "rwkv6_scan": ("rwkv6_scan_tiled",),
     "mamba_scan": ("mamba_scan_ring",),
 }

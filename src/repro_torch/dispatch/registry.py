@@ -127,6 +127,7 @@ _KERNEL_ROWS = {  # name: (shape, bound ms, kernel ms, plain ms)
     "rmsnorm": ("K3, (8192, 960)", 0.00939, 0.0172, 0.1447),
     "rmsnorm_bwd": ("K3b, (8192, 960)", 0.0141, 0.0276, 0.4103),
     "moe_gmm": ("K4, (16,80,8192)@(16,8192,24576)", 1.9482, 2.3070, 25.3464),
+    "moe_gmm_bwd": ("K4b, a MoE layer's backward, (64,960,2048) x 1408", 2.1497, 9.7377, 52.2856),
     "mamba_scan": ("K5, (8, 512, 16384, 16)", 0.1256, 0.3581, 218.6630),
     "rwkv6_scan": ("K6, (8, 128, 64, 64)", 0.0200, 0.0881, 11.5384),
 }

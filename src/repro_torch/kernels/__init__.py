@@ -8,9 +8,9 @@ that its main path went through the kernels.
 Every wrapper launches its kernel through ctypes, outside autograd, so on a
 CUDA tensor it refuses an input that needs a gradient (:func:`refuse_grad`,
 ROADMAP R11) instead of silently detaching it.  The differentiable route
-is ``ops``: ``ops.attention`` and ``ops.rmsnorm`` are
-``torch.autograd.Function``s whose backward is a kernel too (K1b, K3b);
-the other kernels have no backward kernel yet.
+is ``ops``: ``ops.attention``, ``ops.rmsnorm``, ``ops.moe_ffn`` and
+``ops.gmm`` are ``torch.autograd.Function``s whose backward is a kernel too
+(K1b, K3b, K4b); the scans (K5, K6) have no backward kernel yet.
 
 A CUDA graph splits that count from the launches: capturing one runs the
 wrappers (which count) but launches nothing, and replaying it launches
@@ -34,7 +34,7 @@ if TYPE_CHECKING:
 LAUNCHES: dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0,
                             "moe_gmm": 0, "rwkv6_scan": 0, "mamba_scan": 0,
                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-                            "decode_attention_stats": 0}
+                            "decode_attention_stats": 0, "moe_gmm_bwd": 0}
 
 
 def refuse_grad(kernel: str, instead: str, *tensors: torch.Tensor) -> None:

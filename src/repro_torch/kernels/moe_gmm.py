@@ -31,6 +31,19 @@ only:
 The ragged C / F / D edges are masked in the kernels.  A CPU tensor takes
 the plain version, :func:`plain` (``ref.gmm_ref``); a CUDA tensor launches a
 kernel or raises.
+
+K4b, the backward (``csrc/moe_gmm_bwd.cu``), is three kernels with one
+wrapper each, every launch counted under ``LAUNCHES["moe_gmm_bwd"]``:
+:func:`gated_dgrad` (dh = dy w2^T with the gated FFN's derivative in its
+epilogue), :func:`dgrad` (dx = g w^T, or the sum of two such products in
+one accumulator) and :func:`wgrad` (dw = x^T g over the capacity rows).
+Each is bound by operations at deepseek-moe-16b's training shape; each
+takes ``mma.sync`` in bf16 (16-byte ``cp.async`` chunks where D and F are
+multiples of 8 and the operands 16-byte aligned, element-wise loads
+otherwise) and the CUDA cores in f32 (:func:`bwd_instance`).  A CPU tensor
+takes the plain versions (``ref.gmm_gated_dgrad_ref``,
+``ref.gmm_dgrad_ref``, ``ref.gmm_wgrad_ref``).  ``ops.moe_ffn`` and
+``ops.gmm`` differentiate through them (``ops.MoEFFN``, ``ops.GMM``).
 """
 from __future__ import annotations
 
@@ -46,6 +59,7 @@ from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.plan import (BK, BLOCK_SMEM, BN, MAX_ROW_TILES, PAD,  # noqa: F401
                                       ROW_TILE, ROW_TILES_BUILT, STAGES, TilePlan, stage_bytes,
                                       tile_plan)
+from repro_torch.kernels import ref
 from repro_torch.kernels.ref import gmm_ref as plain
 
 EPILOGUE_CODES = {None: 0, "silu": 1, "gelu": 2}  # enum Epilogue in the source
@@ -81,16 +95,30 @@ def ptxas_report() -> dict[int, dict[str, int]]:
     return out
 
 
+def _entries(lib: ctypes.CDLL, spec: dict[str, tuple[int, int]]) -> list:
+    """``lib``'s C entry points of ``spec`` (name: (pointers, ints)), each
+    taking its pointers, its ints and the stream, returning an error code."""
+    out = []
+    for name, (ptrs, ints) in spec.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out.append(fn)
+    return out
+
+
 @functools.cache
 def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr, ctypes._CFuncPtr]:
     lib = _build.load("moe_gmm")
-    fn = lib.moe_gmm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    mma = lib.moe_gmm_mma_fwd
-    mma.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    mma.restype = ctypes.c_int
+    fn, mma = _entries(lib, {"moe_gmm_fwd": (3, 6), "moe_gmm_mma_fwd": (3, 7)})
     return lib, fn, mma
+
+
+@functools.cache
+def _bwd_entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr, ctypes._CFuncPtr, ctypes._CFuncPtr]:
+    lib = _build.load("moe_gmm_bwd")
+    return (lib, *_entries(lib, {"moe_gmm_bwd_gated": (6, 6), "moe_gmm_bwd_dgrad": (5, 5),
+                                 "moe_gmm_bwd_wgrad": (3, 5)}))
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None,
@@ -102,7 +130,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None,
         raise ValueError(f"moe_gmm: epilogue {epilogue!r} not in {list(EPILOGUE_CODES)}")
     if x.device.type == "cpu":
         return plain(x, w, epilogue=epilogue)
-    refuse_grad("moe_gmm", "its backward kernel is ROADMAP Queue 2 item K4b", x, w)
+    refuse_grad("moe_gmm", "ops.gmm and ops.moe_ffn differentiate it (through K4b)", x, w)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm: no kernel for device {x.device}")
     if x.dim() != 3 or w.dim() != 3 or w.shape[:2] != (x.shape[0], x.shape[2]):
@@ -129,4 +157,113 @@ def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None,
                  EPILOGUE_CODES[epilogue], E, C, D, F, stream)
     _build.check(lib, err, "moe_gmm")
     LAUNCHES["moe_gmm"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4b: the backward kernels
+# ---------------------------------------------------------------------------
+
+
+def bwd_instance(dtype: torch.dtype, D: int, F: int, aligned: bool) -> str:
+    """The instance a K4b launch takes (the same rule in all three kernels):
+    a function of dtype, shape and alignment (every operand at a 16-byte
+    boundary) only."""
+    if dtype == torch.float32:
+        return "f32"
+    if D % 8 == 0 and F % 8 == 0 and aligned:
+        return "bf16 cp.async"
+    return "bf16 element-wise"
+
+
+def _bwd_checks(what: str, named: dict[str, tuple[torch.Tensor, tuple[int, ...]]]) -> None:
+    """Raise unless every tensor of ``named`` (name: (tensor, its shape))
+    has its shape, is contiguous, and shares the first one's device and
+    dtype, which a K4b kernel takes; and, under grad mode, unless none
+    needs a gradient (K4b has no backward of its own)."""
+    tensors = [t for t, _ in named.values()]
+    refuse_grad("moe_gmm_bwd", "it is the backward of ops.moe_ffn / ops.gmm, and has no "
+                "backward itself", *tensors)
+    first = tensors[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {first.device}")
+    if first.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{what}: dtype {first.dtype}")
+    for name, (t, shape) in named.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.device != first.device or t.dtype != first.dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {first.dtype} tensor on "
+                             f"{first.device}")
+
+
+def _bwd_launch(what: str, fn, *args) -> None:
+    _build.check(_bwd_entry()[0], fn(*args), what)
+    LAUNCHES["moe_gmm_bwd"] += 1
+
+
+def gated_dgrad(dy: torch.Tensor, w2: torch.Tensor, a1: torch.Tensor, a3: torch.Tensor,
+                act: str = "silu") -> tuple[torch.Tensor, torch.Tensor]:
+    """K4b (a): dy (E, C, D), w2 (E, F, D), the pre-activation a1 and a3
+    (E, C, F) -> (da1, da3), dh = dy w2^T in f32 and da1 = dh a3 act'(a1),
+    da3 = dh act(a1), each rounded once (``ref.gmm_gated_dgrad_ref``)."""
+    if act not in ("silu", "gelu"):
+        raise ValueError(f"moe_gmm_bwd: act {act!r} not in ['silu', 'gelu']")
+    if dy.device.type == "cpu":
+        return ref.gmm_gated_dgrad_ref(dy, w2, a1, a3, act)
+    E, C, D = dy.shape
+    F = w2.shape[1]
+    _bwd_checks("moe_gmm_bwd (a)", {"dy": (dy, (E, C, D)), "w2": (w2, (E, F, D)),
+                                    "a1": (a1, (E, C, F)), "a3": (a3, (E, C, F))})
+    da1, da3 = torch.empty_like(a1), torch.empty_like(a3)
+    if da1.numel() == 0:
+        return da1, da3
+    if D == 0:
+        return da1.zero_(), da3.zero_()
+    _bwd_launch("moe_gmm_bwd (a)", _bwd_entry()[1], dy.data_ptr(), w2.data_ptr(),
+                a1.data_ptr(), a3.data_ptr(), da1.data_ptr(), da3.data_ptr(),
+                _build.DTYPE_CODES[dy.dtype], EPILOGUE_CODES[act], E, C, D, F,
+                torch.cuda.current_stream(dy.device).cuda_stream)
+    return da1, da3
+
+
+def dgrad(g: torch.Tensor, w: torch.Tensor, g2: Optional[torch.Tensor] = None,
+          w2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4b (b): g (E, C, F), w (E, D, F) -> g w^T (E, C, D), plus g2 w2^T
+    in the same f32 accumulator when given; one rounding
+    (``ref.gmm_dgrad_ref``)."""
+    if (g2 is None) != (w2 is None):
+        raise ValueError("moe_gmm_bwd: g2 and w2 go together")
+    if g.device.type == "cpu":
+        return ref.gmm_dgrad_ref(g, w, g2, w2)
+    E, C, F = g.shape
+    D = w.shape[1]
+    named = {"g": (g, (E, C, F)), "w": (w, (E, D, F))}
+    if g2 is not None:
+        named.update(g2=(g2, (E, C, F)), w2=(w2, (E, D, F)))
+    _bwd_checks("moe_gmm_bwd (b)", named)
+    out = torch.empty((E, C, D), dtype=g.dtype, device=g.device)
+    if out.numel() == 0 or F == 0:
+        return out.zero_()
+    _bwd_launch("moe_gmm_bwd (b)", _bwd_entry()[2], g.data_ptr(), w.data_ptr(),
+                None if g2 is None else g2.data_ptr(), None if w2 is None else w2.data_ptr(),
+                out.data_ptr(), _build.DTYPE_CODES[g.dtype], E, C, D, F,
+                torch.cuda.current_stream(g.device).cuda_stream)
+    return out
+
+
+def wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4b (c): a (E, C, P), b (E, C, Q) -> a^T b (E, P, Q), summed over the
+    C capacity rows in f32, one rounding (``ref.gmm_wgrad_ref``)."""
+    if a.device.type == "cpu":
+        return ref.gmm_wgrad_ref(a, b)
+    E, C, P = a.shape
+    Q = b.shape[2]
+    _bwd_checks("moe_gmm_bwd (c)", {"a": (a, (E, C, P)), "b": (b, (E, C, Q))})
+    out = torch.empty((E, P, Q), dtype=a.dtype, device=a.device)
+    if out.numel() == 0 or C == 0:
+        return out.zero_()
+    _bwd_launch("moe_gmm_bwd (c)", _bwd_entry()[3], a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                _build.DTYPE_CODES[a.dtype], E, C, P, Q,
+                torch.cuda.current_stream(a.device).cuda_stream)
     return out

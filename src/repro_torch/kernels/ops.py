@@ -13,13 +13,16 @@ Counterpart of ``repro/kernels/ops.py``.  ``impl`` is one of:
 ``impl_scope``, initially ``auto``).
 
 Autograd: where a gradient is needed (grad mode on and an input that
-requires grad), ``attention`` and ``rmsnorm`` under ``auto`` / ``kernel``
-run as ``torch.autograd.Function``s, :class:`Attention` (K1 writing its
-log-sum-exp, then K1b) and :class:`RMSNorm` (K3, then K3b), on the CPU
-through the same classes with the plain versions inside.  ``plain`` stays
-torch autograd through ``kernels/ref.py``, an independent yardstick.  The
-other kernels have no backward kernel yet: on the card their wrappers
-refuse such inputs (ROADMAP R11), and only ``plain`` differentiates them.
+requires grad), ``attention``, ``rmsnorm``, ``moe_ffn`` and ``gmm`` under
+``auto`` / ``kernel`` run as ``torch.autograd.Function``s,
+:class:`Attention` (K1 writing its log-sum-exp, then K1b),
+:class:`RMSNorm` (K3, then K3b), :class:`MoEFFN` (K4, then K4 again for
+the pre-activation and K4b) and :class:`GMM` (K4, then K4b's dgrad and
+wgrad), on the CPU through the same classes with the plain versions
+inside.  ``plain`` stays torch autograd through ``kernels/ref.py``, an
+independent yardstick.  The scans have no backward kernel yet: on the
+card their wrappers refuse such inputs (ROADMAP R11), and only ``plain``
+differentiates them; so does ``gmm`` with a fused epilogue.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from repro_torch.kernels.decode_attention import decode_attention as _decode_ker
 from repro_torch.kernels.flash_attention import flash_attention as _fa_kernel
 from repro_torch.kernels.flash_attention import flash_attention_bwd as _fa_bwd_kernel
 from repro_torch.kernels.mamba_scan import mamba_scan as _mamba_kernel
+from repro_torch.kernels import moe_gmm as _k4
 from repro_torch.kernels.moe_gmm import gmm as _gmm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd as _rmsnorm_bwd_kernel
@@ -510,19 +514,108 @@ def rmsnorm(
     return out
 
 
+class GMM(torch.autograd.Function):
+    """The grouped matmul with its gradient: the forward saves (x, w); the
+    backward is K4b's dgrad (dx = dy w^T) and wgrad (dw = x^T dy) on the
+    card, ``ref.gmm_dgrad_ref`` / ``ref.gmm_wgrad_ref`` on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = _gmm_dgrad(dy, w) if ctx.needs_input_grad[0] else None
+        dw = _gmm_wgrad(x, dy) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+class MoEFFN(torch.autograd.Function):
+    """The experts' gated FFN with its backward: the forward is serving's
+    (``ref.moe_ffn_fwd``: K4 three times, the activation fused into the
+    first) and saves (x, the weights, a3, h), the weights being the
+    parameters themselves; the backward recomputes the pre-activation a1 =
+    x w1 (one more K4 launch, the forward's accumulator rounded, so the
+    forward writes nothing serving does not), then runs K4b: the gated
+    dgrad (da1, da3), one dgrad for dx and three wgrads (dw1, dw3, dw2) on
+    the card, ``ref.moe_ffn_bwd_ref``'s parts on the CPU.  Under a
+    checkpoint the saved tensors are the checkpoint's to drop and
+    recompute."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w3, w2, act):
+        y, a3, h = _ref.moe_ffn_fwd(x, w1, w3, w2, act, gmm=_gmm)
+        ctx.save_for_backward(x, w1, w3, w2, a3, h)
+        ctx.act = act
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, w3, w2, a3, h = ctx.saved_tensors
+        dy = dy.contiguous()
+        need_x, need_w1, need_w3, need_w2 = ctx.needs_input_grad[:4]
+        dx = dw1 = dw3 = dw2 = None
+        if need_x or need_w1 or need_w3:
+            da1, da3 = _gmm_gated_dgrad(dy, w2, _gmm(x, w1), a3, ctx.act)
+            if need_x:
+                dx = _gmm_dgrad(da1, w1, da3, w3)
+            if need_w1:
+                dw1 = _gmm_wgrad(x, da1)
+            if need_w3:
+                dw3 = _gmm_wgrad(x, da3)
+        if need_w2:
+            dw2 = _gmm_wgrad(h, dy)
+        return dx, dw1, dw3, dw2, None
+
+
+def _gmm_flops(out: torch.Tensor, depth: int) -> float:
+    """The products' FLOPs of a grouped matmul whose (E, M, N) output sums
+    ``depth`` products an element."""
+    return 2.0 * out.numel() * depth
+
+
+def _gmm_gated_dgrad(dy, w2, a1, a3, act) -> tuple[torch.Tensor, torch.Tensor]:
+    da1, da3 = _k4.gated_dgrad(dy, w2, a1, a3, act)
+    if _sdfg.ACTIVE is not None:
+        _note("moe_gmm_bwd", (dy, w2, a1, a3), (da1, da3), _gmm_flops(da1, dy.shape[-1]))
+    return da1, da3
+
+
+def _gmm_dgrad(g, w, g2=None, w2=None) -> torch.Tensor:
+    out = _k4.dgrad(g, w, g2, w2)
+    if _sdfg.ACTIVE is not None:
+        ins = (g, w) if g2 is None else (g, w, g2, w2)
+        _note("moe_gmm_bwd", ins, (out,), _gmm_flops(out, g.shape[-1] * (1 + (g2 is not None))))
+    return out
+
+
+def _gmm_wgrad(a, b) -> torch.Tensor:
+    out = _k4.wgrad(a, b)
+    if _sdfg.ACTIVE is not None:
+        _note("moe_gmm_bwd", (a, b), (out,), _gmm_flops(out, a.shape[1]))
+    return out
+
+
 def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None,
         impl: Optional[str] = None) -> torch.Tensor:
-    """Grouped expert matmul (E, C, D) @ (E, D, F) -> (E, C, F), f32 accumulation."""
+    """Grouped expert matmul (E, C, D) @ (E, D, F) -> (E, C, F), f32
+    accumulation.  Under grad without an epilogue it runs as :class:`GMM`;
+    with one, only the plain route differentiates it (the kernel's
+    wrapper refuses a CUDA input that needs grad)."""
     if _resolve(impl, x) == "plain":
         return _ref.gmm_ref(x, w, epilogue=epilogue)
+    if epilogue is None and _wants_grad(x, w):
+        return GMM.apply(x, w)
     return _gmm(x, w, epilogue)
 
 
 def _gmm(x: torch.Tensor, w: torch.Tensor, epilogue: Optional[str] = None) -> torch.Tensor:
     out = _gmm_kernel(x, w, epilogue=epilogue, **tuned_overrides("moe_gmm", "kernel"))
     if _sdfg.ACTIVE is not None:
-        E, C, D = x.shape
-        _note("moe_gmm", (x, w), (out,), 2 * E * C * D * w.shape[-1])
+        _note("moe_gmm", (x, w), (out,), _gmm_flops(out, x.shape[-1]))
     return out
 
 
@@ -562,6 +655,8 @@ def moe_ffn(
         return _wrap(out, mesh, plan, xe)
     if _resolve(impl, x) == "plain":
         return _ref.moe_ffn_ref(x, w1, w3, w2, act=act)
+    if _wants_grad(x, w1, w3, w2):
+        return MoEFFN.apply(x, w1, w3, w2, act)
     h = _gmm(x, w1, act) * _gmm(x, w3)
     return _gmm(h, w2)
 

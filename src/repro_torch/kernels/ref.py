@@ -286,6 +286,81 @@ def gmm_ref(x: torch.Tensor, w: torch.Tensor, epilogue: Optional[str] = None) ->
     return acc.to(x.dtype)
 
 
+def act_and_grad(a: torch.Tensor, act: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """act(a) and act'(a) in f32 for the gated FFN's activations, written
+    out as K4b's epilogue computes them: silu' = s (1 + a (1 - s)) with
+    s = sigmoid(a); the tanh gelu's 0.5 (1 + t) + 0.5 a (1 - t^2) k (1 +
+    3 c a^2) with t = tanh(k (a + c a^3)), k = sqrt(2 / pi), c = 0.044715."""
+    a = a.float()
+    if act == "silu":
+        s = torch.sigmoid(a)
+        return a * s, s * (1.0 + a * (1.0 - s))
+    if act == "gelu":
+        k, c = math.sqrt(2.0 / math.pi), 0.044715
+        t = torch.tanh(k * (a + c * a * a * a))
+        return 0.5 * a * (1.0 + t), 0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * k * (
+            1.0 + 3.0 * c * a * a)
+    raise ValueError(f"act {act!r} not in {list(EPILOGUES)}")
+
+
+def gmm_dgrad_ref(g: torch.Tensor, w: torch.Tensor, g2: Optional[torch.Tensor] = None,
+                  w2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The gradient of :func:`gmm_ref`'s x: g (E, C, F) @ w (E, D, F)^T ->
+    (E, C, D), plus g2 @ w2^T when given, both products summed in one f32
+    accumulator and rounded once to g's dtype (K4b's dgrad)."""
+    acc = torch.bmm(g.float(), w.float().transpose(1, 2))
+    if g2 is not None:
+        acc = acc + torch.bmm(g2.float(), w2.float().transpose(1, 2))
+    return acc.to(g.dtype)
+
+
+def gmm_wgrad_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`gmm_ref`'s w: x (E, C, D)^T @ g (E, C, F) ->
+    (E, D, F), summed over the capacity rows in f32, rounded once to x's
+    dtype (K4b's wgrad)."""
+    return torch.bmm(x.float().transpose(1, 2), g.float()).to(x.dtype)
+
+
+def gmm_gated_dgrad_ref(dy: torch.Tensor, w2: torch.Tensor, a1: torch.Tensor, a3: torch.Tensor,
+                        act: str = "silu") -> tuple[torch.Tensor, torch.Tensor]:
+    """K4b's dgrad with the gated epilogue: dh = dy (E, C, D) @ w2 (E, F,
+    D)^T in f32 (never rounded), then from the pre-activation a1 = x @ w1
+    (rounded to x's dtype) and the gate input a3 (E, C, F): da1 = dh a3
+    act'(a1) and da3 = dh act(a1), in f32, each rounded once to dy's
+    dtype."""
+    dh = torch.bmm(dy.float(), w2.float().transpose(1, 2))
+    g, dg = act_and_grad(a1, act)
+    return (dh * a3.float() * dg).to(dy.dtype), (dh * g).to(dy.dtype)
+
+
+def moe_ffn_fwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+                act: str = "silu", gmm=gmm_ref):
+    """The kernel route's gated FFN, as serving runs it: h = act(x @ w1) *
+    (x @ w3), the activation on the f32 accumulator (fused into the first
+    grouped matmul), the gate product of the two x-dtype results, y = h @
+    w2.  ``gmm`` is K4's wrapper or :func:`gmm_ref`.  Returns (y, a3, h):
+    with x and the weights, what the backward reads; it recomputes the
+    pre-activation a1 = gmm(x, w1) (the same accumulator, rounded)."""
+    g = gmm(x, w1, epilogue=act)
+    a3 = gmm(x, w3)
+    h = g * a3
+    return gmm(h, w2), a3, h
+
+
+def moe_ffn_bwd_ref(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+                    a1: torch.Tensor, a3: torch.Tensor, h: torch.Tensor, dy: torch.Tensor,
+                    act: str = "silu"
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The explicit backward of :func:`moe_ffn_fwd` for output grad dy, given
+    its a3 and h and the pre-activation a1 = gmm_ref(x, w1), with K4b's
+    rounding points: (da1, da3) by :func:`gmm_gated_dgrad_ref`, dx =
+    da1 @ w1^T + da3 @ w3^T rounded once, dw1 = x^T da1, dw3 = x^T da3 and
+    dw2 = h^T dy.  Returns (dx, dw1, dw3, dw2)."""
+    da1, da3 = gmm_gated_dgrad_ref(dy, w2, a1, a3, act)
+    return (gmm_dgrad_ref(da1, w1, da3, w3), gmm_wgrad_ref(x, da1), gmm_wgrad_ref(x, da3),
+            gmm_wgrad_ref(h, dy))
+
+
 def moe_ffn_ref(
     x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor, act: str = "silu"
 ) -> torch.Tensor:

@@ -32,18 +32,22 @@ median step), ``kernels``, the launch count of each Hopper kernel in the
 run (all 0 on the CPU, where the plain versions run), and ``compiled``, the
 compiled step's ``calls`` / ``captures`` / ``replays``.
 
-On the card attention and RMSNorm differentiate through their kernels
-(K1 + K1b, K3 + K3b), which cover every dense arch: K1b has instances at
-head dims 64 (smollm-360m, qwen2-0.5b, musicgen-large), 128 (gemma2-27b,
-chameleon-34b) and 256 (gemma3-4b).  The frontend archs train on tokens
-alone here: this driver passes no frontend embeddings, as the JAX driver
-passes none.  One card holds gemma3-4b and musicgen-large whole, with
-bf16 params and grads and f32 moments (12 bytes a parameter); gemma2-27b
-and chameleon-34b need more (326 and 412 GB).
-An arch whose path reaches the grouped matmul, the Mamba scan or the RWKV6
-scan (K4, K5, K6: deepseek-moe-16b, dbrx-132b, jamba-1.5-large, rwkv6-7b)
-has no backward kernel there yet: the driver stops with the ROADMAP Queue 2
-item that brings it (K4b, K5b, K6b).
+On the card attention, RMSNorm and the MoE experts differentiate through
+their kernels (K1 + K1b, K3 + K3b, K4 + K4b), which cover every dense arch
+and the MoE archs: K1b has instances at head dims 64 (smollm-360m,
+qwen2-0.5b, musicgen-large), 128 (gemma2-27b, chameleon-34b,
+deepseek-moe-16b, dbrx-132b) and 256 (gemma3-4b), and ``ops.moe_ffn``
+runs K4b's three kernels in the backward.  The frontend archs train on
+tokens alone here: no frontend embeddings are passed, as
+``repro/launch/train.py`` passes none.  One card holds gemma3-4b and
+musicgen-large whole, with bf16 params and grads and f32 moments (12 bytes
+a parameter); gemma2-27b, chameleon-34b and deepseek-moe-16b need more
+(326, 412 and 197 GB), and there is no depth cut, as
+``repro/launch/train.py`` has none (``--reduced`` trains deepseek-moe-16b's
+smoke config on the card, f32).  An arch whose path reaches the RWKV6 or
+the Mamba scan (K6, K5: rwkv6-7b, jamba-1.5-large) has no backward kernel
+there yet: the run stops with the ROADMAP Queue 2 item that brings it (K6b,
+K5b).
 
 ``--dispatch {static,roofline,profiled}`` routes every step through
 ``dispatch/`` between the tiers that run on ``--device`` (``kernel`` and

@@ -9,6 +9,16 @@ token: which expert each token picks, which picks overflow a bucket and are
 dropped, and each gate.  Where the JAX package dispatches and combines with
 dense one-hot einsums, the port gathers and scatters rows; each (expert,
 slot) holds at most one token, so the dispatch is exact.
+
+The routing's backward accumulates with no unordered atomics: the
+gathers ``x[token]`` (each token top-k times) and the combine's
+``expert_out[dest]`` differentiate to ``index_put`` with accumulation,
+which on the card sorts its indices first and sums each row's
+contributions in that order (``indexing_backward_kernel``), and the
+sort's backward scatters to distinct slots.  So a step's gradients are
+the same bits on every run, and a replayed train step equals the eager
+one (``chip_smoke.py`` phase 5 (l)).  The experts' FFN differentiates
+through K4b (``ops.MoEFFN``).
 """
 from __future__ import annotations
 

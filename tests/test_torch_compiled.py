@@ -145,6 +145,54 @@ def test_train_step_trace_is_capture_safe(microbatches):
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
+def test_moe_train_step_trace_is_capture_safe_and_counts_k4b(monkeypatch, microbatches):
+    """deepseek-moe-16b's train step (a dense layer and three MoE layers,
+    remat "nothing"), as CompiledTrainStep captures it: at other step
+    counts on other tokens it dispatches the same ops with the same
+    non-tensor arguments and none syncs (the routing's sort, capacity
+    cumsum and gathers included), and each step calls K4b's wrappers five
+    times a MoE layer (the gated dgrad, the dgrad and three wgrads) and
+    K4's three times a MoE layer's forward run (twice under remat) and once
+    in its backward (the pre-activation), the launches a replay repeats on
+    the card."""
+    import dataclasses
+
+    from repro_torch.kernels import moe_gmm, ops
+
+    calls = {"moe_gmm": 0, "moe_gmm_bwd": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(ops, "_gmm_kernel", counted("moe_gmm", ops._gmm_kernel))
+    for attr in ("gated_dgrad", "dgrad", "wgrad"):
+        monkeypatch.setattr(moe_gmm, attr, counted("moe_gmm_bwd", getattr(moe_gmm, attr)))
+    cfg = dataclasses.replace(reduced(get_config("deepseek-moe-16b")), n_layers=4,
+                              remat_policy="nothing")
+    n_moe = sum(cfg.layer_spec(i).ffn == "moe" for i in range(cfg.n_layers))
+    tcfg = TrainConfig(microbatches=microbatches)
+    state = init_train_state(cfg, tcfg, 0, "cpu")
+    step = make_train_step(cfg, tcfg)
+    rng = np.random.default_rng(6)
+    traces = []
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 17)))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        before = dict(calls)
+        traces.append(_trace(lambda: step(state, batch)))
+        assert calls["moe_gmm_bwd"] - before["moe_gmm_bwd"] == 5 * n_moe * microbatches
+        assert calls["moe_gmm"] - before["moe_gmm"] == (2 * 3 + 1) * n_moe * microbatches
+        if len(traces) == 2:
+            state["opt"]["step"].add_(4)
+    assert n_moe == 3 and all(_sync_ops(t) == [] for t in traces)
+    _assert_same_trace(traces[0], traces[1])
+    _assert_same_trace(traces[0], traces[2])
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
 @pytest.mark.parametrize("arch", ["chameleon-34b", "musicgen-large"])
 def test_train_step_with_frontend_embed_trace_is_capture_safe(arch, microbatches):
     """As above for a frontend arch's step with embeddings (the compiled

@@ -178,7 +178,7 @@ def test_estimate_callable_prices_aten_ops_at_their_bound_in_both_tiers():
 @pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention", "rmsnorm",
                                     "moe_gmm", "rwkv6_scan", "mamba_scan",
                                     "flash_attention_bwd", "rmsnorm_bwd",
-                                    "decode_attention_stats"])
+                                    "decode_attention_stats", "moe_gmm_bwd"])
 def test_estimate_run_prices_each_kernel_by_its_tier(kernel):
     """A run's kernel launch costs the tier's launch overhead plus its bound
     over the tier's efficiency on that kernel, and the plain tier prices

@@ -226,6 +226,9 @@ def test_kernel_names_map_to_the_port_kernels():
         "rmsnorm_rows<__nv_bfloat16, 1, true>(...)": "rmsnorm",
         "rmsnorm_bwd_fused<float, 2>(...)": "rmsnorm_bwd",
         "gmm_mma<8>(...)": "moe_gmm",
+        "void (anonymous namespace)::gmm_dgrad_gated<__nv_bfloat16, 1, true>(x)": "moe_gmm_bwd",
+        "gmm_dgrad<float, false>(x)": "moe_gmm_bwd",
+        "gmm_wgrad<__nv_bfloat16, true>(x)": "moe_gmm_bwd",
         "ampere_bf16_s16816gemm_bf16_128x64": None,
     }
     for name, port in names.items():

@@ -29,6 +29,7 @@ from repro.training import optim as jax_optim  # noqa: E402
 from repro.training import step as jax_step  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
+from repro_torch.kernels import moe_gmm as k4  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -490,20 +491,23 @@ def _chip_smoke():
     ("smollm-360m", {}), ("gemma3-4b", {"n_layers": 8}), ("gemma3-4b", {"n_layers": 2}),
     ("gemma2-27b", {"n_layers": 4}), ("chameleon-34b", {"n_layers": 3}),
     ("musicgen-large", {"n_layers": 2}), ("qwen2-0.5b", {"remat_policy": "everything"}),
+    ("deepseek-moe-16b", {"n_layers": 4}), ("dbrx-132b", {"n_layers": 2}),
 ])
 def test_chip_smoke_train_launches_per_step(arch, changes):
     """chip_smoke.py's count of each step's kernel launches (which it holds
     every train step on the card to) is the number of calls the step makes
     to each kernel wrapper, counted here on the CPU, where the wrappers run
     their plain versions: per-period remat runs the periods' forward again,
-    not the unscanned tail's or the final norm."""
+    not the unscanned tail's or the final norm; a MoE layer's forward runs
+    K4 three times, and its backward K4 once more and K4b's five launches."""
     from repro_torch.configs.base import LayerSpec
 
     cfg = dataclasses.replace(reduced(get_config(arch)), remat_policy="nothing")
     if arch == "gemma3-4b" and changes["n_layers"] == 2:
         changes = {**changes, "layer_pattern": (LayerSpec("swa"), LayerSpec("ga"))}
     cfg = dataclasses.replace(cfg, **changes)
-    calls = dict.fromkeys(("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"), 0)
+    calls = dict.fromkeys(("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd",
+                           "moe_gmm", "moe_gmm_bwd"), 0)
 
     def counted(name, fn):
         def wrapper(*a, **kw):
@@ -522,11 +526,16 @@ def test_chip_smoke_train_launches_per_step(arch, changes):
                            ("flash_attention_bwd", "_fa_bwd_kernel"),
                            ("rmsnorm", "_rmsnorm_kernel"), ("rmsnorm_bwd", "_rmsnorm_bwd_kernel")):
             mp.setattr(ops, attr, counted(name, getattr(ops, attr)))
+        mp.setattr(ops, "_gmm_kernel", counted("moe_gmm", ops._gmm_kernel))
+        for attr in ("gated_dgrad", "dgrad", "wgrad"):
+            mp.setattr(k4, attr, counted("moe_gmm_bwd", getattr(k4, attr)))
         step_mod.make_train_step(cfg, tcfg)(state, batch)
     want = _chip_smoke().train_launches_per_step(cfg)
     assert {k: want[k] for k in calls} == calls
     assert all(v == 0 for k, v in want.items() if k not in calls)
     assert calls["flash_attention_bwd"] == cfg.n_layers
+    n_moe = sum(cfg.layer_spec(i).ffn == "moe" for i in range(cfg.n_layers))
+    assert calls["moe_gmm_bwd"] == 5 * n_moe and (n_moe > 0) == (cfg.moe is not None)
 
 
 def test_adamw_update_in_chunks_gives_the_whole_leafs_bits(monkeypatch):
