@@ -10,11 +10,12 @@ failure of which exits non-zero:
 1. print the card (``nvidia-smi`` name and power limit); TF32 off;
 2. build the CUDA kernels (one ``nvcc`` per source, in parallel), printing
    the build time and ptxas' report (per instance for K3, K5 and both K1b
-   sources, the wide K1b's at D 128 / 256 among them, none of whose
-   instances may spill, nor K5's take more than 128
+   sources, the wgmma K1b's twelve at D 64, 128 and 256 among them, none of
+   whose instances may spill, nor K5's take more than 128
    registers, nor the wgmma K1b's differ from the entry count its
    setmaxnreg exchange assumes; the wgmma K1b's shared memory, blocks an
-   SM and any wgmma serialisation ptxas reports; K1 and K2 per instance,
+   SM and rings at each head dim, and any wgmma serialisation ptxas
+   reports, which fails the run at D 128 / 256; K1 and K2 per instance,
    and for their four D-256 instances, none of which may spill, the
    registers, spilled bytes, shared memory and blocks an SM the card
    reports);
@@ -146,12 +147,14 @@ failure of which exits non-zero:
    CPU tests' edge cases (q_offset, window + softcap, ragged Sq / Sk, G =
    8, head dims 8 to 256; at D 64, the wgmma instance's, also window +
    softcap + q_offset under GQA and Sq, Sk off its 64-row tiles at G = 8;
-   at D 128 and 256, the wide pair's, the CPU tests' VJP cases, window +
-   softcap + q_offset under GQA and Sq, Sk off its tiles at G = 8) in f32
-   and bf16 and in bf16 at the training shapes (4, 2048, 15/5, 64) and
-   phase (k)'s: gemma3-4b's global and local (window 1024) layers at D
-   256, gemma2-27b's with softcap 50 and chameleon-34b's at G 8 at D 128,
-   musicgen-large's at G 1 on the wgmma pair; each K1b run twice with
+   at D 128 and 256, the wgmma instances whose warpgroups split D, the
+   CPU tests' VJP cases, window + softcap + q_offset under GQA and Sq, Sk
+   off its tiles at G = 8) in f32 and bf16 and in bf16 at the training
+   shapes (4, 2048, 15/5, 64) and phase (k)'s: gemma3-4b's global and
+   local (window 1024) layers at D 256, gemma2-27b's with softcap 50 and
+   chameleon-34b's at G 8 at D 128, musicgen-large's at G 1 on the wgmma
+   pair, phase (l)'s deepseek-moe-16b at G 1 at D 128, and dbrx-132b's
+   G 6 at D 128; each K1b run twice into NaN-filled memory with
    bitwise-equal results;
    (c) K3b against ``ref.rmsnorm_bwd_ref`` at (8192, 960), every served
    (rows, D) and phase (k)'s training rows (d 2560, 4608, 8192 and QK-norm's
@@ -198,9 +201,11 @@ failure of which exits non-zero:
    (``rmsnorm.previous_bwd``), and K3B_CALLS K3b calls under
    torch.profiler, which must show its one kernel, at most once a call,
    and nothing else (no memset); and K3 at the training rows beside
-   ``F.rms_norm``; K1b at phase (k)'s training shapes (the wide pair at D
-   128 / 256, with its rate and its multiple of the bound) beside its
-   bound, plain version and SDPA's backward, and gemma3-4b's in f32, and
+   ``F.rms_norm``; K1b at phase (k)'s and (l)'s training shapes (at D 128
+   / 256 with its rate and its multiples of the bound and of SDPA, and
+   the previous design there, ``flash_attention.previous_wide_bwd``,
+   timed before and after it) beside its bound, plain version and SDPA's
+   backward, and gemma3-4b's in f32, and
    K1's forward with its lse (``flash_fwd_mma``, as the train step
    launches it) at the same shapes beside its bound, plain version and
    SDPA's forward; (h)
@@ -214,8 +219,9 @@ failure of which exits non-zero:
    (d)-(f'): the f32 steps at DENSE_GATE_LAYERS layers, DENSE_TRAIN_STEPS
    bf16 steps at 4 x 2048 on one batch eagerly and then compiled (the loss
    falling), frontend archs with seeded embeddings, and one replayed step
-   under torch.profiler (the tensor-core K1b, the wide pair at D 128 / 256,
-   and no other K1b instance; K1b's ms a step); then ``python -m
+   under torch.profiler (the tensor-core K1b, ``flash_bwd_*_sm90`` at D
+   128 / 256, and no other K1b instance and never the previous wide
+   pair; K1b's ms a step); then ``python -m
    repro_torch.launch.train --arch gemma3-4b`` (DENSE_CLI_ARGS, no
    checkpoints; full depth) in a child process: one capture, every step's
    K1b launches, its loss falling; (l) K4b, the grouped matmul's backward
@@ -418,7 +424,8 @@ failure of which exits non-zero:
    MESH_DRYRUN_TIMEOUT_S fails the run;
 12. print the script's run time, the per-kernel JSON line (launches from the
    nine compiled serving runs, K1b's and K3b's from phase 5 (e), the wide
-   K1b's from phase 5 (k), phase 7's, phase 8's, phase 9's replicas' and
+   K1b's (bf16 D 128 / 256) from phases 5 (k) and (l), phase 7's, phase
+   8's, phase 9's replicas' and
    phase 10's runs, and K2's stats mode's from phase 11 (c)), the card
    line, and last the ``{"ok": true, "device": ...}`` line.
 
@@ -768,25 +775,42 @@ def main() -> None:
             print(f"    {fn_name[:72]}: {regs} registers, {spill} bytes spilled", flush=True)
         if any(spill for *_, spill in ptxas[name]):
             fail(f"an instance of {name} spills registers")
-    # the wgmma K1b: its shared memory (all dynamic) and blocks an SM, and
-    # any wgmma serialisation ptxas reports
-    sm90_cfg = k1.sm90_config(k1._sm90_entry()[0], 0)
-    print(f"  flash_attention_bwd_sm90 configuration: {json.dumps(sm90_cfg)}", flush=True)
+    # the wgmma K1b at each head dim of its source (64; 128 and 256, whose
+    # warpgroups split D): shared memory (all dynamic), blocks an SM, rings
+    sm90_cfgs = {D_: k1.sm90_config(k1._sm90_entry()[0], 0, D_) for D_ in k1.BWD_SM90_HEAD_DIMS}
+    for D_, cfg_ in sm90_cfgs.items():
+        print(f"  flash_attention_bwd_sm90 configuration at D {D_}: {json.dumps(cfg_)}",
+              flush=True)
     # setmaxnreg's exchange balances only if ptxas gave every instance the
     # entry count the source assumes (another would leave it waiting)
-    sm90_regs = {fn_name: (regs, sm90_cfg["entry_regs_" + ("dq" if "dq_wgmma" in fn_name
-                                                          else "dkdv")])
+    def sm90_entry_regs(fn_name: str) -> int:
+        m = re.search(r"flash_bwd_(dq|dkdv)_(wgmma|sm90)I(?:Li(\d+)E)?", fn_name)
+        D_ = 64 if m.group(2) == "wgmma" else int(m.group(3))
+        return sm90_cfgs[D_]["entry_regs_" + m.group(1)]
+
+    sm90_regs = {fn_name: (regs, sm90_entry_regs(fn_name))
                  for fn_name, regs, _ in ptxas["flash_attention_bwd_sm90"]}
-    if len(sm90_regs) != 4 or any(got != want for got, want in sm90_regs.values()):
+    if len(sm90_regs) != 12 or any(got != want for got, want in sm90_regs.values()):
         fail(f"flash_attention_bwd_sm90: ptxas registers (got, entry count) {sm90_regs}: "
-             "four instances, each at its entry count, expected")
+             "twelve instances (4 at D 64, 4 each at D 128 and 256), each at its entry "
+             "count, expected")
     # K4b's instances: reported (its first design spills a few bytes in the
     # gated bf16 and the f32 instances; ROADMAP P-queue)
     for fn_name, regs, spill in ptxas["moe_gmm_bwd"]:
         print(f"    {fn_name[:72]}: {regs} registers, {spill} bytes spilled", flush=True)
+    # wgmma serialisation ptxas reports: printed (the D-64 pair has it), and
+    # none allowed in the D-128 / 256 instances
+    serialised = []
     for line in paths["flash_attention_bwd_sm90"].with_suffix(".log").read_text().splitlines():
         if "Performance Loss" in line:
-            print(f"    ptxas: {line.strip()[:200]}", flush=True)
+            fn = re.search(r"flash_bwd_\w+?E(?:Ev|v)", line)
+            print(f"    ptxas: {line.strip()[:120]} ... {fn.group(0) if fn else line[-120:]}",
+                  flush=True)
+            serialised.append(fn.group(0) if fn else line)
+    if any("_sm90I" in n for n in serialised):
+        fail(f"flash_attention_bwd_sm90: ptxas serialises the wgmmas of {serialised}")
+    print(f"  flash_attention_bwd_sm90: wgmma serialisation in {len(serialised)} instances, "
+          f"none at D 128 / 256", flush=True)
     if any(regs > 128 for _, regs, _ in ptxas["mamba_scan"]):
         fail("an instance of mamba_scan takes more than 128 registers (4 blocks an SM)")
     # K1 and K2 per instance, and what the card made of their four D-256
@@ -2795,9 +2819,9 @@ def main() -> None:
     # the training shapes of phase (k): gemma3-4b's global and local (window
     # 1024) layers at D 256, gemma2-27b's at D 128 with softcap 50,
     # chameleon-34b's at D 128 with G 8, and musicgen-large's at D 64 with G 1
-    # (the wgmma pair)
-    g3t, g2t, cht, mgt = (get_config(a) for a in (GEMMA3_ARCH, GEMMA2_ARCH, CHAMELEON_ARCH,
-                                                   MUSICGEN_ARCH))
+    # (the wgmma pair); phase (l)'s deepseek-moe-16b at D 128 with G 1
+    g3t, g2t, cht, mgt, dst = (get_config(a) for a in (GEMMA3_ARCH, GEMMA2_ARCH, CHAMELEON_ARCH,
+                                                        MUSICGEN_ARCH, MOE_ARCH))
     dB, dS = DENSE_KERNEL_BATCH, DENSE_TRAIN_SEQ
     dense_shapes = {
         f"{GEMMA3_ARCH} global": (dB, dS, dS, g3t.n_heads, g3t.n_kv_heads, g3t.head_dim, None,
@@ -2807,12 +2831,37 @@ def main() -> None:
         GEMMA2_ARCH: (dB, dS, dS, g2t.n_heads, g2t.n_kv_heads, g2t.head_dim, None,
                       g2t.attn_logit_softcap, 0),
         CHAMELEON_ARCH: (dB, dS, dS, cht.n_heads, cht.n_kv_heads, cht.head_dim, None, None, 0),
-        MUSICGEN_ARCH: (dB, dS, dS, mgt.n_heads, mgt.n_kv_heads, mgt.head_dim, None, None, 0)}
+        MUSICGEN_ARCH: (dB, dS, dS, mgt.n_heads, mgt.n_kv_heads, mgt.head_dim, None, None, 0),
+        MOE_ARCH: (dB, dS, dS, dst.n_heads, dst.n_kv_heads, dst.head_dim, None, None, 0)}
+    # dbrx-132b's head layout (G 6 at D 128), checked in bf16 only
+    dbt = get_config(DBRX_ARCH)
+    dbrx_heads = (1, dS, dS, dbt.n_heads, dbt.n_kv_heads, dbt.head_dim, None, None, 0)
     err_lse = err_b = err_wide = 0.0
+
+    def k1b_twice(q, k, v, out, lse, do, label, **kw):
+        """K1b twice on the same inputs, each time into the blocks the caching
+        allocator last freed, filled with NaN just before (a gradient element
+        the kernels leave unwritten shows; fails if a gradient lands
+        elsewhere); the two results must be the same bytes (no atomics, no
+        race in the rings)."""
+        outs = []
+        for _ in range(2):
+            nan = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+            ptrs = {t.data_ptr() for t in nan}
+            del nan
+            outs.append(k1.flash_attention_bwd(q, k, v, out, lse, do, **kw))
+            if not {g.data_ptr() for g in outs[-1]} <= ptrs:
+                fail(f"flash_attention_bwd {label}: a gradient did not land in the NaN-filled "
+                     f"blocks")
+        if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(*outs)):
+            fail(f"flash_attention_bwd {label}: two runs differ")
+        return outs[0]
+
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).removeprefix("torch.")
-        train_shape = ([(tB, tS, tS, tHq, tHkv, tD, None, None, 0), *dense_shapes.values()]
-                       if dt == torch.bfloat16 else [])
+        train_shape = ([(tB, tS, tS, tHq, tHkv, tD, None, None, 0), *dense_shapes.values(),
+                        dbrx_heads] if dt == torch.bfloat16 else [])
         for B_, Sq_, Sk_, Hq_, Hkv_, D_, w, cap, qo in k1b_cases + train_shape:
             q, k, v, do = (randn(B_, n, h, D_, dtype=dt)
                            for n, h in ((Sq_, Hq_), (Sk_, Hkv_), (Sk_, Hkv_), (Sq_, Hq_)))
@@ -2822,15 +2871,12 @@ def main() -> None:
             out_p, lse_p = ref.flash_attention_lse_ref(q, k, v, **kw)
             hold("flash_attention", f"{label} out, lse written", out, out_p, dn)
             err_lse = max(err_lse, hold("flash_attention lse", label, lse, lse_p, dn))
-            got = k1.flash_attention_bwd(q, k, v, out, lse, do, **kw)
-            if not all(torch.equal(a, b) for a, b in
-                       zip(got, k1.flash_attention_bwd(q, k, v, out, lse, do, **kw))):
-                fail(f"flash_attention_bwd {label}: two runs differ")
+            got = k1b_twice(q, k, v, out, lse, do, label, **kw)
             want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
             pair = k1.bwd_instances(dt, D_)[0]
             err = hold_rel(f"{label} dq dk dv vs ref.flash_attention_bwd_ref ({pair})", got,
                            want, BWD_TOL[dn], kernel="flash_attention_bwd")
-            if pair == "flash_bwd_dq_wide":
+            if pair == "flash_bwd_dq_sm90":
                 err_wide = max(err_wide, err)
             else:
                 err_b = max(err_b, err)
@@ -3165,10 +3211,17 @@ def main() -> None:
         b_ms, b_by = bound_ms(nbytes(q, k, v, out, lse, do, q, k, v), n_flops, peaks["bfloat16"])
         row = {"ms": time_ms(lambda: k1.flash_attention_bwd(q, k, v, out, lse, do, **kw)),
                "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
-                                                                       **kw), iters=5),
+                                                                       **kw), iters=3),
                "bound_ms": b_ms, "bound_by": b_by,
                "shape": f"{B_}x{Sq_}x{Hq_}/{Hkv_}x{D_} bf16 causal window={w} softcap={cap} "
                         f"({' + '.join(k1.bwd_instances(torch.bfloat16, D_))})"}
+        if D_ in k1.BWD_WIDE_HEAD_DIMS:  # the previous design at D 128 / 256, then again
+            row["previous_ms"] = time_ms(lambda: k1.previous_wide_bwd(q, k, v, out, lse, do,
+                                                                      **kw), iters=10)
+            row["ms_after_previous"] = time_ms(
+                lambda: k1.flash_attention_bwd(q, k, v, out, lse, do, **kw), iters=10)
+            row["previous"] = " + ".join(k1.PREVIOUS_WIDE_INSTANCES) + " (mma.sync)"
+            row["x_previous"] = row["previous_ms"] / row["ms"]
         qs, ks_, vs_, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
         mask = None
         if w is not None:
@@ -3194,6 +3247,7 @@ def main() -> None:
         print(f"  flash_attention forward at {label}, {smi}: {json.dumps(fwd)}", flush=True)
         row["tflops"] = n_flops / (row["ms"] * 1e-3) / 1e12
         row["x_bound"] = row["ms"] / b_ms
+        row["x_sdpa"] = row["ms"] / lib
         if label == f"{GEMMA3_ARCH} global":
             q, k, v, do, out, lse = (t.float() for t in (q, k, v, do, out, lse))
             qs, ks_, vs_, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
@@ -3297,9 +3351,11 @@ def main() -> None:
                      + dense["launches"]["flash_attention_bwd"]),
         **k1b, MUSICGEN_ARCH: dense_k1b[MUSICGEN_ARCH],
     }
+    # K1b at bf16 D 128 / 256 (flash_bwd_dq_sm90 + flash_bwd_dkdv_sm90): its
+    # launches from phase (k) here, phase (l)'s deepseek-moe-16b added below
     records["flash_attention_bwd_wide"] = {
         "name": "flash_attention_bwd_wide", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_vjp.py:108", "max_abs_err": err_wide,
         "launches": dense["launches"]["flash_attention_bwd_wide"],
         **dense_k1b[f"{GEMMA3_ARCH} global"],
@@ -3316,6 +3372,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe_train = moe_train_phase(dev, smi, records, {"time_ms": time_ms, "bound_ms": bound_ms,
                                                     "peaks": peaks})
+    records["flash_attention_bwd_wide"]["launches"] += moe_train["k1b_launches"]
     training = {"f32_gate": f32_gate, "train": train_rec, "profile": train_profile,
                 "compiled": compiled_rec, "compiled_profile": compiled_profile,
                 "eager_vs_compiled": train_vs, "graph_f32": graph_train_f32,
@@ -3579,8 +3636,8 @@ def train_checks(dev, smi: str, arch: str, cfg, cfg32, tcfg, b32: list[dict], bf
     want_names = [k1.instance(torch.bfloat16, D), *bwd, "rmsnorm_rows", "rmsnorm_bwd_fused"]
     other_bwd = {n for d in k1.BWD_HEAD_DIMS for dt in (torch.bfloat16, torch.float32)
                  for n in k1.bwd_instances(dt, d)} - set(bwd)
-    other_names = ["flash_fwd_simt", *sorted(other_bwd), "rmsnorm_bwd_rows",
-                   "rmsnorm_bwd_dscale"]
+    other_names = ["flash_fwd_simt", *sorted(other_bwd), *k1.PREVIOUS_WIDE_INSTANCES,
+                   "rmsnorm_bwd_rows", "rmsnorm_bwd_dscale"]
     k4b_names = list(K4B_KERNELS) if cfg.moe is not None else []
     if cfg.moe is not None:  # K4's and K4b's tensor-core instances, not K4's others
         want_names += ["gmm_mma", *k4b_names]
@@ -3706,7 +3763,7 @@ def dense_train_phase(dev, smi: str) -> dict:
         rec = train_checks(dev, smi, arch, cfg, cfg32, tcfg, b32,
                            lambda B=B, batches=batches: batches(B, S, 1, torch.bfloat16) * N,
                            fall_by=0.0)
-        wide = k1.bwd_instances(torch.bfloat16, cfg.head_dim)[0] == "flash_bwd_dq_wide"
+        wide = cfg.head_dim in k1.BWD_WIDE_HEAD_DIMS
         launches["flash_attention_bwd_wide" if wide else "flash_attention_bwd"] += sum(
             rec[mode]["launches"]["flash_attention_bwd"] for mode in ("eager", "compiled"))
         out["archs"][arch] = rec
@@ -3906,6 +3963,9 @@ def moe_train_phase(dev, smi: str, records: dict, kit: dict) -> dict:
     rec = train_checks(dev, smi, f"5 (l) {MOE_ARCH}", cfg, cfg32, tcfg, b32,
                        lambda: batches(MOE_TRAIN_BATCH, DENSE_TRAIN_SEQ, 1) * N, fall_by=0.0)
     out["train"] = rec
+    # its K1b launches (bf16 D 128: the wgmma pair whose warpgroups split D)
+    out["k1b_launches"] = sum(rec[mode]["launches"]["flash_attention_bwd"]
+                              for mode in ("eager", "compiled"))
     del b32
     gc.collect()
     torch.cuda.empty_cache()
@@ -4374,7 +4434,8 @@ def dispatch_phase(dev, smi: str, records: dict, compiled_losses: list) -> dict:
     if reg.names() != ["kernel", "plain"]:
         fail(f"host_registry on {dev}: {reg.names()}, expected ['kernel', 'plain']")
     # phase 7's launches, added to the kernel line (the wide K1b's record is
-    # launched only in phase 5 (k): its launches count as flash_attention_bwd)
+    # launched only in phases 5 (k) and (l): its launches count as
+    # flash_attention_bwd)
     stray = {name: 0 for name in records if name in LAUNCHES}
 
     def memory(label: str) -> dict:

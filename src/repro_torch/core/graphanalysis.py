@@ -236,8 +236,8 @@ def analyze_sharded_step(fn: Callable[..., Any], *args: Any, n_devices: int,
 # by the first.
 KERNEL_NAMES: dict[str, tuple[str, ...]] = {
     "flash_attention": ("flash_fwd_mma", "flash_fwd_simt"),
-    "flash_attention_bwd": ("flash_bwd_dq_wgmma", "flash_bwd_dq_wide", "flash_bwd_dq_mma",
-                            "flash_bwd_dq"),
+    "flash_attention_bwd": ("flash_bwd_dq_wgmma", "flash_bwd_dq_sm90", "flash_bwd_dq_wide",
+                            "flash_bwd_dq_mma", "flash_bwd_dq"),
     "decode_attention": ("decode_split_mma", "decode_split_kernel"),
     "rmsnorm": ("rmsnorm_rows",),
     "rmsnorm_bwd": ("rmsnorm_bwd_fused",),

@@ -34,10 +34,14 @@
 //   products on the tensor cores (mma.sync m16n8k16, P and dS rounded to
 //   bf16 as their A operands; below).  S is computed in both passes, so
 //   they do 14 D flops a pair where the bound counts 10 D.  (Python routes
-//   bf16 D 64 to the wgmma pair of flash_attention_bwd_sm90.cu.)
+//   bf16 D 64, 128 and 256 to the wgmma instances of
+//   flash_attention_bwd_sm90.cu.)
 // * bf16 at D 128 / 256: flash_bwd_dq_wide + flash_bwd_dkdv_wide, the same
 //   products on mma.sync with head_dim split across 8 warps, P and dS
 //   passed between the warps through shared memory (the last section).
+//   The previous design there: no training path runs it since the wgmma
+//   instances replaced it; flash_attention.previous_wide_bwd reaches it,
+//   for timing beside them.
 // * f32, and bf16 at D 8: flash_bwd_dq + flash_bwd_dkdv, the
 //   products on the f32 CUDA cores one (row, key) pair at a time per thread
 //   group (the layout of flash_fwd_simt: thread g of a row owns dims

@@ -1,10 +1,15 @@
-// Flash attention backward (K1b) in bf16 at head dim 64, designed for Hopper
-// (sm_90a): wgmma products fed by TMA rings, warp-specialised, persistent.
+// Flash attention backward (K1b) in bf16 at head dims 64, 128 and 256,
+// designed for Hopper (sm_90a): wgmma products fed by TMA rings,
+// warp-specialised, persistent.
 //
 // Replaces repro/kernels/flash_vjp.py's _bwd_rule (a jnp custom_vjp, not
-// Pallas) at bf16 D 64, the shape the training path runs; the other dtypes
-// and head dims stay in flash_attention_bwd.cu.  It computes what that file
-// computes (see its header): from (q, k, v, out, lse, dout),
+// Pallas) in bf16 at D 64 (flash_bwd_dq_wgmma / flash_bwd_dkdv_wgmma, the
+// design described first below) and at D 128 / 256 (flash_bwd_dq_sm90 /
+// flash_bwd_dkdv_sm90<D>, the same design with one 64-row item a block
+// whose two warpgroups split each tile by columns: their section); f32
+// and bf16 D 8 / 16 / 32 stay in flash_attention_bwd.cu, whose previous
+// D 128 / 256 pair is kept there for timing only.  Both compute what that
+// file computes (see its header): from (q, k, v, out, lse, dout),
 //
 //   delta_i = sum_d dout_i,d out_i,d       P_ij = exp(s_ij - lse_i)
 //   dv_j   += P_ij dout_i                 dS_ij = P_ij (dout_i . v_j - delta_i) chain_ij
@@ -70,9 +75,19 @@
 //   warpgroup passes the tiles of an item outside its run of tiles with a
 //   live pair (waits for them and releases them).
 //
+// What bounds the D 128 / 256 instances (their section has the design):
+// the products, at 7 (S, dP twice) where the bound counts 5, on the tensor
+// cores; the load stream where a tile's reuse is low (at D 128, G 8 the
+// dk / dv pass streams a 32 KB Q / dO stage for each 64 x 64 tile); and
+// with a softcap the special-function unit (two exponentials and a
+// reciprocal a score in each pass).  PERF.md has the measured split.
+//
 // Build-time configuration (defaults below; tools/k1b_variants.py builds
-// others): K1B_DQ_WG and K1B_DKDV_WG consumer warpgroups a block (1 or 2;
-// 1 spills), K1B_STAGES ring stages.
+// others): K1B_DQ_WG and K1B_DKDV_WG consumer warpgroups a block at D 64
+// (1 or 2; 1 spills), K1B_STAGES its ring stages; at D 128 the dq and dk /
+// dv ring stages (K1B_W128_DQ_STAGES, K1B_W128_DKDV_STAGES), item buffers
+// (K1B_W128_DQ_BUFS, K1B_W128_DKDV_BUFS) and the lookahead step
+// (K1B_W128_AHEAD); at D 256 the ring stages (K1B_W256_STAGES: only 2 fit).
 #include <cuda.h>
 
 #include "mma.cuh"
@@ -85,6 +100,24 @@
 #endif
 #ifndef K1B_STAGES
 #define K1B_STAGES 4
+#endif
+#ifndef K1B_W128_DQ_STAGES
+#define K1B_W128_DQ_STAGES 4
+#endif
+#ifndef K1B_W128_DKDV_STAGES
+#define K1B_W128_DKDV_STAGES 3
+#endif
+#ifndef K1B_W128_DQ_BUFS
+#define K1B_W128_DQ_BUFS 2
+#endif
+#ifndef K1B_W128_DKDV_BUFS
+#define K1B_W128_DKDV_BUFS 2
+#endif
+#ifndef K1B_W128_AHEAD
+#define K1B_W128_AHEAD 1
+#endif
+#ifndef K1B_W256_STAGES
+#define K1B_W256_STAGES 2
 #endif
 
 namespace {
@@ -130,15 +163,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (n % 1024 == 0 && global_ns() - t0 > kHangNs) __trap();
 }
 
-// one 64-row box of one head of a (B, S, H, 64) tensor -> shared memory
-__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int head, int row, int batch) {
+// one box of 64 rows x 64 columns (from column `col`) of one head of a
+// (B, S, H, D) tensor -> shared memory
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
+                                        int head, int row, int batch) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(head), "r"(row), "r"(batch),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row), "r"(batch),
       "r"(smem_addr(bar))
       : "memory");
+}
+// one 64-row box of one head of a (B, S, H, 64) tensor -> shared memory
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int head, int row, int batch) {
+  tma_box(dst, map, bar, 0, head, row, batch);
 }
 // `bytes` contiguous bytes (16-byte aligned) -> shared memory
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
@@ -179,9 +218,10 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 }
 // keeps the compiler from reading an accumulator before the wait that
 // completes it (the wgmma asm "writes" it at issue)
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Shared-memory matrix descriptor of a 64-row tile of 128-byte rows stored
@@ -841,6 +881,708 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
+// head dims 128 and 256: flash_bwd_dq_sm90 / flash_bwd_dkdv_sm90<D, ...>
+// ---------------------------------------------------------------------------
+//
+// At D 128 / 256 a warpgroup cannot hold a 64-key tile's dK and dV (D / 2
+// f32 registers a thread each) beside its scores, nor does shared memory
+// hold two warpgroups' own 64-row tiles.  So both consumer warpgroups of a
+// block work on one item of 64 rows (or keys) and split every 64 x 64 score
+// tile by its columns: warpgroup w computes S and dP (S^T and dP^T) for
+// columns [32 w, 32 w + 32) with m64n32k16 products over D, writes its half
+// of dS (P^T and dS^T) in bf16 to shared memory in the swizzled layout wgmma
+// reads, and after a named barrier of the two takes the whole tile as the A
+// operand of its half of the gradient's columns, dQ (dK, dV)[:, D/2 w ..],
+// m64n(D/2)k16.  No product is done twice; a thread holds D / 4 floats of
+// each gradient.  A D-wide tile arrives as D / 64 TMA boxes (panels of 64
+// rows x 128 bytes, 8 KB apart): a K-major product steps to the next panel
+// every 4 k16 steps, an MN-major B spans them through the descriptor's
+// leading byte offset.  At D 128 the steps are pipelined as at D 64 (the
+// next tile's S / S^T issued before this tile's exponentials); at D 256
+// one 64-row tile is 32 KB, so rings of 2 stages and one item buffer fit
+// 227 KB, and a step issues its own scores (the producer loads the next
+// tile into the stage the previous step released meanwhile).
+
+constexpr int kWideWG = 2;  // consumer warpgroups of a wide block
+static_assert(kEntryRegs<kWideWG> == 168 && kConsumerRegs<kWideWG> == 232, "setmaxnreg's counts");
+
+// the two consumer warpgroups meet (named barrier 1; 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+// this thread's shared-memory stores become visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// k16 step kk of a K-major operand over D / 64 panels (8 KB apart)
+__device__ __forceinline__ uint64_t kstep(uint64_t desc, int kk) {
+  return desc + static_cast<uint64_t>(kk >> 2) * (kTileBytes >> 4) + (kk & 3) * kKStep;
+}
+// an MN-major B whose N spans panels: LBO the panel stride, SBO 1024 bytes
+__device__ __forceinline__ uint64_t panels_desc(const bf16* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kTileBytes >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+#define ACC16_STR \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define ACC16(d) \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define ACC64_STR \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,  " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,  " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,  " \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define ACC64(d) \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 32 f32) = (accumulate ? d : 0) + A (64 x 16) B (16 x 32), both
+// K-major in shared memory
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                          int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " ACC16_STR
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : ACC16(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// d (64 x N f32, N 64 or 128) += A (64 x 16, K-major smem) B (16 x N,
+// MN-major smem)
+__device__ __forceinline__ void wgmma_tb(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_STR
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_tb(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ACC64_STR
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : ACC64(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// 32 columns of a score tile: A's 64 rows (desc `a`, its panel 0) times B's
+// 32 rows (desc `b`) over K = D
+template <int D>
+__device__ __forceinline__ void scores(float (&d)[16], uint64_t a, uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_n32(d, kstep(a, kk), kstep(b, kk), kk > 0);
+}
+// d += A B over K = 64: A the 64 x 64 bf16 tile `a` (K-major), B the D / 2
+// columns of a D-wide tile from panel `b` on (MN-major)
+template <int D>
+__device__ __forceinline__ void grads(float (&d)[D / 4], const bf16* a, const bf16* b) {
+  const uint64_t ad = tile_desc(a), bd = panels_desc(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_tb(d, ad + kk * kKStep, bd + kk * kMNStep);
+}
+// a bf16 pair into row r, columns c, c + 1 (c even) of a 64 x 64 tile in
+// TMA's 128-byte swizzle, the layout the descriptors above read
+__device__ __forceinline__ void st_pair(bf16* tile, int r, int c, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(tile) + r * 128 +
+                               (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2) = v;
+}
+
+template <int D>
+using Wide = bf16[D / 64][kTileElems];  // a 64-row tile of D columns: D / 64 panels
+
+// ---------------------------------------------------------------------------
+// wide dq pass
+// ---------------------------------------------------------------------------
+
+template <int D, int ST, int NB>
+struct DqWideSmem {
+  Wide<D> item[NB][2];       // Q, dO of the item's 64 rows, NB items
+  Wide<D> ring[ST][2];       // K, V of one key tile a stage
+  bf16 ds[2][kTileElems];    // dS (64 rows x 64 keys), two steps
+  float part[2][kWideWG][kT];  // delta's halves, by warpgroup, two items
+  uint64_t full[ST], empty[ST], item_full[NB], item_empty[NB];
+};
+
+// this warpgroup's 32 keys of a dq tile: s (S = Q K^T: rows r_a + 8 h with
+// the live keys spans[h], keys key_a + 8 j + c) and dp -> dS in bf16 into
+// the shared tile ds at columns col_a + 8 j + c
+template <bool kCap>
+__device__ __forceinline__ void dq_ds(bf16* ds, const float (&s)[16], const float (&dp)[16],
+                                      const float (&lse2)[2], const float (&dl)[2],
+                                      const Span (&spans)[2], int key_a, int col_a, int r_a,
+                                      const Attn& a) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 4 * j + 2 * h;
+      float c0, c1;
+      const float p0 = keep(prob<kCap>(s[e], lse2[h], a, &c0), key_a + 8 * j, spans[h]);
+      const float p1 = keep(prob<kCap>(s[e + 1], lse2[h], a, &c1), key_a + 8 * j + 1, spans[h]);
+      st_pair(ds, r_a + 8 * h, col_a + 8 * j,
+              pack2((kCap ? p0 * c0 : p0) * (dp[e] - dl[h]),
+                    (kCap ? p1 * c1 : p1) * (dp[e + 1] - dl[h])));
+    }
+}
+
+// S = Q K^T and dP = dO V^T of this warpgroup's 32 keys of a key tile (K, V)
+template <int D>
+__device__ __forceinline__ void dq_scores(float (&s)[16], float (&dp)[16], uint64_t q_desc,
+                                          uint64_t do_desc, const Wide<D> (&kv)[2], int wg) {
+  scores<D>(s, q_desc, tile_desc(kv[0][0] + wg * 32 * 64));
+  scores<D>(dp, do_desc, tile_desc(kv[1][0] + wg * 32 * 64));
+}
+
+// Where a wide dq step is: its register sets, descriptors and this thread's
+// place in the tile
+template <int D>
+struct DqAt {
+  float (&dqa)[D / 4];
+  uint64_t q_desc, do_desc;
+  int wg, col_a, r_a, lane;
+  const float (&lse2)[2];
+  const float (&dl)[2];
+  const Span (&spans)[2];
+  const Attn& a;
+};
+
+// One pipelined step (D 128), on tile t of the run (its S and dP already
+// issued, into s and dp): the next tile's S and dP (into sn, dpn) first;
+// then this tile's dS to shared memory, the barrier, dQ += dS K left in
+// flight.  `cur` is tile t's stage, `held` the previous tile's, released
+// once the wait completes its dQ products (both warpgroups' arrivals).
+template <bool kNext, bool kCap, int D, int ST, int NB>
+__device__ __forceinline__ void dq_step_w(DqWideSmem<D, ST, NB>& sm, Ring<ST>& ring, int& cur,
+                                          int& held, int& pb, float (&s)[16], float (&dp)[16],
+                                          float (&sn)[16], float (&dpn)[16], int key_a,
+                                          const DqAt<D>& at) {
+  int nxt = -1;
+  if constexpr (kNext) {
+    mbar_wait(&sm.full[ring.stage], ring.phase);
+    wgmma_fence();
+    dq_scores<D>(sn, dpn, at.q_desc, at.do_desc, sm.ring[ring.stage], at.wg);  // tile t + 1
+    wgmma_commit();
+    nxt = ring.stage;
+    ring.next();
+    wgmma_wait<1>();  // tile t's S and dP and tile t - 1's dQ products are done
+  } else {
+    wgmma_wait<0>();
+  }
+  fence_acc(s);
+  fence_acc(dp);
+  release(&sm.empty[held >= 0 ? held : 0], at.lane, held >= 0);
+  dq_ds<kCap>(sm.ds[pb], s, dp, at.lse2, at.dl, at.spans, key_a, at.col_a, at.r_a, at.a);
+  fence_async_smem();
+  consumers_sync();
+  wgmma_fence();
+  grads<D>(at.dqa, sm.ds[pb], sm.ring[cur][0][at.wg * D / 128]);  // dQ += dS K
+  wgmma_commit();
+  held = cur;
+  cur = nxt;
+  pb ^= 1;
+}
+
+// One step without lookahead (D 256): waits for tile t, issues its S and
+// dP, then dS, the barrier and dQ += dS K, and waits for those before it
+// releases the stage (the producer loads the next tile meanwhile; no
+// product is in flight across steps, so the accumulators of one step's
+// products are all a thread holds at once)
+template <bool kCap, int D, int ST, int NB>
+__device__ __forceinline__ void dq_step_n(DqWideSmem<D, ST, NB>& sm, Ring<ST>& ring, int& pb,
+                                          float (&s)[16], float (&dp)[16], int key_a,
+                                          const DqAt<D>& at) {
+  mbar_wait(&sm.full[ring.stage], ring.phase);
+  const int cur = ring.stage;
+  ring.next();
+  wgmma_fence();
+  dq_scores<D>(s, dp, at.q_desc, at.do_desc, sm.ring[cur], at.wg);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(s);
+  fence_acc(dp);
+  dq_ds<kCap>(sm.ds[pb], s, dp, at.lse2, at.dl, at.spans, key_a, at.col_a, at.r_a, at.a);
+  fence_async_smem();
+  consumers_sync();
+  wgmma_fence();
+  grads<D>(at.dqa, sm.ds[pb], sm.ring[cur][0][at.wg * D / 128]);  // dQ += dS K
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(at.dqa);
+  release(&sm.empty[cur], at.lane);
+  pb ^= 1;
+}
+
+template <int D, int ST, int NB, bool kAhead, bool kCap>
+__global__ void __launch_bounds__((kWideWG + 1) * 128, 1)
+flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do, const bf16* __restrict__ o,
+                  const bf16* __restrict__ dout, const float* __restrict__ lse,
+                  float* __restrict__ stat, bf16* __restrict__ dq, const int* __restrict__ plan,
+                  int Sq, int Sk, int Hq, int Hkv, int causal, int window, float softcap,
+                  float scale, int q_offset) {
+  constexpr int kP = D / 64;
+  constexpr uint32_t kWideBytes = kP * kTileBytes;
+  extern __shared__ unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<DqWideSmem<D, ST, NB>*>(align1024(smem_raw));
+  const int n_tiles = (Sq + kT - 1) / kT;  // items (and stat tiles) per (head, batch)
+  const int G = Hq / Hkv;
+  const int first = plan[blockIdx.x], last = plan[blockIdx.x + 1];
+  const int* items = plan + gridDim.x + 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kWideWG * 4);
+    }
+    for (int b = 0; b < NB; ++b) {
+      mbar_init(&sm.item_full[b], 1);
+      mbar_init(&sm.item_empty[b], kWideWG * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == kWideWG) {  // producer warpgroup: one thread issues every copy
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == kWideWG * 128) {
+      Ring<ST> ring;
+      for (int n = first; n < last; ++n) {
+        const int it = items[n], qt = it % n_tiles, h = (it / n_tiles) % Hq,
+                  b = it / n_tiles / Hq, hk = h / G, row0 = qt * kT;
+        const int i = n - first, buf = i % NB;
+        mbar_wait(&sm.item_empty[buf], ((i / NB) & 1) ^ 1);
+        mbar_expect_tx(&sm.item_full[buf], 2 * kWideBytes);
+        for (int p = 0; p < kP; ++p) {
+          tma_box(sm.item[buf][0][p], &tm_q, &sm.item_full[buf], 64 * p, h, row0, b);
+          tma_box(sm.item[buf][1][p], &tm_do, &sm.item_full[buf], 64 * p, h, row0, b);
+        }
+        const Range kr = dq_keys(row0, kT, Sq, Sk, causal, window, q_offset);
+        for (int t = 0; t < kr.n; ++t) {
+          const int stage = ring.stage;
+          mbar_wait(&sm.empty[stage], ring.phase ^ 1);
+          mbar_expect_tx(&sm.full[stage], 2 * kWideBytes);
+          for (int p = 0; p < kP; ++p) {
+            tma_box(sm.ring[stage][0][p], &tm_k, &sm.full[stage], 64 * p, hk, kr.start + t * kT, b);
+            tma_box(sm.ring[stage][1][p], &tm_v, &sm.full[stage], 64 * p, hk, kr.start + t * kT, b);
+          }
+          ring.next();
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: keys [32 wg, + 32) of each tile, dQ's columns [D/2 wg, + D/2)
+    regs_inc<kConsumerRegs<kWideWG>>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int gr = lane >> 2, tq = lane & 3, r_a = warp * 16 + gr;
+    const Attn a = {Sq, Sk, causal, window, q_offset, scale, scale * kLog2e, softcap};
+    Ring<ST> ring;
+    int pb = 0;
+    for (int n = first; n < last; ++n) {
+      const int it = items[n], qt = it % n_tiles, h = (it / n_tiles) % Hq,
+                b = it / n_tiles / Hq, r0 = qt * kT;
+      const int i = n - first, buf = i % NB;
+      const Range kr = dq_keys(r0, kT, Sq, Sk, causal, window, q_offset);
+
+      // delta = rowsum(dout * out) of rows r0 + r_a + 8 ii from device
+      // memory: this warpgroup sums its half of the columns (the 4 threads
+      // of a row 16-byte chunks tq, tq + 4, ...), the halves meet in `part`;
+      // and lse * log2 e
+      float lse2[2], dl[2];
+      const size_t stat_row = static_cast<size_t>(b) * Hq + h;
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int r = r_a + 8 * ii, row = r0 + r;
+        float acc = 0.f;
+        if (row < Sq) {
+          const size_t off = ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + wg * (D / 2);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            const int col = (4 * c + tq) * 8;
+            const uint4 ov = *reinterpret_cast<const uint4*>(o + off + col);
+            const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + col);
+            const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+            const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+              acc += of.x * df.x + of.y * df.y;
+            }
+          }
+        }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        if (tq == 0) sm.part[i & 1][wg][r] = acc;
+        lse2[ii] = row < Sq ? lse[stat_row * Sq + row] * kLog2e : 0.f;
+      }
+      consumers_sync();
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int r = r_a + 8 * ii;
+        dl[ii] = sm.part[i & 1][0][r] + sm.part[i & 1][1][r];
+        if (wg == 0 && tq == 0) {  // every row of the tile: rows past Sq get zeros
+          float* st = stat + (stat_row * n_tiles + qt) * kStat;
+          st[r] = lse2[ii];
+          st[kT + r] = dl[ii];
+        }
+      }
+
+      mbar_wait(&sm.item_full[buf], (i / NB) & 1);
+      float dqa[D / 4];
+#pragma unroll
+      for (int e = 0; e < D / 4; ++e) dqa[e] = 0.f;
+      fence_acc(dqa);  // the zeros are set here, not sunk between a fence and a wgmma
+      const Span spans[2] = {row_keys(r0 + r_a, a), row_keys(r0 + r_a + 8, a)};
+      const DqAt<D> at = {dqa, tile_desc(sm.item[buf][0][0]), tile_desc(sm.item[buf][1][0]),
+                          wg, wg * 32 + 2 * tq, r_a, lane, lse2, dl, spans, a};
+      // the key tiles with a live pair form a run [lo, hi); the rest are passed
+      int lo = 0, hi = kr.n;
+      while (lo < hi && !tile_live(r0, kr.start + lo * kT, a)) ++lo;
+      while (hi > lo && !tile_live(r0, kr.start + (hi - 1) * kT, a)) --hi;
+      for (int t = 0; t < lo; ++t) skip_tile(sm.full, sm.empty, ring, lane);
+      const int key_w = kr.start + wg * 32 + 2 * tq;  // + t * kT: this thread's first key
+      if (lo < hi) {
+        if constexpr (kAhead) {
+          int held = -1;
+          float s0[16], dp0[16], s1[16], dp1[16];
+          mbar_wait(&sm.full[ring.stage], ring.phase);
+          wgmma_fence();
+          dq_scores<D>(s0, dp0, at.q_desc, at.do_desc, sm.ring[ring.stage], wg);
+          wgmma_commit();
+          int cur = ring.stage;
+          ring.next();
+          // two steps a turn, so the register sets alternate; the last step,
+          // with no next tile, apart
+#define WDQ_STEP(kNext, t, S, DP, SN, DPN) \
+  dq_step_w<kNext, kCap>(sm, ring, cur, held, pb, S, DP, SN, DPN, key_w + (t) * kT, at)
+          int t = lo;
+          for (; t + 2 < hi; t += 2) {
+            WDQ_STEP(true, t, s0, dp0, s1, dp1);
+            WDQ_STEP(true, t + 1, s1, dp1, s0, dp0);
+          }
+          if (t + 1 < hi) {
+            WDQ_STEP(true, t, s0, dp0, s1, dp1);
+            WDQ_STEP(false, t + 1, s1, dp1, s0, dp0);
+          } else {
+            WDQ_STEP(false, t, s0, dp0, s1, dp1);
+          }
+#undef WDQ_STEP
+          wgmma_wait<0>();
+          release(&sm.empty[held], lane);
+        } else {
+          float s[16], dp[16];
+          for (int t = lo; t < hi; ++t) dq_step_n<kCap>(sm, ring, pb, s, dp, key_w + t * kT, at);
+        }
+      }
+      fence_acc(dqa);
+      for (int t = hi; t < kr.n; ++t) skip_tile(sm.full, sm.empty, ring, lane);
+      release(&sm.item_empty[buf], lane);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + r_a + 8 * hh;
+        if (row >= Sq) continue;
+        bf16* dst = dq + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + wg * (D / 2) + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < D / 16; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(dqa[4 * j + 2 * hh] * scale, dqa[4 * j + 2 * hh + 1] * scale);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide dk / dv pass
+// ---------------------------------------------------------------------------
+
+template <int D, int ST, int NB>
+struct DkdvWideSmem {
+  Wide<D> kv[NB][2];            // K, V of the item's 64 keys, NB items
+  Wide<D> ring[ST][2];          // Q, dO of one q tile a stage
+  bf16 pds[2][2][kTileElems];   // P^T, dS^T (64 keys x 64 rows), two steps
+  float stat[ST][kStat];        // the stage's lse * log2 e and delta
+  uint64_t full[ST], empty[ST], kv_full[NB], kv_empty[NB];
+};
+
+// this warpgroup's 32 rows of a dk / dv tile: s (S^T = K Q^T: keys r_a + 8
+// h with the live rows spans[h], rows row_a + 8 j + c) and dp -> P^T and
+// dS^T in bf16 into the shared tiles pt, dst at columns col_a + 8 j + c;
+// st holds the stage's lse log2 e (st[x]) and delta (st[64 + x]) by row x
+template <bool kCap>
+__device__ __forceinline__ void kv_pds(bf16* pt, bf16* dst, const float (&s)[16],
+                                       const float (&dp)[16], const float* st,
+                                       const Span (&spans)[2], int row_a, int col_a, int r_a,
+                                       const Attn& a) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(st + col_a + 8 * j);
+    const float2 dl = *reinterpret_cast<const float2*>(st + kT + col_a + 8 * j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 4 * j + 2 * h, row = row_a + 8 * j;
+      float c0, c1;
+      const float p0 = keep(prob<kCap>(s[e], l2.x, a, &c0), row, spans[h]);
+      const float p1 = keep(prob<kCap>(s[e + 1], l2.y, a, &c1), row + 1, spans[h]);
+      st_pair(pt, r_a + 8 * h, col_a + 8 * j, pack2(p0, p1));
+      st_pair(dst, r_a + 8 * h, col_a + 8 * j,
+              pack2((kCap ? p0 * c0 : p0) * (dp[e] - dl.x),
+                    (kCap ? p1 * c1 : p1) * (dp[e + 1] - dl.y)));
+    }
+  }
+}
+
+// Where a wide dk / dv step is
+template <int D>
+struct KvAt {
+  float (&dka)[D / 4];
+  float (&dva)[D / 4];
+  uint64_t k_desc, v_desc;
+  int wg, col_a, r_a, lane;
+  const Span (&spans)[2];
+  const Attn& a;
+};
+
+// dV += P^T dO and dK += dS^T Q over this warpgroup's D / 2 columns of the
+// stage's tiles (one commit group)
+template <int D>
+__device__ __forceinline__ void kv_grads(const KvAt<D>& at, const bf16 (&pds)[2][kTileElems],
+                                         const Wide<D> (&qdo)[2]) {
+  grads<D>(at.dva, pds[0], qdo[1][at.wg * D / 128]);
+  grads<D>(at.dka, pds[1], qdo[0][at.wg * D / 128]);
+}
+
+// One pipelined step (D 128), as kv_step at D 64: the next tile's S^T first
+// (into sn); this tile's P^T / dS^T to shared memory, the barrier, dV and dK
+// left in flight, and behind them the next tile's dP^T (into dp).
+template <bool kNext, bool kCap, int D, int ST, int NB>
+__device__ __forceinline__ void kv_step_w(DkdvWideSmem<D, ST, NB>& sm, Ring<ST>& ring, int& cur,
+                                          int& held, int& pb, float (&s)[16], float (&sn)[16],
+                                          float (&dp)[16], int row_a, const KvAt<D>& at) {
+  int nxt = -1;
+  if constexpr (kNext) {
+    mbar_wait(&sm.full[ring.stage], ring.phase);
+    wgmma_fence();
+    scores<D>(sn, at.k_desc, tile_desc(sm.ring[ring.stage][0][0] + at.wg * 32 * 64));
+    wgmma_commit();
+    nxt = ring.stage;
+    ring.next();
+    wgmma_wait<1>();  // tile t's S^T and dP^T and tile t - 1's dV / dK are done
+  } else {
+    wgmma_wait<0>();
+  }
+  fence_acc(s);
+  fence_acc(dp);
+  release(&sm.empty[held >= 0 ? held : 0], at.lane, held >= 0);
+  kv_pds<kCap>(sm.pds[pb][0], sm.pds[pb][1], s, dp, sm.stat[cur], at.spans, row_a, at.col_a,
+               at.r_a, at.a);
+  fence_async_smem();
+  consumers_sync();
+  wgmma_fence();
+  kv_grads<D>(at, sm.pds[pb], sm.ring[cur]);
+  wgmma_commit();
+  if constexpr (kNext) {
+    scores<D>(dp, at.v_desc, tile_desc(sm.ring[nxt][1][0] + at.wg * 32 * 64));  // dP^T, t + 1
+    wgmma_commit();
+  }
+  held = cur;
+  cur = nxt;
+  pb ^= 1;
+}
+
+// One step without lookahead (D 256), as dq_step_n
+template <bool kCap, int D, int ST, int NB>
+__device__ __forceinline__ void kv_step_n(DkdvWideSmem<D, ST, NB>& sm, Ring<ST>& ring, int& pb,
+                                          float (&s)[16], float (&dp)[16], int row_a,
+                                          const KvAt<D>& at) {
+  mbar_wait(&sm.full[ring.stage], ring.phase);
+  const int cur = ring.stage;
+  ring.next();
+  wgmma_fence();
+  scores<D>(s, at.k_desc, tile_desc(sm.ring[cur][0][0] + at.wg * 32 * 64));
+  scores<D>(dp, at.v_desc, tile_desc(sm.ring[cur][1][0] + at.wg * 32 * 64));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(s);
+  fence_acc(dp);
+  kv_pds<kCap>(sm.pds[pb][0], sm.pds[pb][1], s, dp, sm.stat[cur], at.spans, row_a, at.col_a,
+               at.r_a, at.a);
+  fence_async_smem();
+  consumers_sync();
+  wgmma_fence();
+  kv_grads<D>(at, sm.pds[pb], sm.ring[cur]);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(at.dka);
+  fence_acc(at.dva);
+  release(&sm.empty[cur], at.lane);
+  pb ^= 1;
+}
+
+template <int D, int ST, int NB, bool kAhead, bool kCap>
+__global__ void __launch_bounds__((kWideWG + 1) * 128, 1)
+flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ stat,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, const int* __restrict__ plan,
+                    int Sq, int Sk, int Hq, int Hkv, int causal, int window, float softcap,
+                    float scale, int q_offset) {
+  constexpr int kP = D / 64;
+  constexpr uint32_t kWideBytes = kP * kTileBytes;
+  extern __shared__ unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<DkdvWideSmem<D, ST, NB>*>(align1024(smem_raw));
+  const int n_tiles = (Sk + kT - 1) / kT;  // items per (KV head, batch)
+  const int nqt = (Sq + kT - 1) / kT;
+  const int G = Hq / Hkv;
+  const int first = plan[blockIdx.x], last = plan[blockIdx.x + 1];
+  const int* items = plan + gridDim.x + 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kWideWG * 4);
+    }
+    for (int b = 0; b < NB; ++b) {
+      mbar_init(&sm.kv_full[b], 1);
+      mbar_init(&sm.kv_empty[b], kWideWG * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == kWideWG) {  // producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == kWideWG * 128) {
+      Ring<ST> ring;
+      for (int n = first; n < last; ++n) {
+        const int it = items[n], kt = it % n_tiles, hk = (it / n_tiles) % Hkv,
+                  b = it / n_tiles / Hkv, key0 = kt * kT;
+        const int i = n - first, buf = i % NB;
+        mbar_wait(&sm.kv_empty[buf], ((i / NB) & 1) ^ 1);
+        mbar_expect_tx(&sm.kv_full[buf], 2 * kWideBytes);
+        for (int p = 0; p < kP; ++p) {
+          tma_box(sm.kv[buf][0][p], &tm_k, &sm.kv_full[buf], 64 * p, hk, key0, b);
+          tma_box(sm.kv[buf][1][p], &tm_v, &sm.kv_full[buf], 64 * p, hk, key0, b);
+        }
+        const Range qr = dkdv_rows(key0, kT, Sq, Sk, causal, window, q_offset);
+        for (int gh = 0; gh < G; ++gh) {
+          const int h = hk * G + gh;
+          const float* st = stat + (static_cast<size_t>(b) * Hq + h) * nqt * kStat;
+          for (int t = 0; t < qr.n; ++t) {
+            const int i0 = qr.start + t * kT, stage = ring.stage;
+            mbar_wait(&sm.empty[stage], ring.phase ^ 1);
+            mbar_expect_tx(&sm.full[stage], 2 * kWideBytes + kStatBytes);
+            for (int p = 0; p < kP; ++p) {
+              tma_box(sm.ring[stage][0][p], &tm_q, &sm.full[stage], 64 * p, h, i0, b);
+              tma_box(sm.ring[stage][1][p], &tm_do, &sm.full[stage], 64 * p, h, i0, b);
+            }
+            bulk_copy(sm.stat[stage], st + (i0 / kT) * kStat, kStatBytes, &sm.full[stage]);
+            ring.next();
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: rows [32 wg, + 32) of each q tile, dK / dV's columns [D/2 wg, + D/2)
+    regs_inc<kConsumerRegs<kWideWG>>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int gr = lane >> 2, tq = lane & 3, r_a = warp * 16 + gr;
+    const Attn a = {Sq, Sk, causal, window, q_offset, scale, scale * kLog2e, softcap};
+    Ring<ST> ring;
+    int pb = 0;
+    for (int n = first; n < last; ++n) {
+      const int it = items[n], kt = it % n_tiles, hk = (it / n_tiles) % Hkv,
+                b = it / n_tiles / Hkv, key0 = kt * kT;
+      const int i = n - first, buf = i % NB;
+      const Range qr = dkdv_rows(key0, kT, Sq, Sk, causal, window, q_offset);
+      mbar_wait(&sm.kv_full[buf], (i / NB) & 1);
+      const int key_a = key0 + r_a;  // this thread's keys: key_a, key_a + 8
+      const Span spans[2] = {key_rows(key_a, a), key_rows(key_a + 8, a)};
+      float dka[D / 4], dva[D / 4];
+#pragma unroll
+      for (int e = 0; e < D / 4; ++e) dka[e] = dva[e] = 0.f;
+      fence_acc(dka);  // the zeros are set here, not sunk between a fence and a wgmma
+      fence_acc(dva);
+      const KvAt<D> at = {dka, dva, tile_desc(sm.kv[buf][0][0]), tile_desc(sm.kv[buf][1][0]),
+                          wg, wg * 32 + 2 * tq, r_a, lane, spans, a};
+      // the q tiles with a live pair form a run [lo, hi); the rest are passed
+      int lo = 0, hi = qr.n;
+      while (lo < hi && !tile_live(qr.start + lo * kT, key0, a)) ++lo;
+      while (hi > lo && !tile_live(qr.start + (hi - 1) * kT, key0, a)) --hi;
+      const int row_w = qr.start + wg * 32 + 2 * tq;  // + t * kT: this thread's first row
+      for (int gh = 0; gh < G; ++gh) {
+        for (int t = 0; t < lo; ++t) skip_tile(sm.full, sm.empty, ring, lane);
+        if (lo < hi) {
+          if constexpr (kAhead) {
+            int held = -1;
+            float s0[16], s1[16], dp[16];
+            mbar_wait(&sm.full[ring.stage], ring.phase);
+            wgmma_fence();
+            scores<D>(s0, at.k_desc, tile_desc(sm.ring[ring.stage][0][0] + wg * 32 * 64));
+            wgmma_commit();
+            scores<D>(dp, at.v_desc, tile_desc(sm.ring[ring.stage][1][0] + wg * 32 * 64));
+            wgmma_commit();
+            int cur = ring.stage;
+            ring.next();
+#define WKV_STEP(kNext, t, S, SN) \
+  kv_step_w<kNext, kCap>(sm, ring, cur, held, pb, S, SN, dp, row_w + (t) * kT, at)
+            int t = lo;
+            for (; t + 2 < hi; t += 2) {
+              WKV_STEP(true, t, s0, s1);
+              WKV_STEP(true, t + 1, s1, s0);
+            }
+            if (t + 1 < hi) {
+              WKV_STEP(true, t, s0, s1);
+              WKV_STEP(false, t + 1, s1, s0);
+            } else {
+              WKV_STEP(false, t, s0, s1);
+            }
+#undef WKV_STEP
+            wgmma_wait<0>();
+            release(&sm.empty[held], lane);
+          } else {
+            float s[16], dp[16];
+            for (int t = lo; t < hi; ++t) kv_step_n<kCap>(sm, ring, pb, s, dp, row_w + t * kT, at);
+          }
+        }
+        for (int t = hi; t < qr.n; ++t) skip_tile(sm.full, sm.empty, ring, lane);
+      }
+      fence_acc(dka);
+      fence_acc(dva);
+      release(&sm.kv_empty[buf], lane);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int key = key_a + 8 * hh;
+        if (key >= Sk) continue;
+        const size_t off =
+            ((static_cast<size_t>(b) * Sk + key) * Hkv + hk) * D + wg * (D / 2) + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < D / 16; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+              __floats2bfloat162_rn(dka[4 * j + 2 * hh] * scale, dka[4 * j + 2 * hh + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+              __floats2bfloat162_rn(dva[4 * j + 2 * hh], dva[4 * j + 2 * hh + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -853,6 +1595,41 @@ constexpr int kDqSmem = sizeof(DqSmem<kDqWG, kStages>) + 1024;  // + the 1024-by
 constexpr int kDkdvSmem = sizeof(DkdvSmem<kDkdvWG, kStages>) + 1024;
 #define DQ_KERNEL(cap) flash_bwd_dq_wgmma<kDqWG, kStages, cap>
 #define DKDV_KERNEL(cap) flash_bwd_dkdv_wgmma<kDkdvWG, kStages, cap>
+
+// the wide instances' rings, item buffers and lookahead, by head dim
+template <int D> struct WideBuild;
+template <> struct WideBuild<128> {
+  static constexpr int kDqStages = K1B_W128_DQ_STAGES, kDkdvStages = K1B_W128_DKDV_STAGES,
+                       kDqBufs = K1B_W128_DQ_BUFS, kDkdvBufs = K1B_W128_DKDV_BUFS;
+  static constexpr bool kAhead = K1B_W128_AHEAD;
+};
+template <> struct WideBuild<256> {
+  static constexpr int kDqStages = K1B_W256_STAGES, kDkdvStages = K1B_W256_STAGES, kDqBufs = 1,
+                       kDkdvBufs = 1;
+  static constexpr bool kAhead = false;
+};
+template <int D>
+constexpr int kWideDqSmem =
+    sizeof(DqWideSmem<D, WideBuild<D>::kDqStages, WideBuild<D>::kDqBufs>) + 1024;
+template <int D>
+constexpr int kWideDkdvSmem =
+    sizeof(DkdvWideSmem<D, WideBuild<D>::kDkdvStages, WideBuild<D>::kDkdvBufs>) + 1024;
+template <int D>
+constexpr bool wide_build_ok() {
+  using W = WideBuild<D>;
+  const int least = W::kAhead ? 3 : 2;  // a pipelined step holds two stages while the next loads
+  return W::kDqStages >= least && W::kDkdvStages >= least && W::kDqBufs >= 1 &&
+         W::kDqBufs <= 2 && W::kDkdvBufs >= 1 && W::kDkdvBufs <= 2 &&
+         kWideDqSmem<D> <= 232448 && kWideDkdvSmem<D> <= 232448;
+}
+static_assert(wide_build_ok<128>() && wide_build_ok<256>(),
+              "wide K1b: too few ring stages for the step, or more than 227 KB of shared memory");
+#define WDQ_KERNEL(D, cap)                                                                     \
+  flash_bwd_dq_sm90<D, WideBuild<D>::kDqStages, WideBuild<D>::kDqBufs, WideBuild<D>::kAhead, \
+                    cap>
+#define WDKDV_KERNEL(D, cap)                                                                      \
+  flash_bwd_dkdv_sm90<D, WideBuild<D>::kDkdvStages, WideBuild<D>::kDkdvBufs,                    \
+                      WideBuild<D>::kAhead, cap>
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -882,16 +1659,18 @@ cudaError_t encoder(EncodeTiled* out) {
   return cudaSuccess;
 }
 
-// a contiguous (B, S, H, 64) bf16 tensor as 64-row boxes of one head, each
-// box 64 rows of 128 bytes, 128-byte swizzled; rows past S read as zeros
-cudaError_t head_map(CUtensorMap* map, const void* base, int B, int S, int H) {
+// a contiguous (B, S, H, D) bf16 tensor as boxes of 64 rows x 64 columns
+// of one head, each box 64 rows of 128 bytes, 128-byte swizzled (a row of
+// D > 64 arrives as D / 64 boxes); rows past S read as zeros
+cudaError_t head_map(CUtensorMap* map, const void* base, int B, int S, int H, int D = 64) {
   EncodeTiled encode;
   const cudaError_t err = encoder(&encode);
   if (err != cudaSuccess) return err;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {128, static_cast<cuuint64_t>(H) * 128,
-                                 static_cast<cuuint64_t>(S) * H * 128};  // bytes, dims 1-3
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;  // bytes
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {row, static_cast<cuuint64_t>(H) * row,
+                                 static_cast<cuuint64_t>(S) * H * row};  // bytes, dims 1-3
   const cuuint32_t box[4] = {64, 1, kT, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
@@ -953,16 +1732,99 @@ cudaError_t launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUten
   return cudaGetLastError();
 }
 
+template <int D, bool kCap>
+cudaError_t allow_wide() {
+  const cudaError_t err = ready<WDQ_KERNEL(D, kCap), kWideWG>(kWideDqSmem<D>);
+  return err == cudaSuccess ? ready<WDKDV_KERNEL(D, kCap), kWideWG>(kWideDkdvSmem<D>) : err;
+}
+
+// the wide dq pass (which writes stat), then the wide dk / dv pass
+template <int D, bool kCap>
+cudaError_t launch_wide(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+                        const CUtensorMap& tm_do, const void* o, const void* dout,
+                        const void* lse, void* dq, void* dk, void* dv, void* stat,
+                        const void* plan_dq, int blocks_dq, const void* plan_dkdv,
+                        int blocks_dkdv, int Sq, int Sk, int Hq, int Hkv, int causal, int window,
+                        float softcap, float scale, int q_offset, cudaStream_t st) {
+  cudaError_t err = allow_wide<D, kCap>();
+  if (err != cudaSuccess) return err;
+  WDQ_KERNEL(D, kCap)<<<blocks_dq, (kWideWG + 1) * 128, kWideDqSmem<D>, st>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(stat), static_cast<bf16*>(dq),
+      static_cast<const int*>(plan_dq), Sq, Sk, Hq, Hkv, causal, window, softcap, scale,
+      q_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  WDKDV_KERNEL(D, kCap)<<<blocks_dkdv, (kWideWG + 1) * 128, kWideDkdvSmem<D>, st>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(stat), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), static_cast<const int*>(plan_dkdv), Sq, Sk, Hq, Hkv, causal,
+      window, softcap, scale, q_offset);
+  return cudaGetLastError();
+}
+
+// the configuration of the wide instances at D (flash_attention_bwd_sm90_config)
+template <int D>
+cudaError_t wide_config(int* out) {
+  using W = WideBuild<D>;
+  out[7] = out[8] = kEntryRegs<kWideWG>;
+  out[9] = registers<WDQ_KERNEL(D, false)>();
+  out[10] = registers<WDKDV_KERNEL(D, false)>();
+  out[11] = registers<WDQ_KERNEL(D, true)>();
+  out[12] = registers<WDKDV_KERNEL(D, true)>();
+  int dq_cap = 0, dkdv_cap = 0;
+  cudaError_t err = allow_wide<D, false>();
+  if (err == cudaSuccess) err = allow_wide<D, true>();
+  constexpr int threads = (kWideWG + 1) * 128;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], WDQ_KERNEL(D, false), threads,
+                                                        kWideDqSmem<D>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], WDKDV_KERNEL(D, false), threads,
+                                                        kWideDkdvSmem<D>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&dq_cap, WDQ_KERNEL(D, true), threads,
+                                                        kWideDqSmem<D>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&dkdv_cap, WDKDV_KERNEL(D, true),
+                                                        threads, kWideDkdvSmem<D>);
+  if (err == cudaSuccess && (dq_cap != out[3] || dkdv_cap != out[4]))
+    err = cudaErrorInvalidConfiguration;
+  out[0] = out[1] = kWideWG;
+  out[2] = W::kDqStages;
+  out[5] = kWideDqSmem<D>;
+  out[6] = kWideDkdvSmem<D>;
+  out[14] = out[15] = 1;  // an item is one 64-row (64-key) tile
+  out[16] = W::kDkdvStages;
+  out[17] = W::kDqBufs;
+  out[18] = W::kDkdvBufs;
+  out[19] = W::kAhead;
+  return err;
+}
+
 }  // namespace
 
-// The build's configuration and the blocks of each pass an SM holds (the
-// persistent grids' slots): out[0..4] = dq warpgroups, dk / dv warpgroups,
-// ring stages, dq blocks an SM, dk / dv blocks an SM, out[5..6] = the two
-// passes' dynamic shared memory in bytes, out[7..8] = the entry registers
+// The configuration of the build's instances at head dim D (64, 128 or
+// 256) and the blocks of each pass an SM holds (the persistent grids'
+// slots): out[0..4] = dq warpgroups, dk / dv warpgroups, dq ring stages,
+// dq blocks an SM, dk / dv blocks an SM, out[5..6] = the two passes'
+// dynamic shared memory in bytes, out[7..8] = the entry registers
 // setmaxnreg's counts assume for dq and dk / dv, out[9..12] = the registers
 // ptxas gave the dq, dk / dv, softcap dq and softcap dk / dv kernels (-1 if
-// unknown).  Fails (cudaErrorInvalidKernelImage) if they differ.
-extern "C" int flash_attention_bwd_sm90_config(int* out) {
+// unknown), out[13] = D, out[14..15] = the 64-row (64-key) tiles of a dq
+// and a dk / dv item, out[16] = dk / dv ring stages, out[17..18] = the dq
+// and dk / dv item buffers, out[19] = 1 if a step issues the next tile's
+// scores first.
+// Fails (cudaErrorInvalidKernelImage) if the registers differ.
+extern "C" int flash_attention_bwd_sm90_config(int D, int* out) {
+  out[13] = D;
+  if (D == 128) return wide_config<128>(out);
+  if (D == 256) return wide_config<256>(out);
+  if (D != 64) return cudaErrorInvalidValue;
+  out[14] = kDqWG;
+  out[15] = kDkdvWG;
+  out[16] = kStages;
+  out[17] = out[18] = 2;
+  out[19] = 1;
   out[7] = kEntryRegs<kDqWG>;
   out[8] = kEntryRegs<kDkdvWG>;
   out[9] = registers<DQ_KERNEL(false)>();
@@ -994,28 +1856,40 @@ extern "C" int flash_attention_bwd_sm90_config(int* out) {
   return err;
 }
 
-// q, dout, dq (B, Sq, Hq, 64) and k, v, dk, dv (B, Sk, Hkv, 64) bf16,
-// contiguous, 16-byte aligned; o the forward's output; lse f32 (B, Hq, Sq);
-// stat f32 scratch (B, Hq, ceil(Sq / 64), 128); plan_dq / plan_dkdv int32
-// device arrays of blocks_dq / blocks_dkdv blocks (flash_attention.bwd_plan).
-// window < 0: no sliding window; softcap <= 0: no softcap.  Two kernels on
-// ``stream``, the dq pass (which writes stat) first.
+// q, dout, dq (B, Sq, Hq, D) and k, v, dk, dv (B, Sk, Hkv, D) bf16, D 64,
+// 128 or 256, contiguous, 16-byte aligned; o the forward's output; lse f32
+// (B, Hq, Sq); stat f32 scratch (B, Hq, ceil(Sq / 64), 128); plan_dq /
+// plan_dkdv int32 device arrays of blocks_dq / blocks_dkdv blocks
+// (flash_attention.bwd_plan).  window < 0: no sliding window; softcap <= 0:
+// no softcap.  Two kernels on ``stream``, the dq pass (which writes stat)
+// first.
 extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
                                         const void* o, const void* lse, const void* dout,
                                         void* dq, void* dk, void* dv, void* stat,
                                         const void* plan_dq, int blocks_dq,
                                         const void* plan_dkdv, int blocks_dkdv, int B, int Sq,
-                                        int Sk, int Hq, int Hkv, int causal, int window,
+                                        int Sk, int Hq, int Hkv, int D, int causal, int window,
                                         float softcap, float scale, int q_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv || blocks_dq < 1 || blocks_dkdv < 1)
+  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv || blocks_dq < 1 || blocks_dkdv < 1 ||
+      (D != 64 && D != 128 && D != 256))
     return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v, tm_o, tm_do;
-  cudaError_t err = head_map(&tm_q, q, B, Sq, Hq);
-  if (err == cudaSuccess) err = head_map(&tm_k, k, B, Sk, Hkv);
-  if (err == cudaSuccess) err = head_map(&tm_v, v, B, Sk, Hkv);
-  if (err == cudaSuccess) err = head_map(&tm_o, o, B, Sq, Hq);
-  if (err == cudaSuccess) err = head_map(&tm_do, dout, B, Sq, Hq);
+  cudaError_t err = head_map(&tm_q, q, B, Sq, Hq, D);
+  if (err == cudaSuccess) err = head_map(&tm_k, k, B, Sk, Hkv, D);
+  if (err == cudaSuccess) err = head_map(&tm_v, v, B, Sk, Hkv, D);
+  if (err == cudaSuccess) err = head_map(&tm_do, dout, B, Sq, Hq, D);
+  if (err != cudaSuccess) return err;
+  if (D != 64) {
+#define WIDE_ARGS                                                                             \
+  tm_q, tm_k, tm_v, tm_do, o, dout, lse, dq, dk, dv, stat, plan_dq, blocks_dq, plan_dkdv,    \
+      blocks_dkdv, Sq, Sk, Hq, Hkv, causal, window, softcap, scale, q_offset, st
+    if (D == 128)
+      return softcap > 0.f ? launch_wide<128, true>(WIDE_ARGS) : launch_wide<128, false>(WIDE_ARGS);
+    return softcap > 0.f ? launch_wide<256, true>(WIDE_ARGS) : launch_wide<256, false>(WIDE_ARGS);
+#undef WIDE_ARGS
+  }
+  err = head_map(&tm_o, o, B, Sq, Hq);
   if (err != cudaSuccess) return err;
 #define LAUNCH_ARGS                                                                            \
   tm_q, tm_k, tm_v, tm_o, tm_do, lse, dq, dk, dv, stat, plan_dq, blocks_dq, plan_dkdv,        \

@@ -37,13 +37,20 @@ every head dim of K1; another head dim raises before any launch:
   :func:`bwd_plan` (each item onto the least loaded block, longest first:
   causal items differ more than 10-fold in work at S 2048).  It is bound
   by the tensor cores: m64n64k16 products, 7 where a fused backward does 5;
-* bf16 at D 128 / 256 (the gemmas, chameleon-34b, the MoE archs' heads):
-  ``flash_bwd_dq_wide`` + ``flash_bwd_dkdv_wide``
-  (``csrc/flash_attention_bwd.cu``, ``mma.sync``): a 16-row strip's
-  fragments and a 16 x D accumulator do not fit a thread's registers
-  there, so 8 warps split each tile in two phases, scores (S, dP, and dS /
-  P to shared memory in bf16) and gradients (each warp D / 2 or D / 4 of
-  dQ's, or dK's and dV's, columns);
+* bf16 at D 128 / 256 (the gemmas, chameleon-34b, dbrx, deepseek-moe-16b):
+  ``flash_bwd_dq_sm90`` + ``flash_bwd_dkdv_sm90`` (the same source,
+  templated on D), the same design with one item of 64 rows (or keys) a
+  block: its two consumer warpgroups split each 64 x 64 score tile by
+  columns (m64n32k16 over D), share dS (P^T and dS^T) through shared memory
+  and split the gradients' columns (m64n(D/2)k16), since a warpgroup cannot
+  hold a 64-key tile's dK and dV at D 256.  Bound by the same 7 products,
+  and at D 128 by the load stream where a KV head has many query heads
+  (chameleon-34b's G 8) and by the special-function unit under a softcap
+  (PERF.md); at D 256 rings of 2 stages (a 64-row tile is 32 KB) and a
+  step that issues its own scores.  The previous design there,
+  ``flash_bwd_dq_wide`` + ``flash_bwd_dkdv_wide`` (``mma.sync``,
+  ``csrc/flash_attention_bwd.cu``), is reached only by
+  :func:`previous_wide_bwd`, for timing;
 * bf16 at D 16 / 32: ``flash_bwd_dq_mma`` + ``flash_bwd_dkdv_mma``
   (``csrc/flash_attention_bwd.cu``, ``mma.sync``);
 * f32, and bf16 at D 8: ``flash_bwd_dq`` + ``flash_bwd_dkdv``, the f32
@@ -73,12 +80,13 @@ from repro_torch.kernels.ref import mha_ref as plain
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the instances csrc/flash_attention.cu builds
 MMA_HEAD_DIMS = (16, 32, 64, 128, 256)  # bf16 head dims on the tensor cores (multiples of 16)
 BWD_HEAD_DIMS = HEAD_DIMS  # the instances of the backward sources
-# bf16 head dims of K1b on mma.sync with a warp's whole rows (D 64 takes the
-# wgmma instance); at 128 and 256 its fragments and accumulators would take
-# more than a thread's 255 registers, so the wide pair splits D over warps
+# bf16 head dims of K1b on mma.sync with a warp's whole rows (D 64, 128 and
+# 256 take the wgmma instances of csrc/flash_attention_bwd_sm90.cu)
 BWD_MMA_HEAD_DIMS = (16, 32)
-BWD_WIDE_HEAD_DIMS = (128, 256)
-BWD_SM90_HEAD_DIM = 64
+BWD_WIDE_HEAD_DIMS = (128, 256)  # the wgmma instances whose warpgroups split D
+BWD_SM90_HEAD_DIMS = (64, *BWD_WIDE_HEAD_DIMS)
+# the kernels of the previous bf16 D 128 / 256 design, for timing only
+PREVIOUS_WIDE_INSTANCES = ("flash_bwd_dq_wide", "flash_bwd_dkdv_wide")
 BWD_TILE = 64  # rows (or keys) of a wgmma tile and of a consumer warpgroup
 BWD_ITEM_COST = 1  # an item's own loads and stores, in tiles, for bwd_plan
 
@@ -97,10 +105,10 @@ def bwd_instances(dtype: torch.dtype, head_dim: int) -> tuple[str, str]:
         raise NotImplementedError(
             f"flash_attention_bwd: no backward kernel at head dim {head_dim} (instances at "
             f"{BWD_HEAD_DIMS})")
-    if dtype == torch.bfloat16 and head_dim == BWD_SM90_HEAD_DIM:
+    if dtype == torch.bfloat16 and head_dim == 64:
         return "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"
     if dtype == torch.bfloat16 and head_dim in BWD_WIDE_HEAD_DIMS:
-        return "flash_bwd_dq_wide", "flash_bwd_dkdv_wide"
+        return "flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90"
     if dtype == torch.bfloat16 and head_dim in BWD_MMA_HEAD_DIMS:
         return "flash_bwd_dq_mma", "flash_bwd_dkdv_mma"
     return "flash_bwd_dq", "flash_bwd_dkdv"
@@ -112,7 +120,8 @@ def bwd_walk(pass_: str, tile: int, *, Sq: int, Sk: int, wg: int, causal: bool,
     key, number of tiles), the kernels' ``Range`` (mirrors ``dq_keys`` /
     ``dkdv_rows`` in ``csrc/flash_attention_bwd_sm90.cu``): in ``"dq"`` the
     key tiles rows [64 wg tile, + 64 wg) can see, in ``"dkdv"`` the q tiles
-    (of each query head) whose rows can see keys [64 wg tile, + 64 wg)."""
+    (of each query head) whose rows can see keys [64 wg tile, + 64 wg).  An
+    item is ``wg`` 64-row tiles: 2 at D 64, 1 at D 128 / 256."""
     T = BWD_TILE
     if pass_ == "dq":
         row0 = tile * wg * T
@@ -202,11 +211,11 @@ def sm90_library(lib: ctypes.CDLL) -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
     """Binds a build of ``csrc/flash_attention_bwd_sm90.cu`` (the committed
     configuration, or one of ``tools/k1b_variants.py``'s)."""
     fn = lib.flash_attention_bwd_sm90
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    lib.flash_attention_bwd_sm90_config.argtypes = [ctypes.c_void_p]
+    lib.flash_attention_bwd_sm90_config.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.flash_attention_bwd_sm90_config.restype = ctypes.c_int
     return lib, fn
 
@@ -218,30 +227,34 @@ def _sm90_entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr]:
 
 SM90_CONFIG_KEYS = ("wg_dq", "wg_dkdv", "stages", "blocks_per_sm_dq", "blocks_per_sm_dkdv",
                     "smem_dq", "smem_dkdv", "entry_regs_dq", "entry_regs_dkdv", "regs_dq",
-                    "regs_dkdv", "regs_dq_cap", "regs_dkdv_cap")
-_SM90_CONFIGS: dict[tuple[int, int], dict[str, int]] = {}
+                    "regs_dkdv", "regs_dq_cap", "regs_dkdv_cap", "head_dim", "item_tiles_dq",
+                    "item_tiles_dkdv", "stages_dkdv", "item_bufs_dq", "item_bufs_dkdv",
+                    "ahead")
+_SM90_CONFIGS: dict[tuple[int, int, int], dict[str, int]] = {}
 _PLANS: dict[tuple, tuple[torch.Tensor, int]] = {}
 
 
-def sm90_config(lib: ctypes.CDLL, device: int) -> dict[str, int]:
-    """A wgmma K1b build's warpgroups a block and ring stages, the blocks of
-    each pass an SM of CUDA device ``device`` holds, and its kernels'
+def sm90_config(lib: ctypes.CDLL, device: int, head_dim: int = 64) -> dict[str, int]:
+    """A wgmma K1b build's instances at ``head_dim`` (64, 128 or 256):
+    warpgroups a block, ring stages, the 64-row tiles of an item, the blocks
+    of each pass an SM of CUDA device ``device`` holds, and the kernels'
     registers (queried once).  Raises if ptxas gave a kernel another entry
     register count than setmaxnreg's exchange assumes: it would hang."""
-    cfg = _SM90_CONFIGS.get((id(lib), device))
+    cfg = _SM90_CONFIGS.get((id(lib), device, head_dim))
     if cfg is None:
         _build.refuse_in_capture(f"the wgmma K1b configuration query {_build.EAGER_FIRST}")
         out = (ctypes.c_int * len(SM90_CONFIG_KEYS))()
         with torch.cuda.device(device):
-            err = lib.flash_attention_bwd_sm90_config(out)
+            err = lib.flash_attention_bwd_sm90_config(head_dim, out)
         got = dict(zip(SM90_CONFIG_KEYS, out))
         regs = {k: got[k] for k in ("regs_dq", "regs_dq_cap", "regs_dkdv", "regs_dkdv_cap")}
         want = {k: got["entry_regs_" + k.split("_")[1]] for k in regs}
         if all(r >= 0 for r in regs.values()) and regs != want:
-            raise RuntimeError(f"flash_attention_bwd: ptxas gave the wgmma kernels {regs} "
-                               f"registers a thread where setmaxnreg's exchange needs {want}")
+            raise RuntimeError(f"flash_attention_bwd: ptxas gave the wgmma kernels at D "
+                               f"{head_dim} {regs} registers a thread where setmaxnreg's "
+                               f"exchange needs {want}")
         _build.check(lib, err, "flash_attention_bwd")
-        cfg = _SM90_CONFIGS[(id(lib), device)] = got
+        cfg = _SM90_CONFIGS[(id(lib), device, head_dim)] = got
     return cfg
 
 
@@ -264,14 +277,14 @@ def _device_plan(pass_: str, dims: tuple[int, ...], wg: int, slots: int, causal:
 def sm90_bwd(lib: ctypes.CDLL, fn: ctypes._CFuncPtr, q, k, v, out, lse, dout, dq, dk, dv, *,
              causal: bool, window: Optional[int], softcap: Optional[float], scale: float,
              q_offset: int, persistent: bool = True) -> None:
-    """Launches a build of the wgmma K1b on checked bf16 D 64 tensors,
-    writing dq, dk, dv."""
-    B, Sq, Hq, _ = q.shape
+    """Launches a build of the wgmma K1b on checked bf16 tensors of head dim
+    64, 128 or 256, writing dq, dk, dv."""
+    B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    cfg = sm90_config(lib, index)
+    cfg = sm90_config(lib, index, D)
     n_sm = _build.sm_count(index)
-    plans = [_device_plan(p, (B, Sq, Sk, Hq, Hkv), cfg[f"wg_{p}"],
+    plans = [_device_plan(p, (B, Sq, Sk, Hq, Hkv), cfg[f"item_tiles_{p}"],
                           n_sm * cfg[f"blocks_per_sm_{p}"], causal, window, q_offset, persistent,
                           q.device) for p in ("dq", "dkdv")]
     stat = torch.empty((B, Hq, -(-Sq // BWD_TILE), 2 * BWD_TILE), dtype=torch.float32,
@@ -279,9 +292,26 @@ def sm90_bwd(lib: ctypes.CDLL, fn: ctypes._CFuncPtr, q, k, v, out, lse, dout, dq
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
              dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stat.data_ptr(),
              plans[0][0].data_ptr(), plans[0][1], plans[1][0].data_ptr(), plans[1][1],
-             B, Sq, Sk, Hq, Hkv, int(causal), -1 if window is None else int(window),
+             B, Sq, Sk, Hq, Hkv, D, int(causal), -1 if window is None else int(window),
              float(softcap or 0.0), float(scale), int(q_offset),
              torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "flash_attention_bwd")
+
+
+def _legacy_bwd(q, k, v, out, lse, dout, dq, dk, dv, *, causal: bool, window: Optional[int],
+                softcap: Optional[float], scale: float, q_offset: int) -> None:
+    """``csrc/flash_attention_bwd.cu``'s C entry on checked tensors: the
+    CUDA-core and mma.sync pairs, and at bf16 D 128 / 256 the previous
+    wide pair."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib, fn = _bwd_entry()
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+             _build.DTYPE_CODES[q.dtype], B, Sq, Sk, Hq, Hkv, D, int(causal),
+             -1 if window is None else int(window), float(softcap or 0.0), float(scale),
+             int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_attention_bwd")
 
 
@@ -366,6 +396,7 @@ def flash_attention_bwd(
     """K1b: the gradients (dq, dk, dv), in q / k / v's dtype, of
     :func:`flash_attention` for output grad ``dout``, from its output ``out``
     and ``lse``.  One call launches two kernels and counts one launch."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale, q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
@@ -373,27 +404,46 @@ def flash_attention_bwd(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
     _check("flash_attention_bwd", q, k, v, window, out=out, dout=dout)
-    B, Sq, Hq, D = q.shape
-    _, Sk, Hkv, _ = k.shape
+    B, Sq, Hq, _ = q.shape
     if (lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 or lse.device != q.device
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd: lse must be contiguous f32 ({B}, {Hq}, {Sq}), "
                          f"got {lse.dtype} {tuple(lse.shape)}")
-    scale = 1.0 / math.sqrt(D) if scale is None else scale
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if instances[0] == "flash_bwd_dq_wgmma":
-        lib, fn = _sm90_entry()
-        sm90_bwd(lib, fn, q, k, v, out, lse, dout, dq, dk, dv, causal=causal, window=window,
-                 softcap=softcap, scale=scale, q_offset=q_offset)
-        LAUNCHES["flash_attention_bwd"] += 1
-        return dq, dk, dv
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    lib, fn = _bwd_entry()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-             _build.DTYPE_CODES[q.dtype], B, Sq, Sk, Hq, Hkv, D, int(causal),
-             -1 if window is None else int(window), float(softcap or 0.0), float(scale),
-             int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "flash_attention_bwd")
+    if instances[0] in ("flash_bwd_dq_wgmma", "flash_bwd_dq_sm90"):
+        sm90_bwd(*_sm90_entry(), q, k, v, out, lse, dout, dq, dk, dv, **kw)
+    else:
+        _legacy_bwd(q, k, v, out, lse, dout, dq, dk, dv, **kw)
     LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def previous_wide_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The previous bf16 D 128 / 256 K1b (``flash_bwd_dq_wide`` +
+    ``flash_bwd_dkdv_wide``, mma.sync) on CUDA tensors as
+    :func:`flash_attention_bwd` takes them: ``chip_smoke.py`` and
+    ``tools/k1b_variants.py`` time it beside the kernel.  The port never
+    calls it, and it counts no launch."""
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16 or q.shape[-1] not in \
+            BWD_WIDE_HEAD_DIMS:
+        raise ValueError(f"previous_wide_bwd: bf16 CUDA tensors of head dim "
+                         f"{BWD_WIDE_HEAD_DIMS} only, got {q.dtype} D {q.shape[-1]} on {q.device}")
+    _check("previous_wide_bwd", q, k, v, window, out=out, dout=dout)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _legacy_bwd(q, k, v, out, lse, dout, dq, dk, dv, causal=causal, window=window,
+                softcap=softcap, scale=scale, q_offset=q_offset)
     return dq, dk, dv

@@ -223,6 +223,10 @@ def test_kernel_names_map_to_the_port_kernels():
         "decode_combine_kernel<float, true>(...)": None,
         "flash_bwd_dq_wide(x)": "flash_attention_bwd",
         "flash_bwd_dkdv_wide(x)": None,
+        "void (anonymous namespace)::flash_bwd_dq_sm90<128, 4, 2, true, false>(x)":
+            "flash_attention_bwd",
+        "void (anonymous namespace)::flash_bwd_dkdv_sm90<256, 2, 1, false, true>(x)": None,
+        "flash_bwd_dq_wgmma<2, 4, false>(x)": "flash_attention_bwd",
         "rmsnorm_rows<__nv_bfloat16, 1, true>(...)": "rmsnorm",
         "rmsnorm_bwd_fused<float, 2>(...)": "rmsnorm_bwd",
         "gmm_mma<8>(...)": "moe_gmm",

@@ -6,7 +6,10 @@ does.  The same inputs, drawn with numpy from a seed, feed both.  The CUDA
 kernels themselves are held against the same plain versions on the card
 by chip_smoke.py.
 """
+import contextlib
 import functools
+import importlib.util
+from pathlib import Path
 
 import pytest
 
@@ -328,18 +331,22 @@ def test_attention_instances_depend_on_dtype_and_head_dim_only():
     (torch.bfloat16, 16, ("flash_bwd_dq_mma", "flash_bwd_dkdv_mma")),
     (torch.bfloat16, 32, ("flash_bwd_dq_mma", "flash_bwd_dkdv_mma")),
     (torch.bfloat16, 8, ("flash_bwd_dq", "flash_bwd_dkdv")),
-    (torch.bfloat16, 128, ("flash_bwd_dq_wide", "flash_bwd_dkdv_wide")),
+    (torch.bfloat16, 128, ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90")),
     (torch.float32, 64, ("flash_bwd_dq", "flash_bwd_dkdv")),
     (torch.float32, 16, ("flash_bwd_dq", "flash_bwd_dkdv")),
-    (torch.bfloat16, 256, ("flash_bwd_dq_wide", "flash_bwd_dkdv_wide")),
+    (torch.bfloat16, 256, ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90")),
     (torch.float32, 256, ("flash_bwd_dq", "flash_bwd_dkdv")),
     (torch.float32, 128, ("flash_bwd_dq", "flash_bwd_dkdv")),
 ])
 def test_bwd_instances_depend_on_dtype_and_head_dim_only(dtype, D, want):
     """K1b: bf16 D 64 (the training path) runs the wgmma pair, bf16 D 128 /
-    256 the wide mma.sync pair, bf16 D 16 / 32 the mma.sync pair, f32 and
-    bf16 D 8 the CUDA-core pair."""
+    256 the wgmma pair whose warpgroups split D (the previous wide mma.sync
+    pair is no instance: only previous_wide_bwd reaches it), bf16 D 16 / 32
+    the mma.sync pair, f32 and bf16 D 8 the CUDA-core pair."""
     assert k1.bwd_instances(dtype, D) == want
+    names = {n for d in k1.BWD_HEAD_DIMS for dt in (torch.float32, torch.bfloat16)
+             for n in k1.bwd_instances(dt, d)}
+    assert not names & set(k1.PREVIOUS_WIDE_INSTANCES)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -457,6 +464,120 @@ def test_bwd_plan_balances_the_training_shape(pass_, wg, margin):
     loads = np.array([cost[items[a:b]].sum() for a, b in zip(offsets[:-1], offsets[1:])])
     assert cost.max() > 10 * cost.min()
     assert loads.max() <= (1 + margin) * loads.mean()
+
+
+def _k1b_variants():
+    """``tools/k1b_variants.py`` as a module (it imports torch only in main)."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "k1b_variants.py"
+    spec = importlib.util.spec_from_file_location("k1b_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+@pytest.mark.parametrize("order", ["by_head", "head_major"])
+@pytest.mark.parametrize("pass_", ["dq", "dkdv"])
+def test_bwd_plan_orders_by_kv_head(pass_, order, case):
+    """The plans by KV head that ``tools/k1b_variants.py`` times beside
+    ``bwd_plan``: every item in one block's list once, no block over the
+    mean load by more than the largest item (any list schedule's bound);
+    "by_head" holds the longest-first plan's lists, each run by (batch, KV
+    head) and longest first within one; "head_major" places the items in
+    that order."""
+    plan_by_kv_head = _k1b_variants().plan_by_kv_head
+    B, Sq, Sk, Hq, Hkv, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset, wg=1, slots=132)
+    cost = k1.bwd_costs(pass_, B, Sq, Sk, Hq, Hkv, wg=1, causal=causal, window=window,
+                        q_offset=q_offset)
+    group = np.arange(len(cost)) // (len(cost) // (B * Hkv))  # (batch, KV head) of an item
+    offsets, items = plan_by_kv_head(order, pass_, B, Sq, Sk, Hq, Hkv, **kw)
+    assert offsets.dtype == items.dtype == np.int32
+    assert sorted(items.tolist()) == list(range(len(cost)))
+    lists = [items[a:b] for a, b in zip(offsets[:-1], offsets[1:])]
+    loads = np.array([cost[lst].sum() for lst in lists])
+    assert loads.max() <= loads.mean() + cost.max()
+    if order == "by_head":
+        base_off, base = k1.bwd_plan(pass_, B, Sq, Sk, Hq, Hkv, **kw)
+        assert (base_off == offsets).all()
+        for lst, a, b in zip(lists, base_off[:-1], base_off[1:]):
+            assert sorted(lst.tolist()) == sorted(base[a:b].tolist())
+            keys = [(group[x], -cost[x]) for x in lst]
+            assert keys == sorted(keys)
+    else:
+        firsts = [group[lst[0]] for lst in lists]
+        assert firsts == sorted(firsts)  # the first KV head's items open the blocks
+    with pytest.raises(ValueError, match="order"):
+        plan_by_kv_head("random", pass_, B, Sq, Sk, Hq, Hkv, **kw)
+
+
+# the wgmma K1b's training shapes at D 128 / 256 (B, S, Hq, Hkv, window):
+# gemma3-4b's global and local layers, chameleon-34b's (G 8)
+WIDE_TRAIN_SHAPES = {"gemma3-4b global": (4, 2048, 8, 4, None),
+                     "gemma3-4b local": (4, 2048, 8, 4, 1024),
+                     "chameleon-34b": (4, 2048, 64, 8, None)}
+
+
+@pytest.mark.parametrize("shape", list(WIDE_TRAIN_SHAPES))
+@pytest.mark.parametrize("pass_", ["dq", "dkdv"])
+def test_bwd_plan_balances_the_wide_training_shapes(pass_, shape):
+    """At D 128 / 256 an item is one 64-row (or 64-key) tile and a block of
+    two consumer warpgroups fills an SM: on 132 SMs every item of the pass
+    lies in one block's list once, and the fullest block carries at most
+    2 % over the mean, where the items' costs differ more than 8-fold (an
+    item's own tiles cost BWD_ITEM_COST walk tiles at every head dim: both
+    scale with D)."""
+    B, S, Hq, Hkv, window = WIDE_TRAIN_SHAPES[shape]
+    cost = k1.bwd_costs(pass_, B, S, S, Hq, Hkv, wg=1, window=window)
+    offsets, items = k1.bwd_plan(pass_, B, S, S, Hq, Hkv, wg=1, slots=132, window=window)
+    assert sorted(items.tolist()) == list(range(len(cost))) and len(offsets) == 133
+    loads = np.array([cost[items[a:b]].sum() for a, b in zip(offsets[:-1], offsets[1:])])
+    assert cost.max() > 8 * cost.min()
+    assert loads.max() <= 1.02 * loads.mean()
+
+
+class _StubSm90Library:
+    """flash_attention_bwd_sm90_config of a build whose ptxas gave
+    ``regs`` registers a thread to every wgmma K1b kernel at each head dim
+    (the entry count setmaxnreg assumes is 168)."""
+
+    def __init__(self, regs: int):
+        self.regs = regs
+        self.queries: list[int] = []
+        self.flash_attention_bwd_sm90_config = self._config
+
+    def _config(self, head_dim, out):
+        self.queries.append(head_dim)
+        wide = head_dim != 64
+        vals = dict(wg_dq=2, wg_dkdv=2, stages=2 if head_dim == 256 else 4, blocks_per_sm_dq=1,
+                    blocks_per_sm_dkdv=1, smem_dq=215088, smem_dkdv=231472, entry_regs_dq=168,
+                    entry_regs_dkdv=168, regs_dq=self.regs, regs_dkdv=self.regs,
+                    regs_dq_cap=self.regs, regs_dkdv_cap=self.regs, head_dim=head_dim,
+                    item_tiles_dq=1 if wide else 2, item_tiles_dkdv=1 if wide else 2,
+                    stages_dkdv=2, item_bufs_dq=1, item_bufs_dkdv=1, ahead=0)
+        for i, key in enumerate(k1.SM90_CONFIG_KEYS):
+            out[i] = vals[key]
+        return 0
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+def test_sm90_config_refuses_a_build_off_its_entry_register_count(head_dim, monkeypatch):
+    """The host side refuses a wgmma K1b build whose kernels ptxas gave
+    another register count than the entry count setmaxnreg's exchange
+    assumes (its consumers would wait forever), at each head dim of the
+    source, before any launch; a build at the entry count is queried once
+    per (library, device, head dim).  A stub stands in for the library and
+    the card."""
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(k1, "_SM90_CONFIGS", {})
+    bad = _StubSm90Library(regs=160)
+    with pytest.raises(RuntimeError, match=f"at D {head_dim} .* setmaxnreg"):
+        k1.sm90_config(bad, 0, head_dim)
+    good = _StubSm90Library(regs=168)
+    cfg = k1.sm90_config(good, 0, head_dim)
+    assert cfg["head_dim"] == head_dim and cfg["regs_dkdv_cap"] == cfg["entry_regs_dkdv"] == 168
+    assert cfg["item_tiles_dq"] == (2 if head_dim == 64 else 1)
+    assert k1.sm90_config(good, 0, head_dim) is cfg and good.queries == [head_dim]
 
 
 # ---------------------------------------------------------------------------
