@@ -225,19 +225,24 @@ failure of which exits non-zero:
    repro_torch.launch.train --arch gemma3-4b`` (DENSE_CLI_ARGS, no
    checkpoints; full depth) in a child process: one capture, every step's
    K1b launches, its loss falling; (l) K4b, the grouped matmul's backward
-   (``csrc/moe_gmm_bwd.cu``: the gated dgrad, the dgrad and the wgrad),
-   against its plain versions relative to each result's max |.| (K4B_TOL)
-   at deepseek-moe-16b's training shape K4B_SHAPE in bf16 and f32, at a
-   shape ragged against every tile on the cp.async instance and at one
-   with C off 16 rows and D, F off 8 (the element-wise instance), silu and
-   gelu, each launch twice and bitwise equal; each kernel and a whole MoE
-   layer's backward timed with L2 flushed beside its bound, plain version
-   and ``torch.bmm`` on the same (transposed) views; then deepseek-moe-16b
+   (``csrc/moe_gmm_bwd.cu``: the gated dgrad, the dgrad and the wgrad; in
+   bf16 on aligned operands the wgmma kernels ``gmm_dgrad_sm90`` and
+   ``gmm_wgrad_sm90``, whose ptxas report is a gate in phase 2: the entry
+   register count, no spill, no wgmma serialisation), against its plain
+   versions relative to each result's max |.| (K4B_TOL) at deepseek-moe-16b's
+   training shape K4B_SHAPE in bf16 and f32, at a shape ragged against
+   every tile on the wgmma instances and at one with C off 16 rows and D, F
+   off 8 (the element-wise instance), silu and gelu, each launch twice and
+   bitwise equal; each kernel and a whole MoE layer's backward timed with
+   L2 flushed beside its bound, plain version, ``torch.bmm`` on the same
+   (transposed) views and the previous design (``moe_gmm.previous_bwd``, timed
+   before and after it); then deepseek-moe-16b
    at full width, MOE_TRAIN_LAYERS of 28 layers, through
    ``train_checks`` as the dense archs in (k) (the f32 gates at
    MOE_GATE_LAYERS, bf16 steps eager and compiled with K4's and K4b's exact
    launches, replays equal to eager, the loss falling, a replayed step's
-   profile naming ``gmm_mma`` and K4b's three kernels); and ``python -m
+   profile naming ``gmm_mma`` and K4b's two wgmma kernels and none of
+   K4B_PREVIOUS); and ``python -m
    repro_torch.launch.train`` with MOE_CLI_ARGS in a child process (f32,
    one capture, exact K4 / K4b / K1b launches);
 6. the paper's measurement layer (``core/``): (a) Table I, the hyperfine
@@ -600,9 +605,9 @@ DENSE_CLI_ARGS = ("--steps", "6", "--batch", "4", "--seq", "2048", "--lr", "1e-3
 MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_GATE_LAYERS = 4, 4, 2
 # K4b against its plain version: (E, C, D, F) of the slice's MoE layers (4 x
 # 2048 tokens in groups of 2048: capacity 240 a group, 960 rows an expert);
-# one shape ragged against every 128-row / -column tile but on the
-# cp.async instance (D, F multiples of 8); one with C off 16 rows, D and F
-# off 8 (the element-wise bf16 instance)
+# one shape ragged against every tile (192 / 128 rows, 128 columns) but on
+# the wgmma instances (D, F multiples of 8); one with C off 16 rows, D and
+# F off 8 (the element-wise bf16 instance)
 K4B_SHAPE = (64, 960, 2048, 1408)
 K4B_RAGGED_VEC = (3, 75, 264, 136)
 K4B_RAGGED = (3, 75, 196, 100)
@@ -612,7 +617,10 @@ K4B_RAGGED = (3, 75, 196, 100)
 # difference is one bf16 step (2^-8 of the element) where the two sums
 # straddle a rounding boundary
 K4B_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-K4B_KERNELS = ("gmm_dgrad_gated", "gmm_dgrad", "gmm_wgrad")  # (a), (b), (c)
+# the wgmma kernels of (a) and (b) and of (c); and the previous design's, whose
+# kernels (any instance) must not run in a bf16 step at the slice's shape
+K4B_KERNELS = ("gmm_dgrad_sm90", "gmm_wgrad_sm90")
+K4B_PREVIOUS = ("gmm_dgrad_gated", "gmm_dgrad", "gmm_wgrad")
 # launch.train's child run of the MoE arch at its smoke size (f32,
 # 8 experts of 32 at d 64: the f32 and ragged-capacity instances)
 MOE_CLI_ARGS = ("--arch", MOE_ARCH, "--reduced", "--steps", "6", "--ckpt-every", "0")
@@ -794,10 +802,29 @@ def main() -> None:
         fail(f"flash_attention_bwd_sm90: ptxas registers (got, entry count) {sm90_regs}: "
              "twelve instances (4 at D 64, 4 each at D 128 and 256), each at its entry "
              "count, expected")
-    # K4b's instances: reported (its first design spills a few bytes in the
-    # gated bf16 and the f32 instances; ROADMAP P-queue)
+    # K4b: its wgmma instances at setmaxnreg's entry count, without spill
+    # and without wgmma serialisation (the host side refuses a build off
+    # the entry count, and sm90_config checks the source's tiles, stages and
+    # shared memory against plan.py's mirror); the first design's instances
+    # reported (its gated bf16 and f32 instances spill a few bytes)
+    k4b_cfg = k4.sm90_config(0)
+    print(f"  moe_gmm_bwd wgmma configuration: {json.dumps(k4b_cfg)}", flush=True)
+    k4b_sm90 = {}  # instance: (registers, its entry count, spilled bytes)
     for fn_name, regs, spill in ptxas["moe_gmm_bwd"]:
         print(f"    {fn_name[:72]}: {regs} registers, {spill} bytes spilled", flush=True)
+        if "_sm90" in fn_name:
+            gated = re.search(r"gmm_dgrad_sm90ILi[12]E", fn_name) is not None
+            k4b_sm90[fn_name] = (regs, k4b_cfg["entry_regs_" + ("gated" if gated else "store")],
+                                 spill)
+    k4b_serial = [line.strip() for line in
+                  paths["moe_gmm_bwd"].with_suffix(".log").read_text().splitlines()
+                  if "Performance Loss" in line]
+    if (len(k4b_sm90) != 4 or k4b_serial
+            or any(r != want or n for r, want, n in k4b_sm90.values())):
+        fail(f"moe_gmm_bwd: the wgmma instances' (registers, entry count, spilled bytes) "
+             f"{k4b_sm90} and serialisation {k4b_serial}: four instances (gated silu / gelu, "
+             "the store, the wgrad), each at its entry count, none spilled or serialised, "
+             "expected")
     # wgmma serialisation ptxas reports: printed (the D-64 pair has it), and
     # none allowed in the D-128 / 256 instances
     serialised = []
@@ -3640,8 +3667,8 @@ def train_checks(dev, smi: str, arch: str, cfg, cfg32, tcfg, b32: list[dict], bf
                    "rmsnorm_bwd_rows", "rmsnorm_bwd_dscale"]
     k4b_names = list(K4B_KERNELS) if cfg.moe is not None else []
     if cfg.moe is not None:  # K4's and K4b's tensor-core instances, not K4's others
-        want_names += ["gmm_mma", *k4b_names]
-        other_names += ["gmm_bf16_kernel", "gmm_f32_kernel"]
+        want_names += ["gmm_mma", *k4b_names]  # nor K4b's first design, any instance
+        other_names += ["gmm_bf16_kernel", "gmm_f32_kernel", *K4B_PREVIOUS]
     bts = bf16_batches()
     B, S = bts[0]["tokens"].shape
     rec.update(batch=B, seq=S, steps=len(bts), launches_per_step=want, profile={})
@@ -3877,38 +3904,48 @@ def moe_train_phase(dev, smi: str, records: dict, kit: dict) -> dict:
     out["max_rel_err"] = worst
 
     # (2) each kernel at the slice's shape in bf16, L2 flushed, beside its
-    # plain version, torch.bmm on the same (transposed) views and its bound
+    # plain version, torch.bmm on the same (transposed) views, its bound,
+    # and the previous design (moe_gmm.previous_bwd), timed before and after it
     E, C, D, F = K4B_SHAPE
     t = inputs(E, C, D, F, torch.bfloat16, "silu")
     da1, da3 = k4.gated_dgrad(t["dy"], t["w2"], t["a1"], t["a3"], "silu")
     g13, w13 = torch.cat([da1, da3], -1), torch.cat([t["w1"], t["w3"]], -1)
     es = 2  # bytes a bf16 element
     prod = 2.0 * E * C * D * F
+    gated_args = (t["dy"], t["w2"], t["a1"], t["a3"])
     timing = {
         "gated_dgrad (a)": (
-            lambda: k4.gated_dgrad(t["dy"], t["w2"], t["a1"], t["a3"], "silu"),
-            lambda: ref.gmm_gated_dgrad_ref(t["dy"], t["w2"], t["a1"], t["a3"], "silu"),
+            lambda: k4.gated_dgrad(*gated_args, "silu"),
+            lambda: ref.gmm_gated_dgrad_ref(*gated_args, "silu"),
             lambda: torch.bmm(t["dy"], t["w2"].mT), es * (E * C * D + E * F * D + 4 * E * C * F),
-            prod),
+            prod, lambda: k4.previous_bwd("gated_dgrad", *gated_args, act="silu")),
         "dgrad (b)": (
             lambda: k4.dgrad(da1, t["w1"], da3, t["w3"]),
             lambda: ref.gmm_dgrad_ref(da1, t["w1"], da3, t["w3"]),
             lambda: torch.bmm(g13, w13.mT), es * (2 * E * C * F + 2 * E * D * F + E * C * D),
-            2 * prod),
+            2 * prod, lambda: k4.previous_bwd("dgrad", da1, t["w1"], da3, t["w3"])),
         "wgrad (c)": (
             lambda: k4.wgrad(t["x"], da1), lambda: ref.gmm_wgrad_ref(t["x"], da1),
-            lambda: torch.bmm(t["x"].mT, da1), es * (E * C * D + E * C * F + E * D * F), prod),
+            lambda: torch.bmm(t["x"].mT, da1), es * (E * C * D + E * C * F + E * D * F), prod,
+            lambda: k4.previous_bwd("wgrad", t["x"], da1)),
         # the backward's one K4 launch: the pre-activation a1 = x w1, recomputed
         "recompute a1 (K4)": (
             lambda: k4.gmm(t["x"], t["w1"]), lambda: ref.gmm_ref(t["x"], t["w1"]),
-            lambda: torch.bmm(t["x"], t["w1"]), es * (E * C * D + E * D * F + E * C * F), prod),
+            lambda: torch.bmm(t["x"], t["w1"]), es * (E * C * D + E * D * F + E * C * F), prod,
+            None),
     }
-    for name, (kern, plain, lib, n_bytes, n_flops) in timing.items():
+    for name, (kern, plain, lib, n_bytes, n_flops, previous) in timing.items():
         b, by = bound_ms(n_bytes, n_flops, peaks["bfloat16"])
+        before = time_ms(previous) if previous else None
         row = {"ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
                "bound_ms": b, "bound_by": by, "gb": n_bytes / 1e9, "gflop": n_flops / 1e9}
         row["tflops"] = n_flops / row["ms"] / 1e9
         row["x_bound"] = row["ms"] / b
+        row["x_library"] = row["ms"] / row["library_ms"]
+        if previous:  # the previous design, timed before and after the kernel
+            row["previous_ms"] = [before, time_ms(previous)]
+            row["previous_tflops"] = n_flops / min(row["previous_ms"]) / 1e9
+            row["speedup_vs_previous"] = min(row["previous_ms"]) / row["ms"]
         out["timing"][name] = row
         print(f"  moe_gmm_bwd {name} at {K4B_SHAPE}, bf16, L2 flushed, {smi}: "
               f"{json.dumps(row)}", flush=True)
@@ -3925,18 +3962,27 @@ def moe_train_phase(dev, smi: str, records: dict, kit: dict) -> dict:
         return (torch.bmm(g13, w13.mT), torch.bmm(t["x"].mT, da1), torch.bmm(t["x"].mT, da3),
                 torch.bmm(t["h"].mT, t["dy"]))
 
+    def previous_whole():
+        a, b = k4.previous_bwd("gated_dgrad", *gated_args, act="silu")
+        return (k4.previous_bwd("dgrad", a, t["w1"], b, t["w3"]),
+                k4.previous_bwd("wgrad", t["x"], a), k4.previous_bwd("wgrad", t["x"], b),
+                k4.previous_bwd("wgrad", t["h"], t["dy"]))
+
     n_bytes = es * (2 * E * C * D + 3 * E * D * F + 3 * E * C * F + 3 * E * D * F + E * C * D)
     b, by = bound_ms(n_bytes, 6 * prod, peaks["bfloat16"])
+    before = time_ms(previous_whole)
     whole = {"ms": time_ms(kernels_whole),
              "plain_ms": time_ms(lambda: ref.moe_ffn_bwd_ref(t["x"], t["w1"], t["w3"], t["w2"],
                                                              t["a1"], t["a3"], t["h"], t["dy"])),
              "library_ms": time_ms(library_whole), "bound_ms": b, "bound_by": by,
              "sum_of_kernel_bounds_ms": sum(out["timing"][k]["bound_ms"] for k in (
                  "gated_dgrad (a)", "dgrad (b)", "wgrad (c)", "wgrad (c)", "wgrad (c)"))}
+    whole["previous_ms"] = [before, time_ms(previous_whole)]
+    whole["speedup_vs_previous"] = min(whole["previous_ms"]) / whole["ms"]
     out["timing"]["layer backward"] = whole
     print(f"  moe_gmm_bwd, one MoE layer's backward (5 launches) at {K4B_SHAPE}, bf16, L2 "
           f"flushed, {smi}: {json.dumps(whole)}", flush=True)
-    del t, da1, da3, g13, w13
+    del t, da1, da3, g13, w13, gated_args
     gc.collect()
     torch.cuda.empty_cache()
     if kit.get("kernels_only"):  # tools/moe_train_phase.py --kernels-only

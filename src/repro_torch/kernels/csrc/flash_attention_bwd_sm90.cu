@@ -88,9 +88,7 @@
 // dv ring stages (K1B_W128_DQ_STAGES, K1B_W128_DKDV_STAGES), item buffers
 // (K1B_W128_DQ_BUFS, K1B_W128_DKDV_BUFS) and the lookahead step
 // (K1B_W128_AHEAD); at D 256 the ring stages (K1B_W256_STAGES: only 2 fit).
-#include <cuda.h>
-
-#include "mma.cuh"
+#include "sm90.cuh"
 
 #ifndef K1B_DQ_WG
 #define K1B_DQ_WG 2
@@ -130,124 +128,17 @@ constexpr uint32_t kTileBytes = kTileElems * 2;
 constexpr int kStat = 2 * kT;                // stat floats per q tile: lse * log2 e, delta
 constexpr uint32_t kStatBytes = kStat * 4;
 
-// ---------------------------------------------------------------------------
-// mbarrier, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-// one arrival that also expects `bytes` of asynchronous copies
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-// wait until the phase of parity `parity` has completed; a wait of kHangNs
-// traps (a CUDA error the caller sees) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  if (mbar_try_wait(addr, parity)) return;
-  const unsigned long long t0 = global_ns();
-  for (uint32_t n = 1; !mbar_try_wait(addr, parity); ++n)
-    if (n % 1024 == 0 && global_ns() - t0 > kHangNs) __trap();
-}
-
-// one box of 64 rows x 64 columns (from column `col`) of one head of a
-// (B, S, H, D) tensor -> shared memory
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
-                                        int head, int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row), "r"(batch),
-      "r"(smem_addr(bar))
-      : "memory");
-}
 // one 64-row box of one head of a (B, S, H, 64) tensor -> shared memory
+// (a (B, S, H, D) tensor's box of 64 rows x 64 columns from column `col`
+// is sm90.cuh's tma_box(dst, map, bar, col, head, row, batch))
 __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
                                          int head, int row, int batch) {
   tma_box(dst, map, bar, 0, head, row, batch);
 }
-// `bytes` contiguous bytes (16-byte aligned) -> shared memory
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
-// a consumer warp is done with what `bar` guards: one arrival a warp, after
-// all its lanes, when `on` (a predicate, not a branch: a branch between a
-// wgmma's issue and its wait makes ptxas serialise the wgmmas)
-__device__ __forceinline__ void release(uint64_t* bar, int lane, bool on = true) {
-  __syncwarp();
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %1, 0;\n"
-      " @p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_addr(bar)),
-      "r"(static_cast<int>(on && lane == 0))
-      : "memory");
-}
-
-template <int N> __device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N> __device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from reading an accumulator before the wait that
-// completes it (the wgmma asm "writes" it at issue)
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a 64-row tile of 128-byte rows stored
-// as TMA's 128-byte swizzle writes it (1024-byte aligned): layout B128,
-// stride between 8-row groups (SBO) 1024 bytes.  K-major (the 64 columns
-// are the product's K): a k16 step advances the start by 32 bytes, and LBO
-// is unused.  MN-major (the rows are K): a k16 step advances it by 16 rows,
-// 2048 bytes; LBO, the stride between 64-column atoms along MN, is unused
-// at N 64.  Both offsets hold 1024 bytes.
-__device__ __forceinline__ uint64_t tile_desc(const bf16* tile) {
-  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-constexpr uint64_t kKStep = 32 >> 4;     // K-major k16 step, in descriptor units
-constexpr uint64_t kMNStep = 2048 >> 4;  // MN-major k16 step
-
-#define ACC32_STR                                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define ACC32(d)                                                                              \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+// Shared-memory matrix descriptor of a 64-row tile of 128-byte rows
+// (sm90.cuh's desc_b128): LBO is unused at 64 columns, and holds 1024 bytes
+__device__ __forceinline__ uint64_t tile_desc(const bf16* tile) { return desc_b128(tile, 1024); }
 
 // d (64 x 64 f32) = (accumulate ? d : 0) + A (64 x 16, K-major smem) B (16 x 64, K-major smem)
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
@@ -277,10 +168,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 // 2 tq + c].  The A fragment of m64nNk16 from registers, k16 step kk, is
 // the same map over columns 16 kk .. 16 kk + 15: a[kk][2 (j & 1) + h] packs
 // columns (2 tq, 2 tq + 1) of n-tile j = 2 kk + (j & 1), row half h.
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
 
 __device__ __forceinline__ void mma64(float (&d)[32], uint64_t a, uint64_t b) {
 #pragma unroll
@@ -410,24 +297,6 @@ __device__ __forceinline__ void kv_probs(float (&s)[32], uint32_t (&pa)[4][4], c
     }
   }
 }
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_addr(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
-// a position in a ring of ST stages: the stage and its phase parity
-template <int ST>
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next() {
-    if (++stage == ST) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
 
 // a consumer passes a tile with no live pair: waits for it, releases it
 template <int ST>
@@ -910,10 +779,6 @@ static_assert(kEntryRegs<kWideWG> == 168 && kConsumerRegs<kWideWG> == 232, "setm
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
-// this thread's shared-memory stores become visible to wgmma (the async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // k16 step kk of a K-major operand over D / 64 panels (8 KB apart)
 __device__ __forceinline__ uint64_t kstep(uint64_t desc, int kk) {
@@ -921,34 +786,8 @@ __device__ __forceinline__ uint64_t kstep(uint64_t desc, int kk) {
 }
 // an MN-major B whose N spans panels: LBO the panel stride, SBO 1024 bytes
 __device__ __forceinline__ uint64_t panels_desc(const bf16* tile) {
-  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(kTileBytes >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+  return desc_b128(tile, kTileBytes);
 }
-
-#define ACC16_STR \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define ACC16(d) \
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-#define ACC64_STR \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,  " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,  " \
-  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,  " \
-  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-#define ACC64(d) \
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), \
-      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
-      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
 // d (64 x 32 f32) = (accumulate ? d : 0) + A (64 x 16) B (16 x 32), both
 // K-major in shared memory
@@ -1631,34 +1470,6 @@ static_assert(wide_build_ok<128>() && wide_build_ok<256>(),
   flash_bwd_dkdv_sm90<D, WideBuild<D>::kDkdvStages, WideBuild<D>::kDkdvBufs,                    \
                       WideBuild<D>::kAhead, cap>
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a driver call, reached through the runtime's
-// driver entry point (no -lcuda at link time)
-cudaError_t encoder(EncodeTiled* out) {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  *out = fn;
-  return cudaSuccess;
-}
-
 // a contiguous (B, S, H, D) bf16 tensor as boxes of 64 rows x 64 columns
 // of one head, each box 64 rows of 128 bytes, 128-byte swizzled (a row of
 // D > 64 arrives as D / 64 boxes); rows past S read as zeros
@@ -1680,33 +1491,10 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int B, int S, int H, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// ptxas's registers a thread of Kernel, or -1
-template <auto Kernel>
-int registers() {
-  cudaFuncAttributes attr;
-  return cudaFuncGetAttributes(&attr, Kernel) == cudaSuccess ? attr.numRegs : -1;
-}
-
-// Refuses a kernel whose entry registers are not those setmaxnreg's counts
-// assume (its consumers would wait forever), once per instance; then
-// allows its shared memory
-template <auto Kernel, int kWG>
-cudaError_t ready(int smem) {
-  static bool regs_ok = false;
-  if (!regs_ok) {
-    cudaFuncAttributes attr;
-    const cudaError_t err = cudaFuncGetAttributes(&attr, Kernel);
-    if (err != cudaSuccess) return err;
-    if (attr.numRegs != kEntryRegs<kWG>) return cudaErrorInvalidKernelImage;
-    regs_ok = true;
-  }
-  return allow_smem<Kernel>(smem);
-}
-
 template <bool kCap>
 cudaError_t allow_both() {
-  const cudaError_t err = ready<DQ_KERNEL(kCap), kDqWG>(kDqSmem);
-  return err == cudaSuccess ? ready<DKDV_KERNEL(kCap), kDkdvWG>(kDkdvSmem) : err;
+  const cudaError_t err = ready<DQ_KERNEL(kCap)>(kEntryRegs<kDqWG>, kDqSmem);
+  return err == cudaSuccess ? ready<DKDV_KERNEL(kCap)>(kEntryRegs<kDkdvWG>, kDkdvSmem) : err;
 }
 
 // the dq pass (which writes stat), then the dk / dv pass
@@ -1734,8 +1522,10 @@ cudaError_t launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUten
 
 template <int D, bool kCap>
 cudaError_t allow_wide() {
-  const cudaError_t err = ready<WDQ_KERNEL(D, kCap), kWideWG>(kWideDqSmem<D>);
-  return err == cudaSuccess ? ready<WDKDV_KERNEL(D, kCap), kWideWG>(kWideDkdvSmem<D>) : err;
+  const cudaError_t err = ready<WDQ_KERNEL(D, kCap)>(kEntryRegs<kWideWG>, kWideDqSmem<D>);
+  return err == cudaSuccess
+             ? ready<WDKDV_KERNEL(D, kCap)>(kEntryRegs<kWideWG>, kWideDkdvSmem<D>)
+             : err;
 }
 
 // the wide dq pass (which writes stat), then the wide dk / dv pass

@@ -37,13 +37,17 @@ wrapper each, every launch counted under ``LAUNCHES["moe_gmm_bwd"]``:
 :func:`gated_dgrad` (dh = dy w2^T with the gated FFN's derivative in its
 epilogue), :func:`dgrad` (dx = g w^T, or the sum of two such products in
 one accumulator) and :func:`wgrad` (dw = x^T g over the capacity rows).
-Each is bound by operations at deepseek-moe-16b's training shape; each
-takes ``mma.sync`` in bf16 (16-byte ``cp.async`` chunks where D and F are
-multiples of 8 and the operands 16-byte aligned, element-wise loads
-otherwise) and the CUDA cores in f32 (:func:`bwd_instance`).  A CPU tensor
-takes the plain versions (``ref.gmm_gated_dgrad_ref``,
-``ref.gmm_dgrad_ref``, ``ref.gmm_wgrad_ref``).  ``ops.moe_ffn`` and
-``ops.gmm`` differentiate through them (``ops.MoEFFN``, ``ops.GMM``).
+At deepseek-moe-16b's training shape (a) is bound by bytes, (b) and (c)
+by operations.  In bf16, where D and F are multiples of 8 and the
+operands 16-byte aligned, they run as two wgmma kernels fed by TMA,
+warp-specialised and persistent (``gmm_dgrad_sm90<EPI>`` for (a) and (b),
+``gmm_wgrad_sm90`` for (c); their tiles, shared memory and walk in
+``plan.py``); other bf16 operands take ``mma.sync`` with element-wise
+loads, and f32 the CUDA cores (:func:`bwd_instance`).  A CPU tensor takes the plain versions
+(``ref.gmm_gated_dgrad_ref``, ``ref.gmm_dgrad_ref``,
+``ref.gmm_wgrad_ref``).  ``ops.moe_ffn`` and ``ops.gmm`` differentiate
+through them (``ops.MoEFFN``, ``ops.GMM``).  :func:`previous_bwd` runs the
+first design's bf16 ``cp.async`` instances, for timing only.
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, refuse_grad
+from repro_torch.kernels import LAUNCHES, _build, plan, refuse_grad
 # gmm_mma's tiling and its plan, as csrc/moe_gmm.cu fixes them
 from repro_torch.kernels.plan import (BK, BLOCK_SMEM, BN, MAX_ROW_TILES, PAD,  # noqa: F401
                                       ROW_TILE, ROW_TILES_BUILT, STAGES, TilePlan, stage_bytes,
@@ -114,11 +118,66 @@ def _entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr, ctypes._CFuncPtr]:
     return lib, fn, mma
 
 
+# the C entry points of each K4b kernel (pointers, ints), and of the first
+# design's bf16 cp.async instances under the same arguments (*_v1)
+_BWD_ENTRIES = {"gated": ("moe_gmm_bwd_gated", 6, 6), "dgrad": ("moe_gmm_bwd_dgrad", 5, 5),
+                "wgrad": ("moe_gmm_bwd_wgrad", 3, 5)}
+
+
 @functools.cache
-def _bwd_entry() -> tuple[ctypes.CDLL, ctypes._CFuncPtr, ctypes._CFuncPtr, ctypes._CFuncPtr]:
+def _bwd_entry() -> tuple[ctypes.CDLL, dict[str, ctypes._CFuncPtr]]:
     lib = _build.load("moe_gmm_bwd")
-    return (lib, *_entries(lib, {"moe_gmm_bwd_gated": (6, 6), "moe_gmm_bwd_dgrad": (5, 5),
-                                 "moe_gmm_bwd_wgrad": (3, 5)}))
+    spec = {f"{name}{v}": (ptrs, ints) for name, ptrs, ints in _BWD_ENTRIES.values()
+            for v in ("", "_v1")}
+    fns = dict(zip(spec, _entries(lib, spec)))
+    lib.moe_gmm_bwd_sm90_config.argtypes = [ctypes.c_void_p]
+    lib.moe_gmm_bwd_sm90_config.restype = ctypes.c_int
+    return lib, fns
+
+
+# what moe_gmm_bwd_sm90_config reports of the wgmma instances
+SM90_CONFIG_KEYS = ("entry_regs_gated", "entry_regs_store", "regs_silu", "regs_gelu",
+                    "regs_store", "regs_wgrad", "smem_gated", "smem_store", "blocks_per_sm_gated",
+                    "blocks_per_sm_store", "blocks_per_sm_wgrad", "tile_m_gated", "tile_m_store",
+                    "tile_n", "tile_k", "stages_gated", "stages_store", "sm_count")
+_SM90_CONFIGS: dict[int, dict[str, int]] = {}
+
+
+def sm90_config(device: int) -> dict[str, int]:
+    """K4b's wgmma instances as built, on CUDA device ``device`` (queried
+    once): the entry registers each one's setmaxnreg exchange assumes and
+    the registers ptxas gave it, their shared memory, blocks an SM, tiles
+    and ring stages, and the SM count that sizes the grid.  Raises if ptxas
+    gave an instance another register count than its entry count (its
+    consumers would wait forever), or if the source's tiles, stages or
+    shared memory differ from ``plan.py``'s mirror."""
+    cfg = _SM90_CONFIGS.get(device)
+    if cfg is None:
+        _build.refuse_in_capture(f"the wgmma K4b configuration query {_build.EAGER_FIRST}")
+        lib = _bwd_entry()[0]
+        out = (ctypes.c_int * len(SM90_CONFIG_KEYS))()
+        with torch.cuda.device(device):
+            err = lib.moe_gmm_bwd_sm90_config(out)
+        got = dict(zip(SM90_CONFIG_KEYS, out))
+        regs = {k: (got[k], got["entry_regs_" + ("gated" if k in ("regs_silu", "regs_gelu")
+                                                  else "store")])
+                for k in ("regs_silu", "regs_gelu", "regs_store", "regs_wgrad")}
+        if all(r >= 0 for r, _ in regs.values()) and any(r != w for r, w in regs.values()):
+            raise RuntimeError(f"moe_gmm_bwd: ptxas gave the wgmma kernels (registers, entry "
+                               f"count) {regs}: setmaxnreg's exchange needs the entry count")
+        _build.check(lib, err, "moe_gmm_bwd")
+        mirror = {"entry_regs_gated": plan.bwd_entry_regs("silu"),
+                  "entry_regs_store": plan.bwd_entry_regs("store"),
+                  "smem_gated": plan.bwd_smem("silu"), "smem_store": plan.bwd_smem("store"),
+                  "tile_m_gated": plan.bwd_tile_m("silu"), "tile_m_store": plan.bwd_tile_m("store"),
+                  "tile_n": plan.BWD_TILE_N, "tile_k": plan.BWD_TILE_K,
+                  "stages_gated": plan.BWD_DESIGN["silu"][1],
+                  "stages_store": plan.BWD_DESIGN["store"][1]}
+        if any(got[k] != v for k, v in mirror.items()):
+            raise RuntimeError(f"moe_gmm_bwd: the source's design {got} differs from plan.py's "
+                               f"{mirror}")
+        cfg = _SM90_CONFIGS[device] = got
+    return cfg
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, *, epilogue: Optional[str] = None,
@@ -172,7 +231,7 @@ def bwd_instance(dtype: torch.dtype, D: int, F: int, aligned: bool) -> str:
     if dtype == torch.float32:
         return "f32"
     if D % 8 == 0 and F % 8 == 0 and aligned:
-        return "bf16 cp.async"
+        return "bf16 wgmma"
     return "bf16 element-wise"
 
 
@@ -197,9 +256,13 @@ def _bwd_checks(what: str, named: dict[str, tuple[torch.Tensor, tuple[int, ...]]
                              f"{first.device}")
 
 
-def _bwd_launch(what: str, fn, *args) -> None:
-    _build.check(_bwd_entry()[0], fn(*args), what)
-    LAUNCHES["moe_gmm_bwd"] += 1
+def _bwd_launch(what: str, entry: str, previous: bool, *args) -> None:
+    """Launches C entry ``entry`` (its ``_v1`` twin, uncounted, for
+    ``previous``: the first design's instances)."""
+    lib, fns = _bwd_entry()
+    _build.check(lib, fns[entry + ("_v1" if previous else "")](*args), what)
+    if not previous:
+        LAUNCHES["moe_gmm_bwd"] += 1
 
 
 def gated_dgrad(dy: torch.Tensor, w2: torch.Tensor, a1: torch.Tensor, a3: torch.Tensor,
@@ -211,6 +274,10 @@ def gated_dgrad(dy: torch.Tensor, w2: torch.Tensor, a1: torch.Tensor, a3: torch.
         raise ValueError(f"moe_gmm_bwd: act {act!r} not in ['silu', 'gelu']")
     if dy.device.type == "cpu":
         return ref.gmm_gated_dgrad_ref(dy, w2, a1, a3, act)
+    return _gated_dgrad(dy, w2, a1, a3, act, False)
+
+
+def _gated_dgrad(dy, w2, a1, a3, act: str, previous: bool) -> tuple[torch.Tensor, torch.Tensor]:
     E, C, D = dy.shape
     F = w2.shape[1]
     _bwd_checks("moe_gmm_bwd (a)", {"dy": (dy, (E, C, D)), "w2": (w2, (E, F, D)),
@@ -220,7 +287,7 @@ def gated_dgrad(dy: torch.Tensor, w2: torch.Tensor, a1: torch.Tensor, a3: torch.
         return da1, da3
     if D == 0:
         return da1.zero_(), da3.zero_()
-    _bwd_launch("moe_gmm_bwd (a)", _bwd_entry()[1], dy.data_ptr(), w2.data_ptr(),
+    _bwd_launch("moe_gmm_bwd (a)", "moe_gmm_bwd_gated", previous, dy.data_ptr(), w2.data_ptr(),
                 a1.data_ptr(), a3.data_ptr(), da1.data_ptr(), da3.data_ptr(),
                 _build.DTYPE_CODES[dy.dtype], EPILOGUE_CODES[act], E, C, D, F,
                 torch.cuda.current_stream(dy.device).cuda_stream)
@@ -236,6 +303,10 @@ def dgrad(g: torch.Tensor, w: torch.Tensor, g2: Optional[torch.Tensor] = None,
         raise ValueError("moe_gmm_bwd: g2 and w2 go together")
     if g.device.type == "cpu":
         return ref.gmm_dgrad_ref(g, w, g2, w2)
+    return _dgrad(g, w, g2, w2, False)
+
+
+def _dgrad(g, w, g2, w2, previous: bool) -> torch.Tensor:
     E, C, F = g.shape
     D = w.shape[1]
     named = {"g": (g, (E, C, F)), "w": (w, (E, D, F))}
@@ -245,7 +316,7 @@ def dgrad(g: torch.Tensor, w: torch.Tensor, g2: Optional[torch.Tensor] = None,
     out = torch.empty((E, C, D), dtype=g.dtype, device=g.device)
     if out.numel() == 0 or F == 0:
         return out.zero_()
-    _bwd_launch("moe_gmm_bwd (b)", _bwd_entry()[2], g.data_ptr(), w.data_ptr(),
+    _bwd_launch("moe_gmm_bwd (b)", "moe_gmm_bwd_dgrad", previous, g.data_ptr(), w.data_ptr(),
                 None if g2 is None else g2.data_ptr(), None if w2 is None else w2.data_ptr(),
                 out.data_ptr(), _build.DTYPE_CODES[g.dtype], E, C, D, F,
                 torch.cuda.current_stream(g.device).cuda_stream)
@@ -257,13 +328,38 @@ def wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     C capacity rows in f32, one rounding (``ref.gmm_wgrad_ref``)."""
     if a.device.type == "cpu":
         return ref.gmm_wgrad_ref(a, b)
+    return _wgrad(a, b, False)
+
+
+def _wgrad(a, b, previous: bool) -> torch.Tensor:
     E, C, P = a.shape
     Q = b.shape[2]
     _bwd_checks("moe_gmm_bwd (c)", {"a": (a, (E, C, P)), "b": (b, (E, C, Q))})
     out = torch.empty((E, P, Q), dtype=a.dtype, device=a.device)
     if out.numel() == 0 or C == 0:
         return out.zero_()
-    _bwd_launch("moe_gmm_bwd (c)", _bwd_entry()[3], a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                _build.DTYPE_CODES[a.dtype], E, C, P, Q,
+    _bwd_launch("moe_gmm_bwd (c)", "moe_gmm_bwd_wgrad", previous, a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), _build.DTYPE_CODES[a.dtype], E, C, P, Q,
                 torch.cuda.current_stream(a.device).cuda_stream)
     return out
+
+
+def previous_bwd(kernel: str, *tensors: torch.Tensor, act: str = "silu"):
+    """K4b's first design, the bf16 ``cp.async`` / ``mma.sync`` instances
+    (C entries ``moe_gmm_bwd_*_v1``), on the tensors the wrapper
+    ``kernel`` ("gated_dgrad", "dgrad" or "wgrad") takes: bf16 CUDA
+    tensors whose D and F are multiples of 8, 16-byte aligned (the C entry
+    refuses others).  ``chip_smoke.py`` and ``tools/moe_train_phase.py``
+    time it beside the kernels.  The port never calls it, and it counts no
+    launch."""
+    if kernel not in ("gated_dgrad", "dgrad", "wgrad"):
+        raise ValueError(f"previous_bwd: kernel {kernel!r} is not gated_dgrad, dgrad or wgrad")
+    if any(t.device.type != "cuda" or t.dtype != torch.bfloat16 for t in tensors):
+        raise ValueError(f"previous_bwd: bf16 CUDA tensors only, got "
+                         f"{[f'{t.dtype} on {t.device}' for t in tensors]}")
+    if kernel == "gated_dgrad":
+        return _gated_dgrad(*tensors, act, True)
+    if kernel == "dgrad":
+        g, w, g2, w2 = (*tensors, None, None)[:4]
+        return _dgrad(g, w, g2, w2, True)
+    return _wgrad(*tensors, True)

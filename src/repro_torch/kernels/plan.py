@@ -1,6 +1,8 @@
 """Launch plans of the kernels with runtime knobs: K2's split, K4's row
 tiling and K6's column tiles, as pure functions of the shapes, the card's
-SM count and the knob.
+SM count and the knob; and the fixed design of K4b's wgmma kernels (their
+tiles, shared memory and persistent walk), which the C side computes for
+itself.
 
 The wrappers (``decode_attention.py``, ``moe_gmm.py``, ``rwkv6_scan.py``)
 launch with these plans, and the tuner's feasibility (``tune/space.py``)
@@ -105,6 +107,71 @@ def tile_plan(E: int, C: int, F: int, max_row_tiles: int = MAX_ROW_TILES) -> Til
     row_tiles = -(-tiles // row_blocks)
     return TilePlan(row_tiles, row_blocks, BN, BK, STAGES, STAGES * stage_bytes(row_tiles),
                     (-(-F // BN), row_blocks, E))
+
+
+# ---------------------------------------------------------------------------
+# K4b's wgmma instances, csrc/moe_gmm_bwd.cu (gmm_dgrad_sm90, gmm_wgrad_sm90)
+# ---------------------------------------------------------------------------
+
+# each instance's design: consumer warpgroups (64 output rows each, so a
+# tile's rows are 64 x them) and ring stages (kWG, kStages of Design<EPI>)
+BWD_DESIGN = {"silu": (3, 3), "gelu": (3, 3), "store": (3, 4)}
+BWD_TILE_N = 128                # kTN: output columns of a tile
+BWD_TILE_K = 64                 # kTK: depth of a k-tile
+BWD_EPILOGUES = tuple(BWD_DESIGN)  # gmm_dgrad_sm90's; gmm_wgrad_sm90 stores
+
+
+def bwd_tile_m(epilogue: str) -> int:
+    """Output rows of a tile of the K4b wgmma instance with ``epilogue``."""
+    return 64 * _bwd_design(epilogue)[0]
+
+
+def bwd_entry_regs(epilogue: str) -> int:
+    """The registers a thread that the instance's setmaxnreg exchange
+    assumes at entry: the register file over its (warpgroups + 1) x 128
+    threads, in steps of 8 (``Design<EPI>::kEntryRegs``)."""
+    return 65536 // ((_bwd_design(epilogue)[0] + 1) * 128) // 8 * 8
+
+
+def _bwd_design(epilogue: str) -> tuple[int, int]:
+    if epilogue not in BWD_DESIGN:
+        raise ValueError(f"moe_gmm_bwd: epilogue {epilogue!r} not in {BWD_EPILOGUES}")
+    return BWD_DESIGN[epilogue]
+
+
+def bwd_smem(epilogue: str) -> int:
+    """Dynamic shared memory of the K4b wgmma instance with ``epilogue`` (one
+    of BWD_EPILOGUES), as ``kSm90Smem<EPI>`` sizes it: the ring's k-tiles
+    of A and B, the output tile's staging (a1 and a3 for the gated
+    epilogues, the output for the store), a full and an empty mbarrier a
+    stage and two for the staging buffer, and 1024 bytes to align the
+    swizzled tiles."""
+    wg, stages = _bwd_design(epilogue)
+    tm = 64 * wg
+    ring = stages * (tm + BWD_TILE_N) * BWD_TILE_K * 2
+    staging = (1 if epilogue == "store" else 2) * tm * BWD_TILE_N * 2
+    return ring + staging + 8 * (2 * stages + 2) + 1024
+
+
+def bwd_walk(E: int, M: int, N: int, n_sm: int,
+             epilogue: str = "store") -> list[list[tuple[int, int, int]]]:
+    """The persistent walk of a K4b wgmma launch of the instance with
+    ``epilogue`` whose output is (E, M, N): for each block of its grid (one
+    an SM, at most one a tile), the (expert, first row, first column) of
+    the output tiles it computes, in its order.  Block b takes tiles b, b +
+    grid, ...; tile t is column tile t % nN of row tile (t // nN) % nM of
+    expert t // (nN nM), so the blocks in flight share A's row blocks and
+    the expert's B."""
+    tm = bwd_tile_m(epilogue)
+    n_m, n_n = -(-M // tm), -(-N // BWD_TILE_N)
+    tiles = E * n_m * n_n
+    grid = min(tiles, n_sm)
+
+    def at(t: int) -> tuple[int, int, int]:
+        r = t // n_n
+        return r // n_m, r % n_m * tm, t % n_n * BWD_TILE_N
+
+    return [[at(t) for t in range(b, tiles, grid)] for b in range(grid)]
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro_torch.kernels import moe_gmm as k4  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ops, plan, ref  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # (E, C, D, F): a small shape, one ragged against 16-row and 8-wide tiles
@@ -264,7 +264,89 @@ def test_bwd_wrappers_refuse_grad_and_devices_without_a_kernel(wrapper):
 
 def test_bwd_instance_is_chosen_by_dtype_shape_and_alignment():
     assert k4.bwd_instance(torch.float32, 2048, 1408, True) == "f32"
-    assert k4.bwd_instance(torch.bfloat16, 2048, 1408, True) == "bf16 cp.async"
+    assert k4.bwd_instance(torch.bfloat16, 2048, 1408, True) == "bf16 wgmma"
     assert k4.bwd_instance(torch.bfloat16, 2048, 1412, True) == "bf16 element-wise"
     assert k4.bwd_instance(torch.bfloat16, 196, 1408, True) == "bf16 element-wise"
     assert k4.bwd_instance(torch.bfloat16, 2048, 1408, False) == "bf16 element-wise"
+
+
+def _dev(*shape, device="meta", dtype=torch.bfloat16):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+PREVIOUS = {  # each K4b kernel's tensors at a small aligned shape
+    "gated_dgrad": ((2, 8, 16), (2, 24, 16), (2, 8, 24), (2, 8, 24)),
+    "dgrad": ((2, 8, 24), (2, 16, 24), (2, 8, 24), (2, 16, 24)),
+    "wgrad": ((2, 8, 16), (2, 8, 24)),
+}
+
+
+@pytest.mark.parametrize("kernel", list(PREVIOUS))
+@pytest.mark.parametrize("device,dtype", [("cpu", torch.bfloat16), ("meta", torch.bfloat16),
+                                          ("meta", torch.float32)])
+def test_previous_bwd_refuses_all_but_bf16_cuda_tensors(kernel, device, dtype):
+    """The first design's timing-only entry (moe_gmm.previous_bwd) takes
+    bf16 CUDA tensors only: a CPU tensor does not fall to the plain
+    version, and a meta (standing in for the card) or f32 tensor raises
+    before any launch."""
+    tensors = [_dev(*s, device=device, dtype=dtype) for s in PREVIOUS[kernel]]
+    with pytest.raises(ValueError, match="bf16 CUDA tensors only"):
+        k4.previous_bwd(kernel, *tensors)
+
+
+def test_previous_bwd_refuses_an_unknown_kernel():
+    with pytest.raises(ValueError, match="not gated_dgrad, dgrad or wgrad"):
+        k4.previous_bwd("gmm", _dev(2, 8, 16), _dev(2, 16, 8))
+
+
+@pytest.mark.parametrize("epilogue", list(plan.BWD_EPILOGUES))
+def test_bwd_wgmma_instances_fit_shared_memory(epilogue):
+    """Each wgmma K4b instance's shared memory (plan.bwd_smem, which the
+    source's own size must equal on the card) fits the 232448 bytes a block
+    may opt into, with its ring's stages and the staging buffer whole, and
+    its setmaxnreg entry count is the register file over its threads."""
+    wg, stages = plan.BWD_DESIGN[epilogue]
+    smem = plan.bwd_smem(epilogue)
+    assert smem <= 232448
+    tm = plan.bwd_tile_m(epilogue)
+    assert tm == 64 * wg
+    stage = (tm + plan.BWD_TILE_N) * plan.BWD_TILE_K * 2
+    staging = tm * plan.BWD_TILE_N * 2 * (1 if epilogue == "store" else 2)
+    assert smem >= stages * stage + staging + 1024
+    assert plan.bwd_entry_regs(epilogue) == {2: 168, 3: 128}[wg]
+
+
+# the (E, M, N) outputs of (a), (b) and (c) at each checked shape (E, C, D,
+# F), with the instance that computes each: (a) (E, C, F) gated, (b) (E, C,
+# D) and (c) dw1 / dw3 (E, D, F) and dw2 (E, F, D) store
+WALK_SHAPES = [(64, 960, 2048, 1408), (3, 75, 264, 136), (1, 960, 2048, 1408)]
+
+
+@pytest.mark.parametrize("E,C,D,F", WALK_SHAPES)
+@pytest.mark.parametrize("n_sm", [132, 7])
+def test_bwd_walk_covers_every_tile_once_in_a_fixed_order(E, C, D, F, n_sm):
+    """The persistent walk (plan.bwd_walk, the kernels' tile order) gives
+    every (expert, row tile, column tile) of each output exactly once, on
+    a grid of min(tiles, SMs) blocks, each block's tiles a fixed stride
+    apart with the columns fastest, and the same walk on each call."""
+    tn = plan.BWD_TILE_N
+    for M, N, epi in ((C, F, "silu"), (C, D, "store"), (D, F, "store"), (F, D, "store")):
+        tm = plan.bwd_tile_m(epi)
+        walk = plan.bwd_walk(E, M, N, n_sm, epi)
+        want = [(e, m, n) for e in range(E) for m in range(0, M, tm) for n in range(0, N, tn)]
+        assert len(walk) == min(len(want), n_sm)
+        assert sorted(t for block in walk for t in block) == want  # each tile once
+        grid = len(walk)
+        for b, block in enumerate(walk):
+            assert block == [want[t] for t in range(b, len(want), grid)]
+        assert walk == plan.bwd_walk(E, M, N, n_sm, epi)
+        lens = [len(block) for block in walk]
+        assert max(lens) - min(lens) <= 1
+
+
+def test_bwd_walk_at_the_slice_shape_wastes_no_rows():
+    """At deepseek-moe-16b's capacity (C 960) the 192-row tiles of every
+    wgmma instance cover (a)'s and (b)'s rows exactly: five row tiles an
+    expert."""
+    for epilogue in plan.BWD_EPILOGUES:
+        assert plan.bwd_tile_m(epilogue) == 192 and 960 % plan.bwd_tile_m(epilogue) == 0
